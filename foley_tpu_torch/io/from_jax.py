@@ -1,0 +1,101 @@
+"""Weight bridge: JAX parameter trees (as numpy arrays) -> the port's modules.
+
+The trees are those of ``foley_tpu.models.mmdit.init`` / ``dac_vae.init`` after the caller
+has fetched them to the host (``jax.device_get``); this module imports no JAX. It owns
+every layout change between the two packages:
+
+- the depth axis of ``triple_blocks`` / ``single_blocks`` is unstacked into ``<name>.<i>``;
+- dense ``w`` [in, out] -> ``weight`` [out, in];
+- conv ``w`` [K, in, out] -> ``weight`` [out, in, K]; transposed conv (``conv_t``)
+  ``w`` [K, in, out] -> ``weight`` [in, out, K];
+- ``b`` -> ``bias``; list indices and every other name stay.
+
+bf16 leaves (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses) pass through a
+``uint16`` view.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+from foley_tpu_torch.configs import DACConfig, MMDiTConfig
+from foley_tpu_torch.core.device import DeviceLike, resolve_device
+
+_STACKED = ("triple_blocks", "single_blocks")
+
+
+def to_tensor(a) -> torch.Tensor:
+    """numpy array (fp32, fp16, int, or ml_dtypes bfloat16) -> CPU tensor, same bits."""
+    a = np.ascontiguousarray(a)
+    if str(a.dtype) == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _leaves(tree, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, np.ndarray]]:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, prefix + (str(i),))
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def _convert(path: Tuple[str, ...], a: np.ndarray) -> Tuple[str, np.ndarray]:
+    name = path[-1]
+    if name == "b":
+        name = "bias"
+    elif name == "w":
+        name = "weight"
+        if a.ndim == 2:
+            a = a.T
+        elif a.ndim == 3:
+            a = a.transpose(1, 2, 0) if "conv_t" in path else a.transpose(2, 1, 0)
+    return ".".join(path[:-1] + (name,)), a
+
+
+def state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX parameter tree -> a flat state dict in the port's names and layouts."""
+    out = {}
+    for path, a in _leaves(params):
+        if path[0] in _STACKED:
+            for i in range(a.shape[0]):
+                key, t = _convert((path[0], str(i)) + path[1:], a[i])
+                out[key] = to_tensor(t)
+        else:
+            key, t = _convert(path, a)
+            out[key] = to_tensor(t)
+    return out
+
+
+def _dtype_of(state: Dict[str, torch.Tensor]) -> torch.dtype:
+    return next(t.dtype for t in state.values() if t.is_floating_point())
+
+
+def mmdit_from_jax(params: Dict, cfg: MMDiTConfig, device: DeviceLike = None,
+                   dtype=None):
+    """Build the port's ``MMDiT`` on ``device`` holding the JAX tree's weights (in ``dtype``,
+    by default the tree's own float dtype)."""
+    from foley_tpu_torch.models.mmdit import MMDiT
+
+    state = state_dict_from_jax(params)
+    model = MMDiT(cfg, dtype=dtype or _dtype_of(state), device=resolve_device(device))
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def dac_from_jax(params: Dict, cfg: DACConfig, device: DeviceLike = None, dtype=None):
+    """Build the port's ``DAC`` (decoder side) on ``device`` from a JAX ``dac_vae`` tree.
+    The encoder and ``quant_conv`` leaves are dropped: the port has no encoder yet."""
+    from foley_tpu_torch.models.dac_vae import DAC
+
+    state = {k: v for k, v in state_dict_from_jax(params).items()
+             if not k.startswith(("encoder.", "quant_conv."))}
+    model = DAC(cfg, dtype=dtype or _dtype_of(state), device=resolve_device(device))
+    model.load_state_dict(state, strict=True)
+    return model

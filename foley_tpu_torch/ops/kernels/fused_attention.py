@@ -1,0 +1,133 @@
+"""Fused qk-RMSNorm + RoPE + softmax attention: the Hopper kernel and its plain version.
+
+Replaces the TPU kernel ``foley_tpu/ops/pallas/fused_attention.py:82``
+(``fused_qk_attention_headfirst``, wrapper ``fused_qk_attention`` :127). The CUDA source is
+``foley_tpu_torch/csrc/fused_qk_attention.cu`` (sm_90a, bf16, head_dim 128, mma.sync tiles
+with an online softmax over 64-key tiles; its header says how the design follows from the
+card).
+
+Bound on an H100: memory. At the XXL 5 s joint call (B=2, L=290, H=12, D=128) a launch
+moves about 8 MB (q, k, v, o in bf16 and six fp32 [L, D] tables) against about 1 GFLOP,
+about 2.4 us at 3.35 TB/s; the kernel therefore reads every operand once through its
+strides, keeps the normalised Q tile in registers and never writes the normalised K, the
+logits or P to device memory.
+
+``fused_qk_attention`` launches the kernel for CUDA tensors and takes
+``fused_qk_attention_plain`` only for CPU tensors. ``fused_qk_attention.launches`` counts
+kernel launches (the plain path does not count).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from foley_tpu_torch.ops.rope import _rotate_half
+
+HEAD_DIM = 128
+
+
+def _norm_rope(x: torch.Tensor, w: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """[B, L, H, D] raw -> fp32 RMS-norm * per-position weight, pair-adjacent rotation,
+    cast back to ``x.dtype`` (the TPU kernel's ``_norm_rope``)."""
+    w, cos, sin = (t.float()[None, :, None, :] for t in (w, cos, sin))
+    xf = x.float()
+    xf = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps) * w
+    return (xf * cos + _rotate_half(xf) * sin).to(x.dtype)
+
+
+def fused_qk_attention_plain(q, k, v, wq, wk, cos_q, sin_q, cos_k, sin_k, eps=1e-6):
+    """The TPU kernel's arithmetic on whole tensors: q/k/v [B, L, H, D] raw, tables [L, D].
+
+    Normalised/rotated q and k in the input dtype, fp32 logits q.k/sqrt(D), fp32 softmax,
+    p cast to ``v.dtype``, p @ v accumulated in fp32 and returned in ``q.dtype``."""
+    qn = _norm_rope(q, wq, cos_q, sin_q, eps)
+    kn = _norm_rope(k, wk, cos_k, sin_k, eps)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qn.float(), kn.float()) * (q.shape[-1] ** -0.5)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    p = (p / p.sum(-1, keepdim=True)).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float()).to(q.dtype)
+
+
+def _check_operand(name: str, x: torch.Tensor) -> None:
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the CUDA kernel takes bf16, got {x.dtype}")
+    if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) or x.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel reads 16-byte rows; it needs a unit stride on D, "
+                         f"strides that are multiples of 8 and a 16-byte aligned pointer, got "
+                         f"strides {x.stride()}")
+
+
+def _table(t: torch.Tensor, length: int, device: torch.device) -> torch.Tensor:
+    t = t.to(device=device, dtype=torch.float32).expand(length, HEAD_DIM).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+_fn = None
+
+
+def _kernel_fn():
+    """The C entry of the built library, with its argument types declared."""
+    global _fn
+    if _fn is None:
+        from foley_tpu_torch.ops.kernels.build import library
+
+        p = ctypes.c_void_p
+        fn = library("fused_qk_attention").fused_qk_attention_bf16
+        fn.argtypes = [p] * 10 + [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int] * 4 + [
+            ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _launch(q, k, v, wq, wk, cos_q, sin_q, cos_k, sin_k, eps):
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    if d != HEAD_DIM:
+        raise ValueError(f"the CUDA kernel takes head_dim {HEAD_DIM}, got {d}")
+    if k.shape != (b, lk, h, d) or v.shape != k.shape:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must lie on one device")
+    if b * h > 65535:  # one block row per (batch, head): the grid's y extent
+        raise ValueError(f"batch * heads = {b * h} exceeds the kernel's grid (65535)")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check_operand(name, x)
+    dev = q.device
+    tq = [_table(t, lq, dev) for t in (wq, cos_q, sin_q)]
+    tk = [_table(t, lk, dev) for t in (wk, cos_k, sin_k)]
+    out = torch.empty((b, lq, h, d), dtype=q.dtype, device=dev)
+    strides = (ctypes.c_int64 * 12)(*(s for x in (q, k, v, out) for s in (
+        x.stride(0), x.stride(1), x.stride(2))))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _kernel_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            tq[0].data_ptr(), tk[0].data_ptr(), tq[1].data_ptr(), tq[2].data_ptr(),
+            tk[1].data_ptr(), tk[2].data_ptr(), strides, b, h, lq, lk, float(eps), stream)
+    if err:
+        raise RuntimeError(f"fused_qk_attention kernel launch failed: cudaError {err}")
+    fused_qk_attention.launches += 1
+    return out
+
+
+def fused_qk_attention(q, k, v, wq, wk, cos_q, sin_q, cos_k, sin_k, eps=1e-6):
+    """q/k/v [B, L, H, D] raw (pre-norm, pre-rope); wq/cos_q/sin_q [Lq, D] and wk/cos_k/sin_k
+    [Lk, D] per-position tables (a [D] weight broadcasts). Returns [B, Lq, H, D].
+
+    CUDA tensors launch the kernel (bf16, D=128; anything else raises); CPU tensors take
+    ``fused_qk_attention_plain``."""
+    if q.device.type == "cuda":
+        return _launch(q, k, v, wq, wk, cos_q, sin_q, cos_k, sin_k, eps)
+    if q.device.type != "cpu":
+        raise ValueError(f"fused_qk_attention runs on cuda or cpu, got {q.device}")
+    lq, lk = q.shape[1], k.shape[1]
+    wq, wk = wq.expand(lq, q.shape[-1]), wk.expand(lk, k.shape[-1])
+    return fused_qk_attention_plain(q, k, v, wq, wk, cos_q, sin_q, cos_k, sin_k, eps)
+
+
+fused_qk_attention.launches = 0

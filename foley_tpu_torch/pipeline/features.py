@@ -1,0 +1,80 @@
+"""Feature preparation: CFG stacking, text shape-bucketing and the T2A empty sequences
+(``foley_tpu/pipeline/features.py`` counterpart).
+
+Contracts kept from the reference:
+- CFG ordering: uncond (negative prompt) first, cond second;
+- two-bucket text padding: 77 tokens normally, 128 when the prompt exceeds 77;
+- T2A uses the model's learned empty clip/sync sequences with lengths derived from the
+  duration: clip = duration*8, sync segments = (duration*25 - 16)//8 + 1.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from foley_tpu_torch.configs import PipelineConfig
+from foley_tpu_torch.models import mmdit
+from foley_tpu_torch.sampling.denoise import DenoiseFeatures
+
+TEXT_BUCKETS = (77, 128)
+
+
+def pad_or_trim_time(x: torch.Tensor, t_fixed: int) -> torch.Tensor:
+    """[B, T, D] -> [B, t_fixed, D]: right-pad with zeros or trim."""
+    t_cur = x.shape[1]
+    if t_cur == t_fixed:
+        return x
+    if t_cur > t_fixed:
+        return x[:, :t_fixed]
+    return F.pad(x, (0, 0, 0, t_fixed - t_cur))
+
+
+def pick_text_bucket(token_len: int, cap: Optional[int] = None,
+                     sticky: Optional[int] = None) -> int:
+    """Two-bucket policy with sticky-max upgrade."""
+    bucket = TEXT_BUCKETS[0] if token_len <= TEXT_BUCKETS[0] else TEXT_BUCKETS[1]
+    if cap is not None:
+        bucket = min(bucket, cap)
+    if sticky is not None:
+        bucket = max(bucket, sticky)
+    return bucket
+
+
+def t2a_features(model: mmdit.MMDiT, pipeline_cfg: PipelineConfig, duration_s: float,
+                 batch_size: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Text-to-audio visual placeholders: the learned empty clip/sync sequences."""
+    clip_len, sync_len = pipeline_cfg.t2a_lengths(duration_s)
+    return (mmdit.get_empty_clip_sequence(model, batch_size, clip_len),
+            mmdit.get_empty_sync_sequence(model, batch_size, sync_len))
+
+
+def prepare_cfg_features(model: mmdit.MMDiT, text_feat: torch.Tensor,
+                         uncond_text_feat: torch.Tensor, clip_feat: torch.Tensor,
+                         sync_feat: torch.Tensor, batch_size: int, use_cfg: bool = True,
+                         text_bucket: Optional[int] = None) -> DenoiseFeatures:
+    """Repeat to batch, pad text to its bucket, and stack [uncond; cond].
+
+    ``text_feat``/``uncond_text_feat`` [1, L, D], ``clip_feat`` [1, L_clip, D], ``sync_feat``
+    [1, S*8, D]. The CFG-uncond visual features are the model's learned empty sequences at
+    the same lengths as the conditional ones."""
+    if text_bucket is None:
+        text_bucket = pick_text_bucket(int(text_feat.shape[1]))
+
+    text = pad_or_trim_time(text_feat.repeat_interleave(batch_size, dim=0), text_bucket)
+    uncond_text = pad_or_trim_time(uncond_text_feat.repeat_interleave(batch_size, dim=0),
+                                   text_bucket)
+    clip = clip_feat.repeat_interleave(batch_size, dim=0)
+    sync = sync_feat.repeat_interleave(batch_size, dim=0)
+    if not use_cfg:
+        return DenoiseFeatures(cond=text, clip_feat=clip, sync_feat=sync)
+
+    empty_clip = mmdit.get_empty_clip_sequence(model, batch_size, clip.shape[1]).to(clip.dtype)
+    empty_sync = mmdit.get_empty_sync_sequence(model, batch_size, sync.shape[1]).to(sync.dtype)
+    return DenoiseFeatures(
+        cond=torch.cat([uncond_text, text], dim=0),
+        clip_feat=torch.cat([empty_clip, clip], dim=0),
+        sync_feat=torch.cat([empty_sync, sync], dim=0),
+    )

@@ -3,6 +3,7 @@ from foley_tpu_torch.configs.model_configs import (
     DiffusionConfig,
     MMDiTConfig,
     PipelineConfig,
+    SynchformerConfig,
     TINY,
     XL,
     XXL,
@@ -14,6 +15,7 @@ __all__ = [
     "DiffusionConfig",
     "MMDiTConfig",
     "PipelineConfig",
+    "SynchformerConfig",
     "TINY",
     "XL",
     "XXL",

@@ -96,6 +96,30 @@ class DACConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SynchformerConfig:
+    """MotionFormer video half of Synchformer (reference ``divided_224_16x4.yaml:45-64``)."""
+
+    img_size: int = 224
+    patch_size: int = 16
+    temporal_patch_size: int = 2
+    num_frames: int = 16          # frames per segment
+    embed_dim: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    mlp_ratio: float = 4.0
+    segment_stride: int = 8       # 16-frame windows, stride 8 (feature_utils.py:91-97)
+    out_features_per_segment: int = 8  # temporal positions after temporal patching
+
+    @property
+    def temporal_resolution(self) -> int:
+        return self.num_frames // self.temporal_patch_size
+
+    @property
+    def patches_per_frame(self) -> int:
+        return (self.img_size // self.patch_size) ** 2
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """End-to-end generation configuration (reference node widget schema nodes.py:213-237)."""
 

@@ -1,14 +1,16 @@
 """Weight bridge: JAX parameter trees (as numpy arrays) -> the port's modules.
 
-The trees are those of ``foley_tpu.models.mmdit.init`` / ``dac_vae.init`` after the caller
-has fetched them to the host (``jax.device_get``); this module imports no JAX. It owns
-every layout change between the two packages:
+The trees are those of the JAX ``init`` functions (``mmdit``, ``dac_vae``, ``siglip2``,
+``synchformer``) after the caller has fetched them to the host (``jax.device_get``); this
+module imports no JAX. It owns every layout change between the two packages:
 
 - the depth axis of ``triple_blocks`` / ``single_blocks`` is unstacked into ``<name>.<i>``;
 - dense ``w`` [in, out] -> ``weight`` [out, in];
 - conv ``w`` [K, in, out] -> ``weight`` [out, in, K]; transposed conv (``conv_t``)
   ``w`` [K, in, out] -> ``weight`` [in, out, K];
-- ``b`` -> ``bias``; list indices and every other name stay.
+- ``b`` -> ``bias``; list indices and every other name stay (the encoders'
+  ``position_embedding``, ``probe``, ``cls_token``, ``pos_embed`` and ``temp_embed`` pass
+  through unchanged).
 
 bf16 leaves (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses) pass through a
 ``uint16`` view.
@@ -77,16 +79,20 @@ def _dtype_of(state: Dict[str, torch.Tensor]) -> torch.dtype:
     return next(t.dtype for t in state.values() if t.is_floating_point())
 
 
+def _module_from_jax(cls, params: Dict, cfg, device: DeviceLike, dtype):
+    state = state_dict_from_jax(params)
+    model = cls(cfg, dtype=dtype or _dtype_of(state), device=resolve_device(device))
+    model.load_state_dict(state, strict=True)
+    return model
+
+
 def mmdit_from_jax(params: Dict, cfg: MMDiTConfig, device: DeviceLike = None,
                    dtype=None):
     """Build the port's ``MMDiT`` on ``device`` holding the JAX tree's weights (in ``dtype``,
     by default the tree's own float dtype)."""
     from foley_tpu_torch.models.mmdit import MMDiT
 
-    state = state_dict_from_jax(params)
-    model = MMDiT(cfg, dtype=dtype or _dtype_of(state), device=resolve_device(device))
-    model.load_state_dict(state, strict=True)
-    return model
+    return _module_from_jax(MMDiT, params, cfg, device, dtype)
 
 
 def dac_from_jax(params: Dict, cfg: DACConfig, device: DeviceLike = None, dtype=None):
@@ -99,3 +105,19 @@ def dac_from_jax(params: Dict, cfg: DACConfig, device: DeviceLike = None, dtype=
     model = DAC(cfg, dtype=dtype or _dtype_of(state), device=resolve_device(device))
     model.load_state_dict(state, strict=True)
     return model
+
+
+def siglip2_from_jax(params: Dict, cfg, device: DeviceLike = None, dtype=None):
+    """Build the port's ``Siglip2`` tower from a JAX ``siglip2.init`` tree (``cfg``: the
+    port's ``SiglipVisionConfig``)."""
+    from foley_tpu_torch.models.siglip2 import Siglip2
+
+    return _module_from_jax(Siglip2, params, cfg, device, dtype)
+
+
+def synchformer_from_jax(params: Dict, cfg, device: DeviceLike = None, dtype=None):
+    """Build the port's ``Synchformer`` from a JAX ``synchformer.init`` tree (``cfg``: the
+    port's ``SynchformerConfig``)."""
+    from foley_tpu_torch.models.synchformer import Synchformer
+
+    return _module_from_jax(Synchformer, params, cfg, device, dtype)

@@ -51,7 +51,8 @@ def fused_qk_attention_plain(q, k, v, wq, wk, cos_q, sin_q, cos_k, sin_k, eps=1e
     return torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float()).to(q.dtype)
 
 
-def _check_operand(name: str, x: torch.Tensor) -> None:
+def check_operand(name: str, x: torch.Tensor) -> None:
+    """The kernels' precondition on a [B, L, H, D] operand: bf16 rows of 16 bytes."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the CUDA kernel takes bf16, got {x.dtype}")
     if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) or x.data_ptr() % 16:
@@ -96,7 +97,7 @@ def _launch(q, k, v, wq, wk, cos_q, sin_q, cos_k, sin_k, eps):
     if b * h > 65535:  # one block row per (batch, head): the grid's y extent
         raise ValueError(f"batch * heads = {b * h} exceeds the kernel's grid (65535)")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, x)
+        check_operand(name, x)
     dev = q.device
     tq = [_table(t, lq, dev) for t in (wq, cos_q, sin_q)]
     tk = [_table(t, lk, dev) for t in (wk, cos_k, sin_k)]

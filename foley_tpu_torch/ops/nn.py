@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from foley_tpu_torch.ops.norms import layer_norm
+
 
 def _match(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Cast a weight to the activation dtype (quantized storage is not ported yet)."""
@@ -69,20 +71,20 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]
 # torch generator, on whatever device the parameters live.
 # ---------------------------------------------------------------------------------
 
-def _empty(*shape, dtype, device) -> nn.Parameter:
+def empty_parameter(*shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, dtype=dtype, device=device), requires_grad=False)
 
 
 class Dense(nn.Module):
     """``scheme``: ``torch`` (nn.Linear's Kaiming-uniform fan_in), ``zeros`` (adaLN and final
-    layers) or ``normal02`` (timestep MLP)."""
+    layers), ``normal02`` (timestep MLP) or ``normal02_zero_bias`` (the vision encoders)."""
 
     def __init__(self, in_dim: int, out_dim: int, bias: bool = True, scheme: str = "torch",
                  dtype=torch.float32, device=None):
         super().__init__()
         self.scheme = scheme
-        self.weight = _empty(out_dim, in_dim, dtype=dtype, device=device)
-        self.bias = _empty(out_dim, dtype=dtype, device=device) if bias else None
+        self.weight = empty_parameter(out_dim, in_dim, dtype=dtype, device=device)
+        self.bias = empty_parameter(out_dim, dtype=dtype, device=device) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dense(x, self.weight, self.bias)
@@ -93,12 +95,12 @@ class Dense(nn.Module):
         limit = 1.0 / math.sqrt(in_dim)
         if self.scheme == "zeros":
             self.weight.zero_()
-        elif self.scheme == "normal02":
+        elif self.scheme in ("normal02", "normal02_zero_bias"):
             self.weight.normal_(0.0, 0.02, generator=g)
         else:
             self.weight.uniform_(-limit, limit, generator=g)
         if self.bias is not None:
-            if self.scheme == "zeros":
+            if self.scheme in ("zeros", "normal02_zero_bias"):
                 self.bias.zero_()
             else:
                 self.bias.uniform_(-limit, limit, generator=g)
@@ -110,8 +112,8 @@ class Conv1d(nn.Module):
     def __init__(self, in_dim: int, out_dim: int, kernel_size: int, bias: bool = True,
                  dtype=torch.float32, device=None):
         super().__init__()
-        self.weight = _empty(out_dim, in_dim, kernel_size, dtype=dtype, device=device)
-        self.bias = _empty(out_dim, dtype=dtype, device=device) if bias else None
+        self.weight = empty_parameter(out_dim, in_dim, kernel_size, dtype=dtype, device=device)
+        self.bias = empty_parameter(out_dim, dtype=dtype, device=device) if bias else None
 
     def forward(self, x: torch.Tensor, **kw) -> torch.Tensor:
         return conv1d(x, self.weight, self.bias, **kw)
@@ -123,6 +125,24 @@ class Conv1d(nn.Module):
         self.weight.uniform_(-limit, limit, generator=g)
         if self.bias is not None:
             self.bias.uniform_(-limit, limit, generator=g)
+
+
+class LayerNorm(nn.Module):
+    """Affine LayerNorm (``ops.norms.layer_norm``); weight ones and bias zeros at init."""
+
+    def __init__(self, dim: int, eps: float, dtype=torch.float32, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = empty_parameter(dim, dtype=dtype, device=device)
+        self.bias = empty_parameter(dim, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, eps=self.eps)
+
+    @torch.no_grad()
+    def init_(self, g: torch.Generator) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()
 
 
 def init_parameters(module: nn.Module, g: torch.Generator) -> None:

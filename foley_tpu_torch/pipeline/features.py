@@ -1,22 +1,27 @@
-"""Feature preparation: CFG stacking, text shape-bucketing and the T2A empty sequences
-(``foley_tpu/pipeline/features.py`` counterpart).
+"""Feature preparation: CFG stacking, text shape-bucketing, the T2A empty sequences and the
+video features of V2A (``foley_tpu/pipeline/features.py`` counterpart, with the sampler
+node's ``_encode_video``).
 
 Contracts kept from the reference:
 - CFG ordering: uncond (negative prompt) first, cond second;
 - two-bucket text padding: 77 tokens normally, 128 when the prompt exceeds 77;
 - T2A uses the model's learned empty clip/sync sequences with lengths derived from the
-  duration: clip = duration*8, sync segments = (duration*25 - 16)//8 + 1.
+  duration: clip = duration*8, sync segments = (duration*25 - 16)//8 + 1;
+- V2A resamples the video to 8 fps (SigLIP2) and 25 fps (Synchformer, 16-frame windows at
+  stride 8) over the duration, padding short videos with their last frame.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from foley_tpu_torch.configs import PipelineConfig
-from foley_tpu_torch.models import mmdit
+from foley_tpu_torch.models import mmdit, synchformer
+from foley_tpu_torch.ops.interp import linspace_resample_indices
 from foley_tpu_torch.sampling.denoise import DenoiseFeatures
 
 TEXT_BUCKETS = (77, 128)
@@ -78,3 +83,49 @@ def prepare_cfg_features(model: mmdit.MMDiT, text_feat: torch.Tensor,
         clip_feat=torch.cat([empty_clip, clip], dim=0),
         sync_feat=torch.cat([empty_sync, sync], dim=0),
     )
+
+
+def resample_frames(frames: np.ndarray, source_fps: float, duration_s: float,
+                    target_fps: int) -> np.ndarray:
+    """Resample [T, H, W, C] frames to ``target_fps`` over ``duration_s`` (host numpy).
+    Short inputs are padded by repeating the last frame."""
+    needed_src = int(round(duration_s * source_fps))
+    if frames.shape[0] < needed_src:
+        pad = np.repeat(frames[-1:], needed_src - frames.shape[0], axis=0)
+        frames = np.concatenate([frames, pad], axis=0)
+    else:
+        frames = frames[:needed_src]
+    n_target = int(duration_s * target_fps)
+    return frames[linspace_resample_indices(frames.shape[0], n_target)]
+
+
+def sync_segments(frames_25fps: np.ndarray, segment_size: int = 16, stride: int = 8) -> np.ndarray:
+    """Window 25 fps frames into [S, 16, ...] segments at stride 8 (host numpy); an input
+    shorter than a segment is padded with its last frame."""
+    t = frames_25fps.shape[0]
+    num = max((t - segment_size) // stride + 1, 1)
+    if t < segment_size:
+        pad = np.repeat(frames_25fps[-1:], segment_size - t, axis=0)
+        frames_25fps = np.concatenate([frames_25fps, pad], axis=0)
+    return np.stack(
+        [frames_25fps[i * stride: i * stride + segment_size] for i in range(num)], axis=0)
+
+
+def encode_video(encoders: Dict, frames: np.ndarray, frame_rate: float, duration_s: float,
+                 cfg: PipelineConfig) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Visual features of a video on the device-preprocess route: the counterpart of
+    ``foley_tpu/api/nodes.py::HunyuanFoleySampler._encode_video``.
+
+    ``frames`` [T, H, W, C] (float [0, 1] or uint8) at ``frame_rate``; ``encoders`` may hold
+    ``"siglip2"`` (a ``Siglip2Encoder``) and ``"synchformer"`` (a ``SynchformerEncoder``).
+    Returns (clip_feat [1, duration*8, D], sync_feat [1, S*8, D]), both fp32 on the
+    encoders' device; a missing encoder gives None."""
+    frames = np.asarray(frames)
+    clip_feat = sync_feat = None
+    if "siglip2" in encoders:
+        f8 = resample_frames(frames, frame_rate, duration_s, cfg.siglip2_fps)
+        clip_feat = encoders["siglip2"].encode(f8)
+    if "synchformer" in encoders:
+        f25 = resample_frames(frames, frame_rate, duration_s, cfg.synchformer_fps)
+        sync_feat = synchformer.encode_frames_device(encoders["synchformer"], f25)
+    return clip_feat, sync_feat

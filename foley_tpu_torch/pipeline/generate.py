@@ -4,7 +4,9 @@ returning the sampler's two AUDIO outputs (first of batch and full batch) at 48 
 
 The models run where their parameters live: ``mmdit.init`` and ``dac_vae.init`` put them on
 ``cuda`` unless the caller names another device. Text features may come from anywhere; they
-are moved to that device. Host offload, LoRA and the video encoders are not ported yet.
+are moved to that device; so are the visual features of V2A, which
+``pipeline/features.py::encode_video`` makes with ``bundle.encoders``. Host offload and LoRA
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ class ModelBundle(NamedTuple):
     mmdit: mmdit_mod.MMDiT
     dac: DAC
     pipeline_cfg: PipelineConfig
+    encoders: Optional[Dict] = None  # {"siglip2": ..., "synchformer": ...} (pipeline.features)
     compute_dtype: torch.dtype = torch.bfloat16
     latent_stats: Optional[tuple] = None  # (mean[C], std[C]) for from-scratch-trained models
 
@@ -96,7 +99,9 @@ def generate_audio(bundle: ModelBundle, text_feat, uncond_text_feat, duration_s:
     """Generate Foley audio from prepared text features (+ optional visual features).
 
     T2A (no video): ``clip_feat``/``sync_feat`` default to the model's learned empty
-    sequences with duration-derived lengths. ``fetch_pcm16`` (default): the decode emits
+    sequences with duration-derived lengths. V2A: ``clip_feat`` [1, L_clip, D] and
+    ``sync_feat`` [1, S*8, D] from ``encode_video``; the CFG halves then differ, so every
+    visual row is projected. ``fetch_pcm16`` (default): the decode emits
     16-bit PCM and the host dequantizes (``pcm/32767``), the same bytes a 16-bit WAV holds.
     The initial noise comes from a ``torch.Generator`` seeded with ``seed`` on the model's
     device: its bits differ from the JAX package's for the same seed."""

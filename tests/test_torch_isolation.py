@@ -1,5 +1,6 @@
-"""The port stands alone: it imports nothing of JAX, flax, yaml or the JAX package, and its
-entry points never fall back to the CPU on their own."""
+"""The port stands alone: it imports nothing of JAX, flax, yaml, PIL or the JAX package (the
+machine with the card has none of them), and its entry points never fall back to the CPU on
+their own."""
 
 import ast
 import os
@@ -13,10 +14,10 @@ import torch
 
 from foley_tpu_torch.configs import TINY
 from foley_tpu_torch.core.device import resolve_device
-from foley_tpu_torch.models import dac_vae, mmdit
+from foley_tpu_torch.models import dac_vae, mmdit, siglip2, synchformer
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "yaml", "foley_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "yaml", "PIL", "foley_tpu"}
 
 
 def _port_sources():
@@ -58,6 +59,10 @@ def test_entry_points_need_a_device_without_cuda():
         mmdit.init(TINY.model, torch.Generator())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dac_vae.init(TINY.dac, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        siglip2.init_random(0, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        synchformer.init_random(0, 16)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -7,12 +7,17 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
 
 - ``device``: the card (``nvidia-smi`` name and power limit, also printed raw on a line of
   its own), torch and CUDA versions;
-- ``build``: both kernel libraries, built in parallel: seconds per library and what ptxas
-  reported;
-- ``kernel``: one line per kernel and shape: the fused qk-norm + RoPE attention kernel (K1)
-  and the flash-attention kernel (K2) against their plain PyTorch versions in bf16 (max abs
-  and relative L2 errors and their tolerances), with the kernel's, the plain version's and
-  the library call's times and the card's bound for the work;
+- ``build``: the three kernel libraries, built in parallel: seconds per library and what
+  ptxas reported;
+- ``kernel``: one line per kernel and shape: the fused qk-norm + RoPE attention kernel (K1),
+  the flash-attention kernel (K2) and the chained GEMM sweep (K3) against their plain
+  PyTorch versions in bf16 (max abs and relative L2 errors and their tolerances), with the
+  kernel's, the plain version's and the library call's times and the card's bound for the
+  work (K3's also with the tool's full-width library sweep);
+- ``probe_gemm``: K3's path, the GEMM sweep probe (``foley_tpu_torch.tools.probe_gemm``) at
+  its full shape, 36 blocks of x [784, 1536] @ W_b[:, :1536] of [1536, 4608]: its record
+  (each variant's time a sweep, eager and replayed from a CUDA graph, and rates, the
+  kernel's error, the floors) and K3's launches;
 - ``forward``: one XXL denoiser forward at the 5 s shapes through the kernel, against the
   same forward through the plain attention;
 - ``main_path``: XXL text-to-audio, 5 s, 50 Euler steps, CFG 4.5, batch 1, bf16 denoiser,
@@ -28,7 +33,8 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   ``encode_video`` then ``generate_audio``, with both kernels' launches per request, the
   encode time per encoder and the request's wall;
 - ``{"kernels": [...]}``: every ported kernel with its launches on its path (K1 in
-  ``main_path``, K2 in ``v2a_path``);
+  ``main_path``, K2 in ``v2a_path``, K3 in one sweep of ``probe_gemm``; K3's times are the
+  probe's graph-replayed device times);
 - last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the run exits non-zero. Without a CUDA card, or outside the
@@ -47,13 +53,21 @@ STEPS = 50
 GUIDANCE = 4.5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
-KERNEL_TOL = 2e-2          # bf16: online softmax rounds unnormalised p, sums in another order
+KERNEL_TOL = 2e-2          # bf16: online softmax rounds unnormalised p, sums in another order;
+                           # K3: tanh bounds the output by 1, the tool's own limit
+                           # (probe_gemm_pallas.py:122); the same fp32 products summed in another
+                           # order, and the chained bf16 roundings carry any flip forward
 KERNEL_REL_TOL = 1e-2      # relative L2 error per kernel case: holds whatever the output's scale
+                           # (K3: per weight block, on the plain version's activations)
+CHAIN_DRIFT = 2.0          # K3's chain may drift from the plain one at most this many times as far
+                           # as the plain chain drifts from itself summed in fp64: every block
+                           # rounds to bf16, so two right chains drift apart as they go (more
+                           # than 1e-2 relative L2 over the probe's 36 blocks); a fault is O(1)
 FORWARD_REL_TOL = 5e-2     # relative L2 error of the XXL velocity, bf16 through 54 blocks
 LATENT_STD = (0.1, 100.0)  # plausible std of the final latents (the initial noise has 1)
 MOVED_REL = 0.1            # least relative L2 distance of the final latents from the noise
 SLEEP_CYCLES = 200_000_000  # ~0.1 s of GPU spin while the host enqueues a timed loop
-KERNEL_LIBS = ("fused_qk_attention", "flash_attention")
+KERNEL_LIBS = ("fused_qk_attention", "flash_attention", "gemm_sweep")
 CLIP_FPS, CLIP_HW = 25, (720, 1280)  # the V2A source clip: 5 s of 25 fps 1280x720 RGB
 
 
@@ -199,6 +213,90 @@ def flash_kernel_phase(torch, dev):
         emit(res)
         results[name] = res
     return results
+
+
+def gemm_kernel_phase(torch, dev):
+    """K3 against its plain version at the probe's full shape, ragged M, a K that is not a
+    multiple of 128 and weights passed as a strided view: the chain's max abs error, each
+    block's relative L2 error on the plain version's activations, and the chain's relative
+    L2 error beside the plain chain's own drift from fp64 sums. Returns {case: result}."""
+    from foley_tpu_torch.ops.kernels import gemm_sweep as GS
+    from foley_tpu_torch.tools import probe_gemm as PG
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cases = {"probe_full": (PG.M, PG.K, PG.N, PG.BLOCKS, False),
+             "ragged_1": (1, PG.K, PG.N, 2, False), "ragged_65": (65, PG.K, PG.N, 2, False),
+             "k_192": (PG.M, 192, 576, 3, False), "strided_w": (PG.M, PG.K, PG.N, 4, True)}
+    results = {}
+    for name, (m, k, n, blocks, strided) in cases.items():
+        x = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
+        w = (torch.randn(blocks, k, n, device=dev, generator=gen) / k ** 0.5).to(torch.bfloat16)
+        wk = w[:, :, :k] if strided else w  # a view: the kernel reads it through its strides
+        check(wk.is_contiguous() != strided, f"K3 {name}: the view is not what the case says")
+        got = GS.gemm_sweep(x, wk)
+        ref = GS.gemm_sweep_plain(x, w)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"K3 {name}: non-finite kernel output")
+        err = float((got.float() - ref.float()).abs().max())
+        check(err <= KERNEL_TOL, f"K3 {name}: max abs error {err} > {KERNEL_TOL}")
+        # the kernel's own error: each block on the plain version's activations
+        xb, step = x, 0.0
+        for b in range(blocks):
+            nxt = GS.gemm_sweep_plain(xb, w[b:b + 1])
+            step = max(step, rel(GS.gemm_sweep(xb, wk[b:b + 1]), nxt))
+            xb = nxt
+        check(step <= KERNEL_REL_TOL, f"K3 {name}: a block's relative L2 error {step} > "
+                                      f"{KERNEL_REL_TOL}")
+        chain, drift = rel(got, ref), rel(GS.gemm_sweep_plain(x, w, torch.float64), ref)
+        chain_tol = max(KERNEL_REL_TOL, CHAIN_DRIFT * drift)
+        check(chain <= chain_tol, f"K3 {name}: relative L2 error {chain} > {chain_tol} (the "
+                                  f"plain chain drifts {drift} from fp64 sums)")
+        res = {
+            "phase": "kernel", "kernel": "gemm_sweep", "case": name, "m": m, "k": k, "n": n,
+            "blocks": blocks, "strided_w": strided, "max_abs_err": err, "tol": KERNEL_TOL,
+            "block_rel_l2_err": step, "rel_tol": KERNEL_REL_TOL, "rel_l2_err": chain,
+            "plain_fp64_rel_l2": drift, "chain_rel_tol": chain_tol,
+            "kernel_ms": gpu_ms(torch, lambda: GS.gemm_sweep(x, wk), 50),
+            "plain_ms": gpu_ms(torch, lambda: GS.gemm_sweep_plain(x, w), 5),
+            "library_ms": gpu_ms(torch, lambda: PG.library_sweep(x, w), 50),
+            "library_full_ms": gpu_ms(torch, lambda: PG.library_sweep_full(x, w), 20),
+            # the work the chain uses: x read and the last x written once, each block's
+            # [K, K] head of the weights read once
+            **kernel_bound(2 * m * k * 2 + blocks * k * k * 2, 2 * blocks * m * k * k),
+        }
+        emit(res)
+        results[name] = res
+        del x, w, wk, got, ref, xb, nxt
+    return results
+
+
+def probe_gemm_phase(torch, dev) -> dict:
+    """K3's path: the probe as a user runs it, at its full shape. Returns its record, with
+    K3's launches over the run."""
+    from foley_tpu_torch.ops.kernels import gemm_sweep as GS
+    from foley_tpu_torch.tools import probe_gemm as PG
+
+    t0 = time.perf_counter()
+    GS.gemm_sweep.launches = 0
+    rec = PG.measure(dev)
+    launches = GS.gemm_sweep.launches
+    check(rec["launches_per_sweep"] == PG.BLOCKS,
+          f"gemm_sweep launches a sweep {rec['launches_per_sweep']}, expected {PG.BLOCKS}")
+    check(launches == PG.BLOCKS * rec["kernel_sweeps"],
+          f"gemm_sweep launches over the probe {launches}, expected "
+          f"{PG.BLOCKS * rec['kernel_sweeps']}")
+    chain_tol = max(KERNEL_REL_TOL, CHAIN_DRIFT * rec["plain_fp64_rel_l2"])
+    check(rec["max_abs_err"] <= KERNEL_TOL and rec["rel_l2_err"] <= chain_tol,
+          f"probe: kernel against plain {rec['max_abs_err']} max abs, {rec['rel_l2_err']} rel L2 "
+          f"(limits {KERNEL_TOL}, {chain_tol})")
+    check(all(rec[v][t] > 0 for v in ("kernel", "library_sweep", "plain")
+              for t in ("ms_per_sweep", "graph_ms_per_sweep")), "probe: a variant took no time")
+    rec.update(phase="probe_gemm", launches_in_run=launches, seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
 
 
 def forward_phase(torch, dev, model, cfg, pipeline_cfg):
@@ -565,6 +663,8 @@ def main() -> int:
     cfg = XXL.model
     kernel = kernel_phase(torch, dev, cfg)
     flash = flash_kernel_phase(torch, dev)
+    gemm = gemm_kernel_phase(torch, dev)
+    probe = probe_gemm_phase(torch, dev)
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -587,6 +687,7 @@ def main() -> int:
 
     k1_bound = kernel_bound(avg("bytes"), avg("flops"))
     k2 = flash["siglip2_5s"]  # the one shape the V2A path gives K2
+    k3_bound = gemm["probe_full"]  # the probe's shape: one sweep of the probe
     emit({"kernels": [{
         "name": "fused_qk_attention", "route": "cuda",
         "source": "foley_tpu_torch/csrc/fused_qk_attention.cu",
@@ -604,6 +705,18 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in flash.values()),
         "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
+    }, {
+        "name": "gemm_sweep", "route": "cuda",
+        "source": "foley_tpu_torch/csrc/gemm_sweep.cu",
+        "replaces": "tools/probe_gemm_pallas.py:93",
+        "launches": probe["launches_per_sweep"],
+        "max_abs_err": max([r["max_abs_err"] for r in gemm.values()] + [probe["max_abs_err"]]),
+        # device times from graph replays: the eager library sweep (72 calls) is bound by
+        # the host's launches, not by the card
+        "ms": probe["kernel"]["graph_ms_per_sweep"],
+        "plain_ms": probe["plain"]["graph_ms_per_sweep"],
+        "bound_ms": k3_bound["bound_ms"], "bound_by": k3_bound["bound_by"],
+        "library_ms": probe["library_sweep"]["graph_ms_per_sweep"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

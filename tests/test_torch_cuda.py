@@ -1,12 +1,15 @@
 """The port's CUDA kernels on the card (K1, fused qk-norm + RoPE attention; K2, flash
-attention): each against its plain PyTorch version, and the wrappers' dispatch. Every test
-skips without a CUDA card (the kernels have no CPU mode).
+attention; K3, the chained GEMM sweep): each against its plain PyTorch version, and the
+wrappers' dispatch. Every test skips without a CUDA card (the kernels have no CPU mode).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine with a card and
 no JAX: ``python -m pytest tests/test_torch_cuda.py --noconftest -q``.
 
-Tolerance, bf16 atol 2e-2: each kernel's online softmax rounds the unnormalised p to bf16 and
-divides by the row sum only at the end, and it sums in another order than the plain version.
+Tolerance, bf16 atol 2e-2: each attention kernel's online softmax rounds the unnormalised p
+to bf16 and divides by the row sum only at the end, and it sums in another order than the
+plain version. K3 sums the same fp32 products in another order, and a flipped bf16 rounding
+carries forward through the chain; tanh bounds its output by 1. Its relative L2 error is
+held to 1e-2 block by block (``_assert_sweep_close`` says how the chain is held).
 """
 
 import dataclasses
@@ -19,8 +22,10 @@ from foley_tpu_torch.core.params import perturb_zero_leaves
 from foley_tpu_torch.models import dac_vae, mmdit, siglip2
 from foley_tpu_torch.ops.kernels import flash_attention as FL
 from foley_tpu_torch.ops.kernels import fused_attention as FA
+from foley_tpu_torch.ops.kernels import gemm_sweep as GS
 from foley_tpu_torch.ops.rope import rope_table
 from foley_tpu_torch.pipeline.generate import ModelBundle, generate_audio
+from foley_tpu_torch.tools import probe_gemm
 
 KERNEL_TOL = dict(atol=2e-2, rtol=0)
 
@@ -165,3 +170,90 @@ def test_siglip2_on_card_launches_the_kernel_per_layer(dev):
     assert feats.shape == (1, 5, 128) and bool(torch.isfinite(feats).all())
     cpu = siglip2.Siglip2Encoder(model.float().cpu()).encode(frames)  # the plain route
     torch.testing.assert_close(feats.cpu(), cpu, atol=0.1, rtol=0.05)  # bf16 vs fp32
+
+
+# ---- K3: the chained GEMM sweep ----
+
+def _sweep_inputs(dev, m, k, n, blocks, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
+    w = (torch.randn(blocks, k, n, device=dev, generator=gen) / k ** 0.5).to(torch.bfloat16)
+    return x, w
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _assert_sweep_close(x, w, got, wk=None):
+    """K3's checks, as chip_smoke.py makes them: the chain's max abs error (2e-2); each
+    block's relative L2 error on the plain version's activations (1e-2); and the chain's
+    relative L2 error within 1e-2 or twice the plain chain's own drift from fp64 sums, since
+    every block rounds to bf16 and two right chains drift apart as they go."""
+    wk = w if wk is None else wk
+    ref = GS.gemm_sweep_plain(x, w)
+    assert got.shape == ref.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), ref.float(), **KERNEL_TOL)
+    xb = x
+    for b in range(w.shape[0]):
+        nxt = GS.gemm_sweep_plain(xb, w[b:b + 1])
+        assert _rel(GS.gemm_sweep(xb, wk[b:b + 1]), nxt) <= 1e-2
+        xb = nxt
+    drift = _rel(GS.gemm_sweep_plain(x, w, torch.float64), ref)
+    assert _rel(got, ref) <= max(1e-2, 2 * drift)
+
+
+@pytest.mark.parametrize("m,k,n,blocks", [(784, 1536, 4608, 36), (1, 1536, 4608, 2),
+                                          (65, 1536, 4608, 2), (192, 192, 576, 3),
+                                          (40, 64, 192, 3), (130, 64, 64, 1), (300, 128, 136, 4)])
+def test_gemm_sweep_matches_plain(dev, m, k, n, blocks):
+    x, w = _sweep_inputs(dev, m, k, n, blocks)
+    got = GS.gemm_sweep(x, w)
+    torch.cuda.synchronize()
+    _assert_sweep_close(x, w, got)
+
+
+def test_gemm_sweep_reads_strided_views(dev):
+    """w as the head view w[:, :, :K] (the kernel reads it through its strides), and x as
+    the first K columns of a wider activation."""
+    x, w = _sweep_inputs(dev, 100, 256, 768, 3, seed=1)
+    wide = torch.cat([x, x], dim=1)[:, :256]
+    head = w[:, :, :256]
+    assert not head.is_contiguous() and not wide.is_contiguous()
+    _assert_sweep_close(x, w, GS.gemm_sweep(wide, head), wk=head)
+    assert torch.equal(GS.gemm_sweep(x, head), GS.gemm_sweep(x, head.contiguous()))
+
+
+def test_gemm_sweep_cuda_tensor_never_reaches_plain(dev, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain path or a library GEMM")
+
+    x, w = _sweep_inputs(dev, 64, 128, 384, 5, seed=2)
+    monkeypatch.setattr(GS, "gemm_sweep_plain", refuse)
+    monkeypatch.setattr(torch, "matmul", refuse)
+    monkeypatch.setattr(torch.Tensor, "__matmul__", refuse)
+    before = GS.gemm_sweep.launches
+    got = GS.gemm_sweep(x, w)
+    assert GS.gemm_sweep.launches == before + 5  # one launch per weight block
+    for dtype in (torch.float32, torch.float16):  # the card takes bf16 only; no fallback
+        with pytest.raises(TypeError):
+            GS.gemm_sweep(x.to(dtype), w.to(dtype))
+    with pytest.raises(ValueError):  # so does a K that is not a multiple of the k-step
+        GS.gemm_sweep(x[:, :48], w[:, :48, :48])
+    assert GS.gemm_sweep.launches == before + 5
+    monkeypatch.undo()
+    _assert_sweep_close(x, w, got)
+
+
+def test_probe_measures_on_the_card(dev, monkeypatch):
+    for name, value in dict(M=256, K=512, N=1536, BLOCKS=4, ITERS=3, PLAIN_ITERS=1).items():
+        monkeypatch.setattr(probe_gemm, name, value)
+    rec = probe_gemm.measure(dev)
+    assert rec["device"] == torch.cuda.get_device_name(dev)
+    assert rec["launches_per_sweep"] == 4
+    assert rec["max_abs_err"] <= 2e-2
+    assert rec["rel_l2_err"] <= max(1e-2, 2 * rec["plain_fp64_rel_l2"])
+    for v in ("kernel", "library_sweep", "library_sweep_full", "plain"):
+        assert rec[v]["ms_per_sweep"] > 0 and rec[v]["graph_ms_per_sweep"] > 0
+    # wrapper calls: the checked sweep, a warm-up, three timed, the graph's warm-up and capture
+    assert rec["kernel_sweeps"] == 1 + 1 + 3 + 2

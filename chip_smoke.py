@@ -12,8 +12,9 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
 - ``kernel``: one line per kernel and shape: the fused qk-norm + RoPE attention kernel (K1),
   the flash-attention kernel (K2) and the chained GEMM sweep (K3) against their plain
   PyTorch versions in bf16 (max abs and relative L2 errors and their tolerances), with the
-  kernel's, the plain version's and the library call's times and the card's bound for the
-  work (K3's also with the tool's full-width library sweep);
+  kernel's device time (and, for K1 and K2, the wrapper's host time a launch), the plain
+  version's and the library call's times and the card's bound for the work (K3's also with
+  the tool's full-width library sweep);
 - ``probe_gemm``: K3's path, the GEMM sweep probe (``foley_tpu_torch.tools.probe_gemm``) at
   its full shape, 36 blocks of x [784, 1536] @ W_b[:, :1536] of [1536, 4608]: its record
   (each variant's time a sweep, eager and replayed from a CUDA graph, and rates, the
@@ -66,7 +67,6 @@ CHAIN_DRIFT = 2.0          # K3's chain may drift from the plain one at most thi
 FORWARD_REL_TOL = 5e-2     # relative L2 error of the XXL velocity, bf16 through 54 blocks
 LATENT_STD = (0.1, 100.0)  # plausible std of the final latents (the initial noise has 1)
 MOVED_REL = 0.1            # least relative L2 distance of the final latents from the noise
-SLEEP_CYCLES = 200_000_000  # ~0.1 s of GPU spin while the host enqueues a timed loop
 KERNEL_LIBS = ("fused_qk_attention", "flash_attention", "gemm_sweep")
 CLIP_FPS, CLIP_HW = 25, (720, 1280)  # the V2A source clip: 5 s of 25 fps 1280x720 RGB
 
@@ -80,19 +80,18 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
+def timed_ms(torch, fn, iters: int):
+    """(device ms, host ms) per call of ``fn``: CUDA events around ``iters`` calls queued
+    behind a GPU spin, and the host clock around the same loop
+    (``foley_tpu_torch.tools.bench_attention.timed``)."""
+    from foley_tpu_torch.tools.bench_attention import timed
+
+    return timed(torch, fn, iters)
+
+
 def gpu_ms(torch, fn, iters: int) -> float:
-    """Device time per call: CUDA events around ``iters`` calls queued behind a GPU spin, so
-    the host's launch cost stays hidden unless it exceeds the kernels' own time."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda._sleep(SLEEP_CYCLES)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    """Device time per call (``timed_ms``)."""
+    return timed_ms(torch, fn, iters)[0]
 
 
 def kernel_bound(n_bytes: int, flops: int) -> dict:
@@ -102,8 +101,15 @@ def kernel_bound(n_bytes: int, flops: int) -> dict:
 
 
 def kernel_phase(torch, dev, cfg):
-    """K1 against its plain version at the main path's two shapes, ragged lengths and a
-    long-form joint shape. Returns {case: result}."""
+    """K1 against its plain version at the main path's two shapes, ragged lengths on both
+    sides of its 64-row tiles and a long-form joint shape. Returns {case: result}.
+
+    K1's bound counts what the function must move: q, k and v read and o written in bf16,
+    the per-position fp32 cos/sin tables read once (one pair, shared by q and k, as the
+    denoiser passes them), and the norm weights as the [D] rows they are made of (one per
+    stream: two for the joint [v_cond; audio] sequence, one for a single block), for q and
+    for k. The kernel reads the weights as per-position [L, D] tables, which the bound does
+    not charge it for."""
     from foley_tpu_torch.models.mmdit import build_rope_tables
     from foley_tpu_torch.ops.kernels import fused_attention as FA
     from foley_tpu_torch.ops.rope import rope_table
@@ -111,8 +117,8 @@ def kernel_phase(torch, dev, cfg):
     b, h, d = 2, cfg.num_heads, cfg.head_dim
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def norm_weight():
-        return torch.empty(d, device=dev).uniform_(0.5, 1.5, generator=gen).to(torch.bfloat16)
+    def norm_weight():  # an RMSNorm weight [D], in fp32 as the denoiser's tables hold it
+        return torch.empty(d, device=dev).uniform_(0.5, 1.5, generator=gen)
 
     def joint_case(audio_len, visual_len):
         # per-position tables over [v_cond; audio], as TripleBlock builds them
@@ -121,17 +127,20 @@ def kernel_phase(torch, dev, cfg):
         cos, sin = (torch.cat([vt, at]) for vt, at in zip(ropes.visual_joint, ropes.audio_joint))
         tabs = [torch.cat([norm_weight().expand(visual_len, d), norm_weight().expand(audio_len, d)])
                 for _ in range(2)]
-        return audio_len + visual_len, tabs + [cos, sin, cos, sin]
+        return audio_len + visual_len, 2, tabs + [cos, sin, cos, sin]
 
     def single_case(length):
         cos, sin = rope_table(length, d, cfg.rope_theta, device=dev)
-        return length, [norm_weight(), norm_weight(), cos, sin, cos, sin]
+        # per-position fp32 [L, D] tables, as SingleBlock.norm_tables builds them
+        return length, 1, [norm_weight().expand(length, d).contiguous() for _ in range(2)] + [
+            cos, sin, cos, sin]
 
     cases = {"joint_5s": joint_case(250, 40), "single_5s": single_case(250),
              "ragged_1": single_case(1), "ragged_63": single_case(63),
-             "ragged_65": single_case(65), "joint_30s": joint_case(1500, 240)}
+             "ragged_64": single_case(64), "ragged_65": single_case(65),
+             "ragged_128": single_case(128), "joint_30s": joint_case(1500, 240)}
     results = {}
-    for name, (length, (wq, wk, cq, sq, ck, sk)) in cases.items():
+    for name, (length, streams, (wq, wk, cq, sq, ck, sk)) in cases.items():
         q, k, v = (torch.randn(b, length, h, d, device=dev, generator=gen).to(torch.bfloat16)
                    for _ in range(3))
         full = lambda w: w.expand(length, d)  # noqa: E731
@@ -152,15 +161,15 @@ def kernel_phase(torch, dev, cfg):
                 qn, kn, v.transpose(1, 2)).transpose(1, 2)
 
         lib_err = float((library_call().float() - ref.float()).abs().max())
-        distinct = {t.data_ptr(): t.numel() * t.element_size() for t in (q, k, v, wq, wk, cq,
-                                                                            sq, ck, sk)}
-        n_bytes = sum(distinct.values()) + got.numel() * got.element_size()
+        tables = {t.data_ptr(): t.numel() * 4 for t in (cq, sq, ck, sk)}  # fp32 [L, D]
+        n_bytes = (4 * q.numel() * q.element_size() + sum(tables.values())
+                   + 2 * streams * d * 4)  # q, k, v, o; cos/sin; [D] weight rows, q and k
         flops = 4 * b * h * length * length * d
+        kernel_ms, host_ms = timed_ms(torch, lambda: FA.fused_qk_attention(*args), 200)
         res = {
             "phase": "kernel", "case": name, "b": b, "l": length, "h": h, "d": d,
             "max_abs_err": err, "tol": KERNEL_TOL, "rel_l2_err": rel, "rel_tol": KERNEL_REL_TOL,
-            "library_max_abs_err": lib_err,
-            "kernel_ms": gpu_ms(torch, lambda: FA.fused_qk_attention(*args), 200),
+            "library_max_abs_err": lib_err, "kernel_ms": kernel_ms, "host_ms": host_ms,
             "plain_ms": gpu_ms(torch, lambda: FA.fused_qk_attention_plain(
                 q, k, v, full(wq), full(wk), cq, sq, ck, sk), 20),
             "library_ms": gpu_ms(torch, library_call, 20),
@@ -179,7 +188,8 @@ def flash_kernel_phase(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(2)
     cases = {"siglip2_5s": (40, 1024, 1024, 12, 64), "ragged_1": (2, 1, 1, 12, 64),
              "ragged_63": (2, 63, 63, 12, 64), "ragged_65": (2, 65, 65, 12, 64),
-             "cross_250x77": (2, 250, 77, 12, 128)}
+             "cross_250x77": (2, 250, 77, 12, 128), "cross_1024x77": (2, 1024, 77, 12, 128),
+             "cross_1024x77_d64": (2, 1024, 77, 12, 64)}
     results = {}
     for name, (b, lq, lk, h, d) in cases.items():
         q = torch.randn(b, lq, h, d, device=dev, generator=gen).to(torch.bfloat16)
@@ -199,11 +209,11 @@ def flash_kernel_phase(torch, dev):
             return torch.nn.functional.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
 
+        kernel_ms, host_ms = timed_ms(torch, lambda: FL.flash_attention(q, k, v), 200)
         res = {
             "phase": "kernel", "kernel": "flash_attention", "case": name, "b": b, "lq": lq,
             "lk": lk, "h": h, "d": d, "max_abs_err": err, "tol": KERNEL_TOL, "rel_l2_err": rel,
-            "rel_tol": KERNEL_REL_TOL,
-            "kernel_ms": gpu_ms(torch, lambda: FL.flash_attention(q, k, v), 200),
+            "rel_tol": KERNEL_REL_TOL, "kernel_ms": kernel_ms, "host_ms": host_ms,
             "plain_ms": gpu_ms(torch, lambda: FL.flash_attention_plain(q, k, v), 10),
             "library_ms": gpu_ms(torch, library_call, 50),
             # q and o, k and v: each read or written once

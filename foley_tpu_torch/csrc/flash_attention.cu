@@ -8,278 +8,191 @@
 // an fp32 softmax, p cast to bf16 before p @ v, fp32 accumulation and a bf16 output.
 // Lq and Lk may differ.
 //
-// Bound on an H100, at SigLIP2's 5 s call (B 40 frames, L 1024, 12 heads of 64): a launch
-// does 4*B*H*L*L*D = 128.8 GFLOP of products against 251.7 MB of q, k, v and o in bf16,
-// 512 operations per byte, above the card's ~295: bound by the tensor cores, about 130 us at
-// 989 TFLOP/s (75 us for its bytes). So the design keeps the logits and p out of device
-// memory and reads q, k, v once per query tile, and spends its effort on feeding mma.
-//
-// Design. The TPU kernel holds a head's whole padded K/V in VMEM and does one full-row
-// softmax; at L 1024, D 64 that is 256 KB of bf16, more than an SM's 227 KB beside a Q tile.
-// This kernel walks K/V in 64-key tiles with an online (running max / running sum) softmax.
-// A block of 4 warps owns 64 query rows of one (b, h); each warp owns 16 rows.
-//  * q, k, v and o are read and written through their [B, L, H, D] strides (16-byte rows),
-//    so the three projections' reshaped views are used as they are: no transpose, no pad.
-//  * K/V tiles are double-buffered in shared memory with cp.async: the next tile's copy is
-//    in flight while the current one is computed. Rows past Lk are zero-filled by the copy.
-//  * The Q tile is copied once and kept in registers as mma.sync A fragments.
-//  * S = Q K^T and O += P V run on mma.sync m16n8k16 bf16 tiles with fp32 accumulators;
-//    P is re-packed from the S accumulators in registers; V's B fragments come from
-//    ldmatrix.trans.
-//  * Ragged edges are masked in the kernel: query rows >= Lq are zero-filled and not stored,
-//    keys >= Lk get -inf logits. A row whose running max is still -inf uses 0 as its
-//    exponent base, so exp(-inf - -inf) never produces NaN.
-// Shared memory: two stages of a K and a V tile of 64 x (D+8) bf16 (36,864 bytes at D 64,
-// 69,632 at D 128, dynamic); the Q tile is staged in the second stage's K buffer.
-// wgmma, TMA and a deeper K/V ring are left for a later, faster version.
+// Bound on an NVIDIA H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s, at a 700 W power limit),
+// at SigLIP2's 5 s call (B 40 frames, L 1024, 12 heads of 64): a launch does
+// 4*B*H*L*L*D = 128.8 GFLOP of products against 251.7 MB of q, k, v and o in bf16, 512
+// operations per byte, above the card's ~295: bound by the tensor cores, 130 us (75 us for
+// its bytes). Only wgmma reaches the tensor cores' full rate, and it must be fed from shared
+// memory faster than a thread-driven copy can, so the design is the usual one for Hopper:
+//  * Warp specialised. One producer warp issues every load as a TMA tile copy (4-D tensor
+//    maps over the [B, L, H, D] strides, so the three projections' reshaped views are read
+//    as they are) into a ring of 4 K/V stages, with a full and an empty mbarrier a stage and
+//    separate full barriers for K and V, so S = Q K^T starts before V has landed.
+//  * Consumer warpgroups of 64 query rows each, three at D 64 (192 rows a block) and two at
+//    D 128, so every K/V tile that crosses into shared memory feeds 128-192 query rows.
+//    S = Q K^T is a wgmma with both operands in shared memory; the online softmax runs in
+//    registers on the accumulators; O += P V is a wgmma with P repacked from the S
+//    accumulators into A registers and V read MN-major (the descriptor transposes it).
+//    Everything in shared memory uses the 128-byte swizzle that TMA writes and wgmma reads.
+//  * The exponentials and the products overlap: inside a warpgroup S of the next tile and
+//    P V of this one are in flight while its softmax runs, and the warpgroups take turns
+//    to issue their products (named barriers), so one's softmax runs while another's
+//    products do. exp2 is the special-function unit's ex2.approx alone. setmaxnreg gives
+//    the producer's registers to the consumers (160 a thread at D 64, 240 at D 128).
+//  * Persistent: one block an SM walks the (query block, b, h) items; the producer runs
+//    ahead into the next item (Q double-buffered), so an item's first copies and last
+//    products overlap its neighbour's.
+//  * Tiles of 128 keys at D 64 (S is m64n128, O is m64n64), 64 keys at D 128 (m64n64 and
+//    m64n128), so the registers of S and O stay within one thread's budget.
+//  * Ragged edges: TMA zero-fills rows past Lq and Lk (the length is its own tensor-map
+//    axis, so a box never reads the next batch row); keys >= Lk get -inf logits, rows >= Lq
+//    are not stored. A row whose running max is still -inf uses 0 as its exponent base.
+// Shared memory: two Q tiles and 4 stages of a K and a V tile, 176 KB at D 64 and 192 KB
+// at D 128.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBM = 64;        // query rows per block
-constexpr int kBN = 64;        // keys per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+using namespace hopper;
+
+constexpr int kStages = 4;                // K/V ring depth
+constexpr int kProducerRegs = 24;
+
+template <int D>
+struct Cfg {
+  // consumer warpgroups of 64 query rows, and the registers each thread of them takes from
+  // the producer warpgroup: the block holds kThreads x (65,536 / kThreads) registers, and
+  // setmaxnreg moves them only inside that
+  static constexpr int kGroups = D == 64 ? 3 : 2;
+  static constexpr int kConsumerRegs = D == 64 ? 160 : 240;
+  static constexpr int kBM = 64 * kGroups;              // query rows per work item
+  static constexpr int kThreads = (kGroups + 1) * 128;  // + the producer warpgroup
+  static_assert(kGroups * 128 * kConsumerRegs + 128 * kProducerRegs <=
+                    kThreads * (65536 / kThreads / 8 * 8), "setmaxnreg exceeds the block's pool");
+  static constexpr int kBN = D == 64 ? 128 : 64;   // keys per tile
+  static constexpr int kSlabs = D / 64;            // 64-column slabs of 128-byte rows
+  static constexpr int kQBytes = kBM * D * 2;      // one of the two Q buffers
+  static constexpr int kTileBytes = kBN * D * 2;   // one K or V tile
+  static constexpr int kBarOffset = 2 * kQBytes + kStages * 2 * kTileBytes;
+  static constexpr int kSmem = kBarOffset + (4 + 3 * kStages) * 8 + 1024;  // + alignment
+};
 
 struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
   __nv_bfloat16* o;
-  int64_t q_sb, q_sl, q_sh;  // element strides of the batch, length and head axes
-  int64_t k_sb, k_sl, k_sh;
-  int64_t v_sb, v_sl, v_sh;
-  int64_t o_sb, o_sl, o_sh;
+  int64_t o_sb, o_sl, o_sh;  // element strides of the output's batch, length and head axes
   int heads, lq, lk;
+  int q_blocks, n_work;      // kBM-row query blocks a (b, h); work items q_blocks * B * H
   float scale_log2;  // log2(e) / sqrt(D)
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-// D = A * B + D for one m16n8k16 tile, bf16 operands, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four transposed 8x8 bf16 matrices from shared memory; lane l gives the address of row
-// (l % 8) of matrix (l / 8).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// 16-byte asynchronous copy global -> shared; `bytes` 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Start copying rows [row0, row0 + 64) of one (b, h) slice into a shared tile with row
-// stride D + 8; rows past `len` are zero-filled (their source address stays in bounds).
+// Persistent: block i takes work items i, i + gridDim.x, ...; item w is query block
+// w % q_blocks of (b, h) = w / q_blocks, so neighbouring items share K and V in L2. The
+// producer runs ahead into the next item (its Q into the other Q buffer, its K/V tiles
+// into the ring), so one item's first copies and last products overlap the next one's.
 template <int D>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                                int64_t row_stride, int row0, int len) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < kBM * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    const bool valid = row0 + r < len;
-    const __nv_bfloat16* src = base + (valid ? (int64_t)(row0 + r) * row_stride + col : 0);
-    cp_async_16(smem_addr(dst + r * (D + 8) + col), src, valid ? 16 : 0);
-  }
-}
+__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+flash_attention_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, const Params p) {
+  using C = Cfg<D>;
+  constexpr int kBN = C::kBN, kBM = C::kBM;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* qs = smem;  // Q buffer j at qs + j kQBytes; slab c of it: kBM rows at c kBM 128
+  uint8_t* ring = smem + 2 * C::kQBytes;  // stage s: K at ring + 2 s kTileBytes, V after it
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::kBarOffset);
+  uint64_t* qfull = bars;       // [2]: Q buffer landed
+  uint64_t* qempty = bars + 2;  // [2]: Q buffer released by the consumers
+  uint64_t* kfull = bars + 4;
+  uint64_t* vfull = kfull + kStages;
+  uint64_t* empty = vfull + kStages;
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const Params p) {
-  constexpr int kLds = D + 8;          // shared row stride in bf16 elements (bank-conflict pad)
-  constexpr int kTile = kBN * kLds;    // elements of one K or V tile
-  extern __shared__ __align__(16) __nv_bfloat16 smem[];
-  // stage s: K at smem + 2*s*kTile, V at smem + (2*s + 1)*kTile
-
-  const int bh = blockIdx.y;
-  const int b = bh / p.heads, h = bh % p.heads;
-  const int q0 = blockIdx.x * kBM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;  // mma fragment coordinates
-  const int wr = warp * 16;               // this warp's first row inside the tile
-
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
   const int n_tiles = (p.lk + kBN - 1) / kBN;
+  const int warp = warp_uniform_index(), lane = threadIdx.x % 32;
 
-  // ---- prologue: Q tile into stage 1's K buffer, K/V tile 0 into stage 0 ----
-  __nv_bfloat16* qs = smem + 2 * kTile;
-  load_tile_async<D>(qs, qb, p.q_sl, q0, p.lq);
-  load_tile_async<D>(smem, kb, p.k_sl, 0, p.lk);
-  load_tile_async<D>(smem + kTile, vb, p.v_sl, 0, p.lk);
-  cp_async_commit();
-  cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < 2; ++j) {
+      mbar_init(&qfull[j], 1);
+      mbar_init(&qempty[j], C::kGroups * 128);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&empty[s], C::kGroups * 128);
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* r0 = qs + (wr + g) * kLds + kk * 16 + t4 * 2;
-    const __nv_bfloat16* r1 = r0 + 8 * kLds;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(r0);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(r1);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(r1 + 8);
-  }
-  __syncthreads();  // stage 1 is free for tile 1
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};  // rows g and g + 8, raw-logit units
-  float l_run[2] = {0.f, 0.f};                      // this thread's share of the row sums
-
-  // ldmatrix.trans row address of this lane inside a 16-key x 16-column V block
-  const int v_row = (lane / 8 % 2) * 8 + lane % 8;
-  const int v_col = (lane / 16) * 8;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {  // prefetch tile t + 1 into the other stage
-      __nv_bfloat16* nk = smem + 2 * ((t + 1) % 2) * kTile;
-      load_tile_async<D>(nk, kb, p.k_sl, (t + 1) * kBN, p.lk);
-      load_tile_async<D>(nk + kTile, vb, p.v_sl, (t + 1) * kBN, p.lk);
-      cp_async_commit();
-      cp_async_wait<1>();  // tile t has landed; t + 1 may still be in flight
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* ks = smem + 2 * (t % 2) * kTile;
-    const __nv_bfloat16* vs = ks + kTile;
-    const int k0 = t * kBN;
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[kBN / 8][4];
-#pragma unroll
-    for (int nn = 0; nn < kBN / 8; ++nn) s[nn][0] = s[nn][1] = s[nn][2] = s[nn][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nn = 0; nn < kBN / 8; ++nn) {
-        const __nv_bfloat16* kr = ks + (nn * 8 + g) * kLds + kk * 16 + t4 * 2;
-        mma_bf16(s[nn], qf[kk], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
+  if (warp >= C::kGroups * 4) {
+    // ---- producer: each item's Q, then its K/V tiles through the ring ----
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == C::kGroups * 4 && lane == 0) {
+      int pos = 0;  // ring position of the next K/V tile
+      for (int w = blockIdx.x, i = 0; w < p.n_work; w += gridDim.x, ++i) {
+        const int bh = w / p.q_blocks, b = bh / p.heads, h = bh % p.heads;
+        const int j = i % 2;
+        if (i >= 2) mbar_wait(&qempty[j], ((i / 2) - 1) & 1);
+        mbar_arrive_expect_tx(&qfull[j], C::kQBytes);
+        for (int c = 0; c < C::kSlabs; ++c)
+          tma_load_4d(qs + j * C::kQBytes + c * kBM * 128, &qmap, &qfull[j], 64 * c, h,
+                      (w % p.q_blocks) * kBM, b);
+        for (int t = 0; t < n_tiles; ++t, ++pos) {
+          const int s = pos % kStages, round = pos / kStages;
+          if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);
+          uint8_t* kt = ring + 2 * s * C::kTileBytes;
+          mbar_arrive_expect_tx(&kfull[s], C::kTileBytes);
+          for (int c = 0; c < C::kSlabs; ++c)
+            tma_load_4d(kt + c * kBN * 128, &kmap, &kfull[s], 64 * c, h, t * kBN, b);
+          mbar_arrive_expect_tx(&vfull[s], C::kTileBytes);
+          for (int c = 0; c < C::kSlabs; ++c)
+            tma_load_4d(kt + C::kTileBytes + c * kBN * 128, &vmap, &vfull[s], 64 * c, h,
+                        t * kBN, b);
+        }
       }
     }
-
-    // mask the ragged last tile, then the online-softmax update
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int nn = 0; nn < kBN / 8; ++nn) {
-      const int key = k0 + nn * 8 + t4 * 2;
-      if (key >= p.lk) s[nn][0] = s[nn][2] = -CUDART_INF_F;
-      if (key + 1 >= p.lk) s[nn][1] = s[nn][3] = -CUDART_INF_F;
-      mx[0] = fmaxf(mx[0], fmaxf(s[nn][0], s[nn][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nn][2], s[nn][3]));
-    }
-    float alpha[2], base[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      base[r] = (m_new == -CUDART_INF_F) ? 0.f : m_new * p.scale_log2;
-      alpha[r] = exp2f(m_run[r] * p.scale_log2 - base[r]);  // 0 while m_run is -inf
-      m_run[r] = m_new;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nn = 0; nn < kBN / 8; ++nn) {
-      s[nn][0] = exp2f(s[nn][0] * p.scale_log2 - base[0]);
-      s[nn][1] = exp2f(s[nn][1] * p.scale_log2 - base[0]);
-      s[nn][2] = exp2f(s[nn][2] * p.scale_log2 - base[1]);
-      s[nn][3] = exp2f(s[nn][3] * p.scale_log2 - base[1]);
-      rs[0] += s[nn][0] + s[nn][1];
-      rs[1] += s[nn][2] + s[nn][3];
-    }
-    l_run[0] = l_run[0] * alpha[0] + rs[0];
-    l_run[1] = l_run[1] * alpha[1] + rs[1];
-#pragma unroll
-    for (int dd = 0; dd < D / 8; ++dd) {
-      acc[dd][0] *= alpha[0];
-      acc[dd][1] *= alpha[0];
-      acc[dd][2] *= alpha[1];
-      acc[dd][3] *= alpha[1];
-    }
-
-    // O += P V: P (bf16) comes straight from the S accumulators; V through ldmatrix.trans
-#pragma unroll
-    for (int j = 0; j < kBN / 16; ++j) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      pa[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      pa[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      pa[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-      const uint32_t vaddr = smem_addr(vs + (j * 16 + v_row) * kLds + v_col);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vb4[4];
-        ldmatrix_x4_trans(vb4, vaddr + dp * 16 * sizeof(__nv_bfloat16));
-        mma_bf16(acc[2 * dp], pa, vb4[0], vb4[1]);
-        mma_bf16(acc[2 * dp + 1], pa, vb4[2], vb4[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
+    return;
   }
 
-  // ---- epilogue: finish the row sums across the quad, scale, store bf16 ----
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-    l_run[r] = l_run[r] > 0.f ? 1.f / l_run[r] : 0.f;
-  }
-  __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + wr + g + r * 8;
-    if (row >= p.lq) continue;
-    __nv_bfloat16* orow = ob + (int64_t)row * p.o_sl + t4 * 2;
-#pragma unroll
-    for (int dd = 0; dd < D / 8; ++dd) {
-      *reinterpret_cast<uint32_t*>(orow + dd * 8) =
-          pack_bf16(acc[dd][2 * r] * l_run[r], acc[dd][2 * r + 1] * l_run[r]);
-    }
+  // ---- consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of each item's query block ----
+  setmaxnreg_inc<C::kConsumerRegs>();
+  const int wg = warp / 4;
+  int pos = 0;
+  for (int w = blockIdx.x, i = 0; w < p.n_work; w += gridDim.x, ++i, pos += n_tiles) {
+    const int bh = w / p.q_blocks, b = bh / p.heads, h = bh % p.heads;
+    const int j = i % 2, row0 = (w % p.q_blocks) * kBM + 64 * wg;
+    float o[D / 2], l[2];
+    mbar_wait(&qfull[j], (i / 2) & 1);
+    attention_consumer<D, kBN, kStages, C::kGroups>(
+        smem_u32(qs + j * C::kQBytes) + wg * 64 * 128, kBM * 128, smem_u32(ring), kfull, vfull,
+        empty, p.lk, p.scale_log2, pos, wg, o, l);
+    mbar_arrive(&qempty[j]);
+    store_rows<D>(o, l, p.o + b * p.o_sb + h * p.o_sh, p.o_sl, row0, p.lq);
   }
 }
 
 template <int D>
-int launch(const Params& p, int batch, cudaStream_t stream) {
-  constexpr int kSmem = 4 * kBN * (D + 8) * static_cast<int>(sizeof(__nv_bfloat16));
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+int launch(const void* q, const void* k, const void* v, const int64_t* strides, int batch,
+           Params& p, cudaStream_t stream) {
+  using C = Cfg<D>;
+  static bool attr_set[64] = {};
+  static int sms[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.lq + kBM - 1) / kBM, batch * p.heads);
-  flash_attention_kernel<D><<<grid, kThreads, kSmem, stream>>>(p);
+  if (device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!attr_set[device]) {
+    err = cudaFuncSetAttribute(flash_attention_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set[device] = true;
+  }
+  CUtensorMap qm, km, vm;
+  int e = hopper_host::tensor_map(&qm, q, batch, p.lq, p.heads, D, strides[0], strides[1],
+                                  strides[2], C::kBM);
+  if (e == 0) e = hopper_host::tensor_map(&km, k, batch, p.lk, p.heads, D, strides[3],
+                                          strides[4], strides[5], C::kBN);
+  if (e == 0) e = hopper_host::tensor_map(&vm, v, batch, p.lk, p.heads, D, strides[6],
+                                          strides[7], strides[8], C::kBN);
+  if (e != 0) return e;
+  p.q_blocks = (p.lq + C::kBM - 1) / C::kBM;
+  p.n_work = p.q_blocks * batch * p.heads;
+  const int grid = p.n_work < sms[device] ? p.n_work : sms[device];
+  flash_attention_kernel<D><<<grid, C::kThreads, C::kSmem, stream>>>(qm, km, vm, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -289,25 +202,20 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 // `strides` holds 12 element strides: (batch, length, head) for q, k, v and o, in that order,
 // with a unit stride on D. Every pointer must be 16-byte aligned and every stride a multiple
 // of 8 (the wrapper checks). `head_dim` must be 64 or 128 (cudaErrorInvalidValue otherwise).
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// Launches on `stream` and returns cudaGetLastError() (0 on success), -1 when the driver
+// cannot describe an operand as a tensor map, -2 when its encoder is not reachable.
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                                     const int64_t* strides, int batch, int heads, int lq,
                                     int lk, int head_dim, void* stream) {
   Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
-  p.q_sb = strides[0]; p.q_sl = strides[1]; p.q_sh = strides[2];
-  p.k_sb = strides[3]; p.k_sl = strides[4]; p.k_sh = strides[5];
-  p.v_sb = strides[6]; p.v_sl = strides[7]; p.v_sh = strides[8];
   p.o_sb = strides[9]; p.o_sl = strides[10]; p.o_sh = strides[11];
   p.heads = heads;
   p.lq = lq;
   p.lk = lk;
   p.scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(head_dim));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return launch<64>(p, batch, s);
-  if (head_dim == 128) return launch<128>(p, batch, s);
+  if (head_dim == 64) return launch<64>(q, k, v, strides, batch, p, s);
+  if (head_dim == 128) return launch<128>(q, k, v, strides, batch, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -11,292 +11,265 @@
 // The weight and cos/sin tables are fp32 [L, D], one row per position, so one launch serves
 // the joint [v_cond; audio] sequence whose two streams have different norm weights and tables.
 //
-// Bound on an H100: at the 5 s shapes (joint L = 290, single L = 250, B*H = 24) a launch
-// moves q, k, v and o in bf16 plus the fp32 tables (about 8 MB at L = 290) against
-// 4*B*H*L*L*D operations (about 1 GFLOP): about 130 operations per byte, below the card's
-// ~295 bf16 operations per byte, so memory bound, about 2.4 us at 3.35 TB/s. The ratio grows
-// with L; past L ~ 640 (the long-form windows) the tensor-core rate bounds it instead.
-//
-// Design. The TPU kernel keeps a head's whole K/V in VMEM; an SM has 227 KB of shared memory,
-// so this kernel walks K/V in 64-row tiles with an online (running max / running sum)
-// softmax. A block of 4 warps owns 64 query rows of one (b, h); each warp owns 16 rows.
-//  * Prologue: the raw Q tile is loaded (16-byte loads through the [B, L, H, D] strides, no
-//    transpose), RMS-normed and rotated in fp32 once, cast to bf16 and kept in registers as
-//    mma.sync A fragments for the whole K/V walk.
-//  * Each K tile is normed and rotated the same way as it arrives in shared memory; V is
-//    used raw. The fp32 tables are read from global memory (shared by every head, they stay
-//    in L2) and not staged in shared memory.
-//  * S = Q K^T and O += P V run on mma.sync m16n8k16 bf16 tensor-core tiles with fp32
-//    accumulators; P is re-packed from the S accumulators in registers.
-//  * Ragged edges are masked in the kernel: query rows >= Lq are zero-filled and not stored,
-//    keys >= Lk are zero-filled and their logits set to -inf. A row whose running max is
-//    still -inf uses 0 as its exponent base, so exp(-inf - -inf) never produces NaN.
-// Shared memory: two 64 x (128+8) bf16 tiles (34 KB); the Q tile reuses the V buffer.
-// wgmma, TMA and a pipelined K/V ring are left for a later, faster version.
+// Bound on an NVIDIA H100 SXM (3.35 TB/s, 989 TFLOP/s dense bf16, at a 700 W power limit): at
+// the 5 s shapes (joint L 290, single L 250, B*H 24) a launch must read q, k, v, write o and
+// read the per-position cos/sin, about 3.6 MB at L 290, against about 1 GFLOP: bound by
+// bytes, about 1 us. What holds a launch back at these shapes is latency, not either rate:
+// a block runs a chain of copy -> norm -> products per 64-key tile, and 120 blocks give one
+// block per SM with nothing to hide the chain behind. The design shortens the chain:
+//  * Every copy is asynchronous and in flight early. One thread issues TMA tile loads (4-D
+//    tensor maps over the [B, L, H, D] strides, 128-byte swizzle) of Q and of K and V into a
+//    ring of 5 stages of 64 keys; the prologue issues all of them that fit, which at L <= 320
+//    is the whole K and V of the (b, h). Past that (the 30 s windows, L 1740) the ring
+//    streams: a stage is refilled when the products release it.
+//  * The norm + RoPE pass runs on its own warps. Eight warps that issue no products
+//    normalise and rotate the Q tile, then each K tile, in place in shared memory (the
+//    swizzle moves 16-byte chunks and a rotation pair lies inside one), while the consumer
+//    warpgroup computes on the tiles before. Each warp owns 8 rows of a tile; the table rows
+//    it needs are fetched into registers in one batch of independent 16-byte loads, issued
+//    before it waits for the tile's copy, so no global read waits inside its row loop.
+//    (Staging the fp32 tables in shared memory would take 96 KB a tile, more than the ring
+//    leaves.) The pass ends with fence.proxy.async and an mbarrier arrive, so wgmma reads
+//    what the threads wrote.
+//  * One consumer warpgroup owns the block's 64 query rows: S = Q K^T is a wgmma with both
+//    operands in shared memory, the online softmax runs in registers, and O += P V is a
+//    wgmma with P repacked from the S accumulators and V read raw and transposed by its
+//    descriptor; S of the next tile and P V of this one are in flight while its softmax
+//    runs. It releases a stage to the copy once both products are done. This main loop is
+//    K2's (hopper.cuh, attention_consumer).
+//  * setmaxnreg moves 16 registers a thread from the consumer warpgroup to the norm warps,
+//    whose prefetched table rows are the block's largest state: neither spills.
+//  * Ragged edges: TMA zero-fills rows past Lq and Lk; zero rows stay zero through the
+//    norm; keys >= Lk get -inf logits; rows >= Lq are not stored.
+// Shared memory: the Q tile and 5 stages of a K and a V tile of 64 x 128 bf16, 176 KB, one
+// block of 12 warps per SM.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
+
 constexpr int kD = 128;
-constexpr int kBM = 64;        // query rows per block
-constexpr int kBN = 64;        // keys per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kLds = kD + 8;   // shared-memory row stride in bf16 elements (bank-conflict pad)
+constexpr int kBM = 64;          // query rows per block: one consumer warpgroup
+constexpr int kBN = 64;          // keys per tile
+constexpr int kStages = 5;       // K/V ring depth: a whole head at L <= 320
+constexpr int kNormWarps = 8;    // 8 rows of a tile each
+constexpr int kRowsPerWarp = kBM / kNormWarps;
+constexpr int kThreads = 128 + kNormWarps * 32;
+// registers a thread: the block holds 384 x 168; the consumer warpgroup gives 16 of its 168
+// to the two warpgroups of norm warps, which take 8 more each (128 x 152 + 256 x 176 =
+// 384 x 168: an increase waits until the block's own pool holds the registers)
+constexpr int kConsumerRegs = 152;
+constexpr int kNormRegs = 176;
+static_assert(128 * kConsumerRegs + kNormWarps * 32 * kNormRegs <= kThreads * 168,
+              "setmaxnreg moves registers only inside the block's allocation");
+constexpr int kSlab = kBN * 128;         // bytes of one 64-column slab of a 64-row tile
+constexpr int kTileBytes = 2 * kSlab;    // a 64 x 128 bf16 tile
+constexpr int kBarOffset = kTileBytes * (1 + 2 * kStages);
+constexpr int kSmem = kBarOffset + (2 + 4 * kStages) * 8 + 1024;  // + alignment
+static_assert(kBM == kBN, "the Q tile and the K tiles share one layout and one norm pass");
 
 struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  __nv_bfloat16* o;
   const float* wq;
   const float* wk;
   const float* cq;
   const float* sq;
   const float* ck;
   const float* sk;
-  int64_t q_sb, q_sl, q_sh;  // element strides of the batch, length and head axes
-  int64_t k_sb, k_sl, k_sh;
-  int64_t v_sb, v_sl, v_sh;
-  int64_t o_sb, o_sl, o_sh;
+  __nv_bfloat16* o;
+  int64_t o_sb, o_sl, o_sh;  // element strides of the output's batch, length and head axes
   int heads, lq, lk;
   float eps;
   float scale_log2;  // log2(e) / sqrt(D)
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
+// The table rows a norm warp needs for its 8 rows of a tile: lane l holds columns 4l..4l+3.
+struct Tabs {
+  float4 w[kRowsPerWarp], c[kRowsPerWarp], s[kRowsPerWarp];
+};
 
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// D = A * B + D for one m16n8k16 tile, bf16 operands, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Copy rows [row0, row0 + 64) of one (b, h) slice into a shared tile; rows past `len` are
-// zero-filled. Each thread moves 16-byte chunks (8 bf16); a row is 16 chunks.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                          int64_t row_stride, int row0, int len) {
-  for (int c = threadIdx.x; c < kBM * (kD / 8); c += kThreads) {
-    const int r = c / (kD / 8);
-    const int col = (c % (kD / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < len) {
-      val = *reinterpret_cast<const uint4*>(base + (int64_t)(row0 + r) * row_stride + col);
+__device__ __forceinline__ void load_tabs(Tabs& tb, const float* w, const float* cs,
+                                          const float* sn, int row, int len, int lane) {
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    tb.w[i] = tb.c[i] = tb.s[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row + i < len) {
+      const int64_t off = static_cast<int64_t>(row + i) * kD + 4 * lane;
+      tb.w[i] = __ldg(reinterpret_cast<const float4*>(w + off));
+      tb.c[i] = __ldg(reinterpret_cast<const float4*>(cs + off));
+      tb.s[i] = __ldg(reinterpret_cast<const float4*>(sn + off));
     }
-    *reinterpret_cast<uint4*>(dst + r * kLds + col) = val;
   }
 }
 
-// In place on a shared tile: x <- bf16(rope(x * rsqrt(mean(x^2) + eps) * w)), fp32 math.
-// Warp w handles rows w, w + 4, ...; lane l holds columns 4l..4l+3 (two rotation pairs).
-__device__ __forceinline__ void norm_rope_tile(__nv_bfloat16* tile, const float* w,
-                                               const float* cs, const float* sn, int row0,
-                                               int len, float eps) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < kBM; r += kWarps) {
-    if (row0 + r >= len) continue;  // warp-uniform: the zero rows stay zero
-    __nv_bfloat16* px = tile + r * kLds + lane * 4;
-    const uint2 raw = *reinterpret_cast<const uint2*>(px);
+// In place on rows r0..r0+7 of a swizzled 64 x 128 tile:
+// x <- bf16(rope(x * rsqrt(mean(x^2) + eps) * w)), fp32 math. Zero rows stay zero.
+__device__ __forceinline__ void norm_rope_rows(uint8_t* tile, const Tabs& tb, int r0,
+                                               float eps, int lane) {
+  // lane l's 4 columns of row r: slab l / 16, 16-byte chunk (l % 16) / 2 moved by the
+  // 128-byte swizzle of TMA, half l % 2 of it
+  auto at = [&](int r) {
+    return reinterpret_cast<uint2*>(tile + (lane / 16) * kSlab + r * 128 +
+                                    ((((lane % 16) / 2) ^ (r & 7)) << 4) + (lane & 1) * 8);
+  };
+  float x[kRowsPerWarp][4], ss[kRowsPerWarp];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const uint2 raw = *at(r0 + i);
     const __nv_bfloat162 x01 = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
     const __nv_bfloat162 x23 = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-    float x[4] = {__low2float(x01), __high2float(x01), __low2float(x23), __high2float(x23)};
-    float ss = x[0] * x[0] + x[1] * x[1] + x[2] * x[2] + x[3] * x[3];
+    x[i][0] = __low2float(x01);
+    x[i][1] = __high2float(x01);
+    x[i][2] = __low2float(x23);
+    x[i][3] = __high2float(x23);
+    ss[i] = x[i][0] * x[i][0] + x[i][1] * x[i][1] + x[i][2] * x[i][2] + x[i][3] * x[i][3];
+  }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
-    const float inv = rsqrtf(ss * (1.0f / kD) + eps);
-    const int64_t t = (int64_t)(row0 + r) * kD + lane * 4;
-    const float4 wv = *reinterpret_cast<const float4*>(w + t);
-    const float4 cv = *reinterpret_cast<const float4*>(cs + t);
-    const float4 sv = *reinterpret_cast<const float4*>(sn + t);
-    const float y0 = x[0] * inv * wv.x, y1 = x[1] * inv * wv.y;
-    const float y2 = x[2] * inv * wv.z, y3 = x[3] * inv * wv.w;
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) ss[i] += __shfl_xor_sync(0xffffffffu, ss[i], off);
+  }
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const float inv = rsqrtf(ss[i] * (1.0f / kD) + eps);
+    const float4 wv = tb.w[i], cv = tb.c[i], sv = tb.s[i];
+    const float y0 = x[i][0] * inv * wv.x, y1 = x[i][1] * inv * wv.y;
+    const float y2 = x[i][2] * inv * wv.z, y3 = x[i][3] * inv * wv.w;
     uint2 out;
     out.x = pack_bf16(y0 * cv.x - y1 * sv.x, y1 * cv.y + y0 * sv.y);
     out.y = pack_bf16(y2 * cv.z - y3 * sv.z, y3 * cv.w + y2 * sv.w);
-    *reinterpret_cast<uint2*>(px) = out;
+    *at(r0 + i) = out;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-fused_qk_attention_kernel(const Params p) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kBN * kLds];
-  __shared__ __align__(16) __nv_bfloat16 vs[kBN * kLds];  // holds the Q tile in the prologue
+__global__ void __launch_bounds__(kThreads, 1)
+fused_qk_attention_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap, const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* qs = smem;                // the Q tile
+  uint8_t* ring = smem + kTileBytes; // stage s: K at ring + 2 s kTileBytes, V after it
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kBarOffset);
+  uint64_t* qfull = bars;            // Q copied
+  uint64_t* qready = bars + 1;       // Q normalised and rotated
+  uint64_t* kfull = bars + 2;        // K tile copied
+  uint64_t* kready = kfull + kStages;  // K tile normalised and rotated
+  uint64_t* vfull = kready + kStages;  // V tile copied
+  uint64_t* empty = vfull + kStages;   // stage released by the products
 
-  const int bh = blockIdx.y;
-  const int b = bh / p.heads, h = bh % p.heads;
+  const int b = blockIdx.y / p.heads, h = blockIdx.y % p.heads;
   const int q0 = blockIdx.x * kBM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;  // mma fragment coordinates
-  const int wr = warp * 16;               // this warp's first row inside the tile
+  const int n_tiles = (p.lk + kBN - 1) / kBN;
+  const int warp = warp_uniform_index(), lane = threadIdx.x % 32;
 
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
-
-  // ---- prologue: normalise and rotate the Q tile once, keep it as A fragments ----
-  load_tile(vs, qb, p.q_sl, q0, p.lq);
+  if (threadIdx.x == 0) {
+    mbar_init(qfull, 1);
+    mbar_init(qready, kNormWarps);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&kready[s], kNormWarps);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
-  norm_rope_tile(vs, p.wq, p.cq, p.sq, q0, p.lq, p.eps);
-  __syncthreads();
-  uint32_t qf[kD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const __nv_bfloat16* r0 = vs + (wr + g) * kLds + kk * 16 + t4 * 2;
-    const __nv_bfloat16* r1 = r0 + 8 * kLds;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(r0);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(r1);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(r1 + 8);
-  }
 
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int i = 0; i < kD / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};  // rows g and g + 8, raw-logit units
-  float l_run[2] = {0.f, 0.f};                      // this thread's share of the row sums
-
-  for (int k0 = 0; k0 < p.lk; k0 += kBN) {
-    __syncthreads();  // every warp is done with the previous K/V tile (or the Q tile)
-    load_tile(ks, kb, p.k_sl, k0, p.lk);
-    load_tile(vs, vb, p.v_sl, k0, p.lk);
-    __syncthreads();
-    norm_rope_tile(ks, p.wk, p.ck, p.sk, k0, p.lk, p.eps);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[kBN / 8][4];
-#pragma unroll
-    for (int nn = 0; nn < kBN / 8; ++nn) s[nn][0] = s[nn][1] = s[nn][2] = s[nn][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-#pragma unroll
-      for (int nn = 0; nn < kBN / 8; ++nn) {
-        const __nv_bfloat16* kr = ks + (nn * 8 + g) * kLds + kk * 16 + t4 * 2;
-        mma_bf16(s[nn], qf[kk], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
+  if (warp >= 4) {
+    // ---- norm warps; the first lane of the first one also issues every copy ----
+    setmaxnreg_inc<kNormRegs>();  // their prefetched table rows are the block's largest state
+    const bool issuer = warp == 4 && lane == 0;
+    const int r0 = (warp - 4) * kRowsPerWarp;
+    auto load_kv = [&](int t) {
+      const int s = t % kStages;
+      uint8_t* kt = ring + 2 * s * kTileBytes;
+      mbar_arrive_expect_tx(&kfull[s], kTileBytes);
+      tma_load_4d(kt, &kmap, &kfull[s], 0, h, t * kBN, b);
+      tma_load_4d(kt + kSlab, &kmap, &kfull[s], 64, h, t * kBN, b);
+      mbar_arrive_expect_tx(&vfull[s], kTileBytes);
+      tma_load_4d(kt + kTileBytes, &vmap, &vfull[s], 0, h, t * kBN, b);
+      tma_load_4d(kt + kTileBytes + kSlab, &vmap, &vfull[s], 64, h, t * kBN, b);
+    };
+    if (issuer) {
+      mbar_arrive_expect_tx(qfull, kTileBytes);
+      tma_load_4d(qs, &qmap, qfull, 0, h, q0, b);
+      tma_load_4d(qs + kSlab, &qmap, qfull, 64, h, q0, b);
+      for (int t = 0; t < n_tiles && t < kStages; ++t) load_kv(t);
+    }
+    Tabs tb;
+    load_tabs(tb, p.wq, p.cq, p.sq, q0 + r0, p.lq, lane);
+    mbar_wait(qfull, 0);
+    norm_rope_rows(qs, tb, r0, p.eps, lane);
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(qready);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages, round = t / kStages;
+      load_tabs(tb, p.wk, p.ck, p.sk, t * kBN + r0, p.lk, lane);
+      if (issuer && round > 0) {  // refill the stage once the products release it
+        mbar_wait(&empty[s], (round - 1) & 1);
+        load_kv(t);
       }
+      mbar_wait(&kfull[s], round & 1);
+      norm_rope_rows(ring + 2 * s * kTileBytes, tb, r0, p.eps, lane);
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&kready[s]);
     }
-
-    // mask the ragged last tile, then the online-softmax update
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int nn = 0; nn < kBN / 8; ++nn) {
-      const int key = k0 + nn * 8 + t4 * 2;
-      if (key >= p.lk) s[nn][0] = s[nn][2] = -CUDART_INF_F;
-      if (key + 1 >= p.lk) s[nn][1] = s[nn][3] = -CUDART_INF_F;
-      mx[0] = fmaxf(mx[0], fmaxf(s[nn][0], s[nn][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nn][2], s[nn][3]));
-    }
-    float alpha[2], base[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      base[r] = (m_new == -CUDART_INF_F) ? 0.f : m_new * p.scale_log2;
-      alpha[r] = exp2f(m_run[r] * p.scale_log2 - base[r]);  // 0 while m_run is -inf
-      m_run[r] = m_new;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nn = 0; nn < kBN / 8; ++nn) {
-      s[nn][0] = exp2f(s[nn][0] * p.scale_log2 - base[0]);
-      s[nn][1] = exp2f(s[nn][1] * p.scale_log2 - base[0]);
-      s[nn][2] = exp2f(s[nn][2] * p.scale_log2 - base[1]);
-      s[nn][3] = exp2f(s[nn][3] * p.scale_log2 - base[1]);
-      rs[0] += s[nn][0] + s[nn][1];
-      rs[1] += s[nn][2] + s[nn][3];
-    }
-    l_run[0] = l_run[0] * alpha[0] + rs[0];
-    l_run[1] = l_run[1] * alpha[1] + rs[1];
-#pragma unroll
-    for (int dd = 0; dd < kD / 8; ++dd) {
-      acc[dd][0] *= alpha[0];
-      acc[dd][1] *= alpha[0];
-      acc[dd][2] *= alpha[1];
-      acc[dd][3] *= alpha[1];
-    }
-
-    // O += P V: P (bf16) comes straight from the S accumulators
-#pragma unroll
-    for (int j = 0; j < kBN / 16; ++j) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      pa[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      pa[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      pa[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-      const __nv_bfloat16* v0 = vs + (j * 16 + t4 * 2) * kLds + g;
-#pragma unroll
-      for (int dd = 0; dd < kD / 8; ++dd) {
-        const __nv_bfloat16* vc = v0 + dd * 8;
-        const uint32_t b0 = pack_raw(vc[0], vc[kLds]);
-        const uint32_t b1 = pack_raw(vc[8 * kLds], vc[9 * kLds]);
-        mma_bf16(acc[dd], pa, b0, b1);
-      }
-    }
+    return;
   }
 
-  // ---- epilogue: finish the row sums across the quad, scale, store bf16 ----
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-    l_run[r] = l_run[r] > 0.f ? 1.f / l_run[r] : 0.f;
-  }
-  __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + wr + g + r * 8;
-    if (row >= p.lq) continue;
-    __nv_bfloat16* orow = ob + (int64_t)row * p.o_sl + t4 * 2;
-#pragma unroll
-    for (int dd = 0; dd < kD / 8; ++dd) {
-      *reinterpret_cast<uint32_t*>(orow + dd * 8) =
-          pack_bf16(acc[dd][2 * r] * l_run[r], acc[dd][2 * r + 1] * l_run[r]);
-    }
-  }
+  // ---- the consumer warpgroup: query rows q0 .. q0 + 63 ----
+  setmaxnreg_dec<kConsumerRegs>();
+  float o[kD / 2], l[2];
+  mbar_wait(qready, 0);
+  attention_consumer<kD, kBN, kStages, 1>(smem_u32(qs), kSlab, smem_u32(ring), kready, vfull,
+                                          empty, p.lk, p.scale_log2, 0, 0, o, l);
+  store_rows<kD>(o, l, p.o + b * p.o_sb + h * p.o_sh, p.o_sl, q0, p.lq);
 }
 
 }  // namespace
 
-// Plain C entry, bound with ctypes. Pointers are device pointers; `strides` holds 12 element
-// strides: (batch, length, head) for q, k, v and o, in that order. Every pointer must be
-// 16-byte aligned and every stride a multiple of 8 (the wrapper checks). Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// Plain C entry, bound with ctypes. Pointers are device pointers: q, k, v and o bf16
+// [B, L, H, 128]; the six tables fp32 [L, 128], contiguous, 16-byte aligned. `strides` holds
+// 12 element strides: (batch, length, head) for q, k, v and o, in that order. Every pointer
+// must be 16-byte aligned and every stride a multiple of 8 (the wrapper checks). Launches on
+// `stream` and returns cudaGetLastError() (0 on success), -1 when the driver cannot describe
+// an operand as a tensor map, -2 when its encoder is not reachable.
 extern "C" int fused_qk_attention_bf16(const void* q, const void* k, const void* v, void* o,
                                        const void* wq, const void* wk, const void* cq,
                                        const void* sq, const void* ck, const void* sk,
                                        const int64_t* strides, int batch, int heads, int lq,
                                        int lk, float eps, void* stream) {
+  static bool attr_set[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= 64 || !attr_set[device]) {
+    err = cudaFuncSetAttribute(fused_qk_attention_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (device < 64) attr_set[device] = true;
+  }
+  CUtensorMap qm, km, vm;
+  int e = hopper_host::tensor_map(&qm, q, batch, lq, heads, kD, strides[0], strides[1],
+                                  strides[2], kBM);
+  if (e == 0) e = hopper_host::tensor_map(&km, k, batch, lk, heads, kD, strides[3], strides[4],
+                                          strides[5], kBN);
+  if (e == 0) e = hopper_host::tensor_map(&vm, v, batch, lk, heads, kD, strides[6], strides[7],
+                                          strides[8], kBN);
+  if (e != 0) return e;
   Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.o = static_cast<__nv_bfloat16*>(o);
   p.wq = static_cast<const float*>(wq);
   p.wk = static_cast<const float*>(wk);
   p.cq = static_cast<const float*>(cq);
   p.sq = static_cast<const float*>(sq);
   p.ck = static_cast<const float*>(ck);
   p.sk = static_cast<const float*>(sk);
-  p.q_sb = strides[0]; p.q_sl = strides[1]; p.q_sh = strides[2];
-  p.k_sb = strides[3]; p.k_sl = strides[4]; p.k_sh = strides[5];
-  p.v_sb = strides[6]; p.v_sl = strides[7]; p.v_sh = strides[8];
+  p.o = static_cast<__nv_bfloat16*>(o);
   p.o_sb = strides[9]; p.o_sl = strides[10]; p.o_sh = strides[11];
   p.heads = heads;
   p.lq = lq;
@@ -304,6 +277,7 @@ extern "C" int fused_qk_attention_bf16(const void* q, const void* k, const void*
   p.eps = eps;
   p.scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(kD));
   const dim3 grid((lq + kBM - 1) / kBM, batch * heads);
-  fused_qk_attention_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  fused_qk_attention_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+      qm, km, vm, p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,14 +3,17 @@
 Replaces the TPU kernel ``foley_tpu/ops/pallas/flash_attention.py:60``
 (``_flash_attention_bhld``, body ``_attn_kernel`` :34, entry ``flash_attention`` :96). The
 CUDA source is ``foley_tpu_torch/csrc/flash_attention.cu`` (sm_90a, bf16, head_dim 64 or
-128, mma.sync tiles with an online softmax over 64-key tiles, K/V double-buffered with
-cp.async; its header says how the design follows from the card).
+128: a persistent grid, a producer warp's TMA copies into a 4-stage K/V ring, consumer
+warpgroups of 64 query rows (three at D 64, two at D 128) taking turns to issue wgmma for
+both products, an online softmax in registers; its header says how the design follows from
+the card), with the Hopper primitives of ``csrc/hopper.cuh``.
 
-Bound on an H100: operations. At SigLIP2's 5 s call (B 40 frames, L 1024, 12 heads of 64) a
-launch does 128.8 GFLOP of products against 251.7 MB of q, k, v and o, about 130 us at
-989 TFLOP/s (75 us for its bytes). The kernel therefore never writes the logits or p to
-device memory, reads q, k and v through their ``[B, L, H, D]`` strides (no transposes
-around it, unlike the TPU wrapper) and keeps the tensor cores fed from shared memory.
+Bound on an H100 SXM (989 TFLOP/s dense bf16, at a 700 W power limit): operations. At
+SigLIP2's 5 s call (B 40 frames, L 1024, 12 heads of 64) a launch does 128.8 GFLOP of
+products against 251.7 MB of q, k, v and o, about 130 us (75 us for its bytes). The kernel
+therefore never writes the logits or p to device memory, reads q, k and v through their
+``[B, L, H, D]`` strides (no transposes around it, unlike the TPU wrapper) and keeps the
+tensor cores fed from shared memory.
 
 ``flash_attention`` launches the kernel for CUDA tensors and takes ``flash_attention_plain``
 only for CPU tensors; a ``mask`` goes to the plain masked attention (``ops/attention.sdpa``),
@@ -26,7 +29,8 @@ from typing import Optional
 import torch
 
 from foley_tpu_torch.ops.attention import sdpa
-from foley_tpu_torch.ops.kernels.fused_attention import check_operand
+from foley_tpu_torch.ops.kernels.fused_attention import (check_launch, check_operand,
+                                                       on_device)
 
 HEAD_DIMS = (64, 128)
 
@@ -71,19 +75,15 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must lie on one device")
-    if b * h > 65535:  # one block row per (batch, head): the grid's y extent
-        raise ValueError(f"batch * heads = {b * h} exceeds the kernel's grid (65535)")
     for name, x in (("q", q), ("k", k), ("v", v)):
         check_operand(name, x)
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_int64 * 12)(*(s for x in (q, k, v, out) for s in (
         x.stride(0), x.stride(1), x.stride(2))))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with on_device(q.device):
         err = _kernel_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-                           b, h, lq, lk, d, stream)
-    if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+                           b, h, lq, lk, d, torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch("flash_attention", err)
     flash_attention.launches += 1
     return out
 

@@ -2,15 +2,17 @@
 
 Replaces the TPU kernel ``foley_tpu/ops/pallas/fused_attention.py:82``
 (``fused_qk_attention_headfirst``, wrapper ``fused_qk_attention`` :127). The CUDA source is
-``foley_tpu_torch/csrc/fused_qk_attention.cu`` (sm_90a, bf16, head_dim 128, mma.sync tiles
-with an online softmax over 64-key tiles; its header says how the design follows from the
-card).
+``foley_tpu_torch/csrc/fused_qk_attention.cu`` (sm_90a, bf16, head_dim 128: TMA copies of Q,
+K and V into a 5-stage ring, the norm + RoPE pass on warps of its own, wgmma for both
+products, an online softmax over 64-key tiles; its header says how the design follows from
+the card), with the Hopper primitives of ``csrc/hopper.cuh``.
 
-Bound on an H100: memory. At the XXL 5 s joint call (B=2, L=290, H=12, D=128) a launch
-moves about 8 MB (q, k, v, o in bf16 and six fp32 [L, D] tables) against about 1 GFLOP,
-about 2.4 us at 3.35 TB/s; the kernel therefore reads every operand once through its
-strides, keeps the normalised Q tile in registers and never writes the normalised K, the
-logits or P to device memory.
+Bound on an H100 SXM (3.35 TB/s, at a 700 W power limit): bytes. At the XXL 5 s joint call
+(B=2, L=290, H=12, D=128) a launch must move q, k, v and o in bf16 and the per-position
+cos/sin (about 3.6 MB) against about 1 GFLOP, about 1 us; what holds it back at that size is
+the latency of each block's copy -> norm -> product chain, which the design overlaps. The
+kernel reads every operand once through its strides and never writes the normalised q and
+k, the logits or P to device memory.
 
 ``fused_qk_attention`` launches the kernel for CUDA tensors and takes
 ``fused_qk_attention_plain`` only for CPU tensors. ``fused_qk_attention.launches`` counts
@@ -19,6 +21,7 @@ kernel launches (the plain path does not count).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -52,7 +55,9 @@ def fused_qk_attention_plain(q, k, v, wq, wk, cos_q, sin_q, cos_k, sin_k, eps=1e
 
 
 def check_operand(name: str, x: torch.Tensor) -> None:
-    """The kernels' precondition on a [B, L, H, D] operand: bf16 rows of 16 bytes."""
+    """The kernels' precondition on a [B, L, H, D] operand, which they read as a TMA tensor
+    map: bf16, a unit stride on D, other strides multiples of 16 bytes, a 16-byte aligned
+    pointer."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the CUDA kernel takes bf16, got {x.dtype}")
     if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) or x.data_ptr() % 16:
@@ -61,7 +66,32 @@ def check_operand(name: str, x: torch.Tensor) -> None:
                          f"strides {x.stride()}")
 
 
+def on_device(dev: torch.device):
+    """A context in which ``dev`` is the current CUDA device (the C entries launch on the
+    current device): no context at all when it already is, which the 2,700 launches of a
+    request save the cost of."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def check_launch(kernel: str, err: int) -> None:
+    """Raises on a failed launch: -1 is an operand the driver cannot describe as a tensor
+    map, -2 a driver without the tensor-map encoder, anything else a cudaError."""
+    if err == -1:
+        raise ValueError(f"{kernel}: the driver cannot describe an operand's strides as a TMA "
+                         f"tensor map")
+    if err:
+        raise RuntimeError(f"{kernel} kernel launch failed: "
+                           f"{'no cuTensorMapEncodeTiled' if err == -2 else f'cudaError {err}'}")
+
+
 def _table(t: torch.Tensor, length: int, device: torch.device) -> torch.Tensor:
+    """``t`` as the kernel reads it: fp32 [length, D], contiguous, 16-byte aligned. The
+    denoiser's tables already are, and pass through untouched."""
+    if (t.dtype == torch.float32 and t.shape == (length, HEAD_DIM) and t.is_contiguous()
+            and t.device == device and t.data_ptr() % 16 == 0):
+        return t
     t = t.to(device=device, dtype=torch.float32).expand(length, HEAD_DIM).contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -104,14 +134,13 @@ def _launch(q, k, v, wq, wk, cos_q, sin_q, cos_k, sin_k, eps):
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=dev)
     strides = (ctypes.c_int64 * 12)(*(s for x in (q, k, v, out) for s in (
         x.stride(0), x.stride(1), x.stride(2))))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with on_device(dev):
         err = _kernel_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             tq[0].data_ptr(), tk[0].data_ptr(), tq[1].data_ptr(), tq[2].data_ptr(),
-            tk[1].data_ptr(), tk[2].data_ptr(), strides, b, h, lq, lk, float(eps), stream)
-    if err:
-        raise RuntimeError(f"fused_qk_attention kernel launch failed: cudaError {err}")
+            tk[1].data_ptr(), tk[2].data_ptr(), strides, b, h, lq, lk, float(eps),
+            torch.cuda.current_stream(dev).cuda_stream)
+    check_launch("fused_qk_attention", err)
     fused_qk_attention.launches += 1
     return out
 

@@ -37,21 +37,53 @@ def dev():
     return torch.device("cuda")
 
 
-def _operands(dev, b, lq, lk, h, d=128, seed=0):
+def _operands(dev, b, lq, lk, h, d=128, seed=0, split=None):
+    """q, k, v and the tables. ``split`` None: per-position random norm weights; an int: the
+    joint blocks' [v_cond; audio] weights, one [D] row for the first ``split`` positions and
+    another for the rest, different for q and k."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(b, lq, h, d, device=dev, generator=gen).to(torch.bfloat16)
     k, v = (torch.randn(b, lk, h, d, device=dev, generator=gen).to(torch.bfloat16)
             for _ in range(2))
-    wq = torch.empty(lq, d, device=dev).uniform_(0.5, 1.5, generator=gen)
-    wk = torch.empty(lk, d, device=dev).uniform_(0.5, 1.5, generator=gen)
+
+    def weights(length):
+        if split is None:
+            return torch.empty(length, d, device=dev).uniform_(0.5, 1.5, generator=gen)
+        rows = [torch.empty(d, device=dev).uniform_(0.5, 1.5, generator=gen).expand(n, d)
+                for n in (min(split, length), max(length - split, 0))]
+        return torch.cat(rows).contiguous()
+
+    wq, wk = weights(lq), weights(lk)
     return (q, k, v, wq, wk, *rope_table(lq, d, device=dev), *rope_table(lk, d, device=dev))
 
 
-@pytest.mark.parametrize("b,lq,lk,h", [(2, 290, 290, 12), (2, 250, 250, 12), (1, 1, 1, 2),
-                                       (1, 63, 63, 2), (1, 65, 65, 2), (2, 37, 53, 3),
-                                       (1, 65, 1, 2), (1, 1740, 1740, 2)])
-def test_kernel_matches_plain(dev, b, lq, lk, h):
-    args = _operands(dev, b, lq, lk, h)
+def _misaligned(x):
+    """``x`` copied to a view 2 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    view = buf[1:1 + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _odd_rows(x):
+    """``x`` copied to a view whose row stride is not a multiple of 16 bytes."""
+    b, length, h, d = x.shape
+    wide = torch.zeros(b, length, h * d + 4, dtype=x.dtype, device=x.device)
+    view = wide[..., :h * d].unflatten(-1, (h, d))
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("b,lq,lk,h,split", [
+    (2, 290, 290, 12, None), (2, 250, 250, 12, None), (1, 1, 1, 2, None), (1, 63, 63, 2, None),
+    (1, 65, 65, 2, None), (2, 37, 53, 3, None), (1, 65, 1, 2, None), (1, 1740, 1740, 2, None),
+    (1, 64, 64, 2, None), (1, 127, 127, 2, None), (1, 128, 128, 2, None),
+    (1, 129, 129, 2, None), (2, 290, 290, 12, 40), (2, 290, 290, 4, 37),
+    (1, 1740, 1740, 2, 240)])
+def test_kernel_matches_plain(dev, b, lq, lk, h, split):
+    """Lengths on both sides of the 64-row tiles and the 5-stage ring (320 keys); ``split``:
+    the joint blocks' two-stream weights, split at 40 and at 37 (not a multiple of 8)."""
+    args = _operands(dev, b, lq, lk, h, split=split)
     got = FA.fused_qk_attention(*args)
     ref = FA.fused_qk_attention_plain(*args)
     torch.cuda.synchronize()
@@ -85,6 +117,11 @@ def test_cuda_tensor_never_reaches_plain(dev, monkeypatch):
     with pytest.raises(ValueError):  # so does a head_dim other than 128
         FA.fused_qk_attention(q[..., :64], k[..., :64], v[..., :64],
                               *(t[:, :64] for t in tabs))
+    for bad in (_misaligned, _odd_rows):  # and what a TMA tensor map cannot describe
+        with pytest.raises(ValueError):
+            FA.fused_qk_attention(bad(q), k, v, *tabs)
+        with pytest.raises(ValueError):
+            FA.fused_qk_attention(q, k, bad(v), *tabs)
     assert FA.fused_qk_attention.launches == before + 1
 
 
@@ -120,7 +157,11 @@ def _qkv(dev, b, lq, lk, h, d, seed=0):
 @pytest.mark.parametrize("b,lq,lk,h,d", [(4, 1024, 1024, 12, 64), (1, 1, 1, 2, 64),
                                          (1, 63, 63, 2, 64), (1, 65, 65, 2, 64),
                                          (1, 250, 77, 2, 128), (2, 37, 53, 3, 64),
-                                         (1, 65, 1, 2, 128), (2, 290, 290, 12, 128)])
+                                         (1, 65, 1, 2, 128), (2, 290, 290, 12, 128),
+                                         (2, 1024, 1024, 4, 128), (1, 1, 1, 2, 128),
+                                         (1, 63, 63, 2, 128), (1, 65, 65, 2, 128),
+                                         (1, 250, 77, 2, 64), (1, 65, 1, 2, 64),
+                                         (1, 129, 300, 2, 64)])
 def test_flash_kernel_matches_plain(dev, b, lq, lk, h, d):
     q, k, v = _qkv(dev, b, lq, lk, h, d)
     got = FL.flash_attention(q, k, v)
@@ -154,6 +195,11 @@ def test_flash_cuda_tensor_never_reaches_plain(dev, monkeypatch):
             FL.flash_attention(q.to(dtype), k.to(dtype), v.to(dtype))
     with pytest.raises(ValueError):  # so does a head_dim other than 64 or 128
         FL.flash_attention(q[..., :32], k[..., :32], v[..., :32])
+    for bad in (_misaligned, _odd_rows):  # and what a TMA tensor map cannot describe
+        with pytest.raises(ValueError):
+            FL.flash_attention(bad(q), k, v)
+        with pytest.raises(ValueError):
+            FL.flash_attention(q, bad(k), v)
     assert FL.flash_attention.launches == before + 1
 
 

@@ -18,7 +18,7 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
 - ``probe_gemm``: K3's path, the GEMM sweep probe (``foley_tpu_torch.tools.probe_gemm``) at
   its full shape, 36 blocks of x [784, 1536] @ W_b[:, :1536] of [1536, 4608]: its record
   (each variant's time a sweep, eager and replayed from a CUDA graph, and rates, the
-  kernel's error, the floors) and K3's launches;
+  kernel's error, the floors) and K3's launches, one a sweep;
 - ``forward``: one XXL denoiser forward at the 5 s shapes through the kernel, against the
   same forward through the plain attention;
 - ``main_path``: XXL text-to-audio, 5 s, 50 Euler steps, CFG 4.5, batch 1, bf16 denoiser,
@@ -83,8 +83,8 @@ def check(cond: bool, msg: str) -> None:
 def timed_ms(torch, fn, iters: int):
     """(device ms, host ms) per call of ``fn``: CUDA events around ``iters`` calls queued
     behind a GPU spin, and the host clock around the same loop
-    (``foley_tpu_torch.tools.bench_attention.timed``)."""
-    from foley_tpu_torch.tools.bench_attention import timed
+    (``foley_tpu_torch.tools.bench_kernels.timed``)."""
+    from foley_tpu_torch.tools.bench_kernels import timed
 
     return timed(torch, fn, iters)
 
@@ -226,10 +226,13 @@ def flash_kernel_phase(torch, dev):
 
 
 def gemm_kernel_phase(torch, dev):
-    """K3 against its plain version at the probe's full shape, ragged M, a K that is not a
-    multiple of 128 and weights passed as a strided view: the chain's max abs error, each
-    block's relative L2 error on the plain version's activations, and the chain's relative
-    L2 error beside the plain chain's own drift from fp64 sums. Returns {case: result}."""
+    """K3 against its plain version at the probe's full shape, ragged M, M 4096 (every block
+    walks several tiles), a K that is not a multiple of 128 and weights passed as a strided
+    view: the chain's max abs error, each block's relative L2 error on the plain version's
+    activations, and the chain's relative L2 error beside the plain chain's own drift from
+    fp64 sums. Then repeated sweeps at the probe's shape, ten back to back and twenty
+    replays of a captured sweep, each equal to the first bit for bit (the flags that carry
+    the chain are reset before every sweep and race with nothing). Returns {case: result}."""
     from foley_tpu_torch.ops.kernels import gemm_sweep as GS
     from foley_tpu_torch.tools import probe_gemm as PG
 
@@ -239,7 +242,8 @@ def gemm_kernel_phase(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(4)
     cases = {"probe_full": (PG.M, PG.K, PG.N, PG.BLOCKS, False),
              "ragged_1": (1, PG.K, PG.N, 2, False), "ragged_65": (65, PG.K, PG.N, 2, False),
-             "k_192": (PG.M, 192, 576, 3, False), "strided_w": (PG.M, PG.K, PG.N, 4, True)}
+             "k_192": (PG.M, 192, 576, 3, False), "strided_w": (PG.M, PG.K, PG.N, 4, True),
+             "m_4096": (4096, PG.K, PG.N, 3, False)}
     results = {}
     for name, (m, k, n, blocks, strided) in cases.items():
         x = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
@@ -280,7 +284,36 @@ def gemm_kernel_phase(torch, dev):
         emit(res)
         results[name] = res
         del x, w, wk, got, ref, xb, nxt
+    emit(repeat_sweeps(torch, dev))
     return results
+
+
+def repeat_sweeps(torch, dev) -> dict:
+    """Ten eager sweeps back to back and twenty replays of a captured one, at the probe's
+    shape, each compared with the first eager sweep bit for bit."""
+    from foley_tpu_torch.ops.kernels import gemm_sweep as GS
+    from foley_tpu_torch.tools import probe_gemm as PG
+
+    x, w = PG.make_inputs(dev, seed=1)
+    first = GS.gemm_sweep(x, w)
+    eager = [torch.equal(GS.gemm_sweep(x, w), first) for _ in range(10)]
+    check(all(eager), f"K3: repeated sweeps differ from the first ({eager})")
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):  # warm up off the capture, as torch.cuda.graph asks
+        GS.gemm_sweep(x, w)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = GS.gemm_sweep(x, w)
+    replays = []
+    for _ in range(20):
+        out.zero_()
+        graph.replay()
+        replays.append(torch.equal(out, first))
+    check(all(replays), f"K3: graph replays differ from the eager sweep ({replays})")
+    return {"phase": "kernel", "kernel": "gemm_sweep", "case": "repeat_bit_for_bit",
+            "eager_sweeps": len(eager), "graph_replays": len(replays), "identical": True}
 
 
 def probe_gemm_phase(torch, dev) -> dict:
@@ -293,11 +326,10 @@ def probe_gemm_phase(torch, dev) -> dict:
     GS.gemm_sweep.launches = 0
     rec = PG.measure(dev)
     launches = GS.gemm_sweep.launches
-    check(rec["launches_per_sweep"] == PG.BLOCKS,
-          f"gemm_sweep launches a sweep {rec['launches_per_sweep']}, expected {PG.BLOCKS}")
-    check(launches == PG.BLOCKS * rec["kernel_sweeps"],
-          f"gemm_sweep launches over the probe {launches}, expected "
-          f"{PG.BLOCKS * rec['kernel_sweeps']}")
+    check(rec["launches_per_sweep"] == 1,
+          f"gemm_sweep launches a sweep {rec['launches_per_sweep']}, expected 1")
+    check(launches == rec["kernel_sweeps"],
+          f"gemm_sweep launches over the probe {launches}, expected {rec['kernel_sweeps']}")
     chain_tol = max(KERNEL_REL_TOL, CHAIN_DRIFT * rec["plain_fp64_rel_l2"])
     check(rec["max_abs_err"] <= KERNEL_TOL and rec["rel_l2_err"] <= chain_tol,
           f"probe: kernel against plain {rec['max_abs_err']} max abs, {rec['rel_l2_err']} rel L2 "

@@ -29,8 +29,7 @@ from typing import Optional
 import torch
 
 from foley_tpu_torch.ops.attention import sdpa
-from foley_tpu_torch.ops.kernels.fused_attention import (check_launch, check_operand,
-                                                       on_device)
+from foley_tpu_torch.ops.kernels.common import check_launch, check_operand, on_device
 
 HEAD_DIMS = (64, 128)
 

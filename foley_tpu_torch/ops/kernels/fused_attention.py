@@ -21,11 +21,11 @@ kernel launches (the plain path does not count).
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import torch
 
+from foley_tpu_torch.ops.kernels.common import check_launch, check_operand, on_device
 from foley_tpu_torch.ops.rope import _rotate_half
 
 HEAD_DIM = 128
@@ -52,38 +52,6 @@ def fused_qk_attention_plain(q, k, v, wq, wk, cos_q, sin_q, cos_k, sin_k, eps=1e
     p = torch.exp(logits - logits.amax(-1, keepdim=True))
     p = (p / p.sum(-1, keepdim=True)).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float()).to(q.dtype)
-
-
-def check_operand(name: str, x: torch.Tensor) -> None:
-    """The kernels' precondition on a [B, L, H, D] operand, which they read as a TMA tensor
-    map: bf16, a unit stride on D, other strides multiples of 16 bytes, a 16-byte aligned
-    pointer."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the CUDA kernel takes bf16, got {x.dtype}")
-    if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) or x.data_ptr() % 16:
-        raise ValueError(f"{name}: the kernel reads 16-byte rows; it needs a unit stride on D, "
-                         f"strides that are multiples of 8 and a 16-byte aligned pointer, got "
-                         f"strides {x.stride()}")
-
-
-def on_device(dev: torch.device):
-    """A context in which ``dev`` is the current CUDA device (the C entries launch on the
-    current device): no context at all when it already is, which the 2,700 launches of a
-    request save the cost of."""
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(dev)
-
-
-def check_launch(kernel: str, err: int) -> None:
-    """Raises on a failed launch: -1 is an operand the driver cannot describe as a tensor
-    map, -2 a driver without the tensor-map encoder, anything else a cudaError."""
-    if err == -1:
-        raise ValueError(f"{kernel}: the driver cannot describe an operand's strides as a TMA "
-                         f"tensor map")
-    if err:
-        raise RuntimeError(f"{kernel} kernel launch failed: "
-                           f"{'no cuTensorMapEncodeTiled' if err == -2 else f'cudaError {err}'}")
 
 
 def _table(t: torch.Tensor, length: int, device: torch.device) -> torch.Tensor:

@@ -1,16 +1,23 @@
-"""Time the port's two attention kernels, K1 (``fused_qk_attention``) and K2
-(``flash_attention``), at the shapes their paths give them, on one CUDA card.
+"""Time the port's kernels at the shapes their paths give them, on one CUDA card: K1
+(``fused_qk_attention``), K2 (``flash_attention``) and K3 (``gemm_sweep``, the GEMM sweep
+probe's kernel).
 
-Run from the repository root: ``python3 foley_tpu_torch/tools/bench_attention.py``. With
+Run from the repository root: ``python3 foley_tpu_torch/tools/bench_kernels.py``. With
 ``--root DIR`` it imports ``foley_tpu_torch`` from another checkout instead (for example an
 older commit unpacked with ``git archive`` under ``build/``), so that two versions of the
 kernels are timed on one card in one call; the wrappers' interface is the same in both.
+``--kernels k3`` times only K3 (a comma-separated list of ``k1``, ``k2``, ``k3``).
 
-It prints the card (``nvidia-smi`` name and power limit), then one JSON line per case: the
-kernel's device time a launch (CUDA events around a queue of launches held behind a GPU
-spin, so the host's launch cost stays hidden), the wrapper's host time a launch (the same
-loop on the host clock), the one PyTorch call of the same function (``library_ms``), and the
-kernel's largest error against its plain version. It exits non-zero without a card.
+It prints the card (``nvidia-smi`` name and power limit), then one JSON line per case.
+K1 and K2: the kernel's device time a launch (CUDA events around a queue of launches held
+behind a GPU spin, so the host's launch cost stays hidden), the wrapper's host time a launch
+(the same loop on the host clock), the one PyTorch call of the same function
+(``library_ms``), and the kernel's largest error against its plain version. K3, at the
+probe's shape (that tree's ``tools/probe_gemm.py``: its inputs, timers and library sweep):
+the sweep's device time from CUDA-graph replays and eager, the wrapper's host time a sweep,
+the library sweep's graph time, the error against the plain version, and the sweep cut to
+``K3_BLOCKS`` weight blocks, whose slope against the intercept separates a block's work from
+the fixed cost a launch or a sweep. It exits non-zero without a card.
 """
 
 import argparse
@@ -28,6 +35,10 @@ K1_CASES = {"joint_5s": (2, 290, 12, 40), "single_5s": (2, 250, 12, 0), "l64": (
             "l128": (2, 128, 12, 0), "joint_30s": (2, 1740, 12, 240)}
 # K2: (batch, lq, lk, heads, head_dim)
 K2_CASES = {"siglip2_5s": (40, 1024, 1024, 12, 64), "cross_1024x77": (2, 1024, 77, 12, 128)}
+# K3: the probe's shape (M, K, N, BLOCKS of tools/probe_gemm.py), and the cut sweeps
+K3_SHAPE = (784, 1536, 4608, 36)
+K3_BLOCKS = (1, 2, 4, 9, 36)
+K3_ITERS = 50  # timed sweeps a case
 
 
 def timed(torch, fn, iters: int):
@@ -102,17 +113,48 @@ def k2_cases(torch, dev, iters: int):
                "max_abs_err": err}
 
 
+def k3_cases(torch, dev, iters: int):
+    from foley_tpu_torch.ops.kernels import gemm_sweep as GS
+    from foley_tpu_torch.tools import probe_gemm as PG
+
+    shape = (PG.M, PG.K, PG.N, PG.BLOCKS)
+    if shape != K3_SHAPE:
+        raise RuntimeError(f"the probe's shape is {shape}, the bench's {K3_SHAPE}")
+    x, w = PG.make_inputs(dev)
+    err = float((GS.gemm_sweep(x, w).float() - GS.gemm_sweep_plain(x, w).float()).abs().max())
+
+    def sweep(blocks):
+        wb = w[:blocks]
+        return lambda: GS.gemm_sweep(x, wb)
+
+    before = GS.gemm_sweep.launches
+    GS.gemm_sweep(x, w)
+    launches = GS.gemm_sweep.launches - before
+    ms, host_ms = timed(torch, sweep(PG.BLOCKS), iters)
+    yield {"kernel": "gemm_sweep", "case": "probe_full", "m": PG.M, "k": PG.K, "n": PG.N,
+           "blocks": PG.BLOCKS, "launches_per_sweep": launches,
+           "graph_ms": PG.graph_ms(sweep(PG.BLOCKS), iters, dev), "kernel_ms": ms,
+           "host_ms": host_ms,
+           "library_graph_ms": PG.graph_ms(lambda: PG.library_sweep(x, w), iters, dev),
+           "max_abs_err": err}
+    for blocks in K3_BLOCKS:
+        yield {"kernel": "gemm_sweep", "case": f"blocks_{blocks}", "blocks": blocks,
+               "graph_ms": PG.graph_ms(sweep(blocks), iters, dev),
+               "kernel_ms": timed(torch, sweep(blocks), iters)[0]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                     help="checkout whose foley_tpu_torch is timed (default: this one)")
+    ap.add_argument("--kernels", default="k1,k2,k3", help="which kernels: k1, k2, k3")
     args = ap.parse_args(argv)
     root = str(Path(args.root).resolve())
     sys.path.insert(0, root)
     import torch
 
     if not torch.cuda.is_available():
-        print("bench_attention: no CUDA device", file=sys.stderr)
+        print("bench_kernels: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -123,9 +165,13 @@ def main(argv=None) -> int:
     check = Path(foley_tpu_torch.__file__).resolve().parents[1]
     if str(check) != root:
         raise RuntimeError(f"imported foley_tpu_torch from {check}, not from {root}")
-    for rec in [*k1_cases(torch, dev, ITERS), *k2_cases(torch, dev, ITERS // 4)]:
-        rec["root"] = root
-        print(json.dumps(rec), flush=True)
+    cases = {"k1": lambda: k1_cases(torch, dev, ITERS),
+             "k2": lambda: k2_cases(torch, dev, ITERS // 4),
+             "k3": lambda: k3_cases(torch, dev, K3_ITERS)}
+    for name in args.kernels.split(","):
+        for rec in cases[name]():
+            rec["root"] = root
+            print(json.dumps(rec), flush=True)
     return 0
 
 

@@ -251,12 +251,43 @@ def _assert_sweep_close(x, w, got, wk=None):
 
 @pytest.mark.parametrize("m,k,n,blocks", [(784, 1536, 4608, 36), (1, 1536, 4608, 2),
                                           (65, 1536, 4608, 2), (192, 192, 576, 3),
-                                          (40, 64, 192, 3), (130, 64, 64, 1), (300, 128, 136, 4)])
+                                          (40, 64, 192, 3), (130, 64, 64, 1), (300, 128, 136, 4),
+                                          (4096, 1536, 1536, 3), (784, 1536, 4608, 1)]
+                         + [(m, k, 2 * k, 3) for m in (784, 1) for k in (64, 128, 192, 256, 320)])
 def test_gemm_sweep_matches_plain(dev, m, k, n, blocks):
+    """M 4096: every block walks several tiles (64 x 8 tiles of 64 x 192 over 132 SMs). K 64
+    to 320 at the probe's M and at one row: the last column tile 64, 128 or 192 columns wide,
+    and a cluster's second column tile past K (K 64, 128, 192)."""
     x, w = _sweep_inputs(dev, m, k, n, blocks)
     got = GS.gemm_sweep(x, w)
     torch.cuda.synchronize()
     _assert_sweep_close(x, w, got)
+
+
+def test_gemm_sweep_repeats_bit_for_bit(dev):
+    """Ten sweeps back to back on one stream, and twenty replays of a captured sweep, all
+    equal to the first eager sweep bit for bit: the flags are reset before every sweep and
+    carry the chain without a race."""
+    x, w = _sweep_inputs(dev, 784, 1536, 4608, 36, seed=6)
+    first = GS.gemm_sweep(x, w)
+    outs = [GS.gemm_sweep(x, w) for _ in range(10)]
+    assert all(torch.equal(o, first) for o in outs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as torch.cuda.graph asks
+        GS.gemm_sweep(x, w)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = GS.gemm_sweep.launches
+    with torch.cuda.graph(graph):
+        out = GS.gemm_sweep(x, w)
+    assert GS.gemm_sweep.launches == before + 1
+    for _ in range(20):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+    _assert_sweep_close(x, w, first)
 
 
 def test_gemm_sweep_reads_strided_views(dev):
@@ -280,13 +311,13 @@ def test_gemm_sweep_cuda_tensor_never_reaches_plain(dev, monkeypatch):
     monkeypatch.setattr(torch.Tensor, "__matmul__", refuse)
     before = GS.gemm_sweep.launches
     got = GS.gemm_sweep(x, w)
-    assert GS.gemm_sweep.launches == before + 5  # one launch per weight block
+    assert GS.gemm_sweep.launches == before + 1  # one launch a sweep
     for dtype in (torch.float32, torch.float16):  # the card takes bf16 only; no fallback
         with pytest.raises(TypeError):
             GS.gemm_sweep(x.to(dtype), w.to(dtype))
     with pytest.raises(ValueError):  # so does a K that is not a multiple of the k-step
         GS.gemm_sweep(x[:, :48], w[:, :48, :48])
-    assert GS.gemm_sweep.launches == before + 5
+    assert GS.gemm_sweep.launches == before + 1
     monkeypatch.undo()
     _assert_sweep_close(x, w, got)
 
@@ -296,7 +327,7 @@ def test_probe_measures_on_the_card(dev, monkeypatch):
         monkeypatch.setattr(probe_gemm, name, value)
     rec = probe_gemm.measure(dev)
     assert rec["device"] == torch.cuda.get_device_name(dev)
-    assert rec["launches_per_sweep"] == 4
+    assert rec["launches_per_sweep"] == 1
     assert rec["max_abs_err"] <= 2e-2
     assert rec["rel_l2_err"] <= max(1e-2, 2 * rec["plain_fp64_rel_l2"])
     for v in ("kernel", "library_sweep", "library_sweep_full", "plain"):

@@ -23,7 +23,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from foley_tpu_torch.ops.kernels import gemm_sweep as GS
-from foley_tpu_torch.tools import probe_gemm
+from foley_tpu_torch.tools import bench_kernels, probe_gemm
 
 ROOT = Path(__file__).resolve().parents[1]
 MAX_ABS, REL_L2 = 2e-2, 1e-2
@@ -170,6 +170,7 @@ def test_shapes_the_sweep_does_not_take_raise(x_shape, w_shape):
 @pytest.mark.parametrize("case,error", [
     ("fp32", TypeError), ("fp16", TypeError), ("k_48", ValueError), ("w_transposed", ValueError),
     ("x_row_stride_68", ValueError), ("x_pointer_2_bytes_off", ValueError),
+    ("m_0", ValueError), ("blocks_0", ValueError),
 ])
 def test_kernel_preconditions_raise_before_any_launch(case, error):
     """What the CUDA kernel does not take raises in the wrapper, before the library is built
@@ -185,6 +186,10 @@ def test_kernel_preconditions_raise_before_any_launch(case, error):
         w = torch.zeros(2, 128, 64, dtype=torch.bfloat16).transpose(1, 2)
     elif case == "x_row_stride_68":
         x = torch.zeros(4, 68, dtype=torch.bfloat16)[:, :64]
+    elif case == "m_0":
+        x = x[:0]
+    elif case == "blocks_0":
+        w = w[:0]
     else:
         x = torch.zeros(4 * 64 + 1, dtype=torch.bfloat16)[1:].view(4, 64)
     before = GS.gemm_sweep.launches
@@ -200,6 +205,14 @@ def test_constants_match_the_tool():
     spec.loader.exec_module(tool)  # its top level imports json, sys, time and numpy only
     assert (probe_gemm.M, probe_gemm.K, probe_gemm.N, probe_gemm.BLOCKS) == (
         tool.M, tool.K, tool.N, tool.BLOCKS)
+
+
+def test_bench_times_k3_at_the_probe_shape():
+    """The kernels' bench times K3 at the probe's shape, the full sweep last of its cuts."""
+    assert bench_kernels.K3_SHAPE == (probe_gemm.M, probe_gemm.K, probe_gemm.N,
+                                      probe_gemm.BLOCKS)
+    assert bench_kernels.K3_BLOCKS[-1] == probe_gemm.BLOCKS
+    assert list(bench_kernels.K3_BLOCKS) == sorted(set(bench_kernels.K3_BLOCKS))
 
 
 @pytest.fixture

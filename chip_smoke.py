@@ -9,8 +9,11 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   its own), torch and CUDA versions;
 - ``build``: the three kernel libraries, built in parallel: seconds per library and what
   ptxas reported;
-- ``kernel``: one line per kernel and shape: the fused qk-norm + RoPE attention kernel (K1),
-  the flash-attention kernel (K2) and the chained GEMM sweep (K3) against their plain
+- ``kernel``: one line per kernel and shape: the fused qk-norm + RoPE attention kernel (K1,
+  at every shape a path below gives it: the 5 s request's, the 30 s long-form window's, the
+  14 s continuation window's and the 16 s V2A window's, and ragged lengths), the
+  flash-attention kernel (K2, at SigLIP2's 5 s and 24 s batches of frames among others) and
+  the chained GEMM sweep (K3) against their plain
   PyTorch versions in bf16 (max abs and relative L2 errors and their tolerances), with the
   kernel's device time (and, for K1 and K2, the wrapper's host time a launch), the plain
   version's and the library call's times and the card's bound for the work (K3's also with
@@ -33,9 +36,21 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   in bf16, on the ``main_path`` denoiser: a warm-up and two requests, each
   ``encode_video`` then ``generate_audio``, with both kernels' launches per request, the
   encode time per encoder and the request's wall;
+- ``clap``: the CLAP text tower at laion/larger_clap_general's geometry in fp32, a prompt
+  and a negative prompt through ``features.encode_text`` (a seeded stand-in tokenizer: the
+  tokenizer's files are not in the repository), held against the CPU with the default and
+  with ``"high"`` fp32 matmul precision; its features condition every request below;
+- ``longform_path``: XXL long-form on the ``main_path`` denoiser: a 75 s text-to-audio
+  request in 30 s windows overlapping 5 s, batch (``generate_audio_long``) and streamed
+  (``generate_audio_long_stream``, time to the first chunk, the chunks against the batch
+  audio), 10 s continuing its last 4 s (``continue_audio``), an SDEdit of its first 5 s
+  (``edit_audio``, strength 0.6), 24 s of video-to-audio from a 640x360 clip in 16 s
+  windows (``encode_video`` then ``generate_audio_long``), with K1's and K2's launches, and
+  one 30 s window profiled as in ``profile`` (K1's share of the busy time);
 - ``{"kernels": [...]}``: every ported kernel with its launches on its path (K1 in
-  ``main_path``, K2 in ``v2a_path``, K3 in one sweep of ``probe_gemm``; K3's times are the
-  probe's graph-replayed device times);
+  ``main_path`` and, as ``launches_longform``, in the 75 s request; K2 in ``v2a_path`` and,
+  as ``launches_longform``, in the 24 s V2A request; K3 in one sweep of ``probe_gemm``;
+  K3's times are the probe's graph-replayed device times);
 - last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the run exits non-zero. Without a CUDA card, or outside the
@@ -69,6 +84,15 @@ LATENT_STD = (0.1, 100.0)  # plausible std of the final latents (the initial noi
 MOVED_REL = 0.1            # least relative L2 distance of the final latents from the noise
 KERNEL_LIBS = ("fused_qk_attention", "flash_attention", "gemm_sweep")
 CLIP_FPS, CLIP_HW = 25, (720, 1280)  # the V2A source clip: 5 s of 25 fps 1280x720 RGB
+CLAP_REL_TOL = 1e-5        # CLAP fp32 on the card against the CPU, relative L2 (fp32 reads
+                           # ~7e-7; the phase's control, TF32 let in, ~4e-4 and must break it)
+PROMPT = "a glass bottle shatters on a stone floor while heavy rain drums on a tin roof"  # 77
+NEGATIVE_PROMPT = "noisy, harsh"
+LONG_S, LONG_WINDOW_S, LONG_OVERLAP_S = 75.0, 30.0, 5.0  # past the sampler node's 60 s cap
+CONTINUE_S, CONTEXT_S = 10.0, 4.0
+EDIT_STRENGTH = 0.6
+V2A_LONG_S, V2A_LONG_HW = 24.0, (360, 640)  # 24 s of 25 fps 640x360 RGB
+STREAM_TOL = 1.5 / 32767   # stream against batch: the same decodes, at most a PCM step apart
 
 
 def emit(obj) -> None:
@@ -102,7 +126,9 @@ def kernel_bound(n_bytes: int, flops: int) -> dict:
 
 def kernel_phase(torch, dev, cfg):
     """K1 against its plain version at the main path's two shapes, ragged lengths on both
-    sides of its 64-row tiles and a long-form joint shape. Returns {case: result}.
+    sides of its 64-row tiles and the long-form path's windows: 30 s (joint L 1740, single
+    L 1500), the 14 s continuation window (joint L 812, single L 700) and the 16 s V2A
+    window (joint L 928, single L 800). Returns {case: result}.
 
     K1's bound counts what the function must move: q, k and v read and o written in bf16,
     the per-position fp32 cos/sin tables read once (one pair, shared by q and k, as the
@@ -138,7 +164,10 @@ def kernel_phase(torch, dev, cfg):
     cases = {"joint_5s": joint_case(250, 40), "single_5s": single_case(250),
              "ragged_1": single_case(1), "ragged_63": single_case(63),
              "ragged_64": single_case(64), "ragged_65": single_case(65),
-             "ragged_128": single_case(128), "joint_30s": joint_case(1500, 240)}
+             "ragged_128": single_case(128), "joint_30s": joint_case(1500, 240),
+             "single_30s": single_case(1500), "joint_cont": joint_case(700, 112),
+             "single_cont": single_case(700), "joint_v2a16": joint_case(800, 128),
+             "single_v2a16": single_case(800)}
     results = {}
     for name, (length, streams, (wq, wk, cq, sq, ck, sk)) in cases.items():
         q, k, v = (torch.randn(b, length, h, d, device=dev, generator=gen).to(torch.bfloat16)
@@ -181,12 +210,15 @@ def kernel_phase(torch, dev, cfg):
 
 
 def flash_kernel_phase(torch, dev):
-    """K2 against its plain version at SigLIP2's 5 s shape (40 frames of 1024 tokens, 12
-    heads of 64), ragged self-attention and Lq != Lk. Returns {case: result}."""
+    """K2 against its plain version at SigLIP2's shapes on the two V2A paths (all the
+    frames of a clip in one launch: 40 frames of 1024 tokens for 5 s, 192 for the long-form
+    path's 24 s; 12 heads of 64), ragged self-attention and Lq != Lk. Returns
+    {case: result}."""
     from foley_tpu_torch.ops.kernels import flash_attention as FL
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    cases = {"siglip2_5s": (40, 1024, 1024, 12, 64), "ragged_1": (2, 1, 1, 12, 64),
+    cases = {"siglip2_5s": (40, 1024, 1024, 12, 64), "siglip2_24s": (192, 1024, 1024, 12, 64),
+             "ragged_1": (2, 1, 1, 12, 64),
              "ragged_63": (2, 63, 63, 12, 64), "ragged_65": (2, 65, 65, 12, 64),
              "cross_250x77": (2, 250, 77, 12, 128), "cross_1024x77": (2, 1024, 77, 12, 128),
              "cross_1024x77_d64": (2, 1024, 77, 12, 64)}
@@ -375,11 +407,11 @@ def forward_phase(torch, dev, model, cfg, pipeline_cfg):
           "rel_l2_err": rel, "tol": FORWARD_REL_TOL})
 
 
-def check_audio(audio, rows: int, pipeline_cfg) -> float:
+def check_audio(audio, rows: int, pipeline_cfg, duration_s=DURATION_S) -> float:
     """Finite, non-silent audio of the expected shape; returns its RMS."""
     import numpy as np
 
-    n_samples = int(DURATION_S * pipeline_cfg.dac.sample_rate)
+    n_samples = int(duration_s * pipeline_cfg.dac.sample_rate)
     check(audio.shape == (rows, 1, n_samples), f"audio shape {audio.shape}")
     check(bool(np.isfinite(audio).all()), "non-finite audio")
     rms = float(np.sqrt(np.mean(audio.astype(np.float64) ** 2)))
@@ -387,15 +419,16 @@ def check_audio(audio, rows: int, pipeline_cfg) -> float:
     return rms
 
 
-def check_latents(torch, dev, latents, seed: int, pipeline_cfg):
+def check_latents(torch, dev, latents, seed: int, pipeline_cfg, duration_s=DURATION_S):
     """What the denoiser controls: the final latents are finite, of a plausible scale, and
-    far from the seed's initial noise (generate_audio's own draw). Returns (std, moved)."""
+    far from the seed's initial noise (the generation's own draw, of which the latents of
+    ``duration_s`` are the head). Returns (std, moved)."""
     import numpy as np
 
     from foley_tpu_torch.sampling.denoise import prepare_latents
 
     noise = prepare_latents(torch.Generator(device=dev).manual_seed(seed), 1,
-                            pipeline_cfg.latent_length(DURATION_S),
+                            pipeline_cfg.latent_length(duration_s),
                             pipeline_cfg.model.audio_vae_latent_dim).cpu().numpy()
     check(latents.shape == noise.shape, f"latent shape {latents.shape}")
     check(bool(np.isfinite(latents).all()), "non-finite latents")
@@ -474,22 +507,13 @@ PROFILE_GROUPS = (
 )
 
 
-def profile_phase(torch, bundle) -> None:
-    """Where a request's time goes: one request unprofiled, then one under the profiler
-    tracing the card alone (no host-side op recording, so the host runs close to its
-    unprofiled pace). Busy time is the summed kernel time of that run, and the idle share
-    is taken against the same run's wall."""
+def profiled(torch, request) -> dict:
+    """Where a request's time goes: ``request`` (which ends in a synchronize) once
+    unprofiled, then once under the profiler tracing the card alone (no host-side op
+    recording, so the host runs close to its unprofiled pace). Busy time is the summed
+    kernel time of that run, and the idle share is taken against the same run's wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from foley_tpu_torch.pipeline.generate import generate_audio
-
-    text = torch.zeros(1, 77, bundle.pipeline_cfg.model.condition_dim)
-
-    def request():
-        generate_audio(bundle, text, text, DURATION_S, guidance_scale=GUIDANCE,
-                       num_inference_steps=STEPS, sampler="euler", seed=1)
-        torch.cuda.synchronize()
 
     t0 = time.perf_counter()
     request()
@@ -512,19 +536,34 @@ def profile_phase(torch, bundle) -> None:
         g["ms"] += e.self_device_time_total / 1e3
         g["launches"] += e.count
     heaviest = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    emit({"phase": "profile", "unprofiled_wall_s": plain_wall, "wall_s": wall,
-          "device_busy_s": busy_s, "idle_share": 1.0 - busy_s / wall,
-          "launches": sum(e.count for e in kernels), "groups": groups,
-          "top": [{"name": e.key[:120], "ms": e.self_device_time_total / 1e3, "count": e.count}
-                  for e in heaviest]})
+    return {"unprofiled_wall_s": plain_wall, "wall_s": wall, "device_busy_s": busy_s,
+            "idle_share": 1.0 - busy_s / wall, "launches": sum(e.count for e in kernels),
+            "groups": groups,
+            "top": [{"name": e.key[:120], "ms": e.self_device_time_total / 1e3,
+                     "count": e.count} for e in heaviest]}
 
 
-def make_clip(np, seed: int):
-    """5 s of 25 fps 1280x720 RGB uint8 with smooth moving content: per-channel drifting
-    sinusoidal gratings and a bright disc crossing the frame, drawn from ``seed``."""
+def profile_phase(torch, bundle) -> None:
+    """One main-path request, profiled (``profiled``)."""
+    from foley_tpu_torch.pipeline.generate import generate_audio
+
+    text = torch.zeros(1, 77, bundle.pipeline_cfg.model.condition_dim)
+
+    def request():
+        generate_audio(bundle, text, text, DURATION_S, guidance_scale=GUIDANCE,
+                       num_inference_steps=STEPS, sampler="euler", seed=1)
+        torch.cuda.synchronize()
+
+    emit({"phase": "profile", **profiled(torch, request)})
+
+
+def make_clip(np, seed: int, duration_s=DURATION_S, hw=CLIP_HW):
+    """``duration_s`` of 25 fps RGB uint8 frames of ``hw`` (height, width) with smooth
+    moving content: per-channel drifting sinusoidal gratings and a bright disc crossing the
+    frame, drawn from ``seed``."""
     rng = np.random.default_rng(seed)
-    h, w = CLIP_HW
-    n = int(DURATION_S * CLIP_FPS)
+    h, w = hw
+    n = int(duration_s * CLIP_FPS)
     yy, xx = np.meshgrid(np.linspace(0, 1, h, dtype=np.float32),
                          np.linspace(0, 1, w, dtype=np.float32), indexing="ij")
     freq = rng.uniform(1.0, 4.0, (3, 2)).astype(np.float32)
@@ -534,7 +573,7 @@ def make_clip(np, seed: int):
     frames = np.empty((n, h, w, 3), np.uint8)
     for t in range(n):
         s = t / CLIP_FPS
-        cx, cy = (x0 + vx * s / DURATION_S) % 1.0, (y0 + vy * s / DURATION_S) % 1.0
+        cx, cy = (x0 + vx * s / duration_s) % 1.0, (y0 + vy * s / duration_s) % 1.0
         disc = np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / 0.01)
         for c in range(3):
             grating = np.sin(2 * np.pi * (freq[c, 0] * xx + freq[c, 1] * yy + speed[c] * s)
@@ -675,6 +714,240 @@ def v2a_path_phase(torch, dev, bundle, pipeline_cfg, t2a_latents):
     return k2_launches
 
 
+class SeededTokenizer:
+    """A stand-in for CLAP's RoBERTa tokenizer, whose files are not in the repository, with
+    its call: each prompt becomes one random token id per character (at most
+    ``max_length``), drawn from a seed made from the prompt; rows are padded to the
+    longest."""
+
+    def __init__(self, vocab_size: int, pad_token_id: int):
+        self.vocab_size, self.pad_token_id = vocab_size, pad_token_id
+
+    def __call__(self, prompts, padding, truncation, max_length, return_tensors):
+        import zlib
+
+        import numpy as np
+
+        rows = [np.random.default_rng(zlib.crc32(p.encode())).integers(
+            2, self.vocab_size, min(len(p), max_length)) for p in prompts]
+        width = max(len(r) for r in rows)
+        ids = np.full((len(rows), width), self.pad_token_id, np.int64)
+        mask = np.zeros((len(rows), width), np.int64)
+        for i, r in enumerate(rows):
+            ids[i, :len(r)], mask[i, :len(r)] = r, 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def clap_phase(torch, dev):
+    """The CLAP text tower at laion/larger_clap_general's geometry (12 layers, hidden 768,
+    12 heads, vocabulary 50265), random fp32 weights from a seed: the prompt and the
+    negative prompt, one full row of 77 tokens and one padded row, through
+    ``features.encode_text`` on the card, held against the same module on the CPU, with
+    the default fp32 matmul precision and with ``"high"`` (TF32 outside ``true_fp32``).
+    The control: the same encode with ``true_fp32`` bypassed under ``"high"`` (TF32 in
+    every matmul) must break the bound, so that the bound tells TF32 from fp32.
+    Returns (text_feat, uncond_text_feat) on the card."""
+    import contextlib
+    import copy
+
+    from foley_tpu_torch.configs import ClapTextConfig
+    from foley_tpu_torch.models import clap
+    from foley_tpu_torch.ops.nn import true_fp32 as nn_true_fp32
+    from foley_tpu_torch.pipeline.features import encode_text
+
+    cfg = ClapTextConfig()
+    cpu_model = clap.init(cfg, torch.Generator().manual_seed(5), device="cpu")
+    tokenizer = SeededTokenizer(cfg.vocab_size, cfg.pad_token_id)
+    encoders = {"clap": clap.ClapTextEncoder(copy.deepcopy(cpu_model).to(dev), tokenizer)}
+    tok = tokenizer([NEGATIVE_PROMPT, PROMPT], True, True, 77, "np")
+    check(tok["attention_mask"].shape == (2, 77) and tok["attention_mask"][1].all()
+          and not tok["attention_mask"][0].all(), "expected a padded and a full row of 77")
+    ref = clap.apply(cpu_model, *(torch.from_numpy(tok[k])
+                                  for k in ("input_ids", "attention_mask")))
+
+    def encode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text, uncond = encode_text(encoders, PROMPT, NEGATIVE_PROMPT)
+        torch.cuda.synchronize()
+        return text, uncond, time.perf_counter() - t0
+
+    def rel_l2(text, uncond):
+        got = torch.cat([uncond, text]).cpu()
+        check(bool(torch.isfinite(got).all()), "non-finite CLAP features")
+        return float((got - ref).norm() / ref.norm())
+
+    saved = torch.get_float32_matmul_precision()
+    rel, walls = {}, []
+    try:
+        for precision in ("default", "high", "default"):
+            torch.set_float32_matmul_precision(saved if precision == "default" else precision)
+            text, uncond, wall = encode()
+            walls.append(wall)
+            rel[precision] = rel_l2(text, uncond)
+            check(rel[precision] <= CLAP_REL_TOL, f"CLAP on the card ({precision} precision) "
+                  f"{rel[precision]} from the CPU, limit {CLAP_REL_TOL}")
+        torch.set_float32_matmul_precision("high")
+        clap.true_fp32 = contextlib.nullcontext  # the control: TF32 let in
+        rel["tf32"] = rel_l2(*encode()[:2])
+    finally:
+        clap.true_fp32 = nn_true_fp32
+        torch.set_float32_matmul_precision(saved)
+    check(rel["tf32"] > CLAP_REL_TOL, f"control: CLAP with TF32 reads {rel['tf32']} from the "
+                                      f"CPU, within the limit {CLAP_REL_TOL}: the bound cannot "
+                                      "tell TF32 from fp32")
+    check(tuple(text.shape) == (1, 77, cfg.hidden_size), f"text features {tuple(text.shape)}")
+    emit({"phase": "clap", "config": "larger_clap_general", "rows": 2, "tokens": 77,
+          "padded_row_tokens": int(tok["attention_mask"][0].sum()), "default_precision": saved,
+          "rel_l2_vs_cpu": rel["default"], "rel_l2_vs_cpu_high": rel["high"],
+          "control_tf32_rel_l2_vs_cpu": rel["tf32"], "rel_tol": CLAP_REL_TOL, "encode_walls_s": walls,
+          "feat_std": float(text.std())})
+    return text, uncond
+
+
+def longform_path_phase(torch, dev, bundle, pipeline_cfg, text, uncond):
+    """XXL long-form on the main path's denoiser, with CLAP's text features: a 75 s T2A
+    request in 30 s windows overlapping 5 s (the sampler node's long-form route past its
+    60 s cap) batch and streamed, a continuation of it, an SDEdit of its first 5 s, a 24 s
+    V2A request in 16 s windows, and one 30 s window profiled. Returns K1's launches in the
+    75 s request and K2's in the V2A request."""
+    import numpy as np
+
+    from foley_tpu_torch.models import siglip2, synchformer
+    from foley_tpu_torch.core.params import perturb_zero_leaves
+    from foley_tpu_torch.ops.kernels import flash_attention as FL
+    from foley_tpu_torch.ops.kernels import fused_attention as FA
+    from foley_tpu_torch.pipeline.edit import edit_audio
+    from foley_tpu_torch.pipeline.features import encode_video
+    from foley_tpu_torch.pipeline.longform import (
+        continue_audio,
+        generate_audio_long,
+        generate_audio_long_stream,
+        plan_v2a_long,
+        window_schedule,
+    )
+
+    cfg = pipeline_cfg.model
+    sr = pipeline_cfg.dac.sample_rate
+    per_step = cfg.depth_triple_blocks + cfg.depth_single_blocks
+    kw = dict(guidance_scale=GUIDANCE, num_inference_steps=STEPS, sampler="euler")
+    long_kw = dict(window_s=LONG_WINDOW_S, overlap_s=LONG_OVERLAP_S, **kw)
+    sched = window_schedule(*(pipeline_cfg.latent_length(t)
+                              for t in (LONG_S, LONG_WINDOW_S, LONG_OVERLAP_S)))
+    check(sched == [(0, 0), (1250, 250), (2250, 500)], f"75 s schedule {sched}")
+    out = {"phase": "longform_path", "config": "xxl", "duration_s": LONG_S,
+           "window_s": LONG_WINDOW_S, "overlap_s": LONG_OVERLAP_S, "schedule": sched}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    # T2A 75 s, batch then streamed
+    FA.fused_qk_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res, out["t2a_wall_s"] = timed(lambda: generate_audio_long(
+        bundle, text, uncond, LONG_S, seed=1, return_latents=True, **long_kw))
+    long_launches = FA.fused_qk_attention.launches
+    out["t2a_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    expected = len(sched) * STEPS * per_step
+    check(long_launches == expected, f"K1 launches in the 75 s request {long_launches}, "
+                                     f"expected {expected}")
+    check(res.audio_batch.shape == (1, 1, int(LONG_S * sr)), f"audio {res.audio_batch.shape}")
+    out["t2a_rms"] = check_audio(res.audio_batch, 1, pipeline_cfg, LONG_S)
+    out["t2a_latent_std"], out["t2a_latent_moved_rel_l2"] = check_latents(
+        torch, dev, res.latents, 1, pipeline_cfg, LONG_S)
+
+    FA.fused_qk_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    chunks, first_s = [], None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ch in generate_audio_long_stream(bundle, text, uncond, LONG_S, seed=1, **long_kw):
+        chunks.append(ch)
+        if first_s is None:
+            first_s = time.perf_counter() - t0
+    out["stream_wall_s"] = time.perf_counter() - t0
+    out["stream_first_chunk_s"] = first_s
+    out["stream_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(FA.fused_qk_attention.launches == expected,
+          f"K1 launches in the stream {FA.fused_qk_attention.launches}, expected {expected}")
+    check([c.final for c in chunks] == [False] * (len(chunks) - 1) + [True],
+          "only the last chunk is final")
+    check(all(a.start_sample + a.audio.shape[-1] == b.start_sample
+              for a, b in zip(chunks, chunks[1:])), "the stream's chunks are not contiguous")
+    streamed = np.concatenate([c.audio for c in chunks], axis=-1)
+    check(streamed.shape == res.audio_batch.shape, f"streamed {streamed.shape}")
+    out["stream_chunks_s"] = [c.audio.shape[-1] / sr for c in chunks]
+    out["stream_vs_batch_max_abs"] = float(np.abs(streamed - res.audio_batch).max())
+    check(out["stream_vs_batch_max_abs"] <= STREAM_TOL,
+          f"stream against batch {out['stream_vs_batch_max_abs']} > {STREAM_TOL}")
+
+    # continuation: 10 s after the last 4 s, one window of 700 frames with 200 known
+    FA.fused_qk_attention.launches = 0
+    cont, out["continue_wall_s"] = timed(lambda: continue_audio(
+        bundle, res.audio_batch[0, 0], text, uncond, CONTINUE_S, context_s=CONTEXT_S,
+        seed=2, **long_kw))
+    check(cont.timings["windows"] == 1.0 and cont.timings["context_frames"] == 200.0,
+          f"continuation plan {cont.timings}")
+    check(FA.fused_qk_attention.launches == STEPS * per_step, "continuation: K1 launches "
+          f"{FA.fused_qk_attention.launches}, expected {STEPS * per_step}")
+    out["continue_rms"] = check_audio(cont.audio_batch, 1, pipeline_cfg, CONTINUE_S)
+
+    # SDEdit of the first 5 s at strength 0.6: steps 20..49
+    FA.fused_qk_attention.launches = 0
+    edited, out["edit_wall_s"] = timed(lambda: edit_audio(
+        bundle, res.audio_batch[0, 0, :int(DURATION_S * sr)], text, uncond,
+        strength=EDIT_STRENGTH, seed=3, **kw))
+    edit_steps = STEPS - round((1.0 - EDIT_STRENGTH) * STEPS)
+    check(FA.fused_qk_attention.launches == edit_steps * per_step, "edit: K1 launches "
+          f"{FA.fused_qk_attention.launches}, expected {edit_steps * per_step}")
+    out["edit_rms"] = check_audio(edited.audio_batch, 1, pipeline_cfg)
+
+    # V2A 24 s: the full clip's features, two 16 s windows at 0 and 8 s
+    encoders = {"siglip2": siglip2.init_random(0, cfg.clip_dim, device=dev, dtype=torch.bfloat16),
+                "synchformer": synchformer.init_random(1, cfg.sync_feat_dim, device=dev,
+                                                       dtype=torch.bfloat16)}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for enc in encoders.values():
+        perturb_zero_leaves(enc.model, gen)
+    feat_s, win_s, ov_s = plan_v2a_long(pipeline_cfg, V2A_LONG_S, window_s=16.0, overlap_s=4.0)
+    check((feat_s, win_s, ov_s) == (24.0, 16.0, 8.0), f"V2A plan {(feat_s, win_s, ov_s)}")
+    frames = make_clip(np, 1, V2A_LONG_S, V2A_LONG_HW)
+    FA.fused_qk_attention.launches = FL.flash_attention.launches = 0
+    (clip, sync), out["v2a_encode_s"] = timed(lambda: encode_video(
+        encoders, frames, CLIP_FPS, feat_s, pipeline_cfg))
+    v2a, out["v2a_generate_s"] = timed(lambda: generate_audio_long(
+        bundle, text, uncond, V2A_LONG_S, clip_feat=clip, sync_feat=sync, window_s=win_s,
+        overlap_s=ov_s, seed=4, **kw))
+    out["v2a_k1_launches"] = FA.fused_qk_attention.launches
+    out["v2a_k2_launches"] = FL.flash_attention.launches
+    check(v2a.timings["windows"] == 2.0, f"V2A windows {v2a.timings['windows']}")
+    check(out["v2a_k1_launches"] == 2 * STEPS * per_step, "V2A: K1 launches "
+          f"{out['v2a_k1_launches']}, expected {2 * STEPS * per_step}")
+    per_k2 = encoders["siglip2"].cfg.num_hidden_layers
+    check(out["v2a_k2_launches"] == per_k2, f"V2A: K2 launches {out['v2a_k2_launches']}, "
+                                            f"expected {per_k2}")
+    out["v2a_rms"] = check_audio(v2a.audio_batch, 1, pipeline_cfg, V2A_LONG_S)
+    out["v2a_clip"] = [len(frames), *V2A_LONG_HW, CLIP_FPS]
+    del frames, encoders
+
+    # one 30 s window (a single-window request), profiled
+    def window():
+        generate_audio_long(bundle, text, uncond, LONG_WINDOW_S, seed=5, **long_kw)
+        torch.cuda.synchronize()
+
+    prof = profiled(torch, window)
+    k1 = prof["groups"].get("fused_qk_attention", {"ms": 0.0})
+    prof["k1_share_of_busy"] = k1["ms"] / 1e3 / prof["device_busy_s"]
+    check(k1["ms"] > 0, "the profiled window ran no fused_qk_attention kernel")
+    out["window_30s_profile"] = prof
+    emit(out)
+    return long_launches, out["v2a_k2_launches"]
+
+
 def main() -> int:
     import torch
 
@@ -713,12 +986,16 @@ def main() -> int:
     model = perturb_zero_leaves(mmdit.init(cfg, gen, device=dev, dtype=torch.bfloat16), gen)
     dac = dac_vae.init(XXL.dac, torch.Generator(device=dev).manual_seed(1), device=dev)
     emit({"phase": "init", "seconds": time.perf_counter() - t0,
-          "mmdit_params": param_count(model), "dac_params": param_count(dac)})
+          "mmdit_params": param_count(model),
+          "dac_decoder_params": param_count(dac.decoder) + param_count(dac.post_quant_conv),
+          "dac_encoder_params": param_count(dac.encoder) + param_count(dac.quant_conv)})
     forward_phase(torch, dev, model, cfg, XXL)
     bundle = ModelBundle(model, dac, XXL, compute_dtype=torch.bfloat16)
     launches, t2a_latents = main_path_phase(torch, dev, bundle, XXL)
     profile_phase(torch, bundle)
     flash_launches = v2a_path_phase(torch, dev, bundle, XXL, t2a_latents)
+    text, uncond = clap_phase(torch, dev)
+    long_k1, long_k2 = longform_path_phase(torch, dev, bundle, XXL, text, uncond)
 
     # per-launch figures weighted by the main path's mix: each step runs one joint call per
     # triple block and one single call per single block
@@ -728,13 +1005,13 @@ def main() -> int:
         return sum(kernel[c][key] * n for c, n in mix.items()) / sum(mix.values())
 
     k1_bound = kernel_bound(avg("bytes"), avg("flops"))
-    k2 = flash["siglip2_5s"]  # the one shape the V2A path gives K2
+    k2 = flash["siglip2_5s"]  # the main V2A path's shape (the 24 s run's is siglip2_24s)
     k3_bound = gemm["probe_full"]  # the probe's shape: one sweep of the probe
     emit({"kernels": [{
         "name": "fused_qk_attention", "route": "cuda",
         "source": "foley_tpu_torch/csrc/fused_qk_attention.cu",
         "replaces": "foley_tpu/ops/pallas/fused_attention.py:82",
-        "launches": launches,
+        "launches": launches, "launches_longform": long_k1,
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
         "ms": avg("kernel_ms"), "plain_ms": avg("plain_ms"), "bound_ms": k1_bound["bound_ms"],
         "bound_by": k1_bound["bound_by"],
@@ -743,7 +1020,7 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "foley_tpu_torch/csrc/flash_attention.cu",
         "replaces": "foley_tpu/ops/pallas/flash_attention.py:60",
-        "launches": flash_launches,
+        "launches": flash_launches, "launches_longform": long_k2,
         "max_abs_err": max(r["max_abs_err"] for r in flash.values()),
         "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],

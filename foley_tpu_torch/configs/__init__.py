@@ -1,4 +1,5 @@
 from foley_tpu_torch.configs.model_configs import (
+    ClapTextConfig,
     DACConfig,
     DiffusionConfig,
     MMDiTConfig,
@@ -11,6 +12,7 @@ from foley_tpu_torch.configs.model_configs import (
 )
 
 __all__ = [
+    "ClapTextConfig",
     "DACConfig",
     "DiffusionConfig",
     "MMDiTConfig",

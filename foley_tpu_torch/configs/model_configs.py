@@ -120,6 +120,31 @@ class SynchformerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ClapTextConfig:
+    """CLAP text tower, laion/larger_clap_general (``foley_tpu/models/clap.py``): a RoBERTa
+    post-LN encoder whose last hidden state is the 768-d text condition."""
+
+    vocab_size: int = 50265
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 514
+    type_vocab_size: int = 1
+    pad_token_id: int = 1
+    layer_norm_eps: float = 1e-12
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @classmethod
+    def tiny(cls) -> "ClapTextConfig":
+        return cls(vocab_size=100, hidden_size=32, num_hidden_layers=2,
+                   num_attention_heads=2, intermediate_size=64, max_position_embeddings=20)
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """End-to-end generation configuration (reference node widget schema nodes.py:213-237)."""
 

@@ -1,16 +1,17 @@
 """Weight bridge: JAX parameter trees (as numpy arrays) -> the port's modules.
 
 The trees are those of the JAX ``init`` functions (``mmdit``, ``dac_vae``, ``siglip2``,
-``synchformer``) after the caller has fetched them to the host (``jax.device_get``); this
-module imports no JAX. It owns every layout change between the two packages:
+``synchformer``, ``clap``) after the caller has fetched them to the host
+(``jax.device_get``); this module imports no JAX. It owns every layout change between the
+two packages:
 
 - the depth axis of ``triple_blocks`` / ``single_blocks`` is unstacked into ``<name>.<i>``;
 - dense ``w`` [in, out] -> ``weight`` [out, in];
 - conv ``w`` [K, in, out] -> ``weight`` [out, in, K]; transposed conv (``conv_t``)
   ``w`` [K, in, out] -> ``weight`` [in, out, K];
 - ``b`` -> ``bias``; list indices and every other name stay (the encoders'
-  ``position_embedding``, ``probe``, ``cls_token``, ``pos_embed`` and ``temp_embed`` pass
-  through unchanged).
+  ``position_embedding``, ``probe``, ``cls_token``, ``pos_embed`` and ``temp_embed``, and
+  CLAP's ``word``, ``position`` and ``token_type`` tables, pass through unchanged).
 
 bf16 leaves (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses) pass through a
 ``uint16`` view.
@@ -96,15 +97,19 @@ def mmdit_from_jax(params: Dict, cfg: MMDiTConfig, device: DeviceLike = None,
 
 
 def dac_from_jax(params: Dict, cfg: DACConfig, device: DeviceLike = None, dtype=None):
-    """Build the port's ``DAC`` (decoder side) on ``device`` from a JAX ``dac_vae`` tree.
-    The encoder and ``quant_conv`` leaves are dropped: the port has no encoder yet."""
+    """Build the port's ``DAC`` (encoder and decoder) on ``device`` from a JAX ``dac_vae``
+    tree."""
     from foley_tpu_torch.models.dac_vae import DAC
 
-    state = {k: v for k, v in state_dict_from_jax(params).items()
-             if not k.startswith(("encoder.", "quant_conv."))}
-    model = DAC(cfg, dtype=dtype or _dtype_of(state), device=resolve_device(device))
-    model.load_state_dict(state, strict=True)
-    return model
+    return _module_from_jax(DAC, params, cfg, device, dtype)
+
+
+def clap_from_jax(params: Dict, cfg, device: DeviceLike = None, dtype=None):
+    """Build the port's ``ClapText`` from a JAX ``clap.init`` tree (``cfg``: the port's
+    ``ClapTextConfig``)."""
+    from foley_tpu_torch.models.clap import ClapText
+
+    return _module_from_jax(ClapText, params, cfg, device, dtype)
 
 
 def siglip2_from_jax(params: Dict, cfg, device: DeviceLike = None, dtype=None):

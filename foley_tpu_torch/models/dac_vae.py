@@ -1,18 +1,21 @@
-"""Continuous DAC-VAE decoder (``foley_tpu/models/dac_vae.py`` counterpart).
+"""Continuous DAC-VAE codec (``foley_tpu/models/dac_vae.py`` counterpart).
 
-post_quant_conv -> WNConv1d k7 -> 5x DecoderBlock (Snake -> ConvTranspose1d k=2s -> 3
-dilated ResidualUnits) -> Snake -> WNConv1d k7 -> tanh; total upsample x960 => 48 kHz.
+Decode: post_quant_conv -> WNConv1d k7 -> 5x DecoderBlock (Snake -> ConvTranspose1d k=2s
+-> 3 dilated ResidualUnits) -> Snake -> WNConv1d k7 -> tanh; total upsample x960 => 48 kHz.
+Encode: WNConv1d k7 -> 5x EncoderBlock (3 dilated ResidualUnits -> Snake -> strided
+WNConv1d k=2s) -> Snake -> WNConv1d k3 -> quant_conv k1 -> a diagonal Gaussian posterior
+over the latents (``GaussianPosterior``); continuation and SDEdit take its ``mode()``.
 Weight norm is already folded into plain conv weights (as in the JAX tree).
 
-The public functions take channel-last latents [B, T, C] and return [B, T*hop, 1], as in
-the JAX package; inside, the decoder runs channels-first, which is cuDNN's layout, so no
-transpose sits between its convolutions. Decode is fp32 with TF32 off (``true_fp32``).
-The encoder is not ported yet.
+The public functions take channel-last tensors ([B, T, C] latents, [B, T, 1] audio), as in
+the JAX package; inside, both halves run channels-first, which is cuDNN's layout, so no
+transpose sits between their convolutions. Both are fp32 with TF32 off (``true_fp32``).
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -100,20 +103,50 @@ class Decoder(nn.Module):
         self.conv_out = _Conv(out_dim, 1, 7, dtype, device)
 
 
+class EncoderBlock(nn.Module):
+    def __init__(self, out_dim, stride, dtype, device):
+        super().__init__()
+        self.stride = stride
+        self.res = nn.ModuleList(ResidualUnit(out_dim // 2, d, dtype, device) for d in (1, 3, 9))
+        self.alpha = _alpha(out_dim // 2, dtype, device)
+        self.conv_d = _Conv(out_dim // 2, out_dim, 2 * stride, dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, C, T]
+        for unit in self.res:
+            x = unit(x)
+        return F.conv1d(snake(x, self.alpha[:, None]), self.conv_d.weight, self.conv_d.bias,
+                        stride=self.stride, padding=math.ceil(self.stride / 2))
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: DACConfig, dtype, device):
+        super().__init__()
+        e = cfg.encoder_dim
+        self.conv_in = _Conv(1, e, 7, dtype, device)
+        self.blocks = nn.ModuleList(EncoderBlock(e * 2 ** (i + 1), s, dtype, device)
+                                    for i, s in enumerate(cfg.encoder_rates))
+        out_dim = e * 2 ** len(cfg.encoder_rates)
+        self.alpha_out = _alpha(out_dim, dtype, device)
+        self.conv_out = _Conv(out_dim, cfg.latent_dim, 3, dtype, device)
+
+
 class DAC(nn.Module):
-    """The decoder half of the continuous DAC-VAE (names follow the JAX tree)."""
+    """The continuous DAC-VAE, encoder and decoder (names follow the JAX tree)."""
 
     def __init__(self, cfg: DACConfig, dtype=torch.float32, device=None):
         super().__init__()
         self.cfg = cfg
         self.decoder = Decoder(cfg, dtype, device)
         self.post_quant_conv = _Conv(cfg.latent_dim, cfg.latent_dim, 1, dtype, device)
+        # registered after the decoder, so a seed draws the decoder it drew before
+        self.encoder = Encoder(cfg, dtype, device)
+        self.quant_conv = _Conv(cfg.latent_dim, 2 * cfg.latent_dim, 1, dtype, device)
 
 
 def init(cfg: DACConfig, generator: torch.Generator, device: DeviceLike = None,
          dtype=torch.float32) -> DAC:
-    """A randomly initialized decoder on ``device`` (``cuda`` unless given); the generator
-    must live on that device."""
+    """A randomly initialized codec, encoder and decoder, on ``device`` (``cuda`` unless
+    given); the generator must live on that device."""
     model = DAC(cfg, dtype=dtype, device=resolve_device(device))
     init_parameters(model, generator)
     return model
@@ -162,3 +195,50 @@ def decode_chunked(model: DAC, z: torch.Tensor, chunk_frames: int,
         parts.append(y[:, ov * hop: ov * hop + chunk_frames * hop])
     parts.append(decode(model, z[:, t - (tail_frames + ov):])[:, ov * hop:])
     return torch.cat(parts, dim=1)
+
+
+class GaussianPosterior(NamedTuple):
+    """Diagonal Gaussian over latents [B, T, latent_dim] (reference ``nn/vae_utils.py``)."""
+
+    mean: torch.Tensor
+    logvar: torch.Tensor
+
+    @property
+    def std(self) -> torch.Tensor:
+        return torch.exp(0.5 * self.logvar)
+
+    def sample(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        noise = torch.randn(self.mean.shape, generator=generator, device=self.mean.device,
+                            dtype=self.mean.dtype)
+        return self.mean + self.std * noise
+
+    def mode(self) -> torch.Tensor:
+        return self.mean
+
+    def kl(self) -> torch.Tensor:
+        """KL to the standard normal, summed over time and channels -> [B]."""
+        return 0.5 * torch.sum(self.mean.square() + torch.exp(self.logvar) - 1.0 - self.logvar,
+                               dim=(1, 2))
+
+
+@torch.no_grad()
+def encode(model: DAC, audio: torch.Tensor) -> GaussianPosterior:
+    """Waveform [B, T, 1] (T a hop multiple, see ``preprocess``) -> the posterior over
+    latents [B, T/hop, latent_dim], fp32 with TF32 off."""
+    enc = model.encoder
+    with true_fp32():
+        x = audio.float().transpose(1, 2)  # [B, 1, T]
+        x = F.conv1d(x, enc.conv_in.weight, enc.conv_in.bias, padding=3)
+        for block in enc.blocks:
+            x = block(x)
+        x = snake(x, enc.alpha_out[:, None])
+        x = F.conv1d(x, enc.conv_out.weight, enc.conv_out.bias, padding=1)
+        moments = F.conv1d(x, model.quant_conv.weight, model.quant_conv.bias).transpose(1, 2)
+    mean, logvar = moments.chunk(2, dim=-1)
+    return GaussianPosterior(mean, torch.clamp(logvar, -30.0, 20.0))
+
+
+def preprocess(audio: torch.Tensor, cfg: DACConfig) -> torch.Tensor:
+    """Right-pad [B, T, 1] audio with zeros to a hop multiple (reference ``dac.py:225-234``)."""
+    right = math.ceil(audio.shape[1] / cfg.hop_length) * cfg.hop_length - audio.shape[1]
+    return F.pad(audio, (0, 0, 0, right)) if right else audio

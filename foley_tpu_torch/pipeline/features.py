@@ -1,6 +1,6 @@
-"""Feature preparation: CFG stacking, text shape-bucketing, the T2A empty sequences and the
-video features of V2A (``foley_tpu/pipeline/features.py`` counterpart, with the sampler
-node's ``_encode_video``).
+"""Feature preparation: CFG stacking, text shape-bucketing, the T2A empty sequences, the text
+features of a prompt and the video features of V2A (``foley_tpu/pipeline/features.py``
+counterpart, with the sampler node's ``_encode_text`` and ``_encode_video``).
 
 Contracts kept from the reference:
 - CFG ordering: uncond (negative prompt) first, cond second;
@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from foley_tpu_torch.configs import PipelineConfig
-from foley_tpu_torch.models import mmdit, synchformer
+from foley_tpu_torch.models import clap, mmdit, synchformer
 from foley_tpu_torch.ops.interp import linspace_resample_indices
 from foley_tpu_torch.sampling.denoise import DenoiseFeatures
 
@@ -83,6 +83,16 @@ def prepare_cfg_features(model: mmdit.MMDiT, text_feat: torch.Tensor,
         clip_feat=torch.cat([empty_clip, clip], dim=0),
         sync_feat=torch.cat([empty_sync, sync], dim=0),
     )
+
+
+def encode_text(encoders: Dict, prompt: str,
+                negative_prompt: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(text_feat [1, L, D], uncond_text_feat [1, L, D]) of a prompt through
+    ``encoders["clap"]`` (a ``ClapTextEncoder``): the counterpart of the sampler node's
+    ``_encode_text``. The two prompts are one batch, ``[negative, prompt]``, so both rows
+    share the padded length L."""
+    feats = clap.encode_text(encoders["clap"], [negative_prompt, prompt])
+    return feats[1:2], feats[0:1]
 
 
 def resample_frames(frames: np.ndarray, source_fps: float, duration_s: float,

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from foley_tpu_torch.configs import PipelineConfig
+from foley_tpu_torch.models import dac_vae
 from foley_tpu_torch.models import mmdit as mmdit_mod
 from foley_tpu_torch.models.dac_vae import DAC
 from foley_tpu_torch.pipeline.features import (
@@ -36,7 +37,8 @@ class ModelBundle(NamedTuple):
     mmdit: mmdit_mod.MMDiT
     dac: DAC
     pipeline_cfg: PipelineConfig
-    encoders: Optional[Dict] = None  # {"siglip2": ..., "synchformer": ...} (pipeline.features)
+    # {"clap": ..., "siglip2": ..., "synchformer": ...} (pipeline.features)
+    encoders: Optional[Dict] = None
     compute_dtype: torch.dtype = torch.bfloat16
     latent_stats: Optional[tuple] = None  # (mean[C], std[C]) for from-scratch-trained models
 
@@ -60,6 +62,17 @@ _DECODE_CHUNK_FRAMES = 512
 
 def _device_of(bundle: ModelBundle) -> torch.device:
     return next(bundle.mmdit.parameters()).device
+
+
+def encode_latents(bundle: ModelBundle, wav: torch.Tensor) -> torch.Tensor:
+    """Waveform [B, T] (T a hop multiple) -> the posterior's mode [B, T/hop, C] in the
+    denoiser's latent space (standardized with ``bundle.latent_stats`` when it has them):
+    the data end of SDEdit's flow and continuation's known prefix."""
+    z = dac_vae.encode(bundle.dac, wav[..., None]).mode().float()
+    if bundle.latent_stats is not None:
+        mean, std = bundle.latent_stats
+        z = (z - mean) / std
+    return z
 
 
 def _seeded_latents(seed: int, latent_len: int, latent_dim: int,

@@ -123,10 +123,12 @@ def denoise_and_decode(model, dac, latents: torch.Tensor, features: DenoiseFeatu
         audio = dac_vae.decode_chunked(dac, raw, decode_chunk_frames)
     else:
         audio = dac_vae.decode(dac, raw)
-    if output_pcm16:
-        # 16-bit PCM with write_wav's rounding: clip, *32767, round half to even
-        audio = torch.round(torch.clamp(audio, -1.0, 1.0) * 32767.0).to(torch.int16)
-    return final_latents, audio
+    return final_latents, to_pcm16(audio) if output_pcm16 else audio
+
+
+def to_pcm16(audio: torch.Tensor) -> torch.Tensor:
+    """16-bit PCM with write_wav's rounding: clip, *32767, round half to even."""
+    return torch.round(torch.clamp(audio, -1.0, 1.0) * 32767.0).to(torch.int16)
 
 
 def prepare_latents(generator: torch.Generator, batch_size: int, latent_length: int,

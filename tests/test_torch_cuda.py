@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card (K1, fused qk-norm + RoPE attention; K2, flash
 attention; K3, the chained GEMM sweep): each against its plain PyTorch version, and the
-wrappers' dispatch. Every test skips without a CUDA card (the kernels have no CPU mode).
+wrappers' dispatch; and the paths around them that only the card can show (launch counts,
+long-form stream against batch, CLAP's fp32 under TF32-permitting precision). Every test
+skips without a CUDA card (the kernels have no CPU mode).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine with a card and
 no JAX: ``python -m pytest tests/test_torch_cuda.py --noconftest -q``.
@@ -12,14 +14,16 @@ carries forward through the chain; tanh bounds its output by 1. Its relative L2 
 held to 1e-2 block by block (``_assert_sweep_close`` says how the chain is held).
 """
 
+import contextlib
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
-from foley_tpu_torch.configs import TINY
+from foley_tpu_torch.configs import TINY, ClapTextConfig
 from foley_tpu_torch.core.params import perturb_zero_leaves
-from foley_tpu_torch.models import dac_vae, mmdit, siglip2
+from foley_tpu_torch.models import clap, dac_vae, mmdit, siglip2
 from foley_tpu_torch.ops.kernels import flash_attention as FL
 from foley_tpu_torch.ops.kernels import fused_attention as FA
 from foley_tpu_torch.ops.kernels import gemm_sweep as GS
@@ -142,6 +146,58 @@ def test_generate_audio_on_card_launches_the_kernel(dev):
     b = generate_audio(bundle, text, text, 1.0, num_inference_steps=3, seed=1)
     assert a.audio_batch.shape == (1, 1, cfg.dac.sample_rate)
     assert a.audio_batch.tobytes() == b.audio_batch.tobytes()
+
+
+def test_long_stream_equals_batch_on_card(dev):
+    """Windowed long-form on the card: one launch per block, step and window, and the
+    stream's chunks concatenate to the batch path's audio within 1.5/32767 (both run the
+    same segment decodes, so cuDNN sees the same shapes)."""
+    from foley_tpu_torch.pipeline.longform import generate_audio_long, generate_audio_long_stream
+
+    cfg = dataclasses.replace(TINY, model=dataclasses.replace(TINY.model, hidden_size=256))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = perturb_zero_leaves(mmdit.init(cfg.model, gen, device=dev, dtype=torch.bfloat16),
+                                gen)
+    dac = dac_vae.init(cfg.dac, torch.Generator(device=dev).manual_seed(1), device=dev)
+    bundle = ModelBundle(model, dac, cfg)
+    text = torch.zeros(1, 16, cfg.model.condition_dim)
+    kw = dict(window_s=2.0, overlap_s=0.5, num_inference_steps=2, seed=3)
+    before = FA.fused_qk_attention.launches
+    batch = generate_audio_long(bundle, text, text, 3.0, **kw)
+    blocks = cfg.model.depth_triple_blocks + cfg.model.depth_single_blocks
+    assert FA.fused_qk_attention.launches - before == 2 * 2 * blocks  # windows x steps
+    chunks = list(generate_audio_long_stream(bundle, text, text, 3.0, **kw))
+    streamed = np.concatenate([c.audio for c in chunks], axis=-1)
+    assert streamed.shape == batch.audio_batch.shape == (1, 1, 3 * cfg.dac.sample_rate)
+    assert np.abs(streamed - batch.audio_batch).max() <= 1.5 / 32767.0
+
+
+def test_clap_on_card_is_true_fp32(dev, monkeypatch):
+    """CLAP at its real width on the card agrees with the CPU within 1e-5 relative L2, with
+    and without ``torch.set_float32_matmul_precision("high")`` (fp32 reads about 7e-7 on an
+    H100). The control, ``true_fp32`` bypassed under ``"high"`` (TF32 matmuls, about 4e-4),
+    breaks the bound."""
+    cfg = ClapTextConfig()
+    model = clap.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    ids = torch.randint(2, cfg.vocab_size, (2, 77), generator=gen)
+    mask = torch.ones(2, 77, dtype=torch.long)
+    mask[1, 20:] = 0
+    ids[1, 20:] = cfg.pad_token_id
+    ref = clap.apply(model, ids, mask)
+    model.to(dev)
+    saved = torch.get_float32_matmul_precision()
+    try:
+        for precision in ("highest", "high"):
+            torch.set_float32_matmul_precision(precision)
+            got = clap.apply(model, ids.to(dev), mask.to(dev)).cpu()
+            rel = float((got - ref).norm() / ref.norm())
+            assert rel < 1e-5, (precision, rel)
+        monkeypatch.setattr(clap, "true_fp32", contextlib.nullcontext)
+        got = clap.apply(model, ids.to(dev), mask.to(dev)).cpu()
+        assert float((got - ref).norm() / ref.norm()) > 1e-5  # TF32 breaks the bound
+    finally:
+        torch.set_float32_matmul_precision(saved)
 
 
 # ---- K2: flash attention ----

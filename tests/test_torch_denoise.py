@@ -19,6 +19,7 @@ from foley_tpu.sampling import denoise as jden
 from foley_tpu_torch.configs import TINY
 from foley_tpu_torch.io.from_jax import dac_from_jax, mmdit_from_jax
 from foley_tpu_torch.sampling import denoise as tden
+from torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=2e-5, rtol=1e-4)
 STEPS = 4

@@ -13,6 +13,7 @@ import torch
 from foley_tpu.ops.attention import _sdpa_xla
 from foley_tpu.ops.pallas.flash_attention import flash_attention as j_flash
 from foley_tpu_torch.ops.kernels import flash_attention as FL
+from torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=2e-5, rtol=1e-4)
 

@@ -18,6 +18,7 @@ from foley_tpu.ops.pallas.fused_attention import fused_qk_attention as jax_fused
 from foley_tpu.ops.rope import rope_table as jax_rope_table
 from foley_tpu_torch.io.from_jax import to_tensor
 from foley_tpu_torch.ops.kernels import fused_attention as FA
+from torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPES = [
     (2, 37, 53, 2, 128),    # ragged q and k lengths

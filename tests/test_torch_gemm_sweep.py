@@ -24,6 +24,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from foley_tpu_torch.ops.kernels import gemm_sweep as GS
 from foley_tpu_torch.tools import bench_kernels, probe_gemm
+from torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 MAX_ABS, REL_L2 = 2e-2, 1e-2

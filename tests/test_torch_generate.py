@@ -12,6 +12,7 @@ from foley_tpu_torch.core.params import perturb_zero_leaves
 from foley_tpu_torch.models import dac_vae, mmdit
 from foley_tpu_torch.pipeline import features as tfeat
 from foley_tpu_torch.pipeline.generate import ModelBundle, generate_audio, generate_audio_multi
+from torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 STEPS = 3
 SR = TINY.dac.sample_rate

@@ -12,9 +12,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from foley_tpu_torch.configs import TINY
+from foley_tpu_torch.configs import TINY, ClapTextConfig
 from foley_tpu_torch.core.device import resolve_device
-from foley_tpu_torch.models import dac_vae, mmdit, siglip2, synchformer
+from foley_tpu_torch.models import clap, dac_vae, mmdit, siglip2, synchformer
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "yaml", "PIL", "foley_tpu"}
@@ -63,6 +63,8 @@ def test_entry_points_need_a_device_without_cuda():
         siglip2.init_random(0, 16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         synchformer.init_random(0, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        clap.init(ClapTextConfig.tiny(), torch.Generator())
     assert resolve_device("cpu") == torch.device("cpu")
 
 

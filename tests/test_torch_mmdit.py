@@ -27,6 +27,7 @@ from foley_tpu_torch.configs import TINY
 from foley_tpu_torch.core.params import param_count, perturb_zero_leaves
 from foley_tpu_torch.io.from_jax import mmdit_from_jax
 from foley_tpu_torch.models import mmdit as tmm
+from torch_helpers import jax_tree_from_port, one_torch_thread  # noqa: F401 (autouse)
 
 CFG, J_CFG = TINY.model, J_TINY.model
 TOL = dict(atol=1e-5, rtol=1e-4)
@@ -201,3 +202,36 @@ def test_perturb_zero_leaves_touches_only_zero_leaves():
             assert torch.equal(p, before[name]), name
         else:
             assert p.any() and float(p.std()) < 0.05, name
+
+
+def test_forward_matches_jax_at_xxl_width():
+    """The real width, hidden 1536 and 12 heads of 128, with the depth cut to one triple and
+    one single block, at the 5 s lengths (audio 250, visual 40, sync 112, text 77), in fp32
+    against ``attn_impl="xla"``, on the port's own init (``torch_helpers.py``: a jitted JAX
+    init at this width compiles for seconds). Tolerance: relative L2 1e-5 and atol 1e-4 on a
+    velocity of std ~2: sums over 1536-6144 terms in another order."""
+    from foley_tpu.configs import XXL as J_XXL
+    from foley_tpu_torch.configs import XXL
+
+    cut = dict(depth_triple_blocks=1, depth_single_blocks=1)
+    j_cfg, cfg = dataclasses.replace(J_XXL.model, **cut), dataclasses.replace(XXL.model, **cut)
+    assert (cfg.hidden_size, cfg.num_heads, cfg.head_dim) == (1536, 12, 128)
+    params = seeded_tree(jax_tree_from_port(
+        tmm.init(cfg, torch.Generator().manual_seed(1), device="cpu"), jmm.init, j_cfg), seed=5)
+    model = mmdit_from_jax(params, cfg, device="cpu")
+    clip_len, sync_len = XXL.t2a_lengths(5.0)
+    rng = np.random.default_rng(6)
+    arrays = (rng.normal(size=(1, XXL.latent_length(5.0), cfg.audio_vae_latent_dim)),
+              np.asarray([700.0]), rng.normal(size=(1, cfg.text_length, cfg.condition_dim)),
+              rng.normal(size=(1, clip_len, cfg.clip_dim)),
+              rng.normal(size=(1, sync_len, cfg.sync_feat_dim)))
+    arrays = [a.astype(np.float32) for a in arrays]
+    assert [a.shape[1] for a in arrays if a.ndim == 3] == [250, 77, 40, 112]
+    apply = jax.jit(jmm.apply, static_argnums=6, static_argnames="attn_impl")
+    ref = np.asarray(apply(params, *(jnp.asarray(a) for a in arrays), j_cfg, attn_impl="xla"))
+    del params
+    with torch.no_grad():
+        got = model(*(torch.from_numpy(a) for a in arrays)).numpy()
+    assert float(np.std(ref)) > 0.1
+    assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < 1e-5
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)

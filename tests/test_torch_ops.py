@@ -24,6 +24,7 @@ from foley_tpu_torch.ops import modulate as t_mod
 from foley_tpu_torch.ops import nn as t_nn
 from foley_tpu_torch.ops import norms as t_norms
 from foley_tpu_torch.ops import rope as t_rope
+from torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 # ``foley_tpu.ops`` re-exports the function ``modulate`` under the module's name.
 j_mod = importlib.import_module("foley_tpu.ops.modulate")

@@ -17,6 +17,7 @@ from foley_tpu.models import siglip2 as jsig
 from foley_tpu_torch.io.from_jax import siglip2_from_jax
 from foley_tpu_torch.models import siglip2 as tsig
 from foley_tpu_torch.ops.kernels import flash_attention as FL
+from torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=2e-5, rtol=1e-4)
 RESIZE_TOL = dict(atol=1e-4, rtol=0)

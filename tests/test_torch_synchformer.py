@@ -19,6 +19,7 @@ from foley_tpu_torch.configs import SynchformerConfig as TCfg
 from foley_tpu_torch.io.from_jax import synchformer_from_jax
 from foley_tpu_torch.models import synchformer as tsync
 from foley_tpu_torch.pipeline import features as tfeat
+from torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=2e-5, rtol=1e-4)
 RESIZE_TOL = dict(atol=1e-4, rtol=0)

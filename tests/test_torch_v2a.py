@@ -42,6 +42,7 @@ from foley_tpu_torch.models import synchformer as tsync
 from foley_tpu_torch.ops.interp import linspace_resample_indices
 from foley_tpu_torch.pipeline import features as tfeat
 from foley_tpu_torch.pipeline import generate as tgen
+from torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 FEAT_TOL = dict(atol=2e-5, rtol=1e-4)
 LATENT_TOL = dict(atol=5e-5, rtol=1e-4)

@@ -47,10 +47,23 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   (``edit_audio``, strength 0.6), 24 s of video-to-audio from a 640x360 clip in 16 s
   windows (``encode_video`` then ``generate_audio_long``), with K1's and K2's launches, and
   one 30 s window profiled as in ``profile`` (K1's share of the busy time);
+- ``nodes``: the node API on the ``main_path`` bundle: its DAC written as a reference-layout
+  ``.safetensors`` under ``build/`` and read back through ``HunyuanDependenciesLoader``
+  (every weight equal, the write and load seconds); the sampler node on 5 s T2A twice with
+  ``force_offload`` (the same bytes, equal to ``generate_audio``'s; park and restore
+  seconds, peak memory), once on 5 s of a 640x360 clip through ``image``, once on a batch of
+  2 for ``SelectAudioFromBatch``; the precision gate refusing fp32 on the card;
+- ``serving``: the HTTP server on 127.0.0.1 around a ``FoleyService`` on the same bundle,
+  CLAP and the video encoders, warmed at 5 s: one line per request (T2A as WAV and as JSON,
+  ``frames_b64`` V2A, the PCM16 stream, a 2 s continuation of a 4 s context) with the
+  client's wall, the generation and CLAP inside it, the server's own share and K1's and
+  K2's launches; then a ``BatchingFoleyService`` coalescing two concurrent requests into one
+  batch-2 call, each row's latents against its solo request;
 - ``{"kernels": [...]}``: every ported kernel with its launches on its path (K1 in
-  ``main_path`` and, as ``launches_longform``, in the 75 s request; K2 in ``v2a_path`` and,
-  as ``launches_longform``, in the 24 s V2A request; K3 in one sweep of ``probe_gemm``;
-  K3's times are the probe's graph-replayed device times);
+  ``main_path`` and, as ``launches_longform``, in the 75 s request and, as
+  ``launches_serving``, over the ``serving`` requests; K2 in ``v2a_path``, the 24 s V2A
+  request and the served V2A request; K3 in one sweep of ``probe_gemm``; K3's times are the
+  probe's graph-replayed device times);
 - last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the run exits non-zero. Without a CUDA card, or outside the
@@ -92,6 +105,7 @@ LONG_S, LONG_WINDOW_S, LONG_OVERLAP_S = 75.0, 30.0, 5.0  # past the sampler node
 CONTINUE_S, CONTEXT_S = 10.0, 4.0
 EDIT_STRENGTH = 0.6
 V2A_LONG_S, V2A_LONG_HW = 24.0, (360, 640)  # 24 s of 25 fps 640x360 RGB
+CONT_SERVE_S = 2.0         # the served continuation: 2 s after the last CONTEXT_S of a request
 STREAM_TOL = 1.5 / 32767   # stream against batch: the same decodes, at most a PCM step apart
 
 
@@ -746,7 +760,7 @@ def clap_phase(torch, dev):
     the default fp32 matmul precision and with ``"high"`` (TF32 outside ``true_fp32``).
     The control: the same encode with ``true_fp32`` bypassed under ``"high"`` (TF32 in
     every matmul) must break the bound, so that the bound tells TF32 from fp32.
-    Returns (text_feat, uncond_text_feat) on the card."""
+    Returns (text_feat, uncond_text_feat) on the card and the encoder."""
     import contextlib
     import copy
 
@@ -802,7 +816,7 @@ def clap_phase(torch, dev):
           "rel_l2_vs_cpu": rel["default"], "rel_l2_vs_cpu_high": rel["high"],
           "control_tf32_rel_l2_vs_cpu": rel["tf32"], "rel_tol": CLAP_REL_TOL, "encode_walls_s": walls,
           "feat_std": float(text.std())})
-    return text, uncond
+    return text, uncond, encoders["clap"]
 
 
 def longform_path_phase(torch, dev, bundle, pipeline_cfg, text, uncond):
@@ -948,6 +962,334 @@ def longform_path_phase(torch, dev, bundle, pipeline_cfg, text, uncond):
     return long_launches, out["v2a_k2_launches"]
 
 
+def random_video_encoders(torch, dev, pipeline_cfg) -> dict:
+    """SigLIP2 and Synchformer at their real geometry, random bf16 weights from a seed with
+    the zero leaves perturbed, as ``v2a_path`` makes them."""
+    from foley_tpu_torch.core.params import perturb_zero_leaves
+    from foley_tpu_torch.models import siglip2, synchformer
+
+    cfg = pipeline_cfg.model
+    encoders = {"siglip2": siglip2.init_random(0, cfg.clip_dim, device=dev, dtype=torch.bfloat16),
+                "synchformer": synchformer.init_random(1, cfg.sync_feat_dim, device=dev,
+                                                       dtype=torch.bfloat16)}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for enc in encoders.values():
+        perturb_zero_leaves(enc.model, gen)
+    return encoders
+
+
+def nodes_phase(torch, dev, bundle, pipeline_cfg, clap_encoder, video_encoders) -> None:
+    """The node API at XXL on the main path's bundle. The bundle's DAC is written as a
+    reference-layout ``.safetensors`` under ``build/`` and read back through
+    ``HunyuanDependenciesLoader`` (the port's own reader: the card's machine has no
+    safetensors package), every weight equal; the sampler node, with ``force_offload``,
+    twice on 5 s T2A (50 Euler steps, CFG 4.5; the same bytes, the park and restore
+    seconds), its ``audio_first`` against ``generate_audio`` on the same bundle and seed bit
+    for bit; one 5 s V2A call through ``image`` (640x360); ``SelectAudioFromBatch`` on a
+    batch of 2; and the precision gate refusing fp32 on the card."""
+    import os
+
+    import numpy as np
+
+    from foley_tpu_torch.api import nodes
+    from foley_tpu_torch.io.convert import dac_reference_state_dict, save_safetensors
+    from foley_tpu_torch.ops.kernels import flash_attention as FL
+    from foley_tpu_torch.ops.kernels import fused_attention as FA
+    from foley_tpu_torch.pipeline.features import encode_text
+    from foley_tpu_torch.pipeline.generate import generate_audio
+
+    t_phase = time.perf_counter()
+    cfg = pipeline_cfg.model
+    per_k1 = STEPS * (cfg.depth_triple_blocks + cfg.depth_single_blocks)
+    out = {"phase": "nodes", "config": "xxl", "duration_s": DURATION_S, "steps": STEPS}
+
+    # the DAC through a reference-layout checkpoint and the dependencies loader
+    state = {k: v.detach().cpu() for k, v in bundle.dac.state_dict().items()}
+    os.makedirs("build/chip_smoke", exist_ok=True)
+    path = "build/chip_smoke/vae_128d_48k.safetensors"
+    t0 = time.perf_counter()
+    save_safetensors(path, dac_reference_state_dict(state, pipeline_cfg.dac))
+    out["dac_write_s"] = time.perf_counter() - t0
+    out["dac_checkpoint_bytes"] = os.path.getsize(path)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (deps,) = nodes.HunyuanDependenciesLoader().load_dependencies(
+        path, synchformer_model="", precision="bf16", device=dev)
+    torch.cuda.synchronize()
+    out["dac_load_s"] = time.perf_counter() - t0
+    out["dac_load_gb_per_s"] = out["dac_checkpoint_bytes"] / out["dac_load_s"] / 1e9
+    os.remove(path)
+    loaded = deps["dac_params"].state_dict()
+    check(deps["dac_cfg"] == pipeline_cfg.dac, f"DAC config read as {deps['dac_cfg']}")
+    check(sorted(loaded) == sorted(state) and all(
+        torch.equal(loaded[k].cpu(), state[k]) for k in state),
+        "the DAC read back from its checkpoint differs from the bundle's")
+    out["dac_tensors"] = len(state)
+    del state, loaded
+
+    deps.update(clap=clap_encoder, **video_encoders)
+    foley_model = {"params": bundle.mmdit, "cfg": pipeline_cfg, "dtype": bundle.compute_dtype}
+    sampler = nodes.HunyuanFoleySampler()
+    kw = dict(prompt=PROMPT, negative_prompt=NEGATIVE_PROMPT, duration=DURATION_S,
+              cfg_scale=GUIDANCE, steps=STEPS, sampler="euler", seed=7)
+
+    text, uncond = encode_text(deps, PROMPT, NEGATIVE_PROMPT)
+    ref = generate_audio(bundle, text, uncond, DURATION_S, guidance_scale=GUIDANCE,
+                         num_inference_steps=STEPS, sampler="euler", seed=7)
+    torch.cuda.reset_peak_memory_stats()
+    runs, parks, walls = [], [], []
+    for _ in range(2):
+        FA.fused_qk_attention.launches = 0
+        t0 = time.perf_counter()
+        first, batch = sampler.generate_audio(foley_model, deps, force_offload=True, **kw)
+        walls.append(time.perf_counter() - t0)
+        check(FA.fused_qk_attention.launches == per_k1,
+              f"sampler node: K1 launches {FA.fused_qk_attention.launches}, expected {per_k1}")
+        check(foley_model["_offloaded"] and next(bundle.mmdit.parameters()).device.type == "cpu",
+              "force_offload left the denoiser on the card")
+        runs.append(first["waveform"])
+        parks.append(foley_model["_park_s"])
+    out["t2a_walls_s"] = walls
+    out["park_s"] = parks  # the first also page-locks the host buffers
+    out["restore_s"] = foley_model["_restore_s"]
+    out["parked_gib"] = foley_model["_host"].flat.numel() / 2 ** 30
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(runs[0].tobytes() == runs[1].tobytes(), "force_offload: two calls differ")
+    check(runs[0].tobytes() == ref.audio_first.tobytes(),
+          "the sampler node's audio_first differs from generate_audio's")
+    out["t2a_rms"] = check_audio(runs[0], 1, pipeline_cfg, DURATION_S)
+    nodes._resident_params(foley_model)
+    check(all(p.device == dev or p.device.type == "cuda" for p in bundle.mmdit.parameters()),
+          "the restore left a parameter off the card")
+
+    # V2A through ``image``: 5 s of the 640x360 clip
+    frames = make_clip(np, 1, DURATION_S, V2A_LONG_HW)
+    FA.fused_qk_attention.launches = FL.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    v2a, _ = sampler.generate_audio(foley_model, deps, frame_rate=CLIP_FPS, image=frames,
+                                    force_offload=False, **kw)
+    out["v2a_wall_s"] = time.perf_counter() - t0
+    out["v2a_k1_launches"] = FA.fused_qk_attention.launches
+    out["v2a_k2_launches"] = FL.flash_attention.launches
+    check(out["v2a_k1_launches"] == per_k1 and out["v2a_k2_launches"]
+          == video_encoders["siglip2"].cfg.num_hidden_layers,
+          f"V2A node launches K1 {out['v2a_k1_launches']}, K2 {out['v2a_k2_launches']}")
+    out["v2a_rms"] = check_audio(v2a["waveform"], 1, pipeline_cfg, DURATION_S)
+    check(np.abs(v2a["waveform"] - runs[0]).max() > 0, "the video does not reach the audio")
+
+    # a batch of 2, then one row of it
+    _, batch2 = sampler.generate_audio(foley_model, deps, force_offload=False,
+                                       **dict(kw, batch_size=2))
+    check_audio(batch2["waveform"], 2, pipeline_cfg, DURATION_S)
+    (row,) = nodes.SelectAudioFromBatch().select_audio(batch2, 1)
+    check(row["waveform"].tobytes() == batch2["waveform"][1:2].tobytes(),
+          "SelectAudioFromBatch picked another row")
+    (clamped,) = nodes.SelectAudioFromBatch().select_audio(batch2, 5)
+    check(clamped["waveform"].tobytes() == row["waveform"].tobytes(), "index not clamped")
+
+    # the precision gate: fp32 on the card raises at load, before any allocation
+    refused = []
+    for load in (lambda: nodes.HunyuanModelLoader.init_random("xxl", "fp32", 0, device=dev),
+                 lambda: nodes.HunyuanModelLoader().load_model(
+                     "hunyuanvideo_foley.safetensors", "fp32", device=dev),
+                 lambda: nodes.HunyuanDependenciesLoader().load_dependencies(
+                     "vae_128d_48k.safetensors", "synchformer_state_dict.safetensors",
+                     precision="fp32", device=dev)):
+        try:
+            load()
+        except NotImplementedError as e:
+            refused.append(str(e)[:60])
+    check(len(refused) == 3, f"the precision gate let fp32 through ({refused})")
+    out["precision_gate"] = refused
+    del deps
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+
+
+def serving_phase(torch, dev, bundle, pipeline_cfg, clap_encoder, video_encoders):
+    """The HTTP server at XXL on the main path's bundle: ``create_server`` on 127.0.0.1
+    around a ``FoleyService`` (CLAP and the video encoders) warmed at 5 s, then over HTTP a
+    5 s T2A request as WAV and as JSON (the same samples), a ``frames_b64`` V2A request (K2
+    from the handler thread), the PCM16 stream (equal to the WAV), a 2 s continuation of a
+    4 s context, ``/healthz`` and ``/metrics``. Per request: the client's wall, the
+    generation inside it and the server's own share. Then a ``BatchingFoleyService``
+    (``max_batch=2``): two concurrent requests coalesced into one batch-2 call, each row's
+    latents within 1e-5 of its request served alone. Returns K1's and K2's launches over
+    the served requests."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+    import wave
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from foley_tpu_torch.ops.kernels import flash_attention as FL
+    from foley_tpu_torch.ops.kernels import fused_attention as FA
+    from foley_tpu_torch.pipeline import generate as gen_mod
+    from foley_tpu_torch.pipeline.features import encode_text
+    from foley_tpu_torch.serving import server as srv_mod
+
+    t_phase = time.perf_counter()
+    cfg = pipeline_cfg.model
+    sr = pipeline_cfg.dac.sample_rate
+    per_k1 = STEPS * (cfg.depth_triple_blocks + cfg.depth_single_blocks)
+    per_k2 = video_encoders["siglip2"].cfg.num_hidden_layers
+    inner = {}
+
+    def timing(name, fn):  # the seconds a wrapped call took, on the card's clock
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            inner[name] = inner.get(name, 0.0) + time.perf_counter() - t0
+            return res
+        return wrapped
+
+    originals = {n: getattr(srv_mod, n) for n in ("generate_audio", "continue_audio",
+                                                  "generate_audio_multi")}
+    for n in ("generate_audio", "continue_audio"):
+        setattr(srv_mod, n, timing("generate_s", originals[n]))
+    service = srv_mod.FoleyService(bundle, clap_encoder, durations=(DURATION_S,),
+                                   default_steps=STEPS, video_encoders=video_encoders,
+                                   v2a_warmup_hw=V2A_LONG_HW)
+    service._text = timing("clap_s", service._text)
+    service._visual_features = timing("video_encode_s", service._visual_features)
+    t0 = time.perf_counter()
+    service.warmup()
+    warm_s = time.perf_counter() - t0
+    httpd = srv_mod.create_server(service, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    base = {"prompt": PROMPT, "negative_prompt": NEGATIVE_PROMPT, "duration": DURATION_S,
+            "steps": STEPS, "cfg_scale": GUIDANCE, "seed": 11}
+    results, k1_total, k2_total = [], 0, 0
+
+    def post(name, body, host=url):
+        nonlocal k1_total, k2_total
+        inner.clear()
+        FA.fused_qk_attention.launches = FL.flash_attention.launches = 0
+        data = json.dumps(body).encode()
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(urllib.request.Request(host + "/generate", data=data),
+                                    timeout=600) as r:
+            payload, headers = r.read(), dict(r.headers)
+        wall = time.perf_counter() - t0
+        k1, k2 = FA.fused_qk_attention.launches, FL.flash_attention.launches
+        k1_total, k2_total = k1_total + k1, k2_total + k2
+        rec = {"phase": "serving", "request": name, "client_wall_s": wall,
+               "request_bytes": len(data), "response_bytes": len(payload), **inner,
+               "server_share_s": wall - sum(inner.values()), "k1_launches": k1,
+               "k2_launches": k2}
+        emit(rec)
+        results.append(rec)
+        return payload, headers, rec
+
+    def samples(wav_bytes, frames):
+        with wave.open(io.BytesIO(wav_bytes)) as f:
+            check((f.getframerate(), f.getnchannels(), f.getsampwidth(), f.getnframes())
+                  == (sr, 1, 2, frames), f"WAV {f.getparams()}")
+            return np.frombuffer(f.readframes(frames), "<i2")
+
+    try:
+        n = int(DURATION_S * sr)
+        wav, headers, rec = post("t2a_wav", base)
+        check(headers["Content-Type"] == "audio/wav", f"content type {headers['Content-Type']}")
+        pcm = samples(wav, n)
+        check(np.abs(pcm).max() > 0, "silent WAV")
+        check(rec["k1_launches"] == per_k1, f"T2A request: K1 {rec['k1_launches']}")
+        js, _, _ = post("t2a_json", dict(base, response="json"))
+        check(base64.b64decode(json.loads(js)["audio_base64"]) == wav,
+              "the JSON response's audio differs from the WAV")
+        frames = make_clip(np, 1, DURATION_S, V2A_LONG_HW)
+        buf = io.BytesIO()
+        np.savez(buf, frames=frames)
+        v2a_body = dict(base, frames_b64=base64.b64encode(buf.getvalue()).decode(),
+                        frames_fps=float(CLIP_FPS))
+        del buf
+        v2a, _, rec = post("v2a_frames_b64", v2a_body)
+        del v2a_body
+        check(rec["k2_launches"] == per_k2 and rec["k1_launches"] == per_k1,
+              f"V2A request: K1 {rec['k1_launches']}, K2 {rec['k2_launches']}")
+        check(np.abs(samples(v2a, n).astype(np.int32) - pcm).max() > 0,
+              "the V2A request's audio equals the T2A request's")
+        stream, headers, _ = post("t2a_pcm16_stream", dict(base, response="pcm16_stream"))
+        check(headers["X-Total-Samples"] == str(n) and stream == pcm.tobytes(),
+              "the PCM16 stream differs from the WAV")
+        cont, _, rec = post("continuation", dict(
+            base, duration=CONT_SERVE_S, context_s=CONTEXT_S,
+            continue_b64=base64.b64encode(wav).decode()))
+        check(rec["k1_launches"] == per_k1, f"continuation: K1 {rec['k1_launches']}")
+        check(np.abs(samples(cont, int(CONT_SERVE_S * sr))).max() > 0, "silent continuation")
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            metrics = json.loads(r.read())
+        check(health["status"] == "ok" and health["warm_buckets"] == [[DURATION_S, 1, 77]],
+              f"/healthz {health}")
+        check(metrics["requests_total"] == len(results) and metrics["failures_total"] == 0
+              and metrics["in_flight"] == 0, f"/metrics {metrics}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        for n_, fn in originals.items():
+            setattr(srv_mod, n_, fn)
+
+    # two concurrent requests coalesced into one batch-2 call, each row against its solo run
+    multi = []
+
+    def multi_latents(*a, **k):
+        res = originals["generate_audio_multi"](*a, return_latents=True, **k)
+        multi.append(res)
+        return res
+
+    srv_mod.generate_audio_multi = multi_latents
+    batching = srv_mod.BatchingFoleyService(bundle, clap_encoder, durations=(DURATION_S,),
+                                            default_steps=STEPS, max_batch=2,
+                                            batch_window_s=0.5)
+    httpd = srv_mod.create_server(batching, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    burl = f"http://127.0.0.1:{httpd.server_address[1]}"
+    pair = [dict(base, prompt=PROMPT, seed=21), dict(base, prompt="heavy footsteps on gravel",
+                                                     seed=22)]
+    try:
+        FA.fused_qk_attention.launches = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as ex:
+            outs = list(ex.map(lambda b: urllib.request.urlopen(urllib.request.Request(
+                burl + "/generate", data=json.dumps(b).encode()), timeout=600).read(), pair))
+        coalesced_s = time.perf_counter() - t0
+        k1 = FA.fused_qk_attention.launches
+        k1_total += k1
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv_mod.generate_audio_multi = originals["generate_audio_multi"]
+    check(len(multi) == 1 and multi[0].latents.shape[0] == 2,
+          f"the two requests ran as {len(multi)} calls, not one batch of 2")
+    check(k1 == per_k1, f"the coalesced call: K1 {k1}, expected {per_k1}")
+    deps = {"clap": clap_encoder}
+    rows = []
+    for i, body in enumerate(pair):
+        text, uncond = encode_text(deps, body["prompt"], body["negative_prompt"])
+        solo = gen_mod.generate_audio(bundle, text, uncond, DURATION_S, guidance_scale=GUIDANCE,
+                                      num_inference_steps=STEPS, seed=body["seed"],
+                                      return_latents=True)
+        diff = np.abs(multi[0].latents[i] - solo.latents[0])
+        ok = bool((diff <= 1e-5 + 1e-5 * np.abs(solo.latents[0])).all())
+        rows.append(float(diff.max()))
+        check(ok, f"coalesced row {i}: latents {float(diff.max())} from its solo run")
+        check(samples(outs[i], n).shape == (n,), "coalesced WAV")
+    solo_walls = [r["client_wall_s"] for r in results if r["request"] == "t2a_wav"]
+    emit({"phase": "serving", "request": "coalesced_pair", "client_wall_s": coalesced_s,
+          "solo_t2a_wall_s": solo_walls[0], "rows_max_abs_latent_diff": rows,
+          "k1_launches": k1, "warmup_s": warm_s,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return k1_total, k2_total
+
+
 def main() -> int:
     import torch
 
@@ -994,8 +1336,12 @@ def main() -> int:
     launches, t2a_latents = main_path_phase(torch, dev, bundle, XXL)
     profile_phase(torch, bundle)
     flash_launches = v2a_path_phase(torch, dev, bundle, XXL, t2a_latents)
-    text, uncond = clap_phase(torch, dev)
+    text, uncond, clap_encoder = clap_phase(torch, dev)
     long_k1, long_k2 = longform_path_phase(torch, dev, bundle, XXL, text, uncond)
+    video_encoders = random_video_encoders(torch, dev, XXL)
+    nodes_phase(torch, dev, bundle, XXL, clap_encoder, video_encoders)
+    serving_k1, serving_k2 = serving_phase(torch, dev, bundle, XXL, clap_encoder,
+                                           video_encoders)
 
     # per-launch figures weighted by the main path's mix: each step runs one joint call per
     # triple block and one single call per single block
@@ -1012,6 +1358,7 @@ def main() -> int:
         "source": "foley_tpu_torch/csrc/fused_qk_attention.cu",
         "replaces": "foley_tpu/ops/pallas/fused_attention.py:82",
         "launches": launches, "launches_longform": long_k1,
+        "launches_serving": serving_k1,
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
         "ms": avg("kernel_ms"), "plain_ms": avg("plain_ms"), "bound_ms": k1_bound["bound_ms"],
         "bound_by": k1_bound["bound_by"],
@@ -1021,6 +1368,7 @@ def main() -> int:
         "source": "foley_tpu_torch/csrc/flash_attention.cu",
         "replaces": "foley_tpu/ops/pallas/flash_attention.py:60",
         "launches": flash_launches, "launches_longform": long_k2,
+        "launches_serving": serving_k2,
         "max_abs_err": max(r["max_abs_err"] for r in flash.values()),
         "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],

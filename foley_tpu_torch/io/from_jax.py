@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from foley_tpu_torch.configs import DACConfig, MMDiTConfig
-from foley_tpu_torch.core.device import DeviceLike, resolve_device
+from foley_tpu_torch.core.device import DeviceLike
 
 _STACKED = ("triple_blocks", "single_blocks")
 
@@ -81,10 +81,10 @@ def _dtype_of(state: Dict[str, torch.Tensor]) -> torch.dtype:
 
 
 def _module_from_jax(cls, params: Dict, cfg, device: DeviceLike, dtype):
+    from foley_tpu_torch.io.convert import module_from_state_dict
+
     state = state_dict_from_jax(params)
-    model = cls(cfg, dtype=dtype or _dtype_of(state), device=resolve_device(device))
-    model.load_state_dict(state, strict=True)
-    return model
+    return module_from_state_dict(cls, state, cfg, device, dtype or _dtype_of(state))
 
 
 def mmdit_from_jax(params: Dict, cfg: MMDiTConfig, device: DeviceLike = None,

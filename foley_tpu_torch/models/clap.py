@@ -13,7 +13,8 @@ sequence that conditions the denoiser. The tower is a RoBERTa post-LN encoder:
 It runs in fp32, the checkpoint's dtype, with TF32 off (``true_fp32``). Tokenization stays
 on the host: ``ClapTextEncoder`` takes an optional tokenizer callable with the call of
 ``transformers.AutoTokenizer``; without one it encodes token ids and masks
-(``encode_ids``). The checkpoint converter and ``load`` are not ported yet.
+(``encode_ids``). ``load`` reads a Hugging Face checkpoint and RoBERTa's byte-level BPE
+tokenizer through the port's own reader (``io/tokenizer.py``).
 
 Parameter names follow the JAX tree (``w``/``b`` become ``weight``/``bias``), so
 ``io/from_jax.py`` maps one onto the other by name.
@@ -21,7 +22,9 @@ Parameter names follow the JAX tree (``w``/``b`` become ``weight``/``bias``), so
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+import json
+import os
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -136,3 +139,82 @@ class ClapTextEncoder:
 def encode_text(encoder: ClapTextEncoder, prompts: List[str]) -> torch.Tensor:
     """[neg, pos, ...] prompts -> [N, L, hidden]; the caller keeps the CFG row order."""
     return encoder.encode(prompts)
+
+
+# ---------------------------------------------------------------------------------
+# Checkpoint conversion and loading
+# ---------------------------------------------------------------------------------
+
+def convert_hf_state_dict(sd: Dict[str, torch.Tensor], cfg: ClapTextConfig,
+                          prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A Hugging Face ClapTextModel state dict (or ``text_model.``-prefixed) -> the port's
+    ``ClapText`` state dict (the pooler and projection are not used)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def lin(src, dst):
+        out[dst + ".weight"] = sd[prefix + src + ".weight"]
+        if prefix + src + ".bias" in sd:
+            out[dst + ".bias"] = sd[prefix + src + ".bias"]
+
+    for src, dst in (("word_embeddings", "word"), ("position_embeddings", "position"),
+                     ("token_type_embeddings", "token_type")):
+        out[f"embeddings.{dst}"] = sd[f"{prefix}embeddings.{src}.weight"]
+    lin("embeddings.LayerNorm", "embeddings.ln")
+    for i in range(cfg.num_hidden_layers):
+        for src, dst in (("attention.self.query", "q"), ("attention.self.key", "k"),
+                         ("attention.self.value", "v"), ("attention.output.dense", "attn_out"),
+                         ("attention.output.LayerNorm", "attn_ln"),
+                         ("intermediate.dense", "inter"), ("output.dense", "out"),
+                         ("output.LayerNorm", "out_ln")):
+            lin(f"encoder.layer.{i}.{src}", f"layers.{i}.{dst}")
+    return out
+
+
+def _infer_config(sd: Dict[str, torch.Tensor], prefix: str, model_path: str) -> ClapTextConfig:
+    """The tower's config from the checkpoint's shapes and a colocated ``config.json``; the
+    head count, pad id and LayerNorm eps are not in the shapes (larger_clap_general's
+    defaults: head dim 64, pad id 1, eps 1e-12)."""
+    vocab_size, hidden = sd[prefix + "embeddings.word_embeddings.weight"].shape
+    max_pos = sd[prefix + "embeddings.position_embeddings.weight"].shape[0]
+    type_vocab = sd[prefix + "embeddings.token_type_embeddings.weight"].shape[0]
+    inter = sd[prefix + "encoder.layer.0.intermediate.dense.weight"].shape[0]
+    n_layers = 1 + max(int(k.split(".")[len(prefix.split(".")) + 1])
+                       for k in sd if k.startswith(prefix + "encoder.layer."))
+    heads, pad_token_id, eps = max(1, hidden // 64), 1, 1e-12
+    cfg_json = os.path.join(model_path, "config.json") if os.path.isdir(model_path) else None
+    if cfg_json and os.path.exists(cfg_json):
+        with open(cfg_json) as f:
+            raw = json.load(f)
+        raw = raw.get("text_config", raw)
+        heads = int(raw.get("num_attention_heads", heads))
+        pad_token_id = int(raw.get("pad_token_id") or pad_token_id)
+        eps = float(raw.get("layer_norm_eps", eps))
+    return ClapTextConfig(
+        vocab_size=int(vocab_size), hidden_size=int(hidden), num_hidden_layers=int(n_layers),
+        num_attention_heads=heads, intermediate_size=int(inter),
+        max_position_embeddings=int(max_pos), type_vocab_size=int(type_vocab),
+        pad_token_id=pad_token_id, layer_norm_eps=eps)
+
+
+def load(model_path: str, tokenizer_path: Optional[str] = None,
+         device: DeviceLike = None) -> ClapTextEncoder:
+    """A local Hugging Face checkpoint (directory or state-dict file) -> an fp32 encoder on
+    ``device`` (``cuda`` unless given). The tokenizer comes from ``tokenizer_path``, else
+    from the checkpoint's directory; there is no download, so without either it raises."""
+    from foley_tpu_torch.io.convert import load_torch_state_dict, module_from_state_dict
+    from foley_tpu_torch.io.tokenizer import load_tokenizer
+
+    sd = load_torch_state_dict(model_path)
+    prefix = "text_model." if any(k.startswith("text_model.") for k in sd) else ""
+    cfg = _infer_config(sd, prefix, model_path)
+    model = module_from_state_dict(ClapText, convert_hf_state_dict(sd, cfg, prefix), cfg,
+                                   device, torch.float32)
+    if not tokenizer_path and os.path.isdir(model_path) and any(
+            os.path.exists(os.path.join(model_path, f)) for f in ("tokenizer.json",
+                                                                  "vocab.json")):
+        tokenizer_path = model_path
+    if not tokenizer_path:
+        raise FileNotFoundError(
+            "CLAP tokenizer: pass tokenizer_path (a directory with tokenizer.json, or "
+            "vocab.json and merges.txt) or colocate it with a directory checkpoint")
+    return ClapTextEncoder(model, load_tokenizer(tokenizer_path))

@@ -10,7 +10,9 @@ The encoder's self-attention always goes through ``flash_attention``: the Hopper
 CUDA tensors, its plain version for CPU tensors, at any token count. The MAP head's
 one-query attention stays plain, as in the JAX package. Frames take the JAX package's
 ``preprocess="device"`` route only (uint8 upload, antialiased bicubic resize on the card);
-the PIL route, checkpoint conversion and the naflex patch embedding are not ported.
+the PIL route is not ported. ``load`` reads a Hugging Face checkpoint (``vision_model.*``
+keys) with either patch embedding: the fixed-resolution conv ``[h, C, P, P]`` or naflex's
+linear ``[h, P*P*C]``, both mapped onto the port's linear one over (C, Ph, Pw).
 
 Parameter names follow the JAX tree (``w``/``b`` become ``weight``/``bias``), so
 ``io/from_jax.py`` maps one onto the other by name.
@@ -19,6 +21,10 @@ Parameter names follow the JAX tree (``w``/``b`` become ``weight``/``bias``), so
 from __future__ import annotations
 
 import dataclasses
+import json
+import math
+import os
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -230,3 +236,91 @@ class Siglip2Encoder:
                                           self.cfg.image_size)
         feats = apply(self.model, pixels.to(self.compute_dtype), pooled=True)  # [T, h]
         return feats[None].float()
+
+
+# ---------------------------------------------------------------------------------
+# Checkpoint conversion and loading
+# ---------------------------------------------------------------------------------
+
+def convert_hf_state_dict(sd: Dict[str, torch.Tensor], cfg: SiglipVisionConfig,
+                          prefix: str = "vision_model.") -> Dict[str, torch.Tensor]:
+    """A Hugging Face SigLIP / SigLIP2 vision tower's state dict -> the port's ``Siglip2``
+    state dict. The MAP head's packed ``in_proj`` [3h, h] splits into q, k and v."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def lin(src, dst):
+        out[dst + ".weight"] = sd[prefix + src + ".weight"]
+        out[dst + ".bias"] = sd[prefix + src + ".bias"]
+
+    pe = sd[prefix + "embeddings.patch_embedding.weight"]
+    h = pe.shape[0]
+    if pe.ndim == 4:  # conv2d [h, C, P, P]: flattened in (C, Ph, Pw) order
+        out["patch_embedding.weight"] = pe.reshape(h, -1)
+    else:
+        # naflex linear [h, Ph*Pw*C]: HF's processor orders patch features (ph, pw, c)
+        p = cfg.patch_size
+        c = pe.shape[1] // (p * p)
+        out["patch_embedding.weight"] = pe.reshape(h, p, p, c).permute(0, 3, 1, 2).reshape(h, -1)
+    out["patch_embedding.bias"] = sd[prefix + "embeddings.patch_embedding.bias"]
+    out["position_embedding"] = sd[prefix + "embeddings.position_embedding.weight"]
+    lin("post_layernorm", "post_layernorm")
+    for i in range(cfg.num_hidden_layers):
+        b = f"encoder.layers.{i}."
+        for src, dst in (("layer_norm1", "ln1"), ("self_attn.q_proj", "q"),
+                         ("self_attn.k_proj", "k"), ("self_attn.v_proj", "v"),
+                         ("self_attn.out_proj", "out"), ("layer_norm2", "ln2"),
+                         ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")):
+            lin(b + src, f"layers.{i}.{dst}")
+    if prefix + "head.probe" in sd:
+        out["head.probe"] = sd[prefix + "head.probe"]
+        in_w = sd[prefix + "head.attention.in_proj_weight"]
+        in_b = sd[prefix + "head.attention.in_proj_bias"]
+        for j, name in enumerate(("q", "k", "v")):
+            out[f"head.{name}.weight"] = in_w[j * h:(j + 1) * h]
+            out[f"head.{name}.bias"] = in_b[j * h:(j + 1) * h]
+        for src, dst in (("head.attention.out_proj", "head.out"), ("head.layernorm", "head.ln"),
+                         ("head.mlp.fc1", "head.fc1"), ("head.mlp.fc2", "head.fc2")):
+            lin(src, dst)
+    return out
+
+
+def _infer_config(sd: Dict[str, torch.Tensor], prefix: str,
+                  model_path: str) -> SiglipVisionConfig:
+    """The tower's config from the checkpoint's shapes and a colocated ``config.json``: the
+    head count is not in the shapes (``config.json`` wins, else head dim 64)."""
+    pe = sd[prefix + "embeddings.patch_embedding.weight"]
+    hidden = pe.shape[0]
+    if pe.ndim == 4:  # conv2d [h, C, P, P]
+        channels, patch = pe.shape[1], pe.shape[2]
+    else:  # naflex linear [h, P*P*C]
+        channels, patch = 3, int(math.isqrt(pe.shape[1] // 3))
+    n_pos = sd[prefix + "embeddings.position_embedding.weight"].shape[0]
+    inter = sd[prefix + "encoder.layers.0.mlp.fc1.weight"].shape[0]
+    n_layers = 1 + max(int(k[len(prefix + "encoder.layers."):].split(".")[0])
+                       for k in sd if k.startswith(prefix + "encoder.layers."))
+    heads, eps = max(1, hidden // 64), 1e-6
+    cfg_json = os.path.join(model_path, "config.json") if os.path.isdir(model_path) else None
+    if cfg_json and os.path.exists(cfg_json):
+        with open(cfg_json) as f:
+            raw = json.load(f)
+        raw = raw.get("vision_config", raw)
+        heads = int(raw.get("num_attention_heads", heads))
+        eps = float(raw.get("layer_norm_eps", eps))
+    return SiglipVisionConfig(
+        hidden_size=int(hidden), intermediate_size=int(inter), num_hidden_layers=int(n_layers),
+        num_attention_heads=heads, image_size=int(math.isqrt(n_pos)) * int(patch),
+        patch_size=int(patch), num_channels=int(channels), layer_norm_eps=eps)
+
+
+def load(model_path: str, cfg: Optional[SiglipVisionConfig] = None, device: DeviceLike = None,
+         dtype=torch.float32) -> Siglip2Encoder:
+    """A Hugging Face checkpoint (directory or file) -> an encoder on ``device`` (``cuda``
+    unless given) whose weights and activations are ``dtype``."""
+    from foley_tpu_torch.io.convert import load_torch_state_dict, module_from_state_dict
+
+    sd = load_torch_state_dict(model_path)
+    prefix = "vision_model." if any(k.startswith("vision_model.") for k in sd) else ""
+    cfg = cfg or _infer_config(sd, prefix, model_path)
+    model = module_from_state_dict(Siglip2, convert_hf_state_dict(sd, cfg, prefix), cfg,
+                                   device, dtype)
+    return Siglip2Encoder(model, compute_dtype=dtype)

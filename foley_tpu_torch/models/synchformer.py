@@ -18,12 +18,13 @@ Architecture (config ``divided_224_16x4``: ViT-B/16, depth 12, heads 12, tempora
 The JAX package computes all of this attention outside any Pallas kernel, so it stays plain
 here (matmul and softmax). Frames take the ``preprocess="device"`` route only: the unique
 25 fps frames are uploaded once as uint8 and windowed into segments on the card.
-Checkpoint conversion and the PIL route are not ported.
+The PIL route is not ported. ``load`` reads the reference's ``synchformer_state_dict``
+(``vfeat_extractor.*`` keys; the audio branch's keys are ignored).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -300,3 +301,65 @@ class SynchformerEncoder:
         x = torch.as_tensor(segments).to(self.device)[None].to(self.compute_dtype)
         feats = apply(self.model, x)  # [1, S, 8, D]
         return feats.reshape(1, -1, feats.shape[-1]).float()
+
+
+# ---------------------------------------------------------------------------------
+# Checkpoint conversion and loading
+# ---------------------------------------------------------------------------------
+
+def convert_state_dict(sd: Dict[str, torch.Tensor], cfg: SynchformerConfig,
+                       prefix: str = "vfeat_extractor.") -> Dict[str, torch.Tensor]:
+    """A Synchformer checkpoint's video half -> the port's ``Synchformer`` state dict. The
+    Conv3d patch embedding [D, C, kt, kh, kw] flattens (in torch's order) to a dense
+    [D, C*kt*kh*kw]."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def lin(src, dst):
+        out[dst + ".weight"] = sd[prefix + src + ".weight"]
+        out[dst + ".bias"] = sd[prefix + src + ".bias"]
+
+    w3 = sd[prefix + "patch_embed_3d.proj.weight"]
+    out["patch_embed.weight"] = w3.reshape(w3.shape[0], -1)
+    out["patch_embed.bias"] = sd[prefix + "patch_embed_3d.proj.bias"]
+    for name in ("cls_token", "pos_embed", "temp_embed"):
+        out[name] = sd[prefix + name]
+    lin("norm", "norm")
+    for i in range(cfg.depth):
+        for src, dst in (("norm1", "norm1"), ("attn.qkv", "attn_qkv"),
+                         ("attn.proj", "attn_proj"), ("norm3", "norm3"),
+                         ("timeattn.qkv", "time_qkv"), ("timeattn.proj", "time_proj"),
+                         ("norm2", "norm2"), ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")):
+            lin(f"blocks.{i}.{src}", f"blocks.{i}.{dst}")
+    agg = convert_torch_encoder_layer(sd, prefix + "spatial_attn_agg.", cfg.embed_dim)
+    out.update({"spatial_agg." + k: v for k, v in agg.items()})
+    return out
+
+
+def convert_torch_encoder_layer(sd: Dict[str, torch.Tensor], prefix: str,
+                                dim: int) -> Dict[str, torch.Tensor]:
+    """A torch ``nn.TransformerEncoderLayer`` with a CLS probe -> ``SpatialAgg``'s state
+    dict: the packed ``in_proj`` [3d, d] splits into q, k and v."""
+    in_w, in_b = sd[prefix + "self_attn.in_proj_weight"], sd[prefix + "self_attn.in_proj_bias"]
+    out = {"cls_token": sd[prefix + "cls_token"]}
+    for j, name in enumerate(("q", "k", "v")):
+        out[name + ".weight"] = in_w[j * dim:(j + 1) * dim]
+        out[name + ".bias"] = in_b[j * dim:(j + 1) * dim]
+    for src, dst in (("self_attn.out_proj", "out"), ("linear1", "linear1"),
+                     ("linear2", "linear2"), ("norm1", "norm1"), ("norm2", "norm2")):
+        out[dst + ".weight"] = sd[prefix + src + ".weight"]
+        out[dst + ".bias"] = sd[prefix + src + ".bias"]
+    return out
+
+
+def load(model_path: str, cfg: Optional[SynchformerConfig] = None, device: DeviceLike = None,
+         dtype=torch.float32) -> "SynchformerEncoder":
+    """The reference's checkpoint -> an encoder on ``device`` (``cuda`` unless given) whose
+    weights and activations are ``dtype``."""
+    from foley_tpu_torch.io.convert import load_torch_state_dict, module_from_state_dict
+
+    sd = load_torch_state_dict(model_path)
+    cfg = cfg or SynchformerConfig()
+    prefix = "vfeat_extractor." if any(k.startswith("vfeat_extractor.") for k in sd) else ""
+    model = module_from_state_dict(Synchformer, convert_state_dict(sd, cfg, prefix), cfg,
+                                   device, dtype)
+    return SynchformerEncoder(model, compute_dtype=dtype)

@@ -1,10 +1,12 @@
 """What the kernels' wrappers share around their C entries: the operand check every TMA
-tensor map needs, the current-device context a launch runs in, and how a C entry's return
-code is read. Nothing is built or loaded when this module is imported."""
+tensor map needs, the current-device context a launch runs in, how a C entry's return code
+is read, and the launch counters. Nothing is built or loaded when this module is
+imported."""
 
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
@@ -39,3 +41,14 @@ def check_launch(kernel: str, err: int) -> None:
     if err:
         raise RuntimeError(f"{kernel} kernel launch failed: "
                            f"{'no cuTensorMapEncodeTiled' if err == -2 else f'cudaError {err}'}")
+
+
+_launch_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (the wrapper's count of its kernel's launches) under a
+    lock: the server's request threads launch concurrently, and a bare ``+=`` on the
+    attribute could lose a count. So the count stays exact under concurrent requests."""
+    with _launch_lock:
+        wrapper.launches += 1

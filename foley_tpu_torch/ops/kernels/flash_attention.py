@@ -29,7 +29,12 @@ from typing import Optional
 import torch
 
 from foley_tpu_torch.ops.attention import sdpa
-from foley_tpu_torch.ops.kernels.common import check_launch, check_operand, on_device
+from foley_tpu_torch.ops.kernels.common import (
+    check_launch,
+    check_operand,
+    count_launch,
+    on_device,
+)
 
 HEAD_DIMS = (64, 128)
 
@@ -83,7 +88,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         err = _kernel_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
                            b, h, lq, lk, d, torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("flash_attention", err)
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return out
 
 

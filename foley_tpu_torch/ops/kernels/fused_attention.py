@@ -25,7 +25,12 @@ import ctypes
 
 import torch
 
-from foley_tpu_torch.ops.kernels.common import check_launch, check_operand, on_device
+from foley_tpu_torch.ops.kernels.common import (
+    check_launch,
+    check_operand,
+    count_launch,
+    on_device,
+)
 from foley_tpu_torch.ops.rope import _rotate_half
 
 HEAD_DIM = 128
@@ -109,7 +114,7 @@ def _launch(q, k, v, wq, wk, cos_q, sin_q, cos_k, sin_k, eps):
             tk[1].data_ptr(), tk[2].data_ptr(), strides, b, h, lq, lk, float(eps),
             torch.cuda.current_stream(dev).cuda_stream)
     check_launch("fused_qk_attention", err)
-    fused_qk_attention.launches += 1
+    count_launch(fused_qk_attention)
     return out
 
 

@@ -27,7 +27,12 @@ import ctypes
 
 import torch
 
-from foley_tpu_torch.ops.kernels.common import check_launch, check_operand, on_device
+from foley_tpu_torch.ops.kernels.common import (
+    check_launch,
+    check_operand,
+    count_launch,
+    on_device,
+)
 from foley_tpu_torch.ops.nn import true_fp32
 
 K_STEP = 64  # the kernel's contraction slab: K must be a multiple of it
@@ -88,7 +93,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                            blocks, x.stride(0), w.stride(0), w.stride(1),
                            torch.cuda.current_stream(x.device).cuda_stream)
     check_launch("gemm_sweep", err)
-    gemm_sweep.launches += 1
+    count_launch(gemm_sweep)
     return bufs[(blocks - 1) % 2]
 
 

@@ -65,6 +65,16 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]
     return out.transpose(1, 2)
 
 
+def fold_weight_norm(g: torch.Tensor, v: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Fold torch's ``weight_norm`` parametrization into a plain weight, w = g * v / ||v||,
+    the norm over every axis but ``dim``, in fp32, returned in ``v``'s dtype (the DAC's
+    WNConv layers, reference ``dac_vae/nn/layers.py:9-15``)."""
+    axes = tuple(i for i in range(v.ndim) if i != dim)
+    v32 = v.float()
+    norm = v32.square().sum(dim=axes, keepdim=True).sqrt()
+    return (g.float() * v32 / norm).to(v.dtype)
+
+
 # ---------------------------------------------------------------------------------
 # Parameter modules. Construction allocates without initializing; ``init_`` draws the
 # JAX package's schemes (``foley_tpu/ops/nn.py::init_dense`` / ``init_conv1d``) from a

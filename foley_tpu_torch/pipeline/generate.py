@@ -5,8 +5,9 @@ returning the sampler's two AUDIO outputs (first of batch and full batch) at 48 
 The models run where their parameters live: ``mmdit.init`` and ``dac_vae.init`` put them on
 ``cuda`` unless the caller names another device. Text features may come from anywhere; they
 are moved to that device; so are the visual features of V2A, which
-``pipeline/features.py::encode_video`` makes with ``bundle.encoders``. Host offload and LoRA
-are not ported yet.
+``pipeline/features.py::encode_video`` makes with ``bundle.encoders``. Parking a model in
+host memory between requests is the nodes' ``force_offload`` (``pipeline/manager.py``); block
+swap and LoRA are not ported yet.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ class ModelBundle(NamedTuple):
     encoders: Optional[Dict] = None
     compute_dtype: torch.dtype = torch.bfloat16
     latent_stats: Optional[tuple] = None  # (mean[C], std[C]) for from-scratch-trained models
+    progress: bool = False  # a host line per denoise step (the reference's ProgressBar)
 
 
 @dataclasses.dataclass
@@ -91,7 +93,8 @@ def _run(bundle: ModelBundle, latents, features, guidance_scale, num_inference_s
         use_cfg=use_cfg, compute_dtype=bundle.compute_dtype,
         decode_chunk_frames=(_DECODE_CHUNK_FRAMES if latent_len > _DECODE_CHUNK_THRESHOLD
                              else None),
-        output_pcm16=output_pcm16, visual_rows_shared=visual_rows_shared)
+        output_pcm16=output_pcm16, visual_rows_shared=visual_rows_shared,
+        progress=bundle.progress)
 
 
 def _to_host(audio: torch.Tensor, duration_s: float, sample_rate: int,
@@ -191,3 +194,10 @@ def generate_audio_multi(bundle: ModelBundle, text_feats, uncond_text_feats, dur
     return GenerationResult(
         audio_first=audio_np[:1], audio_batch=audio_np, sample_rate=cfg.dac.sample_rate,
         latents=final_latents.cpu().numpy() if return_latents else None)
+
+
+def select_audio_from_batch(audio_batch: np.ndarray, index: int) -> np.ndarray:
+    """One waveform of an AUDIO batch [B, C, T] -> [1, C, T]; an index out of range is
+    clamped."""
+    index = max(0, min(index, audio_batch.shape[0] - 1))
+    return audio_batch[index: index + 1]

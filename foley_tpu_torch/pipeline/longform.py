@@ -25,8 +25,8 @@ every window takes its slice.
 The stitched latents live on the model's device. The JAX package's ``attn_impl`` argument
 has no counterpart: both of the denoiser's attention sites always run the fused attention
 kernel, at every window length. ``default_window_s`` and ``snap_to_window_grid`` serve the
-JAX package's sampler node and server (their window size, and bounded window sizes for a
-server's compile cache); they have no caller in the port until those are ported.
+sampler node and the server (``api/nodes.py``, ``serving/server.py``): their window size,
+and a bounded set of window sizes for a server.
 """
 
 from __future__ import annotations
@@ -264,7 +264,8 @@ def _run_windows(bundle: ModelBundle, prep: _LongPrep, *, guidance_scale: float,
             diffusion=cfg.diffusion, num_steps=num_inference_steps, solver=sampler,
             use_cfg=prep.use_cfg, compute_dtype=bundle.compute_dtype,
             # under CFG the T2A halves share visual rows; V2A halves differ (empty vs real)
-            visual_rows_shared=prep.use_cfg and not prep.v2a, known_frames=known)
+            visual_rows_shared=prep.use_cfg and not prep.v2a, known_frames=known,
+            progress=bundle.progress)
         # the clamped prefix equals the previous tail exactly, so the whole window is copied
         prep.stitched[:, start: start + win] = win_out
         yield w_i, start, win

@@ -13,6 +13,7 @@ of it as in the JAX package, and so are the RoPE and qk-norm weight tables.
 
 from __future__ import annotations
 
+import logging
 from typing import NamedTuple, Optional
 
 import torch
@@ -25,6 +26,13 @@ from foley_tpu_torch.sampling.flow_match import (
     solver_init,
     solver_step,
 )
+
+
+def _progress_tick(step_i: int, n_steps: int, t: float) -> None:
+    """A host line per denoise step (the reference's ProgressBar.update), from host values:
+    it adds no device synchronization to the step."""
+    logging.getLogger("foley_tpu_torch").info(
+        f"denoise step {step_i + 1}/{n_steps} (t={t:.1f})")
 
 
 class DenoiseFeatures(NamedTuple):
@@ -40,7 +48,8 @@ def denoise_latents(model, latents: torch.Tensor, features: DenoiseFeatures,
                     guidance_scale: float, known_latents: Optional[torch.Tensor] = None, *,
                     diffusion: DiffusionConfig, num_steps: int, solver: str = "euler",
                     use_cfg: bool = True, compute_dtype=torch.bfloat16, begin_index: int = 0,
-                    visual_rows_shared: bool = False, known_frames: int = 0) -> torch.Tensor:
+                    visual_rows_shared: bool = False, known_frames: int = 0,
+                    progress: bool = False) -> torch.Tensor:
     """Run the flow-matching ODE. latents: [B, T, C] -> fp32 [B, T, C].
 
     ``begin_index`` starts mid-schedule (latents already noised to ``sigmas[begin_index]``).
@@ -49,14 +58,20 @@ def denoise_latents(model, latents: torch.Tensor, features: DenoiseFeatures,
     ``known_latents``: the first ``known_frames`` latent frames are clamped after every
     solver step to the interpolant ``(1-sigma)*known + sigma*noise0`` at the sigma the
     sample nominally sits at, and hard-set to ``known_latents`` after the loop.
+    ``progress``: log a line per step (``_progress_tick``) from a host copy of the schedule.
     """
     device = latents.device
-    sigmas = get_sigmas(
-        num_steps, shift=diffusion.sample_flow_shift, reverse=diffusion.flow_reverse,
-        use_flux_shift=diffusion.use_flux_shift, flux_base_shift=diffusion.flux_base_shift,
-        flux_max_shift=diffusion.flux_max_shift,
-        n_tokens=latents.shape[1] if diffusion.use_flux_shift else None, device=device)
-    timesteps = get_timesteps(sigmas, diffusion.num_train_timesteps)[begin_index:]
+
+    def schedule(on):
+        sig = get_sigmas(
+            num_steps, shift=diffusion.sample_flow_shift, reverse=diffusion.flow_reverse,
+            use_flux_shift=diffusion.use_flux_shift, flux_base_shift=diffusion.flux_base_shift,
+            flux_max_shift=diffusion.flux_max_shift,
+            n_tokens=latents.shape[1] if diffusion.use_flux_shift else None, device=on)
+        return sig, get_timesteps(sig, diffusion.num_train_timesteps)[begin_index:]
+
+    sigmas, timesteps = schedule(device)
+    host_t = schedule("cpu")[1].tolist() if progress else None
 
     cond = features.cond.to(device=device, dtype=compute_dtype)
     clip_feat = features.clip_feat.to(device=device, dtype=compute_dtype)
@@ -79,6 +94,8 @@ def denoise_latents(model, latents: torch.Tensor, features: DenoiseFeatures,
         latent_input = (torch.cat([lat, lat], dim=0) if use_cfg else lat).to(compute_dtype)
         t_expand = timesteps[i].expand(latent_input.shape[0])
         mods = None if triple_mods is None else (triple_mods[0][i], triple_mods[1][i])
+        if progress:
+            _progress_tick(i, len(host_t), host_t[i])
         v = model(latent_input, t_expand, cond, clip_feat, sync_feat, text_kv=text_kv,
                   triple_mods=mods, tables=tables, visual_rows_shared=shared).float()
         if use_cfg:
@@ -101,7 +118,7 @@ def denoise_and_decode(model, dac, latents: torch.Tensor, features: DenoiseFeatu
                        dac_cfg: DACConfig, num_steps: int, solver: str = "euler",
                        use_cfg: bool = True, compute_dtype=torch.bfloat16, begin_index: int = 0,
                        decode_chunk_frames: Optional[int] = None, output_pcm16: bool = False,
-                       visual_rows_shared: bool = False):
+                       visual_rows_shared: bool = False, progress: bool = False):
     """Denoise + DAC decode. Returns (final_latents fp32 in model latent space, audio
     [B, T*hop, 1]: fp32, or int16 PCM with ``output_pcm16``).
 
@@ -114,7 +131,7 @@ def denoise_and_decode(model, dac, latents: torch.Tensor, features: DenoiseFeatu
     final_latents = denoise_latents(
         model, latents, features, guidance_scale, diffusion=diffusion, num_steps=num_steps,
         solver=solver, use_cfg=use_cfg, compute_dtype=compute_dtype, begin_index=begin_index,
-        visual_rows_shared=visual_rows_shared)
+        visual_rows_shared=visual_rows_shared, progress=progress)
     raw = final_latents
     if latent_stats is not None:
         mean, std = latent_stats

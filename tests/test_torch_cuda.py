@@ -390,3 +390,58 @@ def test_probe_measures_on_the_card(dev, monkeypatch):
         assert rec[v]["ms_per_sweep"] > 0 and rec[v]["graph_ms_per_sweep"] > 0
     # wrapper calls: the checked sweep, a warm-up, three timed, the graph's warm-up and capture
     assert rec["kernel_sweeps"] == 1 + 1 + 3 + 2
+
+
+def test_nodes_refuse_precisions_the_kernels_do_not_take(dev):
+    """On the card the denoiser and the visual encoders load in bf16 only (K1 and K2 take
+    bf16): fp16 and fp32 raise at load, with no fallback to the plain attention."""
+    from foley_tpu_torch.api.nodes import HunyuanDependenciesLoader, HunyuanModelLoader
+
+    for precision in ("fp16", "fp32"):
+        with pytest.raises(NotImplementedError, match="K1.*queue B"):
+            HunyuanModelLoader.init_random("tiny", precision, 0, device=dev)
+        with pytest.raises(NotImplementedError, match="K2.*queue B"):
+            HunyuanDependenciesLoader().load_dependencies(
+                "vae_128d_48k.safetensors", "synchformer_state_dict.safetensors",
+                precision=precision, device=dev)
+    fm = HunyuanModelLoader.init_random("tiny", "bf16", 0, device=dev)
+    assert fm["params"].final_layer.linear.weight.device.type == "cuda"
+
+
+def test_http_round_trip_on_card_launches_the_kernel(dev):
+    """One request through the HTTP server at a small width with 128-wide heads: the
+    handler thread launches K1 once per block and step, and the WAV holds the request's
+    samples."""
+    import io
+    import json
+    import threading
+    import urllib.request
+    import wave
+
+    from foley_tpu_torch.serving.server import FoleyService, create_server
+
+    cfg = dataclasses.replace(TINY, model=dataclasses.replace(TINY.model, hidden_size=256))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = perturb_zero_leaves(mmdit.init(cfg.model, gen, device=dev, dtype=torch.bfloat16),
+                                gen)
+    dac = dac_vae.init(cfg.dac, torch.Generator(device=dev).manual_seed(1), device=dev)
+    service = FoleyService(ModelBundle(model, dac, cfg), durations=(1.0,), text_buckets=(16,),
+                           default_steps=3)
+    service.warmup()
+    srv = create_server(service, host="127.0.0.1", port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        before = FA.fused_qk_attention.launches
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.server_address[1]}/generate",
+            data=json.dumps({"prompt": "x", "duration": 1.0, "seed": 2}).encode())
+        with urllib.request.urlopen(req, timeout=300) as r:
+            data = r.read()
+    finally:
+        srv.shutdown()
+    blocks = cfg.model.depth_triple_blocks + cfg.model.depth_single_blocks
+    assert FA.fused_qk_attention.launches - before == 3 * blocks
+    with wave.open(io.BytesIO(data)) as f:
+        assert (f.getframerate(), f.getnframes()) == (48000, 48000)
+        pcm = np.frombuffer(f.readframes(48000), "<i2")
+    assert np.abs(pcm).max() > 0

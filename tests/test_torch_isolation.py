@@ -1,6 +1,6 @@
-"""The port stands alone: it imports nothing of JAX, flax, yaml, PIL or the JAX package (the
-machine with the card has none of them), and its entry points never fall back to the CPU on
-their own."""
+"""The port stands alone: it imports nothing of JAX, flax, yaml, PIL, safetensors,
+transformers or the JAX package (the machine with the card has none of them), and its entry
+points never fall back to the CPU on their own."""
 
 import ast
 import os
@@ -14,10 +14,14 @@ import torch
 
 from foley_tpu_torch.configs import TINY, ClapTextConfig
 from foley_tpu_torch.core.device import resolve_device
+from foley_tpu_torch.api.nodes import HunyuanDependenciesLoader, HunyuanModelLoader
 from foley_tpu_torch.models import clap, dac_vae, mmdit, siglip2, synchformer
+from foley_tpu_torch.pipeline import standalone
+from foley_tpu_torch.serving import server
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "yaml", "PIL", "foley_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "yaml", "PIL", "foley_tpu", "safetensors",
+             "transformers", "tokenizers"}
 
 
 def _port_sources():
@@ -65,6 +69,16 @@ def test_entry_points_need_a_device_without_cuda():
         synchformer.init_random(0, 16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         clap.init(ClapTextConfig.tiny(), torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HunyuanModelLoader.init_random("tiny", "bf16", 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HunyuanDependenciesLoader().load_dependencies("vae_128d_48k.safetensors", None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        standalone.load_model("checkpoints")
+    with pytest.raises(RuntimeError, match="no CUDA device"):  # --device defaults to cuda
+        server.main(["--random_init", "tiny"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
 
 

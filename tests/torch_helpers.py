@@ -64,3 +64,62 @@ def jax_tree_from_port(module: torch.nn.Module, jax_init, *init_args):
         return np.ascontiguousarray(a, dtype=spec.dtype)
 
     return jax.tree_util.tree_map_with_path(fill, template)
+
+
+BPE_CORPUS = ("glass shattering footsteps on ice rain thunder noisy harsh a the clink "
+              "crunchy metal water wind rain drums on a tin roof while heavy rain falls "
+              "the dog's bark isn't loud 1234 5678 it's 2024 café naïve")
+
+
+def save_bpe_tokenizer(dirpath: str, n_merges: int = 120) -> str:
+    """A RoBERTa byte-level BPE tokenizer (``vocab.json``, ``merges.txt`` and the config
+    ``transformers.AutoTokenizer`` reads) with merges learnt greedily from ``BPE_CORPUS``:
+    ``<s>`` 0, ``<pad>`` 1, ``</s>`` 2, ``<unk>`` 3, then the 256 byte symbols, then one
+    token per merge."""
+    import collections
+    import os
+
+    from transformers import RobertaTokenizer
+    from transformers.models.roberta.tokenization_roberta import bytes_to_unicode
+
+    from foley_tpu_torch.io.tokenizer import _pattern
+
+    byte_map = bytes_to_unicode()
+    words = collections.Counter(
+        "".join(byte_map[b] for b in piece.encode("utf-8"))
+        for piece in _pattern().findall(BPE_CORPUS))
+    splits = {w: list(w) for w in words}
+    vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
+    for ch in sorted(byte_map.values()):
+        vocab[ch] = len(vocab)
+    merges = []
+    for _ in range(n_merges):
+        pairs = collections.Counter()
+        for w, parts in splits.items():
+            for a, b in zip(parts, parts[1:]):
+                pairs[a, b] += words[w]
+        if not pairs:
+            break
+        (a, b), _ = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))
+        merges.append((a, b))
+        vocab.setdefault(a + b, len(vocab))
+        for w, parts in splits.items():
+            out, i = [], 0
+            while i < len(parts):
+                if i < len(parts) - 1 and (parts[i], parts[i + 1]) == (a, b):
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(parts[i])
+                    i += 1
+            splits[w] = out
+    os.makedirs(dirpath, exist_ok=True)
+    import json
+
+    with open(os.path.join(dirpath, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(dirpath, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    RobertaTokenizer(os.path.join(dirpath, "vocab.json"),
+                     os.path.join(dirpath, "merges.txt")).save_pretrained(dirpath)
+    return dirpath

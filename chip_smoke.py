@@ -7,8 +7,8 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
 
 - ``device``: the card (``nvidia-smi`` name and power limit, also printed raw on a line of
   its own), torch and CUDA versions;
-- ``build``: the three kernel libraries, built in parallel: seconds per library and what
-  ptxas reported;
+- ``build``: the four kernel libraries (K1 and K2 in bf16 / fp16, their fp32 kernels, K3),
+  built in parallel: seconds per library and what ptxas reported;
 - ``kernel``: one line per kernel and shape: the fused qk-norm + RoPE attention kernel (K1,
   at every shape a path below gives it: the 5 s request's, the 30 s long-form window's, the
   14 s continuation window's and the 16 s V2A window's, and ragged lengths), the
@@ -17,7 +17,9 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   PyTorch versions in bf16 (max abs and relative L2 errors and their tolerances), with the
   kernel's device time (and, for K1 and K2, the wrapper's host time a launch), the plain
   version's and the library call's times and the card's bound for the work (K3's also with
-  the tool's full-width library sweep);
+  the tool's full-width library sweep); then K1 and K2 in fp16 (within the bf16 tolerances)
+  and fp32 (within 1e-5 relative L2 of the plain version in true fp32, with the control,
+  the plain version under TF32, outside that bound), each with its times and bound;
 - ``probe_gemm``: K3's path, the GEMM sweep probe (``foley_tpu_torch.tools.probe_gemm``) at
   its full shape, 36 blocks of x [784, 1536] @ W_b[:, :1536] of [1536, 4608]: its record
   (each variant's time a sweep, eager and replayed from a CUDA graph, and rates, the
@@ -52,18 +54,29 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   (every weight equal, the write and load seconds); the sampler node on 5 s T2A twice with
   ``force_offload`` (the same bytes, equal to ``generate_audio``'s; park and restore
   seconds, peak memory), once on 5 s of a 640x360 clip through ``image``, once on a batch of
-  2 for ``SelectAudioFromBatch``; the precision gate refusing fp32 on the card;
+  2 for ``SelectAudioFromBatch``; the dependencies loader at fp16 with fp16 encoders
+  encoding through the node (12 fp16 K2 launches);
 - ``serving``: the HTTP server on 127.0.0.1 around a ``FoleyService`` on the same bundle,
   CLAP and the video encoders, warmed at 5 s: one line per request (T2A as WAV and as JSON,
   ``frames_b64`` V2A, the PCM16 stream, a 2 s continuation of a 4 s context) with the
   client's wall, the generation and CLAP inside it, the server's own share and K1's and
   K2's launches; then a ``BatchingFoleyService`` coalescing two concurrent requests into one
   batch-2 call, each row's latents against its solo request;
+- ``precision``: the XXL denoiser in fp16 and in fp32 (``HunyuanModelLoader.init_random``,
+  one at a time): a 5 s forward through the kernels against the plain attention, fp32 also
+  under ``"high"`` matmul precision (equal within 1e-5); SigLIP2 and Synchformer in the same
+  type encoding the 5 s 1280x720 clip, 12 K2 launches of that type, SigLIP2's features
+  against the plain attention;
+- ``cli``: ``foley_tpu_torch.cli.main`` in this process, XXL 5 s T2A with 50 steps in fp16
+  and in fp32: the WAV (48 kHz, mono, 240,000 frames, non-silent), 2,700 K1 launches of the
+  type and the wall;
 - ``{"kernels": [...]}``: every ported kernel with its launches on its path (K1 in
   ``main_path`` and, as ``launches_longform``, in the 75 s request and, as
   ``launches_serving``, over the ``serving`` requests; K2 in ``v2a_path``, the 24 s V2A
   request and the served V2A request; K3 in one sweep of ``probe_gemm``; K3's times are the
-  probe's graph-replayed device times);
+  probe's graph-replayed device times), then the fp16 and fp32 kernels of K1 (launches in
+  the ``cli`` request of their type) and K2 (launches in the ``precision`` encode of their
+  type);
 - last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the run exits non-zero. Without a CUDA card, or outside the
@@ -81,7 +94,8 @@ DURATION_S = 5.0
 STEPS = 50
 GUIDANCE = 4.5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
+BF16_FLOPS = 989e12        # H100 SXM dense bf16 (and fp16) tensor-core peak
+FP32_FLOPS = 67e12         # H100 SXM fp32 on the CUDA cores (the fp32 kernels use no TF32)
 KERNEL_TOL = 2e-2          # bf16: online softmax rounds unnormalised p, sums in another order;
                            # K3: tanh bounds the output by 1, the tool's own limit
                            # (probe_gemm_pallas.py:122); the same fp32 products summed in another
@@ -95,7 +109,7 @@ CHAIN_DRIFT = 2.0          # K3's chain may drift from the plain one at most thi
 FORWARD_REL_TOL = 5e-2     # relative L2 error of the XXL velocity, bf16 through 54 blocks
 LATENT_STD = (0.1, 100.0)  # plausible std of the final latents (the initial noise has 1)
 MOVED_REL = 0.1            # least relative L2 distance of the final latents from the noise
-KERNEL_LIBS = ("fused_qk_attention", "flash_attention", "gemm_sweep")
+KERNEL_LIBS = ("fused_qk_attention", "flash_attention", "gemm_sweep", "attention_f32")
 CLIP_FPS, CLIP_HW = 25, (720, 1280)  # the V2A source clip: 5 s of 25 fps 1280x720 RGB
 CLAP_REL_TOL = 1e-5        # CLAP fp32 on the card against the CPU, relative L2 (fp32 reads
                            # ~7e-7; the phase's control, TF32 let in, ~4e-4 and must break it)
@@ -107,6 +121,13 @@ EDIT_STRENGTH = 0.6
 V2A_LONG_S, V2A_LONG_HW = 24.0, (360, 640)  # 24 s of 25 fps 640x360 RGB
 CONT_SERVE_S = 2.0         # the served continuation: 2 s after the last CONTEXT_S of a request
 STREAM_TOL = 1.5 / 32767   # stream against batch: the same decodes, at most a PCM step apart
+FP32_KERNEL_REL_TOL = 1e-5  # fp32 K1 / K2 against the plain version in true fp32, relative L2:
+                            # fp32 sums in another order read ~1e-6; the control, the plain
+                            # version with TF32 let in, must land outside it
+FP32_MODEL_REL_TOL = 1e-5   # the fp32 XXL velocity and SigLIP2 features, kernel against plain
+                            # attention, relative L2: read 4.8e-7 and 6.7e-7 on an H100 (fp32
+                            # sums in another order through 54 / 12 layers); a TF32 product
+                            # reads ~4e-4, so 1e-5 holds the kernels to fp32 with 15x room
 
 
 def emit(obj) -> None:
@@ -132,30 +153,22 @@ def gpu_ms(torch, fn, iters: int) -> float:
     return timed_ms(torch, fn, iters)[0]
 
 
-def kernel_bound(n_bytes: int, flops: int) -> dict:
-    bound = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3, "operations": flops / BF16_FLOPS * 1e3}
+def kernel_bound(n_bytes: int, flops: int, peak: float = BF16_FLOPS) -> dict:
+    """The least time the card takes for the work: bytes at the memory rate or operations at
+    ``peak`` (the tensor cores' bf16 / fp16 rate unless given; the CUDA cores' for fp32)."""
+    bound = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3, "operations": flops / peak * 1e3}
     return {"bytes": n_bytes, "flops": flops, "bound_ms": max(bound.values()),
             "bound_by": max(bound, key=bound.get)}
 
 
-def kernel_phase(torch, dev, cfg):
-    """K1 against its plain version at the main path's two shapes, ragged lengths on both
-    sides of its 64-row tiles and the long-form path's windows: 30 s (joint L 1740, single
-    L 1500), the 14 s continuation window (joint L 812, single L 700) and the 16 s V2A
-    window (joint L 928, single L 800). Returns {case: result}.
-
-    K1's bound counts what the function must move: q, k and v read and o written in bf16,
-    the per-position fp32 cos/sin tables read once (one pair, shared by q and k, as the
-    denoiser passes them), and the norm weights as the [D] rows they are made of (one per
-    stream: two for the joint [v_cond; audio] sequence, one for a single block), for q and
-    for k. The kernel reads the weights as per-position [L, D] tables, which the bound does
-    not charge it for."""
+def k1_cases(torch, dev, cfg, gen) -> dict:
+    """K1's cases at every shape a path gives it: {name: (length, streams, [wq, wk, cq, sq,
+    ck, sk])}, the fp32 tables as the denoiser builds them (``streams``: the norm weights'
+    [D] rows a call is made of)."""
     from foley_tpu_torch.models.mmdit import build_rope_tables
-    from foley_tpu_torch.ops.kernels import fused_attention as FA
     from foley_tpu_torch.ops.rope import rope_table
 
-    b, h, d = 2, cfg.num_heads, cfg.head_dim
-    gen = torch.Generator(device=dev).manual_seed(0)
+    d = cfg.head_dim
 
     def norm_weight():  # an RMSNorm weight [D], in fp32 as the denoiser's tables hold it
         return torch.empty(d, device=dev).uniform_(0.5, 1.5, generator=gen)
@@ -175,13 +188,32 @@ def kernel_phase(torch, dev, cfg):
         return length, 1, [norm_weight().expand(length, d).contiguous() for _ in range(2)] + [
             cos, sin, cos, sin]
 
-    cases = {"joint_5s": joint_case(250, 40), "single_5s": single_case(250),
-             "ragged_1": single_case(1), "ragged_63": single_case(63),
-             "ragged_64": single_case(64), "ragged_65": single_case(65),
-             "ragged_128": single_case(128), "joint_30s": joint_case(1500, 240),
-             "single_30s": single_case(1500), "joint_cont": joint_case(700, 112),
-             "single_cont": single_case(700), "joint_v2a16": joint_case(800, 128),
-             "single_v2a16": single_case(800)}
+    return {"joint_5s": joint_case(250, 40), "single_5s": single_case(250),
+            "ragged_1": single_case(1), "ragged_63": single_case(63),
+            "ragged_64": single_case(64), "ragged_65": single_case(65),
+            "ragged_128": single_case(128), "joint_30s": joint_case(1500, 240),
+            "single_30s": single_case(1500), "joint_cont": joint_case(700, 112),
+            "single_cont": single_case(700), "joint_v2a16": joint_case(800, 128),
+            "single_v2a16": single_case(800)}
+
+
+def kernel_phase(torch, dev, cfg):
+    """K1 against its plain version at the main path's two shapes, ragged lengths on both
+    sides of its 64-row tiles and the long-form path's windows: 30 s (joint L 1740, single
+    L 1500), the 14 s continuation window (joint L 812, single L 700) and the 16 s V2A
+    window (joint L 928, single L 800). Returns {case: result}.
+
+    K1's bound counts what the function must move: q, k and v read and o written in bf16,
+    the per-position fp32 cos/sin tables read once (one pair, shared by q and k, as the
+    denoiser passes them), and the norm weights as the [D] rows they are made of (one per
+    stream: two for the joint [v_cond; audio] sequence, one for a single block), for q and
+    for k. The kernel reads the weights as per-position [L, D] tables, which the bound does
+    not charge it for."""
+    from foley_tpu_torch.ops.kernels import fused_attention as FA
+
+    b, h, d = 2, cfg.num_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = k1_cases(torch, dev, cfg, gen)
     results = {}
     for name, (length, streams, (wq, wk, cq, sq, ck, sk)) in cases.items():
         q, k, v = (torch.randn(b, length, h, d, device=dev, generator=gen).to(torch.bfloat16)
@@ -962,16 +994,17 @@ def longform_path_phase(torch, dev, bundle, pipeline_cfg, text, uncond):
     return long_launches, out["v2a_k2_launches"]
 
 
-def random_video_encoders(torch, dev, pipeline_cfg) -> dict:
-    """SigLIP2 and Synchformer at their real geometry, random bf16 weights from a seed with
-    the zero leaves perturbed, as ``v2a_path`` makes them."""
+def random_video_encoders(torch, dev, pipeline_cfg, dtype=None) -> dict:
+    """SigLIP2 and Synchformer at their real geometry, random weights of ``dtype`` (bf16
+    unless given) from a seed with the zero leaves perturbed, as ``v2a_path`` makes them."""
     from foley_tpu_torch.core.params import perturb_zero_leaves
     from foley_tpu_torch.models import siglip2, synchformer
 
     cfg = pipeline_cfg.model
-    encoders = {"siglip2": siglip2.init_random(0, cfg.clip_dim, device=dev, dtype=torch.bfloat16),
+    dtype = dtype or torch.bfloat16
+    encoders = {"siglip2": siglip2.init_random(0, cfg.clip_dim, device=dev, dtype=dtype),
                 "synchformer": synchformer.init_random(1, cfg.sync_feat_dim, device=dev,
-                                                       dtype=torch.bfloat16)}
+                                                       dtype=dtype)}
     gen = torch.Generator(device=dev).manual_seed(3)
     for enc in encoders.values():
         perturb_zero_leaves(enc.model, gen)
@@ -986,7 +1019,8 @@ def nodes_phase(torch, dev, bundle, pipeline_cfg, clap_encoder, video_encoders) 
     twice on 5 s T2A (50 Euler steps, CFG 4.5; the same bytes, the park and restore
     seconds), its ``audio_first`` against ``generate_audio`` on the same bundle and seed bit
     for bit; one 5 s V2A call through ``image`` (640x360); ``SelectAudioFromBatch`` on a
-    batch of 2; and the precision gate refusing fp32 on the card."""
+    batch of 2; and the dependencies loader at fp16 (the reference's GPU default for the
+    visual encoders), whose fp16 encoders encode through the node with 12 fp16 K2 launches."""
     import os
 
     import numpy as np
@@ -995,6 +1029,7 @@ def nodes_phase(torch, dev, bundle, pipeline_cfg, clap_encoder, video_encoders) 
     from foley_tpu_torch.io.convert import dac_reference_state_dict, save_safetensors
     from foley_tpu_torch.ops.kernels import flash_attention as FL
     from foley_tpu_torch.ops.kernels import fused_attention as FA
+    from foley_tpu_torch.ops.kernels.common import reset_launches
     from foley_tpu_torch.pipeline.features import encode_text
     from foley_tpu_torch.pipeline.generate import generate_audio
 
@@ -1018,6 +1053,10 @@ def nodes_phase(torch, dev, bundle, pipeline_cfg, clap_encoder, video_encoders) 
     torch.cuda.synchronize()
     out["dac_load_s"] = time.perf_counter() - t0
     out["dac_load_gb_per_s"] = out["dac_checkpoint_bytes"] / out["dac_load_s"] / 1e9
+    # the loader at fp16, the reference's own GPU default for the visual encoders: it loads,
+    # and the sampler node's encode runs fp16 encoders through K2's fp16 kernel
+    (deps16,) = nodes.HunyuanDependenciesLoader().load_dependencies(
+        path, synchformer_model="", precision="fp16", device=dev)
     os.remove(path)
     loaded = deps["dac_params"].state_dict()
     check(deps["dac_cfg"] == pipeline_cfg.dac, f"DAC config read as {deps['dac_cfg']}")
@@ -1087,21 +1126,20 @@ def nodes_phase(torch, dev, bundle, pipeline_cfg, clap_encoder, video_encoders) 
     (clamped,) = nodes.SelectAudioFromBatch().select_audio(batch2, 5)
     check(clamped["waveform"].tobytes() == row["waveform"].tobytes(), "index not clamped")
 
-    # the precision gate: fp32 on the card raises at load, before any allocation
-    refused = []
-    for load in (lambda: nodes.HunyuanModelLoader.init_random("xxl", "fp32", 0, device=dev),
-                 lambda: nodes.HunyuanModelLoader().load_model(
-                     "hunyuanvideo_foley.safetensors", "fp32", device=dev),
-                 lambda: nodes.HunyuanDependenciesLoader().load_dependencies(
-                     "vae_128d_48k.safetensors", "synchformer_state_dict.safetensors",
-                     precision="fp32", device=dev)):
-        try:
-            load()
-        except NotImplementedError as e:
-            refused.append(str(e)[:60])
-    check(len(refused) == 3, f"the precision gate let fp32 through ({refused})")
-    out["precision_gate"] = refused
-    del deps
+    # the dependencies loaded at fp16, with fp16 video encoders, through the node's encode
+    deps16.update(random_video_encoders(torch, dev, pipeline_cfg, torch.float16))
+    reset_launches(FL.flash_attention)
+    t0 = time.perf_counter()
+    clip16, sync16 = nodes.HunyuanFoleySampler._encode_video(deps16, frames, CLIP_FPS,
+                                                             DURATION_S, pipeline_cfg)
+    torch.cuda.synchronize()
+    out["fp16_encode_s"] = time.perf_counter() - t0
+    out["fp16_k2_launches"] = FL.flash_attention.launches_by_dtype.get(torch.float16, 0)
+    check(out["fp16_k2_launches"] == deps16["siglip2"].cfg.num_hidden_layers,
+          f"fp16 dependencies: K2 launches {FL.flash_attention.launches_by_dtype}")
+    check(bool(torch.isfinite(clip16).all() and torch.isfinite(sync16).all())
+          and float(clip16.std()) > 0, "fp16 dependencies: non-finite or constant features")
+    del deps, deps16, clip16, sync16
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
 
@@ -1290,6 +1328,331 @@ def serving_phase(torch, dev, bundle, pipeline_cfg, clap_encoder, video_encoders
     return k1_total, k2_total
 
 
+# K1's fp16 / fp32 cases (names of ``k1_cases``), and K2's: (B, Lq, Lk, H, D)
+K1_VARIANT_CASES = ("joint_5s", "single_5s", "ragged_1", "ragged_63", "ragged_65", "joint_30s",
+                    "single_30s")
+K2_VARIANT_CASES = {"fp16": {"siglip2_5s": (40, 1024, 1024, 12, 64),
+                             "siglip2_24s": (192, 1024, 1024, 12, 64),
+                             "ragged_1": (2, 1, 1, 12, 64), "ragged_65": (2, 65, 65, 12, 64),
+                             "cross_250x77": (2, 250, 77, 12, 128)},
+                    "fp32": {"siglip2_5s": (40, 1024, 1024, 12, 64),
+                             "ragged_1": (2, 1, 1, 12, 64), "ragged_63": (2, 63, 63, 12, 64),
+                             "ragged_65": (2, 65, 65, 12, 64),
+                             "cross_250x77": (2, 250, 77, 12, 128)}}
+# the fp32 cases at the paths' shapes, where the TF32 control must break the fp32 bound; it
+# is recorded for the others, where cuBLAS may pick a CUDA-core kernel for the small ragged
+# products and "high" then changes nothing (K1 at L 65 read 0.0 on an H100)
+TF32_CONTROL_CASES = ("joint_5s", "single_5s", "joint_30s", "single_30s", "siglip2_5s")
+
+
+def _rel_l2(got, ref) -> float:
+    return float((got.float() - ref.float()).norm() / ref.float().norm())
+
+
+def _tf32_control(torch, fn):
+    """``fn()`` with TF32 let into every fp32 matmul: ``"high"`` matmul precision, outside
+    ``true_fp32`` (the control that shows the fp32 bound can tell TF32 from fp32)."""
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        return fn()
+    finally:
+        torch.set_float32_matmul_precision(saved)
+
+
+def _check_variant(torch, name, got, ref, dtype) -> dict:
+    """A 16-bit kernel within the bf16 tolerances, an fp32 one within 1e-5 relative L2."""
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite kernel output")
+    err, rel = float((got.float() - ref.float()).abs().max()), _rel_l2(got, ref)
+    if dtype == torch.float32:
+        check(rel <= FP32_KERNEL_REL_TOL, f"{name}: relative L2 error {rel} > "
+                                          f"{FP32_KERNEL_REL_TOL}")
+        return {"max_abs_err": err, "rel_l2_err": rel, "rel_tol": FP32_KERNEL_REL_TOL}
+    check(err <= KERNEL_TOL, f"{name}: max abs error {err} > {KERNEL_TOL}")
+    check(rel <= KERNEL_REL_TOL, f"{name}: relative L2 error {rel} > {KERNEL_REL_TOL}")
+    return {"max_abs_err": err, "tol": KERNEL_TOL, "rel_l2_err": rel, "rel_tol": KERNEL_REL_TOL}
+
+
+def precision_kernel_phase(torch, dev, cfg):
+    """K1 and K2 in fp16 and fp32 against their plain versions (fp32 inside ``true_fp32``),
+    with each case's device time, the plain version's, the library call's in the same type
+    (plain norm and RoPE then SDPA for K1, SDPA for K2; fp32 inside ``true_fp32``) and the
+    bound (fp16 at the tensor cores' rate, fp32 at the CUDA cores'). K1 at the 5 s and 30 s
+    shapes and ragged lengths; K2 in fp16 at SigLIP2's 40 and 192 frames, in fp32 at 40
+    frames (its plain version held in chunks of 8 frames), ragged and cross. For each fp32
+    case with more than one key the control is the plain version with TF32 let in; at the
+    paths' shapes (``TF32_CONTROL_CASES``) it must land outside the fp32 bound.
+    Returns {(kernel, dtype name): {case: result}}."""
+    from foley_tpu_torch.ops.kernels import flash_attention as FL
+    from foley_tpu_torch.ops.kernels import fused_attention as FA
+    from foley_tpu_torch.ops.nn import exact_fp32
+
+    results = {}
+    b, h, d = 2, cfg.num_heads, cfg.head_dim
+    for dtype, tname in ((torch.float16, "fp16"), (torch.float32, "fp32")):
+        gen = torch.Generator(device=dev).manual_seed(10)
+        cases = k1_cases(torch, dev, cfg, gen)
+        out = results.setdefault(("fused_qk_attention", tname), {})
+        long_iters = 10 if dtype == torch.float32 else 50
+        for name in K1_VARIANT_CASES:
+            length, streams, (wq, wk, cq, sq, ck, sk) = cases[name]
+            q, k, v = (torch.randn(b, length, h, d, device=dev, generator=gen).to(dtype)
+                       for _ in range(3))
+            full = lambda w: w.expand(length, d)  # noqa: E731
+            args = (q, k, v, wq, wk, cq, sq, ck, sk)
+
+            def plain():
+                with exact_fp32(dtype):
+                    return FA.fused_qk_attention_plain(q, k, v, full(wq), full(wk), cq, sq, ck,
+                                                       sk)
+
+            def library_call():
+                with exact_fp32(dtype):
+                    qn = FA._norm_rope(q, full(wq), cq, sq, 1e-6).transpose(1, 2)
+                    kn = FA._norm_rope(k, full(wk), ck, sk, 1e-6).transpose(1, 2)
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        qn, kn, v.transpose(1, 2)).transpose(1, 2)
+
+            got, ref = FA.fused_qk_attention(*args), plain()
+            torch.cuda.synchronize()
+            res = {"phase": "kernel", "kernel": "fused_qk_attention", "dtype": tname,
+                   "case": name, "b": b, "l": length, "h": h, "d": d,
+                   **_check_variant(torch, f"K1 {tname} {name}", got, ref, dtype)}
+            if dtype == torch.float32 and length > 1:  # one key: p is 1 whatever the logits
+                res["control_tf32_rel_l2_err"] = _rel_l2(_tf32_control(
+                    torch, lambda: FA.fused_qk_attention_plain(
+                        q, k, v, full(wq), full(wk), cq, sq, ck, sk)), ref)
+                check(name not in TF32_CONTROL_CASES
+                      or res["control_tf32_rel_l2_err"] > FP32_KERNEL_REL_TOL,
+                      f"K1 fp32 {name}: the TF32 control reads {res['control_tf32_rel_l2_err']}"
+                      f", within {FP32_KERNEL_REL_TOL}: the bound cannot tell TF32 from fp32")
+            tables = {t.data_ptr(): t.numel() * 4 for t in (cq, sq, ck, sk)}
+            n_bytes = (4 * q.numel() * q.element_size() + sum(tables.values())
+                       + 2 * streams * d * 4)
+            iters = long_iters if length > 1000 else 200
+            res["kernel_ms"], res["host_ms"] = timed_ms(
+                torch, lambda: FA.fused_qk_attention(*args), iters)
+            res["plain_ms"] = gpu_ms(torch, plain, 10)
+            res["library_ms"] = gpu_ms(torch, library_call, 10)
+            res.update(kernel_bound(n_bytes, 4 * b * h * length * length * d,
+                                    FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS))
+            emit(res)
+            out[name] = res
+            del q, k, v, got, ref
+
+    for tname, cases in K2_VARIANT_CASES.items():
+        dtype = torch.float16 if tname == "fp16" else torch.float32
+        gen = torch.Generator(device=dev).manual_seed(11)
+        out = results.setdefault(("flash_attention", tname), {})
+        for name, (bb, lq, lk, hh, dd) in cases.items():
+            q = torch.randn(bb, lq, hh, dd, device=dev, generator=gen).to(dtype)
+            k, v = (torch.randn(bb, lk, hh, dd, device=dev, generator=gen).to(dtype)
+                    for _ in range(2))
+            chunk = 8 if dtype == torch.float32 else bb  # frames a plain call holds
+
+            def plain(fn=FL.flash_attention_plain):
+                with exact_fp32(dtype):
+                    return torch.cat([fn(q[i:i + chunk], k[i:i + chunk], v[i:i + chunk])
+                                      for i in range(0, bb, chunk)])
+
+            def library_call():
+                with exact_fp32(dtype):
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
+
+            got, ref = FL.flash_attention(q, k, v), plain()
+            torch.cuda.synchronize()
+            res = {"phase": "kernel", "kernel": "flash_attention", "dtype": tname, "case": name,
+                   "b": bb, "lq": lq, "lk": lk, "h": hh, "d": dd,
+                   **_check_variant(torch, f"K2 {tname} {name}", got, ref, dtype)}
+            if dtype == torch.float32 and lk > 1:  # one key: p is 1 whatever the logits
+                res["control_tf32_rel_l2_err"] = _rel_l2(_tf32_control(
+                    torch, lambda: torch.cat([FL.flash_attention_plain(
+                        q[i:i + chunk], k[i:i + chunk], v[i:i + chunk])
+                        for i in range(0, bb, chunk)])), ref)
+                check(name not in TF32_CONTROL_CASES
+                      or res["control_tf32_rel_l2_err"] > FP32_KERNEL_REL_TOL,
+                      f"K2 fp32 {name}: the TF32 control reads {res['control_tf32_rel_l2_err']}"
+                      f", within {FP32_KERNEL_REL_TOL}: the bound cannot tell TF32 from fp32")
+            del ref
+            iters = 10 if dtype == torch.float32 and bb > 8 else 50
+            res["kernel_ms"], res["host_ms"] = timed_ms(torch, lambda: FL.flash_attention(q, k, v),
+                                                        iters)
+            res["plain_ms"] = gpu_ms(torch, plain, 3 if bb > 8 else 10)
+            res["library_ms"] = gpu_ms(torch, library_call, iters)
+            res.update(kernel_bound(2 * (q.numel() + k.numel()) * q.element_size(),
+                                    4 * bb * hh * lq * lk * dd,
+                                    FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS))
+            emit(res)
+            out[name] = res
+            del q, k, v, got
+    torch.cuda.empty_cache()
+    return results
+
+
+def precision_phase(torch, dev, pipeline_cfg, config="xxl"):
+    """The denoiser and the visual encoders at full XXL width in fp16 and fp32, one precision
+    at a time (fp32 holds 19.1 GiB of weights), freed before the next:
+    ``HunyuanModelLoader.init_random("xxl", p, perturb=True)``, one forward at the 5 s shapes
+    through the kernel against the same forward through the plain attention (fp16 within
+    ``FORWARD_REL_TOL``, fp32 within ``FP32_MODEL_REL_TOL``), and for fp32 the forward again
+    under ``"high"`` fp32 matmul precision, which must equal the default run within 1e-5 (the
+    model runs in ``true_fp32``). Then SigLIP2 and Synchformer in the same precision at their
+    real geometry: one 5 s encode of the 1280x720 clip through ``encode_video``, with 12 K2
+    launches of that type, and SigLIP2's features against the same encode through the plain
+    attention. Returns {dtype name: K2 launches in the counted encode}."""
+    import numpy as np
+
+    from foley_tpu_torch.api.nodes import HunyuanModelLoader
+    from foley_tpu_torch.models import mmdit as mmdit_mod
+    from foley_tpu_torch.models import siglip2 as siglip2_mod
+    from foley_tpu_torch.ops.kernels import flash_attention as FL
+    from foley_tpu_torch.ops.kernels import fused_attention as FA
+    from foley_tpu_torch.ops.kernels.common import reset_launches
+    from foley_tpu_torch.pipeline.features import encode_video, resample_frames
+
+    cfg = pipeline_cfg.model
+    clip_len, sync_len = pipeline_cfg.t2a_lengths(DURATION_S)
+    t_len = pipeline_cfg.latent_length(DURATION_S)
+    frames = make_clip(np, 0)
+    launches = {}
+    for tname, dtype in (("fp16", torch.float16), ("fp32", torch.float32)):
+        t0 = time.perf_counter()
+        out = {"phase": "precision", "precision": tname, "config": config}
+        fm = HunyuanModelLoader.init_random(config, tname, 0, perturb=True, device=dev)
+        model = fm["params"]
+        check(fm["dtype"] == dtype and next(model.parameters()).dtype == dtype,
+              f"{tname}: the loader built {fm['dtype']}")
+        out["init_s"] = time.perf_counter() - t0
+        out["weights_gib"] = sum(p.numel() * p.element_size()
+                                 for p in model.parameters()) / 2 ** 30
+        gen = torch.Generator(device=dev).manual_seed(1)
+        rnd = lambda *s: torch.randn(*s, device=dev, generator=gen).to(dtype)  # noqa: E731
+        args = (rnd(2, t_len, cfg.audio_vae_latent_dim), torch.full((2,), 500.0, device=dev),
+                rnd(2, cfg.text_length, cfg.condition_dim), rnd(2, clip_len, cfg.clip_dim),
+                rnd(2, sync_len, cfg.sync_feat_dim))
+
+        def plain_k1(q, k, v, wq, wk, *tabs, eps):
+            lq, lk = q.shape[1], k.shape[1]
+            return FA.fused_qk_attention_plain(q, k, v, wq.expand(lq, q.shape[-1]),
+                                               wk.expand(lk, k.shape[-1]), *tabs, eps=eps)
+
+        with torch.no_grad():
+            reset_launches(FA.fused_qk_attention)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = model(*args).float()
+            torch.cuda.synchronize()
+            out["forward_s"] = time.perf_counter() - t0
+            out["forward_k1_launches"] = FA.fused_qk_attention.launches_by_dtype.get(dtype, 0)
+            mmdit_mod.fused_qk_attention = plain_k1
+            try:
+                ref = model(*args).float()
+            finally:
+                mmdit_mod.fused_qk_attention = FA.fused_qk_attention
+            if dtype == torch.float32:
+                high = _tf32_control(torch, lambda: model(*args).float())
+                out["high_vs_default_rel_l2"] = _rel_l2(high, got)
+                check(out["high_vs_default_rel_l2"] <= 1e-5,
+                      f"fp32 forward under \"high\" {out['high_vs_default_rel_l2']} from the "
+                      "default run: TF32 reached the fp32 model")
+                del high
+        blocks = cfg.depth_triple_blocks + cfg.depth_single_blocks
+        check(out["forward_k1_launches"] == blocks,
+              f"{tname} forward: {out['forward_k1_launches']} K1 launches, expected {blocks}")
+        check(bool(torch.isfinite(got).all()) and float(ref.std()) > 0,
+              f"{tname}: non-finite or zero velocity")
+        tol = FP32_MODEL_REL_TOL if dtype == torch.float32 else FORWARD_REL_TOL
+        out.update(forward_rel_l2_err=_rel_l2(got, ref), forward_tol=tol,
+                   velocity_std=float(ref.std()))
+        check(out["forward_rel_l2_err"] <= tol,
+              f"{tname} forward relative error {out['forward_rel_l2_err']} > {tol}")
+        del fm, model, args, got, ref
+        torch.cuda.empty_cache()
+
+        encoders = random_video_encoders(torch, dev, pipeline_cfg, dtype)
+        check(encoders["siglip2"].compute_dtype == dtype, f"{tname}: SigLIP2's type")
+        reset_launches(FL.flash_attention)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clip, sync = encode_video(encoders, frames, CLIP_FPS, DURATION_S, pipeline_cfg)
+        torch.cuda.synchronize()
+        out["encode_s"] = time.perf_counter() - t0
+        launches[tname] = FL.flash_attention.launches_by_dtype.get(dtype, 0)
+        out["encode_k2_launches"] = launches[tname]
+        per_k2 = encoders["siglip2"].cfg.num_hidden_layers
+        check(launches[tname] == per_k2 and FL.flash_attention.launches == per_k2,
+              f"{tname} encode: K2 launches {FL.flash_attention.launches_by_dtype}, expected "
+              f"{per_k2} of {tname}")
+        check(tuple(clip.shape) == (1, clip_len, cfg.clip_dim)
+              and tuple(sync.shape) == (1, sync_len, cfg.sync_feat_dim),
+              f"{tname} features {tuple(clip.shape)}, {tuple(sync.shape)}")
+        check(bool(torch.isfinite(clip).all() and torch.isfinite(sync).all())
+              and float(clip.std()) > 0, f"{tname}: non-finite or constant features")
+        siglip2_mod.flash_attention = FL.flash_attention_plain
+        try:
+            plain_clip = encoders["siglip2"].encode(resample_frames(
+                frames, CLIP_FPS, DURATION_S, pipeline_cfg.siglip2_fps))
+        finally:
+            siglip2_mod.flash_attention = FL.flash_attention
+        out.update(siglip2_rel_l2_err=_rel_l2(clip, plain_clip), siglip2_tol=tol)
+        check(out["siglip2_rel_l2_err"] <= tol,
+              f"{tname} SigLIP2: kernel against plain {out['siglip2_rel_l2_err']} > {tol}")
+        del encoders, clip, sync, plain_clip
+        torch.cuda.empty_cache()
+        emit(out)
+    return launches
+
+
+def cli_phase(torch, dev, pipeline_cfg, config="xxl") -> dict:
+    """``foley_tpu_torch.cli.main`` in this process, as a user runs it: XXL with random
+    perturbed weights, 5 s, 50 Euler steps, CFG 4.5, in fp16 and then in fp32 (the model
+    loaded anew each time, as the command does). Each WAV: 48,000 Hz, mono, 240,000 frames,
+    a non-zero peak; each request: 2,700 K1 launches of its type. Returns {dtype name: K1
+    launches}."""
+    import os
+    import wave
+
+    import numpy as np
+
+    from foley_tpu_torch import cli
+    from foley_tpu_torch.ops.kernels import fused_attention as FA
+    from foley_tpu_torch.ops.kernels.common import reset_launches
+
+    os.makedirs("build/chip_smoke", exist_ok=True)
+    launches = {}
+    for tname, dtype in (("fp16", torch.float16), ("fp32", torch.float32)):
+        path = f"build/chip_smoke/cli_{tname}.wav"
+        argv = ["--random_init", config, "--random_init_perturb", "--precision", tname,
+                "--duration", str(DURATION_S), "--num_inference_steps", str(STEPS),
+                "--guidance_scale", str(GUIDANCE), "--device", dev.type, "--output", path]
+        reset_launches(FA.fused_qk_attention)
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"cli --precision {tname} exited {rc}")
+        launches[tname] = FA.fused_qk_attention.launches_by_dtype.get(dtype, 0)
+        with wave.open(path) as f:
+            params = (f.getframerate(), f.getnchannels(), f.getsampwidth(), f.getnframes())
+            pcm = np.frombuffer(f.readframes(f.getnframes()), "<i2")
+        os.remove(path)
+        n = int(DURATION_S * 48000)
+        check(params == (48000, 1, 2, n), f"cli {tname} WAV {params}")
+        peak = int(np.abs(pcm.astype(np.int32)).max())
+        check(peak > 0, f"cli {tname}: silent WAV")
+        model_cfg = pipeline_cfg.model
+        per_request = STEPS * (model_cfg.depth_triple_blocks + model_cfg.depth_single_blocks)
+        check(launches[tname] == per_request and FA.fused_qk_attention.launches == per_request,
+              f"cli {tname}: K1 launches {FA.fused_qk_attention.launches_by_dtype}, expected "
+              f"{per_request} of {tname}")
+        emit({"phase": "cli", "precision": tname, "argv": " ".join(argv), "wall_s": wall,
+              "k1_launches": launches[tname], "wav": list(params), "peak": peak,
+              "rms": float(np.sqrt(np.mean(pcm.astype(np.float64) ** 2)))})
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1320,6 +1683,7 @@ def main() -> int:
     cfg = XXL.model
     kernel = kernel_phase(torch, dev, cfg)
     flash = flash_kernel_phase(torch, dev)
+    variants = precision_kernel_phase(torch, dev, cfg)
     gemm = gemm_kernel_phase(torch, dev)
     probe = probe_gemm_phase(torch, dev)
 
@@ -1342,6 +1706,10 @@ def main() -> int:
     nodes_phase(torch, dev, bundle, XXL, clap_encoder, video_encoders)
     serving_k1, serving_k2 = serving_phase(torch, dev, bundle, XXL, clap_encoder,
                                            video_encoders)
+    del model, dac, bundle, clap_encoder, video_encoders, text, uncond, t2a_latents
+    torch.cuda.empty_cache()
+    encode_k2 = precision_phase(torch, dev, XXL)
+    cli_k1 = cli_phase(torch, dev, XXL)
 
     # per-launch figures weighted by the main path's mix: each step runs one joint call per
     # triple block and one single call per single block
@@ -1351,6 +1719,26 @@ def main() -> int:
         return sum(kernel[c][key] * n for c, n in mix.items()) / sum(mix.values())
 
     k1_bound = kernel_bound(avg("bytes"), avg("flops"))
+
+    def variant(kernel, tname, source, replaces, launches):
+        """The row of K1's or K2's fp16 / fp32 kernel: K1 weighted as the main path mixes
+        its shapes, K2 at SigLIP2's 5 s shape."""
+        cases = variants[(kernel, tname)]
+        if kernel == "fused_qk_attention":
+            def mean(key):
+                return sum(cases[c][key] * n for c, n in mix.items()) / sum(mix.values())
+        else:
+            def mean(key):
+                return cases["siglip2_5s"][key]
+        bound = kernel_bound(mean("bytes"), mean("flops"),
+                             FP32_FLOPS if tname == "fp32" else BF16_FLOPS)
+        return {"name": f"{kernel}_{'f16' if tname == 'fp16' else 'f32'}", "route": "cuda",
+                "source": source, "replaces": replaces, "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
+                "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
+                "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+                "library_ms": mean("library_ms")}
+
     k2 = flash["siglip2_5s"]  # the main V2A path's shape (the 24 s run's is siglip2_24s)
     k3_bound = gemm["probe_full"]  # the probe's shape: one sweep of the probe
     emit({"kernels": [{
@@ -1384,7 +1772,18 @@ def main() -> int:
         "plain_ms": probe["plain"]["graph_ms_per_sweep"],
         "bound_ms": k3_bound["bound_ms"], "bound_by": k3_bound["bound_by"],
         "library_ms": probe["library_sweep"]["graph_ms_per_sweep"],
-    }]})
+    },
+        # the fp16 and fp32 kernels: K1's launches in the ``cli`` phase's request of that
+        # type, K2's in the ``precision`` phase's encode of that type
+        variant("fused_qk_attention", "fp16", "foley_tpu_torch/csrc/fused_qk_attention.cu",
+                "foley_tpu/ops/pallas/fused_attention.py:82", cli_k1["fp16"]),
+        variant("fused_qk_attention", "fp32", "foley_tpu_torch/csrc/attention_f32.cu",
+                "foley_tpu/ops/pallas/fused_attention.py:82", cli_k1["fp32"]),
+        variant("flash_attention", "fp16", "foley_tpu_torch/csrc/flash_attention.cu",
+                "foley_tpu/ops/pallas/flash_attention.py:60", encode_k2["fp16"]),
+        variant("flash_attention", "fp32", "foley_tpu_torch/csrc/attention_f32.cu",
+                "foley_tpu/ops/pallas/flash_attention.py:60", encode_k2["fp32"]),
+    ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -7,12 +7,11 @@ package the same way. AUDIO values are plain dicts ``{"waveform": np.ndarray [B,
 torch.dtype}`` and FOLEY_DEPS holds the DAC as ``"dac_params"``: the JAX package's keys, with
 modules where it holds parameter trees.
 
-The loaders put the models on ``cuda`` unless given ``device``. On the card the denoiser
-and the visual encoders run in bf16 only: K1 (``csrc/fused_qk_attention.cu``, every
-attention of the denoiser) and K2 (``csrc/flash_attention.cu``, SigLIP2's encoder) take
-bf16, so another precision raises at load (``check_card_precision``), never later and never
-by falling back to the plain attention. On the CPU every precision runs through the plain
-versions.
+The loaders put the models on ``cuda`` unless given ``device``. Every precision the widgets
+offer runs on the card: K1 (every attention of the denoiser) and K2 (SigLIP2's encoder) have
+a kernel for each of bf16, fp16 (``csrc/fused_qk_attention.cu``, ``csrc/flash_attention.cu``)
+and fp32 (``csrc/attention_f32.cu``, true fp32; the fp32 models run their products inside
+``ops/nn.py::true_fp32``). On the CPU every precision runs through the plain versions.
 
 Mapping of the JAX package's mechanisms:
 - ``force_offload`` parks the denoiser in page-locked host memory after a run
@@ -69,19 +68,6 @@ def resolve_dtype(precision: str) -> torch.dtype:
     return DTYPES[precision]
 
 
-def check_card_precision(device: torch.device, dtype: torch.dtype, what: str) -> None:
-    """Refuse, at load, a precision the card's attention kernels do not take: the denoiser
-    runs K1 in every attention, the visual encoders run K2 in SigLIP2, both bf16 only."""
-    if device.type != "cuda" or dtype == torch.bfloat16:
-        return
-    kernel = ("K1, fused_qk_attention (csrc/fused_qk_attention.cu)" if what == "denoiser"
-              else "K2, flash_attention (csrc/flash_attention.cu), in SigLIP2's encoder")
-    raise NotImplementedError(
-        f"the {what} in {dtype} on the card: {kernel} takes bf16 only; its fp16 and fp32 "
-        "variants are the first item of ROADMAP queue B. Load with precision bf16, or run on "
-        "device='cpu'")
-
-
 class HunyuanModelLoader:
     """Loads the main MMDiT checkpoint (reference ``nodes.py:57-151``)."""
 
@@ -119,14 +105,13 @@ class HunyuanModelLoader:
                 "package's own; pass the reference .safetensors / .pth checkpoint")
         dev = resolve_device(device)
         cfg = get_config(config)
-        if precision != "auto":  # before the minutes-long read
-            check_card_precision(dev, resolve_dtype(precision), "denoiser")
+        if precision != "auto":  # a bad name raises before the minutes-long read
+            resolve_dtype(precision)
         sd = load_torch_state_dict(model_name)
         refuse_fp8(sd, "HunyuanModelLoader")
         if precision == "auto":
             precision = detect_ckpt_major_precision(sd)
         dtype = resolve_dtype(precision)
-        check_card_precision(dev, dtype, "denoiser")
         state = convert_mmdit_state_dict(sd, cfg.model, consume=True)
         model = module_from_state_dict(mmdit.MMDiT, state, cfg.model, dev, dtype)
         logger.info(f"MMDiT loaded: {param_bytes(model) / 2**30:.2f} GiB ({precision})")
@@ -141,7 +126,6 @@ class HunyuanModelLoader:
         dev = resolve_device(device)
         cfg = get_config(config)
         dtype = resolve_dtype(precision)
-        check_card_precision(dev, dtype, "denoiser")
         model = mmdit.init(cfg.model, torch.Generator(device=dev).manual_seed(int(seed)),
                            device=dev, dtype=dtype)
         if perturb:
@@ -194,8 +178,6 @@ class HunyuanDependenciesLoader:
                 "item 13); the port resizes frames on the device")
         dev = resolve_device(device)
         dtype = resolve_dtype(precision)
-        if synchformer_model or siglip2_model:
-            check_card_precision(dev, dtype, "visual encoders")
         sd = load_torch_state_dict(vae_model)
         refuse_fp8(sd, "HunyuanDependenciesLoader")
         dac_cfg = infer_dac_config(sd)  # DACConfig() for vae_128d_48k

@@ -8,6 +8,8 @@ from foley_tpu_torch.configs.model_configs import (
     TINY,
     XL,
     XXL,
+    YAML_DIR,
+    config_from_yaml,
     get_config,
 )
 
@@ -21,5 +23,7 @@ __all__ = [
     "TINY",
     "XL",
     "XXL",
+    "YAML_DIR",
+    "config_from_yaml",
     "get_config",
 ]

@@ -1,7 +1,9 @@
 """Typed model/pipeline configs: the port's own copy of ``foley_tpu/configs/model_configs.py``.
 
 The same frozen dataclasses and presets as the JAX package, kept here so the port imports
-nothing of it. ``config_from_yaml`` is not copied: it needs ``yaml``.
+nothing of it. ``config_from_yaml`` reads the reference-format YAMLs (copies of the JAX
+package's under ``configs/yaml/``) through the port's own reader of their YAML subset
+(``utils/config_utils.py``): the machine with the card has no ``yaml``.
 
 Known reference inconsistencies are resolved per SURVEY.md Appendix B:
 - block depth comes from the config (18+36 for XXL), not the class defaults (19/38);
@@ -11,7 +13,13 @@ Known reference inconsistencies are resolved per SURVEY.md Appendix B:
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Tuple
+
+from foley_tpu_torch.utils.config_utils import load_yaml
+
+#: The reference-format YAMLs of the shipped configs (``xl``, ``xxl``).
+YAML_DIR = Path(__file__).resolve().parent / "yaml"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,3 +240,44 @@ def get_config(name: str) -> PipelineConfig:
     if key not in _PRESETS:
         raise KeyError(f"Unknown config {name!r}; available: {sorted(_PRESETS)}")
     return _PRESETS[key]
+
+
+def config_from_yaml(path: str) -> PipelineConfig:
+    """Parse a reference-format YAML (``configs/hunyuanvideo-foley-*.yaml``) into typed configs."""
+    raw = load_yaml(path)
+    mk = raw.model_config.model_kwargs
+    model = MMDiTConfig(
+        depth_triple_blocks=int(mk.get("depth_triple_blocks", 18)),
+        depth_single_blocks=int(mk.get("depth_single_blocks", 36)),
+        hidden_size=int(mk.get("hidden_size", 1536)),
+        num_heads=int(mk.get("num_heads", 12)),
+        mlp_ratio=float(mk.get("mlp_ratio", 4.0)),
+        mlp_act_type=str(mk.get("mlp_act_type", "gelu_tanh")),
+        qkv_bias=bool(mk.get("qkv_bias", True)),
+        qk_norm=bool(mk.get("qk_norm", True)),
+        qk_norm_type=str(mk.get("qk_norm_type", "rms")),
+        interleaved_audio_visual_rope=bool(mk.get("interleaved_audio_visual_rope", False)),
+        sync_modulation=bool(mk.get("sync_modulation", False)),
+        add_sync_feat_to_audio=bool(mk.get("add_sync_feat_to_audio", False)),
+        use_attention_mask=bool(mk.get("use_attention_mask", False)),
+        condition_dim=int(mk.get("condition_dim", 768)),
+        clip_dim=int(mk.get("clip_dim", 768)),
+        sync_feat_dim=int(mk.get("sync_feat_dim", 768)),
+        audio_vae_latent_dim=int(mk.get("audio_vae_latent_dim", 128)),
+        audio_frame_rate=int(mk.get("audio_frame_rate", 50)),
+        patch_size=int(mk.get("patch_size", 1)),
+        rope_theta=float(mk.get("rope_theta", 10000)),
+        text_length=int(mk.get("text_length", 77)),
+        clip_length=int(mk.get("clip_length", 64)),
+        sync_length=int(mk.get("sync_length", 192)),
+    )
+    dc = raw.get("diffusion_config", None)
+    diffusion = DiffusionConfig(
+        sample_flow_shift=float(dc.get("sample_flow_shift", 1.0)) if dc else 1.0,
+        flow_reverse=bool(dc.get("flow_reverse", True)) if dc else True,
+        flow_solver=str(dc.get("flow_solver", "euler")) if dc else "euler",
+        use_flux_shift=bool(dc.get("sample_use_flux_shift", False)) if dc else False,
+        flux_base_shift=float(dc.get("flux_base_shift", 0.5)) if dc else 0.5,
+        flux_max_shift=float(dc.get("flux_max_shift", 1.15)) if dc else 1.15,
+    )
+    return PipelineConfig(model=model, diffusion=diffusion)

@@ -1,16 +1,19 @@
-// Unmasked softmax attention (flash attention) for Hopper (sm_90a), bf16, head_dim 64 or 128.
+// Unmasked softmax attention (flash attention) for Hopper (sm_90a), bf16 or fp16, head_dim 64
+// or 128.
 //
 // Replaces the Pallas kernel foley_tpu/ops/pallas/flash_attention.py:60
 // (_flash_attention_bhld; body _attn_kernel :34, entry flash_attention :96).
 // What it computes, per batch row b, head h and query row i:
 //   o[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h] * (1 / sqrt(D))) @ v[b, :, h]
-// with bf16 operands, fp32 products and logits (the scale multiplies the fp32 logits),
-// an fp32 softmax, p cast to bf16 before p @ v, fp32 accumulation and a bf16 output.
-// Lq and Lk may differ.
+// with bf16 (or fp16) operands, fp32 products and logits (the scale multiplies the fp32
+// logits), an fp32 softmax, p cast to the operands' type before p @ v, fp32 accumulation and
+// an output of that type. Lq and Lk may differ. The element type is a template: fp16 runs the
+// same code at the same tensor-core rate. The fp32 variant is another kernel
+// (attention_f32.cu): wgmma has no true-fp32 product.
 //
 // Bound on an NVIDIA H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s, at a 700 W power limit),
 // at SigLIP2's 5 s call (B 40 frames, L 1024, 12 heads of 64): a launch does
-// 4*B*H*L*L*D = 128.8 GFLOP of products against 251.7 MB of q, k, v and o in bf16, 512
+// 4*B*H*L*L*D = 128.8 GFLOP of products against 251.7 MB of q, k, v and o in 16 bits, 512
 // operations per byte, above the card's ~295: bound by the tensor cores, 130 us (75 us for
 // its bytes). Only wgmma reaches the tensor cores' full rate, and it must be fed from shared
 // memory faster than a thread-driven copy can, so the design is the usual one for Hopper:
@@ -68,8 +71,9 @@ struct Cfg {
   static constexpr int kSmem = kBarOffset + (4 + 3 * kStages) * 8 + 1024;  // + alignment
 };
 
+template <typename T>
 struct Params {
-  __nv_bfloat16* o;
+  T* o;
   int64_t o_sb, o_sl, o_sh;  // element strides of the output's batch, length and head axes
   int heads, lq, lk;
   int q_blocks, n_work;      // kBM-row query blocks a (b, h); work items q_blocks * B * H
@@ -80,11 +84,11 @@ struct Params {
 // w % q_blocks of (b, h) = w / q_blocks, so neighbouring items share K and V in L2. The
 // producer runs ahead into the next item (its Q into the other Q buffer, its K/V tiles
 // into the ring), so one item's first copies and last products overlap the next one's.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
 flash_attention_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
-                       const __grid_constant__ CUtensorMap vmap, const Params p) {
+                       const __grid_constant__ CUtensorMap vmap, const Params<T> p) {
   using C = Cfg<D>;
   constexpr int kBN = C::kBN, kBM = C::kBM;
   extern __shared__ uint8_t smem_raw[];
@@ -155,17 +159,17 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap qmap,
     const int j = i % 2, row0 = (w % p.q_blocks) * kBM + 64 * wg;
     float o[D / 2], l[2];
     mbar_wait(&qfull[j], (i / 2) & 1);
-    attention_consumer<D, kBN, kStages, C::kGroups>(
+    attention_consumer<D, kBN, kStages, C::kGroups, T>(
         smem_u32(qs + j * C::kQBytes) + wg * 64 * 128, kBM * 128, smem_u32(ring), kfull, vfull,
         empty, p.lk, p.scale_log2, pos, wg, o, l);
     mbar_arrive(&qempty[j]);
-    store_rows<D>(o, l, p.o + b * p.o_sb + h * p.o_sh, p.o_sl, row0, p.lq);
+    store_rows<D, T>(o, l, p.o + b * p.o_sb + h * p.o_sh, p.o_sl, row0, p.lq);
   }
 }
 
-template <int D>
+template <int D, typename T>
 int launch(const void* q, const void* k, const void* v, const int64_t* strides, int batch,
-           Params& p, cudaStream_t stream) {
+           Params<T>& p, cudaStream_t stream) {
   using C = Cfg<D>;
   static bool attr_set[64] = {};
   static int sms[64] = {};
@@ -174,48 +178,62 @@ int launch(const void* q, const void* k, const void* v, const int64_t* strides, 
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (!attr_set[device]) {
-    err = cudaFuncSetAttribute(flash_attention_kernel<D>,
+    err = cudaFuncSetAttribute(flash_attention_kernel<D, T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set[device] = true;
   }
+  const CUtensorMapDataType type = hopper_host::map_type<T>();
   CUtensorMap qm, km, vm;
   int e = hopper_host::tensor_map(&qm, q, batch, p.lq, p.heads, D, strides[0], strides[1],
-                                  strides[2], C::kBM);
+                                  strides[2], C::kBM, type);
   if (e == 0) e = hopper_host::tensor_map(&km, k, batch, p.lk, p.heads, D, strides[3],
-                                          strides[4], strides[5], C::kBN);
+                                          strides[4], strides[5], C::kBN, type);
   if (e == 0) e = hopper_host::tensor_map(&vm, v, batch, p.lk, p.heads, D, strides[6],
-                                          strides[7], strides[8], C::kBN);
+                                          strides[7], strides[8], C::kBN, type);
   if (e != 0) return e;
   p.q_blocks = (p.lq + C::kBM - 1) / C::kBM;
   p.n_work = p.q_blocks * batch * p.heads;
   const int grid = p.n_work < sms[device] ? p.n_work : sms[device];
-  flash_attention_kernel<D><<<grid, C::kThreads, C::kSmem, stream>>>(qm, km, vm, p);
+  flash_attention_kernel<D, T><<<grid, C::kThreads, C::kSmem, stream>>>(qm, km, vm, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Plain C entry, bound with ctypes. Pointers are device pointers to bf16 [B, L, H, D] data;
-// `strides` holds 12 element strides: (batch, length, head) for q, k, v and o, in that order,
-// with a unit stride on D. Every pointer must be 16-byte aligned and every stride a multiple
-// of 8 (the wrapper checks). `head_dim` must be 64 or 128 (cudaErrorInvalidValue otherwise).
-// Launches on `stream` and returns cudaGetLastError() (0 on success), -1 when the driver
-// cannot describe an operand as a tensor map, -2 when its encoder is not reachable.
-extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                                    const int64_t* strides, int batch, int heads, int lq,
-                                    int lk, int head_dim, void* stream) {
-  Params p;
-  p.o = static_cast<__nv_bfloat16*>(o);
+template <typename T>
+int entry(const void* q, const void* k, const void* v, void* o, const int64_t* strides,
+          int batch, int heads, int lq, int lk, int head_dim, void* stream) {
+  Params<T> p;
+  p.o = static_cast<T*>(o);
   p.o_sb = strides[9]; p.o_sl = strides[10]; p.o_sh = strides[11];
   p.heads = heads;
   p.lq = lq;
   p.lk = lk;
   p.scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(head_dim));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return launch<64>(q, k, v, strides, batch, p, s);
-  if (head_dim == 128) return launch<128>(q, k, v, strides, batch, p, s);
+  if (head_dim == 64) return launch<64, T>(q, k, v, strides, batch, p, s);
+  if (head_dim == 128) return launch<128, T>(q, k, v, strides, batch, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// Plain C entries, bound with ctypes, one for each element type. Pointers are device pointers
+// to bf16 (fp16) [B, L, H, D] data; `strides` holds 12 element strides: (batch, length, head)
+// for q, k, v and o, in that order, with a unit stride on D. Every pointer must be 16-byte
+// aligned and every stride a multiple of 8 (the wrapper checks). `head_dim` must be 64 or 128
+// (cudaErrorInvalidValue otherwise). Launches on `stream` and returns cudaGetLastError() (0
+// on success), -1 when the driver cannot describe an operand as a tensor map, -2 when its
+// encoder is not reachable.
+extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
+                                    const int64_t* strides, int batch, int heads, int lq,
+                                    int lk, int head_dim, void* stream) {
+  return entry<__nv_bfloat16>(q, k, v, o, strides, batch, heads, lq, lk, head_dim, stream);
+}
+
+extern "C" int flash_attention_f16(const void* q, const void* k, const void* v, void* o,
+                                   const int64_t* strides, int batch, int heads, int lq,
+                                   int lk, int head_dim, void* stream) {
+  return entry<__half>(q, k, v, o, strides, batch, heads, lq, lk, head_dim, stream);
 }

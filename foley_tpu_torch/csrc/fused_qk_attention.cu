@@ -1,17 +1,18 @@
-// Fused qk-RMSNorm + RoPE + softmax attention for Hopper (sm_90a), bf16, head_dim 128.
+// Fused qk-RMSNorm + RoPE + softmax attention for Hopper (sm_90a), bf16 or fp16, head_dim 128.
 //
 // Replaces the Pallas kernel foley_tpu/ops/pallas/fused_attention.py:82
 // (fused_qk_attention_headfirst; body _kernel :57, helpers _norm_rope :50, _rot_half_lanes :39).
 // What it computes, per batch row b, head h and query row i:
 //   qn = rope(rms_norm(q[b, i, h]) * wq[i]),  kn = rope(rms_norm(k[b, j, h]) * wk[j])   (fp32)
 //   o[b, i, h] = softmax_j(qn . kn / sqrt(D)) @ v[b, :, h]
-// with the normalised/rotated q and k cast to bf16 before the products, fp32 accumulation,
-// and p cast to bf16 before p @ v. The rotation is pair-adjacent:
+// with the normalised/rotated q and k cast to the input type (bf16 or fp16) before the
+// products, fp32 accumulation, and p cast to that type before p @ v. The rotation is pair-adjacent:
 //   out[2m] = x[2m] cos[2m] - x[2m+1] sin[2m],  out[2m+1] = x[2m+1] cos[2m+1] + x[2m] sin[2m+1].
 // The weight and cos/sin tables are fp32 [L, D], one row per position, so one launch serves
 // the joint [v_cond; audio] sequence whose two streams have different norm weights and tables.
 //
-// Bound on an NVIDIA H100 SXM (3.35 TB/s, 989 TFLOP/s dense bf16, at a 700 W power limit): at
+// Bound on an NVIDIA H100 SXM (3.35 TB/s, 989 TFLOP/s dense bf16 and fp16, at a 700 W power
+// limit; fp16 runs the same code at the same rates, the element type a template): at
 // the 5 s shapes (joint L 290, single L 250, B*H 24) a launch must read q, k, v, write o and
 // read the per-position cos/sin, about 3.6 MB at L 290, against about 1 GFLOP: bound by
 // bytes, about 1 us. What holds a launch back at these shapes is latency, not either rate:
@@ -41,8 +42,9 @@
 //    whose prefetched table rows are the block's largest state: neither spills.
 //  * Ragged edges: TMA zero-fills rows past Lq and Lk; zero rows stay zero through the
 //    norm; keys >= Lk get -inf logits; rows >= Lq are not stored.
-// Shared memory: the Q tile and 5 stages of a K and a V tile of 64 x 128 bf16, 176 KB, one
-// block of 12 warps per SM.
+// Shared memory: the Q tile and 5 stages of a K and a V tile of 64 x 128 16-bit elements,
+// 176 KB, one block of 12 warps per SM. The fp32 variant is another kernel
+// (attention_f32.cu): wgmma has no true-fp32 product.
 
 #include "hopper.cuh"
 
@@ -65,11 +67,12 @@ constexpr int kNormRegs = 176;
 static_assert(128 * kConsumerRegs + kNormWarps * 32 * kNormRegs <= kThreads * 168,
               "setmaxnreg moves registers only inside the block's allocation");
 constexpr int kSlab = kBN * 128;         // bytes of one 64-column slab of a 64-row tile
-constexpr int kTileBytes = 2 * kSlab;    // a 64 x 128 bf16 tile
+constexpr int kTileBytes = 2 * kSlab;    // a 64 x 128 tile of 16-bit elements
 constexpr int kBarOffset = kTileBytes * (1 + 2 * kStages);
 constexpr int kSmem = kBarOffset + (2 + 4 * kStages) * 8 + 1024;  // + alignment
 static_assert(kBM == kBN, "the Q tile and the K tiles share one layout and one norm pass");
 
+template <typename T>
 struct Params {
   const float* wq;
   const float* wk;
@@ -77,7 +80,7 @@ struct Params {
   const float* sq;
   const float* ck;
   const float* sk;
-  __nv_bfloat16* o;
+  T* o;
   int64_t o_sb, o_sl, o_sh;  // element strides of the output's batch, length and head axes
   int heads, lq, lk;
   float eps;
@@ -103,10 +106,12 @@ __device__ __forceinline__ void load_tabs(Tabs& tb, const float* w, const float*
   }
 }
 
-// In place on rows r0..r0+7 of a swizzled 64 x 128 tile:
-// x <- bf16(rope(x * rsqrt(mean(x^2) + eps) * w)), fp32 math. Zero rows stay zero.
+// In place on rows r0..r0+7 of a swizzled 64 x 128 tile of T:
+// x <- T(rope(x * rsqrt(mean(x^2) + eps) * w)), fp32 math. Zero rows stay zero.
+template <typename T>
 __device__ __forceinline__ void norm_rope_rows(uint8_t* tile, const Tabs& tb, int r0,
                                                float eps, int lane) {
+  using Pair = typename Elem<T>::Pair;
   // lane l's 4 columns of row r: slab l / 16, 16-byte chunk (l % 16) / 2 moved by the
   // 128-byte swizzle of TMA, half l % 2 of it
   auto at = [&](int r) {
@@ -117,8 +122,8 @@ __device__ __forceinline__ void norm_rope_rows(uint8_t* tile, const Tabs& tb, in
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const uint2 raw = *at(r0 + i);
-    const __nv_bfloat162 x01 = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-    const __nv_bfloat162 x23 = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+    const Pair x01 = *reinterpret_cast<const Pair*>(&raw.x);
+    const Pair x23 = *reinterpret_cast<const Pair*>(&raw.y);
     x[i][0] = __low2float(x01);
     x[i][1] = __high2float(x01);
     x[i][2] = __low2float(x23);
@@ -137,16 +142,17 @@ __device__ __forceinline__ void norm_rope_rows(uint8_t* tile, const Tabs& tb, in
     const float y0 = x[i][0] * inv * wv.x, y1 = x[i][1] * inv * wv.y;
     const float y2 = x[i][2] * inv * wv.z, y3 = x[i][3] * inv * wv.w;
     uint2 out;
-    out.x = pack_bf16(y0 * cv.x - y1 * sv.x, y1 * cv.y + y0 * sv.y);
-    out.y = pack_bf16(y2 * cv.z - y3 * sv.z, y3 * cv.w + y2 * sv.w);
+    out.x = Elem<T>::pack(y0 * cv.x - y1 * sv.x, y1 * cv.y + y0 * sv.y);
+    out.y = Elem<T>::pack(y2 * cv.z - y3 * sv.z, y3 * cv.w + y2 * sv.w);
     *at(r0 + i) = out;
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_qk_attention_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
-                          const __grid_constant__ CUtensorMap vmap, const Params p) {
+                          const __grid_constant__ CUtensorMap vmap, const Params<T> p) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -202,7 +208,7 @@ fused_qk_attention_kernel(const __grid_constant__ CUtensorMap qmap,
     Tabs tb;
     load_tabs(tb, p.wq, p.cq, p.sq, q0 + r0, p.lq, lane);
     mbar_wait(qfull, 0);
-    norm_rope_rows(qs, tb, r0, p.eps, lane);
+    norm_rope_rows<T>(qs, tb, r0, p.eps, lane);
     fence_proxy_async();
     __syncwarp();
     if (lane == 0) mbar_arrive(qready);
@@ -214,7 +220,7 @@ fused_qk_attention_kernel(const __grid_constant__ CUtensorMap qmap,
         load_kv(t);
       }
       mbar_wait(&kfull[s], round & 1);
-      norm_rope_rows(ring + 2 * s * kTileBytes, tb, r0, p.eps, lane);
+      norm_rope_rows<T>(ring + 2 * s * kTileBytes, tb, r0, p.eps, lane);
       fence_proxy_async();
       __syncwarp();
       if (lane == 0) mbar_arrive(&kready[s]);
@@ -226,50 +232,43 @@ fused_qk_attention_kernel(const __grid_constant__ CUtensorMap qmap,
   setmaxnreg_dec<kConsumerRegs>();
   float o[kD / 2], l[2];
   mbar_wait(qready, 0);
-  attention_consumer<kD, kBN, kStages, 1>(smem_u32(qs), kSlab, smem_u32(ring), kready, vfull,
-                                          empty, p.lk, p.scale_log2, 0, 0, o, l);
-  store_rows<kD>(o, l, p.o + b * p.o_sb + h * p.o_sh, p.o_sl, q0, p.lq);
+  attention_consumer<kD, kBN, kStages, 1, T>(smem_u32(qs), kSlab, smem_u32(ring), kready,
+                                             vfull, empty, p.lk, p.scale_log2, 0, 0, o, l);
+  store_rows<kD, T>(o, l, p.o + b * p.o_sb + h * p.o_sh, p.o_sl, q0, p.lq);
 }
 
-}  // namespace
-
-// Plain C entry, bound with ctypes. Pointers are device pointers: q, k, v and o bf16
-// [B, L, H, 128]; the six tables fp32 [L, 128], contiguous, 16-byte aligned. `strides` holds
-// 12 element strides: (batch, length, head) for q, k, v and o, in that order. Every pointer
-// must be 16-byte aligned and every stride a multiple of 8 (the wrapper checks). Launches on
-// `stream` and returns cudaGetLastError() (0 on success), -1 when the driver cannot describe
-// an operand as a tensor map, -2 when its encoder is not reachable.
-extern "C" int fused_qk_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                                       const void* wq, const void* wk, const void* cq,
-                                       const void* sq, const void* ck, const void* sk,
-                                       const int64_t* strides, int batch, int heads, int lq,
-                                       int lk, float eps, void* stream) {
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* o, const void* wq,
+           const void* wk, const void* cq, const void* sq, const void* ck, const void* sk,
+           const int64_t* strides, int batch, int heads, int lq, int lk, float eps,
+           void* stream) {
   static bool attr_set[64] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= 64 || !attr_set[device]) {
-    err = cudaFuncSetAttribute(fused_qk_attention_kernel,
+    err = cudaFuncSetAttribute(fused_qk_attention_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (device < 64) attr_set[device] = true;
   }
+  const CUtensorMapDataType type = hopper_host::map_type<T>();
   CUtensorMap qm, km, vm;
   int e = hopper_host::tensor_map(&qm, q, batch, lq, heads, kD, strides[0], strides[1],
-                                  strides[2], kBM);
+                                  strides[2], kBM, type);
   if (e == 0) e = hopper_host::tensor_map(&km, k, batch, lk, heads, kD, strides[3], strides[4],
-                                          strides[5], kBN);
+                                          strides[5], kBN, type);
   if (e == 0) e = hopper_host::tensor_map(&vm, v, batch, lk, heads, kD, strides[6], strides[7],
-                                          strides[8], kBN);
+                                          strides[8], kBN, type);
   if (e != 0) return e;
-  Params p;
+  Params<T> p;
   p.wq = static_cast<const float*>(wq);
   p.wk = static_cast<const float*>(wk);
   p.cq = static_cast<const float*>(cq);
   p.sq = static_cast<const float*>(sq);
   p.ck = static_cast<const float*>(ck);
   p.sk = static_cast<const float*>(sk);
-  p.o = static_cast<__nv_bfloat16*>(o);
+  p.o = static_cast<T*>(o);
   p.o_sb = strides[9]; p.o_sl = strides[10]; p.o_sh = strides[11];
   p.heads = heads;
   p.lq = lq;
@@ -277,7 +276,34 @@ extern "C" int fused_qk_attention_bf16(const void* q, const void* k, const void*
   p.eps = eps;
   p.scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(kD));
   const dim3 grid((lq + kBM - 1) / kBM, batch * heads);
-  fused_qk_attention_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+  fused_qk_attention_kernel<T><<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
       qm, km, vm, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entries, bound with ctypes, one for each element type. Pointers are device
+// pointers: q, k, v and o bf16 (fp16) [B, L, H, 128]; the six tables fp32 [L, 128],
+// contiguous, 16-byte aligned. `strides` holds 12 element strides: (batch, length, head) for
+// q, k, v and o, in that order. Every pointer must be 16-byte aligned and every stride a
+// multiple of 8 (the wrapper checks). Launches on `stream` and returns cudaGetLastError() (0
+// on success), -1 when the driver cannot describe an operand as a tensor map, -2 when its
+// encoder is not reachable.
+extern "C" int fused_qk_attention_bf16(const void* q, const void* k, const void* v, void* o,
+                                       const void* wq, const void* wk, const void* cq,
+                                       const void* sq, const void* ck, const void* sk,
+                                       const int64_t* strides, int batch, int heads, int lq,
+                                       int lk, float eps, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, o, wq, wk, cq, sq, ck, sk, strides, batch, heads, lq,
+                               lk, eps, stream);
+}
+
+extern "C" int fused_qk_attention_f16(const void* q, const void* k, const void* v, void* o,
+                                      const void* wq, const void* wk, const void* cq,
+                                      const void* sq, const void* ck, const void* sk,
+                                      const int64_t* strides, int batch, int heads, int lq,
+                                      int lk, float eps, void* stream) {
+  return launch<__half>(q, k, v, o, wq, wk, cq, sq, ck, sk, strides, batch, heads, lq, lk, eps,
+                        stream);
 }

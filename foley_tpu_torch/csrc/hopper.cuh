@@ -2,10 +2,10 @@
 // (flash_attention.cu) and K3 (gemm_sweep.cu), as raw inline PTX:
 //  * mbarriers: init, arrive, arrive with an expected transaction count, parity wait;
 //  * TMA tile loads (cp.async.bulk.tensor.4d) completing on an mbarrier, and the host-side
-//    encoding of a 4-D tensor map over a [B, L, H, D] bf16 operand read through its strides,
-//    with the 128-byte swizzle that wgmma reads;
+//    encoding of a 4-D tensor map over a [B, L, H, D] bf16 or fp16 operand read through its
+//    strides, with the 128-byte swizzle that wgmma reads;
 //  * wgmma: fence / commit / wait, the shared-memory matrix descriptor for 128-byte swizzled
-//    tiles, and mma_async for the shapes the kernels issue;
+//    tiles, and mma_async for the shapes and the 16-bit types (bf16, fp16) the kernels issue;
 //  * gpu-scope release / acquire and the global async-proxy fence, for a flag that one block
 //    raises after its stores and another waits on before it loads that memory by TMA;
 //  * clusters: rank, cluster-wide barrier, remote mbarrier arrival, multicast TMA loads;
@@ -13,9 +13,9 @@
 //  * setmaxnreg, and named barriers;
 //  * the consumer warpgroup of a flash-attention block: its software-pipelined main loop
 //    (S = Q K^T and O += P V by wgmma, the online softmax in registers between them) and
-//    the bf16 store of the normalised output.
+//    the store of the normalised output, for bf16 and fp16 operands alike (Elem<T>).
 //
-// Shared-memory tile layout. A tile of R rows x 64 bf16 columns (128 bytes a row) is what one
+// Shared-memory tile layout. A tile of R rows x 64 16-bit columns (128 bytes a row) is what one
 // TMA box with CU_TENSOR_MAP_SWIZZLE_128B writes: row r at r * 128, its 16-byte chunk c at
 // ((c ^ (r % 8)) * 16) inside the row, the tile 1024-byte aligned. A head of 128 columns is
 // two such slabs, one after the other. Read as a wgmma operand:
@@ -35,6 +35,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -159,101 +160,89 @@ __device__ __forceinline__ void named_arrive(int id, int n) {
 __device__ __forceinline__ void fence_regs(float& r) { asm volatile("" : "+f"(r)::"memory"); }
 
 // d (64 x N fp32, N / 2 registers a thread) = A (64 x 16, K-major in shared memory) *
-// B (16 x N: N rows of 16, K-major in shared memory) + (scale_d ? d : 0).
-template <int N>
+// B (16 x N: N rows of 16, K-major in shared memory) + (scale_d ? d : 0); A and B of the
+// 16-bit type T, bf16 or fp16 (the tensor cores take both at one rate).
+template <int N, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b, int scale_d);
 
-// d (64 x N fp32) += A (64 x 16 bf16 from registers, four 32-bit registers a thread) * B
+// d (64 x N fp32) += A (64 x 16 of T from registers, four 32-bit registers a thread) * B
 // (16 x N, MN-major in shared memory: read transposed), scaled by scale_d as above.
-template <int N>
+template <int N, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_tb(float* d, const uint32_t* a, uint64_t b,
                                             int scale_d);
 
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
+// The accumulator operands of an m64n64 / m64n128 wgmma and their places in the PTX.
+#define HOPPER_ACC64 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define HOPPER_ACC128 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define HOPPER_REGS64 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31}, "
+#define HOPPER_REGS128 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, " \
+  "%40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63}, "
 
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
+// wgmma_ss and wgmma_rs_tb for N 64 and 128 and the element type T, whose PTX name is PTX.
+#define HOPPER_WGMMA_FOR(T, PTX)                                                            \
+  template <>                                                                               \
+  __device__ __forceinline__ void wgmma_ss<64, T>(float* d, uint64_t a, uint64_t b,         \
+                                                  int scale_d) {                            \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                               \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." PTX "." PTX " {"             \
+                 HOPPER_REGS64 "%32, %33, p, 1, 1, 0, 0;\n}\n"                              \
+                 : HOPPER_ACC64                                                             \
+                 : "l"(a), "l"(b), "r"(scale_d));                                           \
+  }                                                                                         \
+  template <>                                                                               \
+  __device__ __forceinline__ void wgmma_ss<128, T>(float* d, uint64_t a, uint64_t b,        \
+                                                   int scale_d) {                           \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                               \
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32." PTX "." PTX " {"            \
+                 HOPPER_REGS128 "%64, %65, p, 1, 1, 0, 0;\n}\n"                             \
+                 : HOPPER_ACC128                                                            \
+                 : "l"(a), "l"(b), "r"(scale_d));                                           \
+  }                                                                                         \
+  template <>                                                                               \
+  __device__ __forceinline__ void wgmma_rs_tb<64, T>(float* d, const uint32_t* a,           \
+                                                     uint64_t b, int scale_d) {             \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                               \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." PTX "." PTX " {"             \
+                 HOPPER_REGS64 "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                \
+                 : HOPPER_ACC64                                                             \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));       \
+  }                                                                                         \
+  template <>                                                                               \
+  __device__ __forceinline__ void wgmma_rs_tb<128, T>(float* d, const uint32_t* a,          \
+                                                      uint64_t b, int scale_d) {            \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                               \
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32." PTX "." PTX " {"            \
+                 HOPPER_REGS128 "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"               \
+                 : HOPPER_ACC128                                                            \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));       \
+  }
 
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<64>(float* d, const uint32_t* a, uint64_t b,
-                                                 int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<128>(float* d, const uint32_t* a, uint64_t b,
-                                                 int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
+HOPPER_WGMMA_FOR(__nv_bfloat16, "bf16")
+HOPPER_WGMMA_FOR(__half, "f16")
+#undef HOPPER_WGMMA_FOR
 
 // d (64 x N fp32) = A (64 x 16, K-major in shared memory) * B (16 x N, MN-major in shared
 // memory: read transposed, as wgmma_rs_tb reads it) + (scale_d ? d : 0).
@@ -360,6 +349,28 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 p = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// The 16-bit element types of the attention kernels, bf16 and fp16: the pair type a thread
+// reads, and two floats rounded to nearest and packed into 32 bits.
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<__nv_bfloat16> {
+  using Pair = __nv_bfloat162;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) { return pack_bf16(lo, hi); }
+};
+
+template <>
+struct Elem<__half> {
+  using Pair = __half2;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) { return pack_f16(lo, hi); }
+};
+
 // 2^x on the special-function unit alone, denormal results flushed to zero (exp2f adds a
 // range check and two multiplies around it). The softmax feeds it x <= 0, so p in [0, 1]
 // loses only values below 2^-126 of the row's largest.
@@ -417,16 +428,16 @@ __device__ __forceinline__ void softmax_update(float* s, float* m, float* l, flo
   l[1] = l[1] * alpha[1] + rs[1];
 }
 
-// p (the 64 x N block `s`) in bf16 as N / 16 wgmma A fragments, one a k-step of 16 keys.
-template <int N>
+// p (the 64 x N block `s`) in T as N / 16 wgmma A fragments, one a k-step of 16 keys.
+template <int N, typename T>
 __device__ __forceinline__ void pack_p(const float* s, uint32_t (*a)[4]) {
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) {
     const float* s0 = s + 8 * kk;
-    a[kk][0] = pack_bf16(s0[0], s0[1]);
-    a[kk][1] = pack_bf16(s0[2], s0[3]);
-    a[kk][2] = pack_bf16(s0[4], s0[5]);
-    a[kk][3] = pack_bf16(s0[6], s0[7]);
+    a[kk][0] = Elem<T>::pack(s0[0], s0[1]);
+    a[kk][1] = Elem<T>::pack(s0[2], s0[3]);
+    a[kk][2] = Elem<T>::pack(s0[4], s0[5]);
+    a[kk][3] = Elem<T>::pack(s0[6], s0[7]);
   }
 }
 
@@ -440,9 +451,9 @@ __device__ __forceinline__ void pack_p(const float* s, uint32_t (*a)[4]) {
 // P V of tile t runs while that softmax does, so the tensor cores and the exponentials
 // overlap inside the warpgroup. With GROUPS > 1 the warpgroups `wg` 0 .. GROUPS - 1 of a
 // block also take turns, in that order, to issue their products (named barrier 1 + wg is
-// wg's turn), so that one's softmax runs while another's products do. Returns o (D / 2
-// registers, unnormalised) and l.
-template <int D, int BN, int STAGES, int GROUPS>
+// wg's turn), so that one's softmax runs while another's products do. Q, K, V and p are of
+// the 16-bit type T. Returns o (D / 2 registers, unnormalised) and l.
+template <int D, int BN, int STAGES, int GROUPS, typename T>
 __device__ __forceinline__ void attention_consumer(uint32_t q_addr, uint32_t q_slab,
                                                    uint32_t ring, uint64_t* kbar,
                                                    uint64_t* vbar, uint64_t* empty, int lk,
@@ -469,7 +480,7 @@ __device__ __forceinline__ void attention_consumer(uint32_t q_addr, uint32_t q_s
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;  // slab kk / 4, 32 bytes a k-step inside it
-      wgmma_ss<BN>(s, desc_sw128(q_addr + (kk / 4) * q_slab + off, 16, 1024),
+      wgmma_ss<BN, T>(s, desc_sw128(q_addr + (kk / 4) * q_slab + off, 16, 1024),
                    desc_sw128(k_addr + (kk / 4) * BN * 128 + off, 16, 1024), kk > 0);
     }
     wgmma_commit();
@@ -481,7 +492,7 @@ __device__ __forceinline__ void attention_consumer(uint32_t q_addr, uint32_t q_s
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      wgmma_rs_tb<D>(o, pa[kk], desc_sw128(v_addr + kk * 16 * 128, BN * 128, 1024), 1);
+      wgmma_rs_tb<D, T>(o, pa[kk], desc_sw128(v_addr + kk * 16 * 128, BN * 128, 1024), 1);
     wgmma_commit();
   };
 
@@ -500,7 +511,7 @@ __device__ __forceinline__ void attention_consumer(uint32_t q_addr, uint32_t q_s
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) fence_regs(s[i]);
   softmax_update<BN>(s, m, l, alpha, lk, scale_log2);
-  pack_p<BN>(s, pa);
+  pack_p<BN, T>(s, pa);
   for (int t = 1; t < n_tiles; ++t) {
     turn_begin();
     issue_s(t);
@@ -521,7 +532,7 @@ __device__ __forceinline__ void attention_consumer(uint32_t q_addr, uint32_t q_s
       o[4 * j + 2] *= alpha[1];
       o[4 * j + 3] *= alpha[1];
     }
-    pack_p<BN>(s, pa);
+    pack_p<BN, T>(s, pa);
   }
   turn_begin();
   issue_pv(n_tiles - 1);
@@ -533,11 +544,11 @@ __device__ __forceinline__ void attention_consumer(uint32_t q_addr, uint32_t q_s
   mbar_arrive(&empty[(pos + n_tiles - 1) % STAGES]);
 }
 
-// o / l in bf16 to rows [row0, row0 + 64) of `out` (element strides: row `sl`, unit
+// o / l in T to rows [row0, row0 + 64) of `out` (element strides: row `sl`, unit
 // columns); rows at or past `len` are not stored.
-template <int D>
-__device__ __forceinline__ void store_rows(const float* o, float* l, __nv_bfloat16* out,
-                                           int64_t sl, int row0, int len) {
+template <int D, typename T>
+__device__ __forceinline__ void store_rows(const float* o, float* l, T* out, int64_t sl,
+                                           int row0, int len) {
   const int t = threadIdx.x % 128, lane = t % 32;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -549,11 +560,11 @@ __device__ __forceinline__ void store_rows(const float* o, float* l, __nv_bfloat
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 16 * (t / 32) + lane / 4 + 8 * r;
     if (row >= len) continue;
-    __nv_bfloat16* orow = out + static_cast<int64_t>(row) * sl + 2 * (lane % 4);
+    T* orow = out + static_cast<int64_t>(row) * sl + 2 * (lane % 4);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-          pack_bf16(o[4 * j + 2 * r] * l[r], o[4 * j + 2 * r + 1] * l[r]);
+          Elem<T>::pack(o[4 * j + 2 * r] * l[r], o[4 * j + 2 * r + 1] * l[r]);
     }
   }
 }
@@ -563,6 +574,14 @@ __device__ __forceinline__ void store_rows(const float* o, float* l, __nv_bfloat
 // ---- host: tensor maps ----
 
 namespace hopper_host {
+
+// The tensor-map element type of a 16-bit element type.
+template <typename T>
+inline CUtensorMapDataType map_type();
+template <>
+inline CUtensorMapDataType map_type<__nv_bfloat16>() { return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16; }
+template <>
+inline CUtensorMapDataType map_type<__half>() { return CU_TENSOR_MAP_DATA_TYPE_FLOAT16; }
 
 // Error codes the kernels' C entries return beside cudaError values.
 constexpr int kErrTensorMap = -1;   // the driver cannot describe an operand as a tensor map
@@ -590,24 +609,25 @@ inline EncodeTiledFn encoder() {
   return fn;
 }
 
-// A bf16 [B, L, H, D] operand as a 4-D tensor map (D, H, L, B innermost first) over its
-// element strides (sb, sl, sh, unit on D), with boxes of 64 columns x 1 head x `rows` rows
-// x 1 batch row and the 128-byte swizzle. Maps are cached by everything they encode, so a
+// A [B, L, H, D] operand of 16-bit elements of `type` (bf16 unless given; fp16) as a 4-D
+// tensor map (D, H, L, B innermost first) over its element strides (sb, sl, sh, unit on D),
+// with boxes of 64 columns x 1 head x `rows` rows x 1 batch row and the 128-byte swizzle. Maps are cached by everything they encode, so a
 // hit is the map the encoder would return; PyTorch's allocator hands the same addresses
 // back from step to step. Returns 0, kErrTensorMap or kErrNoEncoder.
 inline int tensor_map(CUtensorMap* map, const void* ptr, int64_t batch, int64_t len,
                       int64_t heads, int64_t dim, int64_t sb, int64_t sl, int64_t sh,
-                      uint32_t rows) {
+                      uint32_t rows,
+                      CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   struct Entry {
-    int64_t key[9];
+    int64_t key[10];
     CUtensorMap map;
   };
   constexpr int kSlots = 64;
   static Entry cache[kSlots];
   static bool used[kSlots];
   static std::mutex lock;
-  const int64_t key[9] = {reinterpret_cast<int64_t>(ptr), batch, len, heads, dim, sb, sl, sh,
-                          rows};
+  const int64_t key[10] = {reinterpret_cast<int64_t>(ptr), batch, len, heads, dim, sb, sl, sh,
+                           rows, static_cast<int64_t>(type)};
   uint64_t h = 1469598103934665603ull;
   for (int64_t k : key) h = (h ^ static_cast<uint64_t>(k)) * 1099511628211ull;
   const int slot = static_cast<int>(h % kSlots);
@@ -626,7 +646,7 @@ inline int tensor_map(CUtensorMap* map, const void* ptr, int64_t batch, int64_t 
                                  static_cast<cuuint64_t>(sb) * 2};
   const cuuint32_t box[4] = {64, 1, rows, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+  const CUresult r = enc(map, type, 4, const_cast<void*>(ptr), dims,
                          strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

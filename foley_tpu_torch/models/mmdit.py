@@ -10,7 +10,9 @@ first triple block.
 ``MMDiT.forward`` is the JAX ``apply``. Both self-attention sites (the joint
 ``[v_cond; audio]`` attention of every triple block and the attention of every single
 block) always go through ``fused_qk_attention``: the Hopper kernel for CUDA tensors, its
-plain version for CPU tensors. The configurations outside that kernel's precondition in the
+plain version for CPU tensors, in the parameters' type (bf16, fp16 or fp32; an fp32 model
+runs its products in true fp32, ``ops/nn.py::exact_fp32``). The configurations outside that
+kernel's precondition in the
 JAX package (``qk_norm`` off, ``use_attention_mask``, non-interleaved RoPE, a failed
 interleave identity check) raise ``NotImplementedError``; so do LoRA and block offload,
 which this port does not carry yet.
@@ -37,7 +39,7 @@ from foley_tpu_torch.ops.attention import sdpa
 from foley_tpu_torch.ops.interp import nearest_exact_indices, nearest_exact_resize
 from foley_tpu_torch.ops.kernels.fused_attention import fused_qk_attention
 from foley_tpu_torch.ops.modulate import apply_gate, modulate, modulate_ref
-from foley_tpu_torch.ops.nn import Conv1d, Dense, init_parameters
+from foley_tpu_torch.ops.nn import Conv1d, Dense, exact_fp32, init_parameters
 from foley_tpu_torch.ops.norms import layer_norm, rms_norm
 from foley_tpu_torch.ops.rope import apply_rotary_emb, rope_table
 
@@ -459,6 +461,15 @@ class MMDiT(nn.Module):
     def forward(self, x, t, cond, clip_feat, sync_feat, *, text_kv=None, triple_mods=None,
                 tables: Optional[AttentionTables] = None,
                 visual_rows_shared: bool = False) -> torch.Tensor:
+        """``_velocity``, in true fp32 when ``x`` is fp32 (``ops/nn.py::exact_fp32``)."""
+        with exact_fp32(x.dtype):
+            return self._velocity(x, t, cond, clip_feat, sync_feat, text_kv=text_kv,
+                                  triple_mods=triple_mods, tables=tables,
+                                  visual_rows_shared=visual_rows_shared)
+
+    def _velocity(self, x, t, cond, clip_feat, sync_feat, *, text_kv=None, triple_mods=None,
+                  tables: Optional[AttentionTables] = None,
+                  visual_rows_shared: bool = False) -> torch.Tensor:
         """Velocity [B, T, C_latent] (the JAX ``apply``).
 
         x: audio latents [B, T, C_latent]; t: [B] timesteps in [0, 1000); cond: text
@@ -543,11 +554,12 @@ class MMDiT(nn.Module):
         """Every triple block's text cross-attention K/V, once per generation (they do not
         depend on the timestep). ``cond``: raw text features in the compute dtype. Returns
         (t_k, t_v), each stacked [N_blocks, B, L_text, H, D]."""
-        cond_p = self.cond_in(cond)
-        ropes_text = rope_table(cond.shape[1], self.cfg.head_dim, self.cfg.rope_theta,
-                                device=cond.device)
-        kv = [block.text_kv(cond_p, ropes_text) for block in self.triple_blocks]
-        return torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv])
+        with exact_fp32(cond.dtype):
+            cond_p = self.cond_in(cond)
+            ropes_text = rope_table(cond.shape[1], self.cfg.head_dim, self.cfg.rope_theta,
+                                    device=cond.device)
+            kv = [block.text_kv(cond_p, ropes_text) for block in self.triple_blocks]
+            return torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv])
 
     def precompute_triple_mods(self, timesteps: torch.Tensor, compute_dtype):
         """Every triple block's adaLN vectors for the whole timestep schedule.
@@ -558,10 +570,11 @@ class MMDiT(nn.Module):
         compute dtype, or None when the source is per-token (``sync_modulation``)."""
         if self.cfg.sync_modulation:
             return None
-        sv = F.silu(self.time_in(timesteps, compute_dtype))  # [S, H]
-        a_mods = torch.stack([b.audio_mod(sv) for b in self.triple_blocks], dim=1)
-        v_mods = torch.stack([b.v_cond_mod(sv) for b in self.triple_blocks], dim=1)
-        return a_mods[:, :, None, :], v_mods[:, :, None, :]
+        with exact_fp32(compute_dtype):
+            sv = F.silu(self.time_in(timesteps, compute_dtype))  # [S, H]
+            a_mods = torch.stack([b.audio_mod(sv) for b in self.triple_blocks], dim=1)
+            v_mods = torch.stack([b.v_cond_mod(sv) for b in self.triple_blocks], dim=1)
+            return a_mods[:, :, None, :], v_mods[:, :, None, :]
 
 
 # ---------------------------------------------------------------------------------

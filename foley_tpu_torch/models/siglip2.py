@@ -36,7 +36,7 @@ from foley_tpu_torch.io.images import box_downsample_u8, frames_to_u8
 from foley_tpu_torch.ops.activations import gelu_tanh
 from foley_tpu_torch.ops.attention import sdpa
 from foley_tpu_torch.ops.kernels.flash_attention import flash_attention
-from foley_tpu_torch.ops.nn import Dense, LayerNorm, empty_parameter, init_parameters
+from foley_tpu_torch.ops.nn import Dense, LayerNorm, empty_parameter, exact_fp32, init_parameters
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,7 +234,8 @@ class Siglip2Encoder:
         u8 = box_downsample_u8(frames_to_u8(np.asarray(frames)), self.cfg.image_size)
         pixels = preprocess_frames_device(torch.from_numpy(u8).to(self.device),
                                           self.cfg.image_size)
-        feats = apply(self.model, pixels.to(self.compute_dtype), pooled=True)  # [T, h]
+        with exact_fp32(self.compute_dtype):
+            feats = apply(self.model, pixels.to(self.compute_dtype), pooled=True)  # [T, h]
         return feats[None].float()
 
 

@@ -35,7 +35,7 @@ from foley_tpu_torch.configs import SynchformerConfig
 from foley_tpu_torch.core.device import DeviceLike, resolve_device
 from foley_tpu_torch.io.images import box_downsample_u8, frames_to_u8
 from foley_tpu_torch.ops.activations import gelu
-from foley_tpu_torch.ops.nn import Dense, LayerNorm, empty_parameter, init_parameters
+from foley_tpu_torch.ops.nn import Dense, LayerNorm, empty_parameter, exact_fp32, init_parameters
 
 EPS = 1e-6
 
@@ -299,7 +299,8 @@ class SynchformerEncoder:
     def encode(self, segments) -> torch.Tensor:
         """[S, 16, H, W, C] preprocessed segments (tensor or array) -> [1, S*8, D] fp32."""
         x = torch.as_tensor(segments).to(self.device)[None].to(self.compute_dtype)
-        feats = apply(self.model, x)  # [1, S, 8, D]
+        with exact_fp32(self.compute_dtype):
+            feats = apply(self.model, x)  # [1, S, 8, D]
         return feats.reshape(1, -1, feats.shape[-1]).float()
 
 

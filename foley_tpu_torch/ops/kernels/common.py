@@ -1,6 +1,8 @@
-"""What the kernels' wrappers share around their C entries: the operand check every TMA
-tensor map needs, the current-device context a launch runs in, how a C entry's return code
-is read, and the launch counters. Nothing is built or loaded when this module is
+"""What the kernels' wrappers share around their C entries: the operand check every kernel
+needs (16-byte rows: a TMA tensor map's, or the fp32 kernels' 16-byte loads), the element
+types the attention kernels take and the suffix of each one's C entry, the current-device
+context a launch runs in, how a C entry's return code is read, and the launch counters
+(one in all and one for each element type). Nothing is built or loaded when this module is
 imported."""
 
 from __future__ import annotations
@@ -11,16 +13,25 @@ import threading
 import torch
 
 
-def check_operand(name: str, x: torch.Tensor) -> None:
-    """The kernels' precondition on an operand they read as a TMA tensor map (K1's and K2's
-    [B, L, H, D], K3's x [M, K] and w [B, K, N]): bf16, a unit last stride, other strides
+#: The element types of K1's and K2's C entries, and each one's suffix: the 16-bit types
+#: run the wgmma kernels (``fused_qk_attention.cu``, ``flash_attention.cu``), fp32 the
+#: CUDA-core kernels of ``attention_f32.cu``.
+ATTENTION_DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
+
+
+def check_operand(name: str, x: torch.Tensor, dtypes=(torch.bfloat16,)) -> None:
+    """The kernels' precondition on an operand they read in 16-byte rows (K1's and K2's
+    [B, L, H, D], K3's x [M, K] and w [B, K, N], through a TMA tensor map or, in fp32, 16-byte
+    loads): one of ``dtypes`` (K3 takes bf16 alone), a unit last stride, other strides
     multiples of 16 bytes, a 16-byte aligned pointer."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the CUDA kernel takes bf16, got {x.dtype}")
-    if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) or x.data_ptr() % 16:
+    if x.dtype not in dtypes:
+        names = ", ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{name}: the CUDA kernel takes {names}, got {x.dtype}")
+    per_row = 16 // x.element_size()
+    if x.stride(-1) != 1 or any(s % per_row for s in x.stride()[:-1]) or x.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel reads 16-byte rows; it needs a unit last stride, "
-                         f"strides that are multiples of 8 and a 16-byte aligned pointer, got "
-                         f"strides {x.stride()}")
+                         f"strides that are multiples of {per_row} and a 16-byte aligned "
+                         f"pointer, got strides {x.stride()}")
 
 
 def on_device(dev: torch.device):
@@ -46,9 +57,19 @@ def check_launch(kernel: str, err: int) -> None:
 _launch_lock = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches`` (the wrapper's count of its kernel's launches) under a
-    lock: the server's request threads launch concurrently, and a bare ``+=`` on the
-    attribute could lose a count. So the count stays exact under concurrent requests."""
+def count_launch(wrapper, dtype: torch.dtype = torch.bfloat16) -> None:
+    """Add one to ``wrapper.launches`` (the wrapper's count of its kernel's launches) and to
+    ``wrapper.launches_by_dtype[dtype]`` under a lock: the server's request threads launch
+    concurrently, and a bare ``+=`` on the attribute could lose a count. So the counts stay
+    exact under concurrent requests."""
     with _launch_lock:
         wrapper.launches += 1
+        by_dtype = wrapper.launches_by_dtype
+        by_dtype[dtype] = by_dtype.get(dtype, 0) + 1
+
+
+def reset_launches(wrapper) -> None:
+    """Set a wrapper's launch counts, in all and by element type, to 0."""
+    with _launch_lock:
+        wrapper.launches = 0
+        wrapper.launches_by_dtype = {}

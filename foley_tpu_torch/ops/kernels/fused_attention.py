@@ -1,22 +1,28 @@
 """Fused qk-RMSNorm + RoPE + softmax attention: the Hopper kernel and its plain version.
 
 Replaces the TPU kernel ``foley_tpu/ops/pallas/fused_attention.py:82``
-(``fused_qk_attention_headfirst``, wrapper ``fused_qk_attention`` :127). The CUDA source is
-``foley_tpu_torch/csrc/fused_qk_attention.cu`` (sm_90a, bf16, head_dim 128: TMA copies of Q,
-K and V into a 5-stage ring, the norm + RoPE pass on warps of its own, wgmma for both
-products, an online softmax over 64-key tiles; its header says how the design follows from
-the card), with the Hopper primitives of ``csrc/hopper.cuh``.
+(``fused_qk_attention_headfirst``, wrapper ``fused_qk_attention`` :127), head_dim 128, in
+three element types, one C entry each:
+- bf16 and fp16: ``foley_tpu_torch/csrc/fused_qk_attention.cu`` (sm_90a, the element type a
+  template: TMA copies of Q, K and V into a 5-stage ring, the norm + RoPE pass on warps of
+  its own, wgmma for both products, an online softmax over 64-key tiles; its header says how
+  the design follows from the card), with the Hopper primitives of ``csrc/hopper.cuh``;
+- fp32: ``foley_tpu_torch/csrc/attention_f32.cu`` (``fused_qk_attention_f32``: the same
+  prologue and products in true fp32 FMA on the CUDA cores, no TF32, as the JAX package's
+  fp32 attention runs at ``Precision.HIGHEST``).
 
-Bound on an H100 SXM (3.35 TB/s, at a 700 W power limit): bytes. At the XXL 5 s joint call
-(B=2, L=290, H=12, D=128) a launch must move q, k, v and o in bf16 and the per-position
-cos/sin (about 3.6 MB) against about 1 GFLOP, about 1 us; what holds it back at that size is
-the latency of each block's copy -> norm -> product chain, which the design overlaps. The
-kernel reads every operand once through its strides and never writes the normalised q and
-k, the logits or P to device memory.
+Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 and fp16, 67 TFLOP/s fp32 on the CUDA
+cores, at a 700 W power limit). At the XXL 5 s joint call (B=2, L=290, H=12, D=128) a launch
+does about 1 GFLOP. In 16 bits it must move q, k, v and o and the per-position cos/sin
+(about 3.6 MB): bound by bytes, about 1 us; what holds it back at that size is the latency of
+each block's copy -> norm -> product chain, which the design overlaps. In fp32 it is bound
+by operations, 15.4 us. The kernels read every operand once through its strides and never
+write the normalised q and k, the logits or P to device memory.
 
-``fused_qk_attention`` launches the kernel for CUDA tensors and takes
+``fused_qk_attention`` launches the kernel of the operands' type for CUDA tensors and takes
 ``fused_qk_attention_plain`` only for CPU tensors. ``fused_qk_attention.launches`` counts
-kernel launches (the plain path does not count).
+kernel launches, and ``fused_qk_attention.launches_by_dtype`` counts them for each element
+type (the plain path does not count).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import ctypes
 import torch
 
 from foley_tpu_torch.ops.kernels.common import (
+    ATTENTION_DTYPES,
     check_launch,
     check_operand,
     count_launch,
@@ -69,22 +76,25 @@ def _table(t: torch.Tensor, length: int, device: torch.device) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-_fn = None
+_fns = {}
 
 
-def _kernel_fn():
-    """The C entry of the built library, with its argument types declared."""
-    global _fn
-    if _fn is None:
+def _kernel_fn(dtype: torch.dtype):
+    """The C entry for ``dtype`` of the built library, with its argument types declared:
+    ``fused_qk_attention_{bf16,f16}`` of ``fused_qk_attention.cu``,
+    ``fused_qk_attention_f32`` of ``attention_f32.cu``."""
+    if dtype not in _fns:
         from foley_tpu_torch.ops.kernels.build import library
 
+        suffix = ATTENTION_DTYPES[dtype]
+        lib = library("attention_f32" if suffix == "f32" else "fused_qk_attention")
         p = ctypes.c_void_p
-        fn = library("fused_qk_attention").fused_qk_attention_bf16
+        fn = getattr(lib, f"fused_qk_attention_{suffix}")
         fn.argtypes = [p] * 10 + [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int] * 4 + [
             ctypes.c_float, p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[dtype] = fn
+    return _fns[dtype]
 
 
 def _launch(q, k, v, wq, wk, cos_q, sin_q, cos_k, sin_k, eps):
@@ -99,8 +109,10 @@ def _launch(q, k, v, wq, wk, cos_q, sin_q, cos_k, sin_k, eps):
         raise ValueError("q, k and v must lie on one device")
     if b * h > 65535:  # one block row per (batch, head): the grid's y extent
         raise ValueError(f"batch * heads = {b * h} exceeds the kernel's grid (65535)")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q, k and v must share one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        check_operand(name, x)
+        check_operand(name, x, ATTENTION_DTYPES)
     dev = q.device
     tq = [_table(t, lq, dev) for t in (wq, cos_q, sin_q)]
     tk = [_table(t, lk, dev) for t in (wk, cos_k, sin_k)]
@@ -108,13 +120,13 @@ def _launch(q, k, v, wq, wk, cos_q, sin_q, cos_k, sin_k, eps):
     strides = (ctypes.c_int64 * 12)(*(s for x in (q, k, v, out) for s in (
         x.stride(0), x.stride(1), x.stride(2))))
     with on_device(dev):
-        err = _kernel_fn()(
+        err = _kernel_fn(q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             tq[0].data_ptr(), tk[0].data_ptr(), tq[1].data_ptr(), tq[2].data_ptr(),
             tk[1].data_ptr(), tk[2].data_ptr(), strides, b, h, lq, lk, float(eps),
             torch.cuda.current_stream(dev).cuda_stream)
     check_launch("fused_qk_attention", err)
-    count_launch(fused_qk_attention)
+    count_launch(fused_qk_attention, q.dtype)
     return out
 
 
@@ -122,8 +134,8 @@ def fused_qk_attention(q, k, v, wq, wk, cos_q, sin_q, cos_k, sin_k, eps=1e-6):
     """q/k/v [B, L, H, D] raw (pre-norm, pre-rope); wq/cos_q/sin_q [Lq, D] and wk/cos_k/sin_k
     [Lk, D] per-position tables (a [D] weight broadcasts). Returns [B, Lq, H, D].
 
-    CUDA tensors launch the kernel (bf16, D=128; anything else raises); CPU tensors take
-    ``fused_qk_attention_plain``."""
+    CUDA tensors launch the kernel of their type (bf16, fp16 or fp32, D=128; anything else
+    raises); CPU tensors take ``fused_qk_attention_plain``."""
     if q.device.type == "cuda":
         return _launch(q, k, v, wq, wk, cos_q, sin_q, cos_k, sin_k, eps)
     if q.device.type != "cpu":
@@ -134,3 +146,4 @@ def fused_qk_attention(q, k, v, wq, wk, cos_q, sin_q, cos_k, sin_k, eps=1e-6):
 
 
 fused_qk_attention.launches = 0
+fused_qk_attention.launches_by_dtype = {}

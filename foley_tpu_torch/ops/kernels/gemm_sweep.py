@@ -117,3 +117,4 @@ def gemm_sweep(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 gemm_sweep.launches = 0
+gemm_sweep.launches_by_dtype = {}

@@ -7,14 +7,18 @@ Weights use torch's layouts; ``io/from_jax.py`` converts the JAX ones:
 - conv1d:           [out, in, K]     (JAX: [K, in, out])
 - conv_transpose1d: [in, out, K]     (JAX: [K, in, out])
 
-bf16 and fp32 only. fp32 means true fp32: ``true_fp32()`` turns TF32 off for matmuls and
-cuDNN convolutions, whose default would otherwise run fp32 convs in TF32.
+bf16, fp16 and fp32. fp32 means true fp32: ``true_fp32()`` turns TF32 off for matmuls and
+cuDNN convolutions, whose default would otherwise run fp32 convs in TF32, and which a
+caller's ``torch.set_float32_matmul_precision("high")`` would turn on for matmuls; every fp32
+model of the port runs inside it (``exact_fp32``), as the JAX package runs every fp32
+contraction at ``Precision.HIGHEST``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -29,16 +33,41 @@ def _match(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return w if w.dtype == x.dtype else w.to(x.dtype)
 
 
+_fp32_lock = threading.Lock()
+_fp32_depth = 0
+_fp32_saved = (False, True)
+
+
 @contextlib.contextmanager
 def true_fp32():
-    """Run fp32 matmuls and convolutions in full fp32 (no TF32) inside the block."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    """Run fp32 matmuls and convolutions in full fp32 (no TF32) inside the block.
+
+    The two TF32 flags are process-global, and the server's request threads enter this
+    block concurrently: so the holders are counted under a lock, the flags are saved by the
+    first to enter and restored by the last to leave. (Each thread saving and restoring its
+    own copy would let two interleaved requests restore each other's saved state and leave
+    TF32 on.)"""
+    global _fp32_depth, _fp32_saved
+    with _fp32_lock:
+        if _fp32_depth == 0:
+            _fp32_saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _fp32_depth += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        with _fp32_lock:
+            _fp32_depth -= 1
+            if _fp32_depth == 0:
+                torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = (
+                    _fp32_saved)
+
+
+def exact_fp32(dtype: torch.dtype):
+    """``true_fp32()`` for fp32 work, no context for the 16-bit types (whose products no
+    TF32 flag touches)."""
+    return true_fp32() if dtype == torch.float32 else contextlib.nullcontext()
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -7,12 +7,16 @@ Run from the repository root: ``python3 foley_tpu_torch/tools/bench_kernels.py``
 older commit unpacked with ``git archive`` under ``build/``), so that two versions of the
 kernels are timed on one card in one call; the wrappers' interface is the same in both.
 ``--kernels k3`` times only K3 (a comma-separated list of ``k1``, ``k2``, ``k3``).
+``--dtypes bf16,fp16,fp32`` times K1 and K2 in each of those element types (bf16 alone unless
+given; a tree from before the fp16 and fp32 kernels takes bf16 only).
 
 It prints the card (``nvidia-smi`` name and power limit), then one JSON line per case.
 K1 and K2: the kernel's device time a launch (CUDA events around a queue of launches held
 behind a GPU spin, so the host's launch cost stays hidden), the wrapper's host time a launch
 (the same loop on the host clock), the one PyTorch call of the same function
-(``library_ms``), and the kernel's largest error against its plain version. K3, at the
+(``library_ms``; in fp32 inside ``true_fp32``), the kernel's largest and relative L2 errors
+against its plain version, and the SHA-256 of its output's bytes, which tells two trees'
+kernels apart bit for bit on the same inputs (the inputs come from fixed seeds). K3, at the
 probe's shape (that tree's ``tools/probe_gemm.py``: its inputs, timers and library sweep):
 the sweep's device time from CUDA-graph replays and eager, the wrapper's host time a sweep,
 the library sweep's graph time, the error against the plain version, and the sweep cut to
@@ -21,6 +25,8 @@ the fixed cost a launch or a sweep. It exits non-zero without a card.
 """
 
 import argparse
+import contextlib
+import hashlib
 import json
 import subprocess
 import sys
@@ -57,14 +63,37 @@ def timed(torch, fn, iters: int):
     return start.elapsed_time(end) / iters, host
 
 
-def k1_cases(torch, dev, iters: int):
+DTYPES = {"bf16": "bfloat16", "fp16": "float16", "fp32": "float32"}
+
+
+def errors(torch, got, ref) -> dict:
+    """The kernel's output against its plain version's, and the SHA-256 of its bytes."""
+    diff = got.float() - ref.float()
+    raw = got.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes()
+    return {"max_abs_err": float(diff.abs().max()),
+            "rel_l2_err": float(diff.norm() / ref.float().norm()),
+            "output_sha256": hashlib.sha256(raw).hexdigest()}
+
+
+def exact(torch, dtype):
+    """fp32 work runs in true fp32, as the port runs it (no TF32). Its own helper: an older
+    tree's ``ops/nn.py`` has ``true_fp32`` but no ``exact_fp32``."""
+    if dtype != torch.float32:
+        return contextlib.nullcontext()
+    from foley_tpu_torch.ops.nn import true_fp32
+
+    return true_fp32()
+
+
+def k1_cases(torch, dev, iters: int, dtype_name: str = "bf16"):
     from foley_tpu_torch.ops.kernels import fused_attention as FA
     from foley_tpu_torch.ops.rope import rope_table
 
+    dtype = getattr(torch, DTYPES[dtype_name])
     gen = torch.Generator(device=dev).manual_seed(0)
     for name, (b, length, h, visual) in K1_CASES.items():
         d = 128
-        q, k, v = (torch.randn(b, length, h, d, device=dev, generator=gen).to(torch.bfloat16)
+        q, k, v = (torch.randn(b, length, h, d, device=dev, generator=gen).to(dtype)
                    for _ in range(3))
 
         def weights():  # one [D] weight per stream, per-position as the joint blocks build it
@@ -75,42 +104,45 @@ def k1_cases(torch, dev, iters: int):
         wq, wk = weights(), weights()
         cos, sin = rope_table(length, d, device=dev)
         args = (q, k, v, wq, wk, cos, sin, cos, sin)
-        err = float((FA.fused_qk_attention(*args).float()
-                     - FA.fused_qk_attention_plain(*args).float()).abs().max())
+        with exact(torch, dtype):
+            err = errors(torch, FA.fused_qk_attention(*args), FA.fused_qk_attention_plain(*args))
 
         def library_call():
-            qn = FA._norm_rope(q, wq, cos, sin, 1e-6).transpose(1, 2)
-            kn = FA._norm_rope(k, wk, cos, sin, 1e-6).transpose(1, 2)
-            return torch.nn.functional.scaled_dot_product_attention(
-                qn, kn, v.transpose(1, 2)).transpose(1, 2)
+            with exact(torch, dtype):
+                qn = FA._norm_rope(q, wq, cos, sin, 1e-6).transpose(1, 2)
+                kn = FA._norm_rope(k, wk, cos, sin, 1e-6).transpose(1, 2)
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qn, kn, v.transpose(1, 2)).transpose(1, 2)
 
         ms, host_ms = timed(torch, lambda: FA.fused_qk_attention(*args), iters)
-        yield {"kernel": "fused_qk_attention", "case": name, "b": b, "l": length, "h": h,
-               "visual": visual, "kernel_ms": ms, "host_ms": host_ms,
-               "library_ms": timed(torch, library_call, max(iters // 10, 5))[0],
-               "max_abs_err": err}
+        yield {"kernel": "fused_qk_attention", "dtype": dtype_name, "case": name, "b": b,
+               "l": length, "h": h, "visual": visual, "kernel_ms": ms, "host_ms": host_ms,
+               "library_ms": timed(torch, library_call, max(iters // 10, 5))[0], **err}
 
 
-def k2_cases(torch, dev, iters: int):
+def k2_cases(torch, dev, iters: int, dtype_name: str = "bf16"):
     from foley_tpu_torch.ops.kernels import flash_attention as FL
 
+    dtype = getattr(torch, DTYPES[dtype_name])
     gen = torch.Generator(device=dev).manual_seed(2)
     for name, (b, lq, lk, h, d) in K2_CASES.items():
-        q = torch.randn(b, lq, h, d, device=dev, generator=gen).to(torch.bfloat16)
-        k, v = (torch.randn(b, lk, h, d, device=dev, generator=gen).to(torch.bfloat16)
+        q = torch.randn(b, lq, h, d, device=dev, generator=gen).to(dtype)
+        k, v = (torch.randn(b, lk, h, d, device=dev, generator=gen).to(dtype)
                 for _ in range(2))
-        err = float((FL.flash_attention(q, k, v).float()
-                     - FL.flash_attention_plain(q, k, v).float()).abs().max())
+        with exact(torch, dtype):
+            err = errors(torch, FL.flash_attention(q, k, v), FL.flash_attention_plain(q, k, v))
 
         def library_call():
-            return torch.nn.functional.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
+            with exact(torch, dtype):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
 
-        ms, host_ms = timed(torch, lambda: FL.flash_attention(q, k, v), iters)
-        yield {"kernel": "flash_attention", "case": name, "b": b, "lq": lq, "lk": lk, "h": h,
-               "d": d, "kernel_ms": ms, "host_ms": host_ms,
-               "library_ms": timed(torch, library_call, max(iters // 4, 5))[0],
-               "max_abs_err": err}
+        # fp32 runs ~15x longer a launch: fewer launches keep the call short
+        n = iters if dtype != torch.float32 else max(iters // 10, 3)
+        ms, host_ms = timed(torch, lambda: FL.flash_attention(q, k, v), n)
+        yield {"kernel": "flash_attention", "dtype": dtype_name, "case": name, "b": b,
+               "lq": lq, "lk": lk, "h": h, "d": d, "kernel_ms": ms, "host_ms": host_ms,
+               "library_ms": timed(torch, library_call, max(n // 4, 3))[0], **err}
 
 
 def k3_cases(torch, dev, iters: int):
@@ -148,6 +180,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                     help="checkout whose foley_tpu_torch is timed (default: this one)")
     ap.add_argument("--kernels", default="k1,k2,k3", help="which kernels: k1, k2, k3")
+    ap.add_argument("--dtypes", default="bf16", help="K1's and K2's element types: "
+                                                     "bf16, fp16, fp32")
     args = ap.parse_args(argv)
     root = str(Path(args.root).resolve())
     sys.path.insert(0, root)
@@ -165,8 +199,9 @@ def main(argv=None) -> int:
     check = Path(foley_tpu_torch.__file__).resolve().parents[1]
     if str(check) != root:
         raise RuntimeError(f"imported foley_tpu_torch from {check}, not from {root}")
-    cases = {"k1": lambda: k1_cases(torch, dev, ITERS),
-             "k2": lambda: k2_cases(torch, dev, ITERS // 4),
+    dtypes = args.dtypes.split(",")
+    cases = {"k1": lambda: (r for t in dtypes for r in k1_cases(torch, dev, ITERS, t)),
+             "k2": lambda: (r for t in dtypes for r in k2_cases(torch, dev, ITERS // 4, t)),
              "k3": lambda: k3_cases(torch, dev, K3_ITERS)}
     for name in args.kernels.split(","):
         for rec in cases[name]():

@@ -7,9 +7,12 @@ skips without a CUDA card (the kernels have no CPU mode).
 This file imports neither JAX nor the JAX package, so it runs on a machine with a card and
 no JAX: ``python -m pytest tests/test_torch_cuda.py --noconftest -q``.
 
-Tolerance, bf16 atol 2e-2: each attention kernel's online softmax rounds the unnormalised p
-to bf16 and divides by the row sum only at the end, and it sums in another order than the
-plain version. K3 sums the same fp32 products in another order, and a flipped bf16 rounding
+Tolerance, bf16 and fp16 atol 2e-2: each attention kernel's online softmax rounds the
+unnormalised p to the 16-bit type and divides by the row sum only at the end, and it sums in
+another order than the plain version. fp32 (K1's and K2's fp32 kernels, CUDA-core FMA): a
+relative L2 error of at most 1e-5 against the plain version in true fp32 (``true_fp32``); a
+TF32 product would read about 1e-4.
+K3 sums the same fp32 products in another order, and a flipped bf16 rounding
 carries forward through the chain; tanh bounds its output by 1. Its relative L2 error is
 held to 1e-2 block by block (``_assert_sweep_close`` says how the chain is held).
 """
@@ -27,11 +30,23 @@ from foley_tpu_torch.models import clap, dac_vae, mmdit, siglip2
 from foley_tpu_torch.ops.kernels import flash_attention as FL
 from foley_tpu_torch.ops.kernels import fused_attention as FA
 from foley_tpu_torch.ops.kernels import gemm_sweep as GS
+from foley_tpu_torch.ops.nn import true_fp32
 from foley_tpu_torch.ops.rope import rope_table
 from foley_tpu_torch.pipeline.generate import ModelBundle, generate_audio
 from foley_tpu_torch.tools import probe_gemm
 
 KERNEL_TOL = dict(atol=2e-2, rtol=0)
+FP32_REL_TOL = 1e-5
+
+
+def _assert_kernel_close(got, ref):
+    """The dtype's bound: atol 2e-2 for bf16 and fp16, relative L2 1e-5 for fp32."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    if got.dtype == torch.float32:
+        rel = float((got - ref).norm() / ref.norm())
+        assert rel <= FP32_REL_TOL, rel
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), **KERNEL_TOL)
 
 
 @pytest.fixture
@@ -41,14 +56,13 @@ def dev():
     return torch.device("cuda")
 
 
-def _operands(dev, b, lq, lk, h, d=128, seed=0, split=None):
-    """q, k, v and the tables. ``split`` None: per-position random norm weights; an int: the
-    joint blocks' [v_cond; audio] weights, one [D] row for the first ``split`` positions and
-    another for the rest, different for q and k."""
+def _operands(dev, b, lq, lk, h, d=128, seed=0, split=None, dtype=torch.bfloat16):
+    """q, k, v (of ``dtype``) and the tables. ``split`` None: per-position random norm
+    weights; an int: the joint blocks' [v_cond; audio] weights, one [D] row for the first
+    ``split`` positions and another for the rest, different for q and k."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn(b, lq, h, d, device=dev, generator=gen).to(torch.bfloat16)
-    k, v = (torch.randn(b, lk, h, d, device=dev, generator=gen).to(torch.bfloat16)
-            for _ in range(2))
+    q = torch.randn(b, lq, h, d, device=dev, generator=gen).to(dtype)
+    k, v = (torch.randn(b, lk, h, d, device=dev, generator=gen).to(dtype) for _ in range(2))
 
     def weights(length):
         if split is None:
@@ -95,6 +109,30 @@ def test_kernel_matches_plain(dev, b, lq, lk, h, split):
     torch.testing.assert_close(got.float(), ref.float(), **KERNEL_TOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+@pytest.mark.parametrize("b,lq,lk,h,split", [
+    (2, 290, 290, 12, 40), (2, 250, 250, 12, None), (1, 1, 1, 2, None), (1, 63, 63, 2, None),
+    (1, 65, 65, 2, None), (2, 37, 53, 3, None), (1, 65, 1, 2, None), (1, 129, 129, 2, None),
+    (1, 1740, 1740, 2, 240)])
+def test_kernel_matches_plain_in_fp16_and_fp32(dev, dtype, b, lq, lk, h, split):
+    """The fp16 kernel (the bf16 one's template) and the fp32 one (``attention_f32.cu``);
+    fp32 against the plain version in true fp32."""
+    args = _operands(dev, b, lq, lk, h, split=split, dtype=dtype)
+    with true_fp32():
+        got = FA.fused_qk_attention(*args)
+        ref = FA.fused_qk_attention_plain(*args)
+    torch.cuda.synchronize()
+    _assert_kernel_close(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_kernel_counts_launches_by_dtype(dev, dtype):
+    args = _operands(dev, 1, 16, 16, 2, dtype=dtype)
+    before = FA.fused_qk_attention.launches_by_dtype.get(dtype, 0)
+    FA.fused_qk_attention(*args)
+    assert FA.fused_qk_attention.launches_by_dtype[dtype] == before + 1
+
+
 def test_kernel_reads_strided_views(dev):
     """q, k and v as views of one fused qkv projection, as the single blocks pass them."""
     b, length, h, d = 2, 70, 4, 128
@@ -116,8 +154,10 @@ def test_cuda_tensor_never_reaches_plain(dev, monkeypatch):
     before = FA.fused_qk_attention.launches
     FA.fused_qk_attention(q, k, v, *tabs)
     assert FA.fused_qk_attention.launches == before + 1
-    with pytest.raises(TypeError):  # fp32 on the card raises; it does not fall back
-        FA.fused_qk_attention(q.float(), k.float(), v.float(), *tabs)
+    with pytest.raises(TypeError):  # fp64 on the card raises; it does not fall back
+        FA.fused_qk_attention(q.double(), k.double(), v.double(), *tabs)
+    with pytest.raises(TypeError):  # nor do mixed types
+        FA.fused_qk_attention(q, k.half(), v, *tabs)
     with pytest.raises(ValueError):  # so does a head_dim other than 128
         FA.fused_qk_attention(q[..., :64], k[..., :64], v[..., :64],
                               *(t[:, :64] for t in tabs))
@@ -202,11 +242,10 @@ def test_clap_on_card_is_true_fp32(dev, monkeypatch):
 
 # ---- K2: flash attention ----
 
-def _qkv(dev, b, lq, lk, h, d, seed=0):
+def _qkv(dev, b, lq, lk, h, d, seed=0, dtype=torch.bfloat16):
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn(b, lq, h, d, device=dev, generator=gen).to(torch.bfloat16)
-    k, v = (torch.randn(b, lk, h, d, device=dev, generator=gen).to(torch.bfloat16)
-            for _ in range(2))
+    q = torch.randn(b, lq, h, d, device=dev, generator=gen).to(dtype)
+    k, v = (torch.randn(b, lk, h, d, device=dev, generator=gen).to(dtype) for _ in range(2))
     return q, k, v
 
 
@@ -225,6 +264,20 @@ def test_flash_kernel_matches_plain(dev, b, lq, lk, h, d):
     torch.cuda.synchronize()
     assert got.shape == ref.shape and got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), ref.float(), **KERNEL_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+@pytest.mark.parametrize("b,lq,lk,h,d", [(4, 1024, 1024, 12, 64), (1, 1, 1, 2, 64),
+                                         (1, 65, 65, 2, 64), (1, 250, 77, 2, 128),
+                                         (2, 37, 53, 3, 64), (1, 65, 1, 2, 128),
+                                         (2, 290, 290, 12, 128), (1, 129, 300, 2, 64)])
+def test_flash_kernel_matches_plain_in_fp16_and_fp32(dev, dtype, b, lq, lk, h, d):
+    q, k, v = _qkv(dev, b, lq, lk, h, d, dtype=dtype)
+    with true_fp32():
+        got = FL.flash_attention(q, k, v)
+        ref = FL.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    _assert_kernel_close(got, ref)
 
 
 def test_flash_kernel_reads_strided_views(dev):
@@ -246,9 +299,8 @@ def test_flash_cuda_tensor_never_reaches_plain(dev, monkeypatch):
     before = FL.flash_attention.launches
     FL.flash_attention(q, k, v)
     assert FL.flash_attention.launches == before + 1
-    for dtype in (torch.float32, torch.float16):  # the card takes bf16 only; no fallback
-        with pytest.raises(TypeError):
-            FL.flash_attention(q.to(dtype), k.to(dtype), v.to(dtype))
+    with pytest.raises(TypeError):  # fp64 raises on the card; no fallback
+        FL.flash_attention(q.double(), k.double(), v.double())
     with pytest.raises(ValueError):  # so does a head_dim other than 64 or 128
         FL.flash_attention(q[..., :32], k[..., :32], v[..., :32])
     for bad in (_misaligned, _odd_rows):  # and what a TMA tensor map cannot describe
@@ -392,20 +444,42 @@ def test_probe_measures_on_the_card(dev, monkeypatch):
     assert rec["kernel_sweeps"] == 1 + 1 + 3 + 2
 
 
-def test_nodes_refuse_precisions_the_kernels_do_not_take(dev):
-    """On the card the denoiser and the visual encoders load in bf16 only (K1 and K2 take
-    bf16): fp16 and fp32 raise at load, with no fallback to the plain attention."""
-    from foley_tpu_torch.api.nodes import HunyuanDependenciesLoader, HunyuanModelLoader
+@pytest.mark.parametrize("precision", ["bf16", "fp16", "fp32"])
+def test_every_precision_runs_on_card(dev, precision):
+    """A small denoiser with 128-wide heads and SigLIP2 in each precision the nodes offer:
+    K1 and K2 launch in that type (no fallback to the plain attention), and the fp32 runs
+    agree with the same modules on the CPU within 1e-5 relative L2."""
+    from foley_tpu_torch.api.nodes import HunyuanModelLoader, resolve_dtype
 
-    for precision in ("fp16", "fp32"):
-        with pytest.raises(NotImplementedError, match="K1.*queue B"):
-            HunyuanModelLoader.init_random("tiny", precision, 0, device=dev)
-        with pytest.raises(NotImplementedError, match="K2.*queue B"):
-            HunyuanDependenciesLoader().load_dependencies(
-                "vae_128d_48k.safetensors", "synchformer_state_dict.safetensors",
-                precision=precision, device=dev)
-    fm = HunyuanModelLoader.init_random("tiny", "bf16", 0, device=dev)
-    assert fm["params"].final_layer.linear.weight.device.type == "cuda"
+    dtype = resolve_dtype(precision)
+    cfg = dataclasses.replace(TINY, model=dataclasses.replace(TINY.model, hidden_size=256))
+    fm = HunyuanModelLoader.init_random("tiny", precision, 0, perturb=True, device=dev)
+    model = perturb_zero_leaves(mmdit.init(cfg.model, torch.Generator(device=dev).manual_seed(0),
+                                           device=dev, dtype=dtype),
+                                torch.Generator(device=dev).manual_seed(1))
+    assert fm["dtype"] == dtype and fm["params"].final_layer.linear.weight.device.type == "cuda"
+    gen = torch.Generator().manual_seed(2)
+    args = (torch.randn(2, 50, cfg.model.audio_vae_latent_dim, generator=gen),
+            torch.full((2,), 500.0), torch.randn(2, 77, cfg.model.condition_dim, generator=gen),
+            torch.randn(2, 8, cfg.model.clip_dim, generator=gen),
+            torch.randn(2, 24, cfg.model.sync_feat_dim, generator=gen))
+    before = FA.fused_qk_attention.launches_by_dtype.get(dtype, 0)
+    with torch.no_grad():
+        got = model(*(a.to(dev, dtype) if a.is_floating_point() and a.ndim > 1 else a.to(dev)
+                      for a in args)).float().cpu()
+    blocks = cfg.model.depth_triple_blocks + cfg.model.depth_single_blocks
+    assert FA.fused_qk_attention.launches_by_dtype[dtype] - before == blocks
+    assert bool(torch.isfinite(got).all())
+    enc = siglip2.init_random(0, 128, device=dev, dtype=dtype)  # 2 heads of 64
+    before = FL.flash_attention.launches_by_dtype.get(dtype, 0)
+    feats = enc.encode(torch.rand(3, 40, 40, 3, generator=gen).numpy())
+    assert FL.flash_attention.launches_by_dtype[dtype] - before == enc.cfg.num_hidden_layers
+    assert bool(torch.isfinite(feats).all())
+    if dtype == torch.float32:
+        model.cpu()
+        with torch.no_grad():
+            ref = model(*(a.float() for a in args)).float()
+        assert float((got - ref).norm() / ref.norm()) <= FP32_REL_TOL
 
 
 def test_http_round_trip_on_card_launches_the_kernel(dev):

@@ -123,3 +123,37 @@ def save_bpe_tokenizer(dirpath: str, n_merges: int = 120) -> str:
     RobertaTokenizer(os.path.join(dirpath, "vocab.json"),
                      os.path.join(dirpath, "merges.txt")).save_pretrained(dirpath)
     return dirpath
+
+
+def save_checkpoint_dir(root) -> None:
+    """A reference-layout checkpoint directory at the TINY config under ``root`` (a
+    ``pathlib.Path``), as a ``--model_path`` or ``load_model`` reads it: the denoiser of
+    ``tests/test_io.py`` (every weight random and nonzero), the DAC, and a CLAP under
+    ``clap/`` with a byte-level BPE tokenizer beside it, which both packages read."""
+    import os
+
+    from foley_tpu.configs import TINY
+    from foley_tpu_torch.io.convert import save_safetensors
+    from helpers import save_dac_checkpoint, save_tiny_clap_checkpoint
+    from test_io import _synthetic_mmdit_sd
+
+    save_safetensors(str(root / "hunyuanvideo_foley.safetensors"),
+                     {k: torch.from_numpy(np.array(v))
+                      for k, v in _synthetic_mmdit_sd(TINY.model).items()})
+    save_dac_checkpoint(str(root / "vae_128d_48k.safetensors"), TINY.dac)
+    save_tiny_clap_checkpoint(str(root / "clap"), hidden=TINY.model.condition_dim, heads=2,
+                              vocab_size=400)
+    os.remove(root / "clap" / "tokenizer.json")  # its WordLevel tokenizer: BPE's files instead
+    save_bpe_tokenizer(str(root / "clap"))
+
+
+def jax_latents(seed: int):
+    """A stand-in for the port's ``prepare_latents`` that returns the JAX package's initial
+    noise for ``seed`` (``jax.random`` and a ``torch.Generator`` draw other bits)."""
+    from foley_tpu.sampling.denoise import prepare_latents
+
+    def noise(gen, b, length, dim, dtype=torch.float32):
+        return torch.from_numpy(np.array(prepare_latents(jax.random.PRNGKey(seed), b, length,
+                                                         dim)))
+
+    return noise

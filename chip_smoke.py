@@ -18,8 +18,10 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   kernel's device time (and, for K1 and K2, the wrapper's host time a launch), the plain
   version's and the library call's times and the card's bound for the work (K3's also with
   the tool's full-width library sweep); then K1 and K2 in fp16 (within the bf16 tolerances)
-  and fp32 (within 1e-5 relative L2 of the plain version in true fp32, with the control,
-  the plain version under TF32, outside that bound), each with its times and bound;
+  and fp32 (the 3xTF32 kernels, within 1e-5 relative L2 of the plain version in true fp32,
+  with the control, the plain version under TF32, outside that bound), each with its times
+  and bound (fp32 with two: three TF32 tensor-core products a product, and the CUDA cores'
+  fp32 rate);
 - ``probe_gemm``: K3's path, the GEMM sweep probe (``foley_tpu_torch.tools.probe_gemm``) at
   its full shape, 36 blocks of x [784, 1536] @ W_b[:, :1536] of [1536, 4608]: its record
   (each variant's time a sweep, eager and replayed from a CUDA graph, and rates, the
@@ -95,7 +97,9 @@ STEPS = 50
 GUIDANCE = 4.5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 (and fp16) tensor-core peak
-FP32_FLOPS = 67e12         # H100 SXM fp32 on the CUDA cores (the fp32 kernels use no TF32)
+FP32_FLOPS = 67e12         # H100 SXM fp32 on the CUDA cores: the parent's fp32 kernels' bound
+TF32_FLOPS = 495e12        # H100 SXM dense TF32 tensor-core peak
+TF32_PASSES = 3            # the fp32 kernels form each product from three TF32 ones (3xTF32)
 KERNEL_TOL = 2e-2          # bf16: online softmax rounds unnormalised p, sums in another order;
                            # K3: tanh bounds the output by 1, the tool's own limit
                            # (probe_gemm_pallas.py:122); the same fp32 products summed in another
@@ -122,12 +126,13 @@ V2A_LONG_S, V2A_LONG_HW = 24.0, (360, 640)  # 24 s of 25 fps 640x360 RGB
 CONT_SERVE_S = 2.0         # the served continuation: 2 s after the last CONTEXT_S of a request
 STREAM_TOL = 1.5 / 32767   # stream against batch: the same decodes, at most a PCM step apart
 FP32_KERNEL_REL_TOL = 1e-5  # fp32 K1 / K2 against the plain version in true fp32, relative L2:
-                            # fp32 sums in another order read ~1e-6; the control, the plain
-                            # version with TF32 let in, must land outside it
+                            # their 3xTF32 products drop a_lo.b_lo (2^-22 of a product) and
+                            # sum in another order, ~1e-6; the control, the plain version with
+                            # TF32 let in (one pass), must land outside it
 FP32_MODEL_REL_TOL = 1e-5   # the fp32 XXL velocity and SigLIP2 features, kernel against plain
-                            # attention, relative L2: read 4.8e-7 and 6.7e-7 on an H100 (fp32
-                            # sums in another order through 54 / 12 layers); a TF32 product
-                            # reads ~4e-4, so 1e-5 holds the kernels to fp32 with 15x room
+                            # attention, relative L2: read 4.8e-7 and 6.7e-7 on an H100 with
+                            # the CUDA-core fp32 kernels; a single TF32 pass reads ~4e-4, so
+                            # 1e-5 holds the 3xTF32 kernels to fp32's accuracy
 
 
 def emit(obj) -> None:
@@ -153,12 +158,33 @@ def gpu_ms(torch, fn, iters: int) -> float:
     return timed_ms(torch, fn, iters)[0]
 
 
-def kernel_bound(n_bytes: int, flops: int, peak: float = BF16_FLOPS) -> dict:
+def kernel_bound(n_bytes: int, flops: int, peak: float = BF16_FLOPS, passes: int = 1) -> dict:
     """The least time the card takes for the work: bytes at the memory rate or operations at
-    ``peak`` (the tensor cores' bf16 / fp16 rate unless given; the CUDA cores' for fp32)."""
-    bound = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3, "operations": flops / peak * 1e3}
+    ``peak`` (the tensor cores' bf16 / fp16 rate unless given), each operation done
+    ``passes`` times (3 for the fp32 kernels' 3xTF32 at ``TF32_FLOPS``)."""
+    bound = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "operations": passes * flops / peak * 1e3}
     return {"bytes": n_bytes, "flops": flops, "bound_ms": max(bound.values()),
             "bound_by": max(bound, key=bound.get)}
+
+
+def fp32_bound(n_bytes: int, flops: int) -> dict:
+    """An fp32 kernel's two bounds: ``bound_ms`` at three TF32 tensor-core products a
+    product (the least time for fp32-accurate attention on the tensor cores: the 3xTF32
+    kernels' bound), and ``bound_cuda_core_ms`` at the CUDA cores' fp32 rate (the bound the
+    CUDA-core kernels they replaced were held to)."""
+    cuda_core = kernel_bound(n_bytes, flops, FP32_FLOPS)
+    return {**kernel_bound(n_bytes, flops, TF32_FLOPS, TF32_PASSES),
+            "bound_cuda_core_ms": cuda_core["bound_ms"],
+            "bound_cuda_core_by": cuda_core["bound_by"]}
+
+
+def with_shares(res: dict) -> dict:
+    """``res`` with each bound's share of the kernel's time (1 is the bound)."""
+    res["bound_share"] = res["bound_ms"] / res["kernel_ms"]
+    if "bound_cuda_core_ms" in res:
+        res["bound_cuda_core_share"] = res["bound_cuda_core_ms"] / res["kernel_ms"]
+    return res
 
 
 def k1_cases(torch, dev, cfg, gen) -> dict:
@@ -1275,12 +1301,14 @@ def serving_phase(torch, dev, bundle, pipeline_cfg, clap_encoder, video_encoders
         for n_, fn in originals.items():
             setattr(srv_mod, n_, fn)
 
-    # two concurrent requests coalesced into one batch-2 call, each row against its solo run
+    # two concurrent requests coalesced into one batch-2 call, each row against its solo run;
+    # the batch's rows come in the order the requests arrived, which the two clients race
+    # for, so each request's row is the one that carries its seed
     multi = []
 
-    def multi_latents(*a, **k):
+    def multi_latents(*a, **k):  # generate_audio_multi(bundle, text, uncond, duration, seeds)
         res = originals["generate_audio_multi"](*a, return_latents=True, **k)
-        multi.append(res)
+        multi.append((list(k["seeds"] if "seeds" in k else a[4]), res))
         return res
 
     srv_mod.generate_audio_multi = multi_latents
@@ -1305,8 +1333,11 @@ def serving_phase(torch, dev, bundle, pipeline_cfg, clap_encoder, video_encoders
         httpd.shutdown()
         httpd.server_close()
         srv_mod.generate_audio_multi = originals["generate_audio_multi"]
-    check(len(multi) == 1 and multi[0].latents.shape[0] == 2,
+    check(len(multi) == 1 and multi[0][1].latents.shape[0] == 2,
           f"the two requests ran as {len(multi)} calls, not one batch of 2")
+    row_seeds, batch = multi[0]
+    check(sorted(row_seeds) == sorted(body["seed"] for body in pair),
+          f"the batch's rows carry seeds {row_seeds}")
     check(k1 == per_k1, f"the coalesced call: K1 {k1}, expected {per_k1}")
     deps = {"clap": clap_encoder}
     rows = []
@@ -1315,7 +1346,7 @@ def serving_phase(torch, dev, bundle, pipeline_cfg, clap_encoder, video_encoders
         solo = gen_mod.generate_audio(bundle, text, uncond, DURATION_S, guidance_scale=GUIDANCE,
                                       num_inference_steps=STEPS, seed=body["seed"],
                                       return_latents=True)
-        diff = np.abs(multi[0].latents[i] - solo.latents[0])
+        diff = np.abs(batch.latents[row_seeds.index(body["seed"])] - solo.latents[0])
         ok = bool((diff <= 1e-5 + 1e-5 * np.abs(solo.latents[0])).all())
         rows.append(float(diff.max()))
         check(ok, f"coalesced row {i}: latents {float(diff.max())} from its solo run")
@@ -1323,6 +1354,7 @@ def serving_phase(torch, dev, bundle, pipeline_cfg, clap_encoder, video_encoders
     solo_walls = [r["client_wall_s"] for r in results if r["request"] == "t2a_wav"]
     emit({"phase": "serving", "request": "coalesced_pair", "client_wall_s": coalesced_s,
           "solo_t2a_wall_s": solo_walls[0], "rows_max_abs_latent_diff": rows,
+          "row_seeds": row_seeds,
           "k1_launches": k1, "warmup_s": warm_s,
           "phase_seconds": time.perf_counter() - t_phase})
     return k1_total, k2_total
@@ -1377,7 +1409,8 @@ def precision_kernel_phase(torch, dev, cfg):
     """K1 and K2 in fp16 and fp32 against their plain versions (fp32 inside ``true_fp32``),
     with each case's device time, the plain version's, the library call's in the same type
     (plain norm and RoPE then SDPA for K1, SDPA for K2; fp32 inside ``true_fp32``) and the
-    bound (fp16 at the tensor cores' rate, fp32 at the CUDA cores'). K1 at the 5 s and 30 s
+    bound and its share of the time (fp16 at the tensor cores' rate; fp32 at three TF32
+    products a product, and beside it at the CUDA cores' fp32 rate). K1 at the 5 s and 30 s
     shapes and ragged lengths; K2 in fp16 at SigLIP2's 40 and 192 frames, in fp32 at 40
     frames (its plain version held in chunks of 8 frames), ragged and cross. For each fp32
     case with more than one key the control is the plain version with TF32 let in; at the
@@ -1434,9 +1467,10 @@ def precision_kernel_phase(torch, dev, cfg):
                 torch, lambda: FA.fused_qk_attention(*args), iters)
             res["plain_ms"] = gpu_ms(torch, plain, 10)
             res["library_ms"] = gpu_ms(torch, library_call, 10)
-            res.update(kernel_bound(n_bytes, 4 * b * h * length * length * d,
-                                    FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS))
-            emit(res)
+            flops = 4 * b * h * length * length * d
+            res.update(fp32_bound(n_bytes, flops) if dtype == torch.float32
+                       else kernel_bound(n_bytes, flops))
+            emit(with_shares(res))
             out[name] = res
             del q, k, v, got, ref
 
@@ -1480,10 +1514,11 @@ def precision_kernel_phase(torch, dev, cfg):
                                                         iters)
             res["plain_ms"] = gpu_ms(torch, plain, 3 if bb > 8 else 10)
             res["library_ms"] = gpu_ms(torch, library_call, iters)
-            res.update(kernel_bound(2 * (q.numel() + k.numel()) * q.element_size(),
-                                    4 * bb * hh * lq * lk * dd,
-                                    FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS))
-            emit(res)
+            n_bytes = 2 * (q.numel() + k.numel()) * q.element_size()
+            flops = 4 * bb * hh * lq * lk * dd
+            res.update(fp32_bound(n_bytes, flops) if dtype == torch.float32
+                       else kernel_bound(n_bytes, flops))
+            emit(with_shares(res))
             out[name] = res
             del q, k, v, got
     torch.cuda.empty_cache()
@@ -1730,14 +1765,17 @@ def main() -> int:
         else:
             def mean(key):
                 return cases["siglip2_5s"][key]
-        bound = kernel_bound(mean("bytes"), mean("flops"),
-                             FP32_FLOPS if tname == "fp32" else BF16_FLOPS)
+        if tname == "fp32":  # the 3xTF32 bound, and the CUDA cores' beside it
+            bound = fp32_bound(mean("bytes"), mean("flops"))
+            extra = {"bound_cuda_core_ms": bound["bound_cuda_core_ms"]}
+        else:
+            bound, extra = kernel_bound(mean("bytes"), mean("flops")), {}
         return {"name": f"{kernel}_{'f16' if tname == 'fp16' else 'f32'}", "route": "cuda",
                 "source": source, "replaces": replaces, "launches": launches,
                 "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
                 "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
                 "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-                "library_ms": mean("library_ms")}
+                "library_ms": mean("library_ms"), **extra}
 
     k2 = flash["siglip2_5s"]  # the main V2A path's shape (the 24 s run's is siglip2_24s)
     k3_bound = gemm["probe_full"]  # the probe's shape: one sweep of the probe

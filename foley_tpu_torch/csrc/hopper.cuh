@@ -1,11 +1,13 @@
 // Hopper (sm_90a) primitives shared by the port's kernels, K1 (fused_qk_attention.cu), K2
-// (flash_attention.cu) and K3 (gemm_sweep.cu), as raw inline PTX:
+// (flash_attention.cu), their fp32 variants (attention_f32.cu) and K3 (gemm_sweep.cu), as raw
+// inline PTX:
 //  * mbarriers: init, arrive, arrive with an expected transaction count, parity wait;
 //  * TMA tile loads (cp.async.bulk.tensor.4d) completing on an mbarrier, and the host-side
 //    encoding of a 4-D tensor map over a [B, L, H, D] bf16 or fp16 operand read through its
 //    strides, with the 128-byte swizzle that wgmma reads;
 //  * wgmma: fence / commit / wait, the shared-memory matrix descriptor for 128-byte swizzled
-//    tiles, and mma_async for the shapes and the 16-bit types (bf16, fp16) the kernels issue;
+//    tiles, and mma_async for the shapes and the 16-bit types (bf16, fp16) the kernels issue,
+//    and in tf32 (the fp32 kernels' 3xTF32 products) with the rounding of fp32 to tf32;
 //  * gpu-scope release / acquire and the global async-proxy fence, for a flag that one block
 //    raises after its stores and another waits on before it loads that memory by TMA;
 //  * clusters: rank, cluster-wide barrier, remote mbarrier arrival, multicast TMA loads;
@@ -243,6 +245,80 @@ __device__ __forceinline__ void wgmma_rs_tb(float* d, const uint32_t* a, uint64_
 HOPPER_WGMMA_FOR(__nv_bfloat16, "bf16")
 HOPPER_WGMMA_FOR(__half, "f16")
 #undef HOPPER_WGMMA_FOR
+
+// ---- wgmma in tf32 (the fp32 attention kernels' 3xTF32 products) ----
+//
+// A tf32 operand is an fp32 bit pattern whose low 13 bits are zero (tf32_rna): the tensor
+// cores read 1 + 10 bits of mantissa and multiply exactly into fp32. A k-step is 8 elements,
+// 32 bytes: the same span as a 16-bit k16 step, so a 128-byte swizzled row holds four k-steps
+// and desc_sw128 advances along K by 32 bytes, as for bf16. PTX allows no transpose for tf32:
+// both operands are K-major. The A fragment from registers (m64k8, one tf32 a register):
+// thread t holds rows r = 16 (t / 32) + (t % 32) / 4 and r + 8, columns c = t % 4 and c + 4,
+// as a[0] (r, c), a[1] (r + 8, c), a[2] (r, c + 4), a[3] (r + 8, c + 4).
+
+// x rounded to tf32, to nearest with ties away from zero, as an fp32 bit pattern: what
+// cvt.rna.tf32.f32 returns for finite x (half a tf32 step added to the magnitude's bits, the
+// low 13 bits cleared; a carry into the exponent is the right result). On sm_90 the cvt
+// compiles to a compare-and-select sequence; this is two integer instructions.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// d (64 x N fp32) = A (64 x 8 tf32, K-major in shared memory) * B (8 x N: N rows of 8,
+// K-major in shared memory) + (scale_d ? d : 0).
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tf32(float* d, uint64_t a, uint64_t b, int scale_d);
+
+// d (64 x N fp32) += A (64 x 8 tf32 from registers, the fragment above) * B (8 x N, K-major
+// in shared memory), scaled by scale_d as above.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tf32(float* d, const uint32_t* a, uint64_t b,
+                                              int scale_d);
+
+#define HOPPER_ACC32 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define HOPPER_REGS32 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15}, "
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tf32<32>(float* d, uint64_t a, uint64_t b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+               HOPPER_REGS32 "%16, %17, p, 1, 1;\n}\n"
+               : HOPPER_ACC32
+               : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tf32<64>(float* d, uint64_t a, uint64_t b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+               HOPPER_REGS64 "%32, %33, p, 1, 1;\n}\n"
+               : HOPPER_ACC64
+               : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<64>(float* d, const uint32_t* a, uint64_t b,
+                                                  int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+               HOPPER_REGS64 "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+               : HOPPER_ACC64
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<128>(float* d, const uint32_t* a, uint64_t b,
+                                                   int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+               HOPPER_REGS128 "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+               : HOPPER_ACC128
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
 
 // d (64 x N fp32) = A (64 x 16, K-major in shared memory) * B (16 x N, MN-major in shared
 // memory: read transposed, as wgmma_rs_tb reads it) + (scale_d ? d : 0).

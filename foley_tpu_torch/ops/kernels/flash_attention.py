@@ -8,16 +8,19 @@ head_dim 64 or 128, in three element types, one C entry each:
   consumer warpgroups of 64 query rows (three at D 64, two at D 128) taking turns to issue
   wgmma for both products, an online softmax in registers; its header says how the design
   follows from the card), with the Hopper primitives of ``csrc/hopper.cuh``;
-- fp32: ``foley_tpu_torch/csrc/attention_f32.cu`` (``flash_attention_f32``: true fp32 FMA
-  on the CUDA cores, no TF32, as the JAX package's ``_mha`` runs fp32 at
-  ``Precision.HIGHEST``).
+- fp32: ``foley_tpu_torch/csrc/attention_f32.cu`` (``flash_attention_f32``: both products
+  on the tensor cores in 3xTF32, each fp32 operand split into tf32 hi and lo and a.b formed
+  as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, which keeps the accuracy of the JAX package's
+  ``_mha`` in fp32 at ``Precision.HIGHEST``; a single TF32 pass would not).
+  ``common.attention_tf32`` is a CPU model of that arithmetic.
 
-Bound on an H100 SXM (989 TFLOP/s dense bf16 and fp16, 67 TFLOP/s fp32 on the CUDA cores,
-at a 700 W power limit): operations. At SigLIP2's 5 s call (B 40 frames, L 1024, 12 heads of
-64) a launch does 128.8 GFLOP of products: about 130 us in 16 bits (75 us for its 251.7 MB
-of q, k, v and o), 1.92 ms in fp32. The kernels therefore never write the logits or p to
-device memory, read q, k and v through their ``[B, L, H, D]`` strides (no transposes around
-them, unlike the TPU wrapper) and keep the products fed from shared memory.
+Bound on an H100 SXM (989 TFLOP/s dense bf16 and fp16, 495 TFLOP/s TF32, at a 700 W power
+limit): operations. At SigLIP2's 5 s call (B 40 frames, L 1024, 12 heads of 64) a launch
+does 128.8 GFLOP of products: about 130 us in 16 bits (75 us for its 251.7 MB of q, k, v
+and o), 781 us in fp32 at three TF32 products each. The kernels therefore never write the
+logits or p to device memory, read q, k and v through their ``[B, L, H, D]`` strides (no
+transposes around them, unlike the TPU wrapper) and keep the products fed from shared
+memory.
 
 ``flash_attention`` launches the kernel of the operands' type for CUDA tensors and takes
 ``flash_attention_plain`` only for CPU tensors; a ``mask`` goes to the plain masked attention

@@ -8,16 +8,19 @@ three element types, one C entry each:
   its own, wgmma for both products, an online softmax over 64-key tiles; its header says how
   the design follows from the card), with the Hopper primitives of ``csrc/hopper.cuh``;
 - fp32: ``foley_tpu_torch/csrc/attention_f32.cu`` (``fused_qk_attention_f32``: the same
-  prologue and products in true fp32 FMA on the CUDA cores, no TF32, as the JAX package's
-  fp32 attention runs at ``Precision.HIGHEST``).
+  prologue in fp32, then both products on the tensor cores in 3xTF32, each fp32 operand
+  split into tf32 hi and lo and a.b formed as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, which keeps
+  the accuracy of the JAX package's fp32 attention at ``Precision.HIGHEST``; a single TF32
+  pass would not). ``common.attention_tf32`` is a CPU model of that arithmetic.
 
-Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 and fp16, 67 TFLOP/s fp32 on the CUDA
-cores, at a 700 W power limit). At the XXL 5 s joint call (B=2, L=290, H=12, D=128) a launch
-does about 1 GFLOP. In 16 bits it must move q, k, v and o and the per-position cos/sin
-(about 3.6 MB): bound by bytes, about 1 us; what holds it back at that size is the latency of
-each block's copy -> norm -> product chain, which the design overlaps. In fp32 it is bound
-by operations, 15.4 us. The kernels read every operand once through its strides and never
-write the normalised q and k, the logits or P to device memory.
+Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 and fp16, 495 TFLOP/s TF32, at a 700 W
+power limit). At the XXL 5 s joint call (B=2, L=290, H=12, D=128) a launch does about 1
+GFLOP. In 16 bits it must move q, k, v and o and the per-position cos/sin (about 3.6 MB):
+bound by bytes, about 1 us; what holds it back at that size is the latency of each block's
+copy -> norm -> product chain, which the design overlaps. In fp32 it is bound by operations
+at three TF32 products each, 6.3 us (its 14.3 MB of bytes take 4.3 us). The kernels read
+every operand once through its strides and never write the normalised q and k, the logits
+or P to device memory.
 
 ``fused_qk_attention`` launches the kernel of the operands' type for CUDA tensors and takes
 ``fused_qk_attention_plain`` only for CPU tensors. ``fused_qk_attention.launches`` counts
@@ -105,6 +108,8 @@ def _launch(q, k, v, wq, wk, cos_q, sin_q, cos_k, sin_k, eps):
     if k.shape != (b, lk, h, d) or v.shape != k.shape:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
+    if min(b, lq, lk, h) < 1:  # with no keys a kernel would wait for a tile that never comes
+        raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must lie on one device")
     if b * h > 65535:  # one block row per (batch, head): the grid's y extent

@@ -38,7 +38,8 @@ ITERS = 200                 # timed launches of a K1 case (a quarter of it for K
 
 # K1: (batch, length, heads, visual rows of a joint [v_cond; audio] sequence or 0)
 K1_CASES = {"joint_5s": (2, 290, 12, 40), "single_5s": (2, 250, 12, 0), "l64": (2, 64, 12, 0),
-            "l128": (2, 128, 12, 0), "joint_30s": (2, 1740, 12, 240)}
+            "l128": (2, 128, 12, 0), "joint_30s": (2, 1740, 12, 240),
+            "single_30s": (2, 1500, 12, 0)}
 # K2: (batch, lq, lk, heads, head_dim)
 K2_CASES = {"siglip2_5s": (40, 1024, 1024, 12, 64), "cross_1024x77": (2, 1024, 77, 12, 128)}
 # K3: the probe's shape (M, K, N, BLOCKS of tools/probe_gemm.py), and the cut sweeps

@@ -9,9 +9,9 @@ no JAX: ``python -m pytest tests/test_torch_cuda.py --noconftest -q``.
 
 Tolerance, bf16 and fp16 atol 2e-2: each attention kernel's online softmax rounds the
 unnormalised p to the 16-bit type and divides by the row sum only at the end, and it sums in
-another order than the plain version. fp32 (K1's and K2's fp32 kernels, CUDA-core FMA): a
-relative L2 error of at most 1e-5 against the plain version in true fp32 (``true_fp32``); a
-TF32 product would read about 1e-4.
+another order than the plain version. fp32 (K1's and K2's fp32 kernels, 3xTF32 on the
+tensor cores): a relative L2 error of at most 1e-5 against the plain version in true fp32
+(``true_fp32``); a single TF32 product would read about 1e-4.
 K3 sums the same fp32 products in another order, and a flipped bf16 rounding
 carries forward through the chain; tanh bounds its output by 1. Its relative L2 error is
 held to 1e-2 block by block (``_assert_sweep_close`` says how the chain is held).

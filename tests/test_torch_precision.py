@@ -224,18 +224,18 @@ def test_entries_take_one_argument_list(monkeypatch):
         assert all(f.restype is ctypes.c_int for f in fns)
 
 
-@pytest.mark.parametrize("case", ["fp64", "head_dim_96", "mixed_types"])
+@pytest.mark.parametrize("case", ["fp64", "head_dim_96", "mixed_types", "no_keys"])
 def test_kernels_refuse_what_they_do_not_take(case):
     """What a CUDA tensor would be refused for, before any launch: fp64, a head size without
-    a kernel, operands of two types (the wrappers' checks run on CPU tensors here)."""
+    a kernel, operands of two types, no keys (the wrappers' checks run on CPU tensors here)."""
     d = 96 if case == "head_dim_96" else 128
     dtype = torch.float64 if case == "fp64" else torch.float32
-    arrays = _k1_inputs(1, 9, 9, 2, d=d)
+    arrays = _k1_inputs(1, 9, 0 if case == "no_keys" else 9, 2, d=d)
     q, k, v = (torch.from_numpy(x).to(dtype) for x in arrays[:3])
     if case == "mixed_types":
         k = k.half()
     tabs = [torch.from_numpy(t) for t in arrays[3:]]
-    error = ValueError if case == "head_dim_96" else TypeError
+    error = ValueError if case in ("head_dim_96", "no_keys") else TypeError
     with pytest.raises(error):
         FA._launch(q, k, v, *tabs, 1e-6)
     with pytest.raises(error):

@@ -64,22 +64,38 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   client's wall, the generation and CLAP inside it, the server's own share and K1's and
   K2's launches; then a ``BatchingFoleyService`` coalescing two concurrent requests into one
   batch-2 call, each row's latents against its solo request;
+- ``quant``: quantized storage at XXL, fp8_e4m3fn, int8, int8_dynamic and int4, each a copy
+  of the ``main_path`` denoiser freed before the next: the denoiser's bytes on the card, the
+  counts and GiB saved, one single and one triple block quantized on the card against the
+  CPU's quantization of the same blocks (equal bit for bit), the 5 s forward's relative L2
+  against the bf16 one, one XXL dense against the bf16 weight's (within the JAX tests'
+  bounds: int8 1%, int8_dynamic 2%, int4 8% max-relative), and one 5 s request (wall, peak
+  memory above the phase's start, 2,700 K1 launches);
+- ``block_swap``: the ``main_path`` denoiser with its last 30 blocks in page-locked host
+  memory (the block-swap node's default), and 54 at ``prefetch_blocks`` 0 and 1, then an
+  int4 copy with 54: the 5 s velocity equal bit for bit to the resident model's, the
+  partition report, the bytes on the card, one 5 s request (wall, peak memory, 2,700 K1
+  launches), the host -> card GB a step, a timed pass of the copies alone and the request's
+  copy rate;
 - ``precision``: the XXL denoiser in fp16 and in fp32 (``HunyuanModelLoader.init_random``,
   one at a time): a 5 s forward through the kernels against the plain attention, fp32 also
   under ``"high"`` matmul precision (equal within 1e-5); SigLIP2 and Synchformer in the same
   type encoding the 5 s 1280x720 clip, 12 K2 launches of that type, SigLIP2's features
   against the plain attention;
-- ``cli``: ``foley_tpu_torch.cli.main`` in this process, XXL 5 s T2A with 50 steps in fp16
-  and in fp32: the WAV (48 kHz, mono, 240,000 frames, non-silent), 2,700 K1 launches of the
-  type and the wall;
+- ``cli``: ``foley_tpu_torch.cli.main`` in this process, XXL 5 s T2A with 50 steps in fp16,
+  in fp32, and in bf16 with ``--quantization int8 --blocks_to_swap 30 --prefetch_blocks
+  1``: the WAV (48 kHz, mono, 240,000 frames, non-silent), 2,700 K1 launches of the type
+  and the wall;
 - ``{"kernels": [...]}``: every ported kernel with its launches on its path (K1 in
   ``main_path`` and, as ``launches_longform``, in the 75 s request and, as
-  ``launches_serving``, over the ``serving`` requests; K2 in ``v2a_path``, the 24 s V2A
+  ``launches_serving``, over the ``serving`` requests, and per request of ``quant``,
+  ``block_swap`` and the ``cli`` memory-mode run; K2 in ``v2a_path``, the 24 s V2A
   request and the served V2A request; K3 in one sweep of ``probe_gemm``; K3's times are the
   probe's graph-replayed device times), then the fp16 and fp32 kernels of K1 (launches in
   the ``cli`` request of their type) and K2 (launches in the ``precision`` encode of their
   type);
-- last, ``{"ok": true, "device": {...}}``.
+- last, ``{"ok": true, "device": {...}}`` (the card's name and power limit are printed
+  again just before the ``kernels`` line).
 
 Any failed check raises, and the run exits non-zero. Without a CUDA card, or outside the
 repository, it exits non-zero before printing anything.
@@ -445,19 +461,13 @@ def probe_gemm_phase(torch, dev) -> dict:
     return rec
 
 
-def forward_phase(torch, dev, model, cfg, pipeline_cfg):
+def forward_phase(torch, dev, model, pipeline_cfg):
     """One XXL forward at the 5 s CFG shapes through the kernel and through the plain
     attention; the velocities must agree."""
     from foley_tpu_torch.models import mmdit as mmdit_mod
     from foley_tpu_torch.ops.kernels import fused_attention as FA
 
-    gen = torch.Generator(device=dev).manual_seed(1)
-    clip_len, sync_len = pipeline_cfg.t2a_lengths(DURATION_S)
-    t_len = pipeline_cfg.latent_length(DURATION_S)
-    rnd = lambda *s: torch.randn(*s, device=dev, generator=gen).to(torch.bfloat16)  # noqa: E731
-    args = (rnd(2, t_len, cfg.audio_vae_latent_dim), torch.full((2,), 500.0, device=dev),
-            rnd(2, cfg.text_length, cfg.condition_dim), rnd(2, clip_len, cfg.clip_dim),
-            rnd(2, sync_len, cfg.sync_feat_dim))
+    args = _forward_args(torch, dev, pipeline_cfg)
 
     def plain(q, k, v, wq, wk, *tabs, eps):
         lq, lk = q.shape[1], k.shape[1]
@@ -1548,7 +1558,6 @@ def precision_phase(torch, dev, pipeline_cfg, config="xxl"):
 
     cfg = pipeline_cfg.model
     clip_len, sync_len = pipeline_cfg.t2a_lengths(DURATION_S)
-    t_len = pipeline_cfg.latent_length(DURATION_S)
     frames = make_clip(np, 0)
     launches = {}
     for tname, dtype in (("fp16", torch.float16), ("fp32", torch.float32)):
@@ -1561,11 +1570,7 @@ def precision_phase(torch, dev, pipeline_cfg, config="xxl"):
         out["init_s"] = time.perf_counter() - t0
         out["weights_gib"] = sum(p.numel() * p.element_size()
                                  for p in model.parameters()) / 2 ** 30
-        gen = torch.Generator(device=dev).manual_seed(1)
-        rnd = lambda *s: torch.randn(*s, device=dev, generator=gen).to(dtype)  # noqa: E731
-        args = (rnd(2, t_len, cfg.audio_vae_latent_dim), torch.full((2,), 500.0, device=dev),
-                rnd(2, cfg.text_length, cfg.condition_dim), rnd(2, clip_len, cfg.clip_dim),
-                rnd(2, sync_len, cfg.sync_feat_dim))
+        args = _forward_args(torch, dev, pipeline_cfg, dtype)
 
         def plain_k1(q, k, v, wq, wk, *tabs, eps):
             lq, lk = q.shape[1], k.shape[1]
@@ -1641,10 +1646,11 @@ def precision_phase(torch, dev, pipeline_cfg, config="xxl"):
 
 def cli_phase(torch, dev, pipeline_cfg, config="xxl") -> dict:
     """``foley_tpu_torch.cli.main`` in this process, as a user runs it: XXL with random
-    perturbed weights, 5 s, 50 Euler steps, CFG 4.5, in fp16 and then in fp32 (the model
-    loaded anew each time, as the command does). Each WAV: 48,000 Hz, mono, 240,000 frames,
-    a non-zero peak; each request: 2,700 K1 launches of its type. Returns {dtype name: K1
-    launches}."""
+    perturbed weights, 5 s, 50 Euler steps, CFG 4.5, in fp16, in fp32, and in bf16 with the
+    memory modes (``--quantization int8 --blocks_to_swap 30 --prefetch_blocks 1``), the
+    model loaded anew each time, as the command does. Each WAV: 48,000 Hz, mono, 240,000
+    frames, a non-zero peak; each request: 2,700 K1 launches of its type. Returns {run name:
+    K1 launches}."""
     import os
     import wave
 
@@ -1656,11 +1662,15 @@ def cli_phase(torch, dev, pipeline_cfg, config="xxl") -> dict:
 
     os.makedirs("build/chip_smoke", exist_ok=True)
     launches = {}
-    for tname, dtype in (("fp16", torch.float16), ("fp32", torch.float32)):
+    memory_modes = ["--quantization", "int8", "--blocks_to_swap", "30", "--prefetch_blocks", "1"]
+    for tname, precision, dtype, extra in (
+            ("fp16", "fp16", torch.float16, []), ("fp32", "fp32", torch.float32, []),
+            ("int8_swap30", "bf16", torch.bfloat16, memory_modes)):
         path = f"build/chip_smoke/cli_{tname}.wav"
-        argv = ["--random_init", config, "--random_init_perturb", "--precision", tname,
+        argv = ["--random_init", config, "--random_init_perturb", "--precision", precision,
                 "--duration", str(DURATION_S), "--num_inference_steps", str(STEPS),
-                "--guidance_scale", str(GUIDANCE), "--device", dev.type, "--output", path]
+                "--guidance_scale", str(GUIDANCE), "--device", dev.type, "--output",
+                path] + extra
         reset_launches(FA.fused_qk_attention)
         t0 = time.perf_counter()
         rc = cli.main(argv)
@@ -1681,11 +1691,257 @@ def cli_phase(torch, dev, pipeline_cfg, config="xxl") -> dict:
         check(launches[tname] == per_request and FA.fused_qk_attention.launches == per_request,
               f"cli {tname}: K1 launches {FA.fused_qk_attention.launches_by_dtype}, expected "
               f"{per_request} of {tname}")
-        emit({"phase": "cli", "precision": tname, "argv": " ".join(argv), "wall_s": wall,
+        emit({"phase": "cli", "run": tname, "precision": precision, "argv": " ".join(argv),
+              "wall_s": wall,
               "k1_launches": launches[tname], "wav": list(params), "peak": peak,
               "rms": float(np.sqrt(np.mean(pcm.astype(np.float64) ** 2)))})
         torch.cuda.empty_cache()
     return launches
+
+
+QUANT_MODES = ("fp8_e4m3fn", "int8", "int8_dynamic", "int4")
+QUANT_DENSE_TOL = {"int8": 0.01, "int8_dynamic": 0.02, "int4": 0.08}  # max-relative, fp32:
+                           # the JAX package's own bounds (tests/test_io.py); fp8 has none there
+SWAP_CASES = ((30, 0), (54, 0), (54, 1))  # (blocks_to_swap, prefetch_blocks) on the bf16 model
+
+
+def _forward_args(torch, dev, pipeline_cfg, dtype=None):
+    """The 5 s CFG forward's inputs (bf16 unless ``dtype``), from seed 1."""
+    dtype = dtype or torch.bfloat16
+    cfg = pipeline_cfg.model
+    gen = torch.Generator(device=dev).manual_seed(1)
+    clip_len, sync_len = pipeline_cfg.t2a_lengths(DURATION_S)
+    t_len = pipeline_cfg.latent_length(DURATION_S)
+    rnd = lambda *s: torch.randn(*s, device=dev, generator=gen).to(dtype)  # noqa: E731
+    return (rnd(2, t_len, cfg.audio_vae_latent_dim), torch.full((2,), 500.0, device=dev),
+            rnd(2, cfg.text_length, cfg.condition_dim), rnd(2, clip_len, cfg.clip_dim),
+            rnd(2, sync_len, cfg.sync_feat_dim))
+
+
+def _device_bytes(model) -> int:
+    """The denoiser's bytes on the card: its parameters and buffers there, and the block
+    swap's device slots."""
+    n = sum(t.numel() * t.element_size() for t in
+            list(model.parameters()) + list(model.buffers()) if t.is_cuda)
+    if model.block_swap is not None:
+        n += sum(t.numel() * t.element_size() for fam in model.block_swap.families.values()
+                 for slot in fam.slots for t in slot.values())
+    return n
+
+
+def _request(torch, dev, bundle, pipeline_cfg, seed=11, phase_base=None):
+    """One 5 s T2A request (50 Euler steps, CFG 4.5) on ``bundle``: its wall, the card's peak
+    memory in it (everything this process holds there), above what was allocated before it
+    and, given ``phase_base`` (bytes allocated at its phase's start), above that; K1's
+    launches, the audio and the latents."""
+    from foley_tpu_torch.ops.kernels import fused_attention as FA
+    from foley_tpu_torch.pipeline.generate import generate_audio
+
+    cfg = pipeline_cfg.model
+    text = torch.zeros(1, 77, cfg.condition_dim)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    FA.fused_qk_attention.launches = 0
+    t0 = time.perf_counter()
+    res = generate_audio(bundle, text, text, DURATION_S, guidance_scale=GUIDANCE,
+                         num_inference_steps=STEPS, sampler="euler", seed=seed,
+                         return_latents=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = FA.fused_qk_attention.launches
+    per_request = STEPS * (cfg.depth_triple_blocks + cfg.depth_single_blocks)
+    check(launches == per_request, f"K1 launches {launches} in a request, expected "
+          f"{per_request}")
+    rms = check_audio(res.audio_batch, 1, pipeline_cfg, DURATION_S)
+    check_latents(torch, dev, res.latents, seed, pipeline_cfg, DURATION_S)
+    peak = torch.cuda.max_memory_allocated()
+    out = {"wall_s": wall, "peak_gib": peak / 2 ** 30, "peak_above_gib": (peak - base) / 2 ** 30,
+           "k1_launches": launches, "rms": rms}
+    if phase_base is not None:
+        out["peak_above_phase_gib"] = (peak - phase_base) / 2 ** 30
+    return out, res
+
+
+def quant_phase(torch, dev, model, dac, pipeline_cfg) -> dict:
+    """Quantized storage at XXL, one mode at a time (each a copy of the ``main_path`` bf16
+    denoiser, freed before the next): the denoiser's bytes on the card, the counts and GiB
+    saved; one single and one triple block quantized on the card against the same blocks
+    quantized on the CPU (codes and scales equal bit for bit); the 5 s forward against the
+    bf16 one (relative L2, reported); one XXL dense (a triple block's qkv, 1536 -> 4608, 256
+    rows in fp32) against the bf16 weight's, within the JAX tests' max-relative bounds; one
+    5 s request with its wall, peak memory (also above what was allocated at the phase's
+    start: the quantized copy and the request's own) and 2,700 K1 launches. Returns {mode: K1
+    launches}."""
+    import copy
+
+    from torch import nn
+
+    from foley_tpu_torch.core.params import param_bytes
+    from foley_tpu_torch.io.quantize import quantize_params
+    from foley_tpu_torch.ops.nn import dense
+    from foley_tpu_torch.pipeline.generate import ModelBundle
+
+    torch.cuda.synchronize()
+    phase_base = torch.cuda.memory_allocated()
+    args = _forward_args(torch, dev, pipeline_cfg)
+    with torch.no_grad():
+        ref = model(*args).float()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(256, pipeline_cfg.model.hidden_size, device=dev, generator=gen)
+    qkv = model.triple_blocks[0].audio_self_attn_qkv
+    dense_ref = dense(x, qkv.weight.float(), qkv.bias.float())
+    bf16_bytes = param_bytes(model)
+    launches = {}
+    for mode in QUANT_MODES:
+        t0 = time.perf_counter()
+        out = {"phase": "quant", "mode": mode, "config": "xxl", "bf16_gib": bf16_bytes / 2 ** 30}
+        qmodel = copy.deepcopy(model)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        counts, saved = quantize_params(qmodel, mode)
+        torch.cuda.synchronize()
+        out.update(quantize_s=time.perf_counter() - t1, counts=counts,
+                   saved_gib=saved / 2 ** 30, device_gib=_device_bytes(qmodel) / 2 ** 30)
+        check(bf16_bytes - param_bytes(qmodel) == saved, f"{mode}: bytes saved {saved} but "
+              f"the model shrank by {bf16_bytes - param_bytes(qmodel)}")
+        # blocks quantized on the card against the same blocks quantized on the CPU
+        for family in ("single_blocks", "triple_blocks"):
+            holder = nn.Module()
+            setattr(holder, family, nn.ModuleList([copy.deepcopy(
+                getattr(model, family)[0]).cpu()]))
+            quantize_params(holder, mode)
+            cpu_state = getattr(holder, family)[0].state_dict()
+            card_state = getattr(qmodel, family)[0].state_dict()
+            check(sorted(cpu_state) == sorted(card_state) and all(
+                card_state[k].dtype == cpu_state[k].dtype and torch.equal(
+                    card_state[k].cpu().view(torch.uint8), cpu_state[k].view(torch.uint8))
+                for k in cpu_state), f"{mode}: {family}[0] quantized on the card differs from "
+                "the CPU's")
+        out["blocks_equal_cpu"] = True
+        with torch.no_grad():
+            got = qmodel(*args).float()
+        check(bool(torch.isfinite(got).all()), f"{mode}: non-finite velocity")
+        out["forward_rel_l2_vs_bf16"] = float((got - ref).norm() / ref.norm())
+        qqkv = qmodel.triple_blocks[0].audio_self_attn_qkv
+        d = dense(x, qqkv.stored_weight(), qqkv.bias.float())
+        out["dense_max_rel_vs_bf16"] = float((d - dense_ref).abs().max()
+                                             / dense_ref.abs().max())
+        tol = QUANT_DENSE_TOL.get(mode)
+        out["dense_tol"] = tol
+        check(tol is None or out["dense_max_rel_vs_bf16"] < tol,
+              f"{mode}: XXL dense max-relative error {out['dense_max_rel_vs_bf16']} >= {tol}")
+        del got, d
+        bundle = ModelBundle(qmodel, dac, pipeline_cfg, compute_dtype=torch.bfloat16)
+        req, _ = _request(torch, dev, bundle, pipeline_cfg, phase_base=phase_base)
+        out["request"] = req
+        launches[mode] = req["k1_launches"]
+        del bundle, qmodel
+        torch.cuda.empty_cache()
+        out["seconds"] = time.perf_counter() - t0
+        emit(out)
+    return launches
+
+
+def _copy_rates(torch, model, passes: int = 2) -> list:
+    """GB/s of ``passes`` passes of page-locked host -> card copies of every swapped block
+    into a slot of its family, on a side stream (each timed with CUDA events)."""
+    from foley_tpu_torch.parallel import offload
+
+    swap, side, rates = model.block_swap, torch.cuda.Stream(), []
+    slots = {f: {n: torch.empty_like(t, device="cuda") for n, t in offload.block_tensors(
+        getattr(model, f)[min(fam.host)]).items()} for f, fam in swap.families.items()
+        if fam.host}
+    for _ in range(passes):
+        n_bytes = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        with torch.cuda.stream(side):
+            start.record(side)
+            for family, slot in slots.items():
+                for i in offload.swapped_blocks(model, family):
+                    for n, t in offload.block_tensors(getattr(model, family)[i]).items():
+                        slot[n].copy_(t, non_blocking=True)
+                        n_bytes += t.numel() * t.element_size()
+            end.record(side)
+        torch.cuda.synchronize()
+        rates.append(n_bytes / (start.elapsed_time(end) / 1e3) / 1e9)
+    return rates
+
+
+def block_swap_phase(torch, dev, model, dac, pipeline_cfg) -> dict:
+    """Block swap at XXL: the ``main_path`` bf16 denoiser with 30 blocks swapped (the node's
+    default) and with 54 at ``prefetch_blocks`` 0 and 1, then an int4 copy with 54. For each:
+    the 5 s velocity against the resident model's, equal bit for bit; the partition report;
+    the denoiser's bytes on the card (with the slots); one 5 s request's wall, peak memory
+    and K1 launches; the host -> card GB a step (every swapped block once) and the rates: two
+    timed passes of the copies alone, and the bytes of the request's steps over its wall. The
+    bf16 model is merged back at the end. Returns {case: K1 launches}."""
+    import copy
+
+    from foley_tpu_torch.io.quantize import quantize_params
+    from foley_tpu_torch.parallel import offload
+    from foley_tpu_torch.pipeline.generate import ModelBundle
+
+    args = _forward_args(torch, dev, pipeline_cfg)
+    launches = {}
+    resident = {}
+    with torch.no_grad():
+        resident["bf16"] = model(*args)
+    int4 = None
+    cases = [("bf16", n, p) for n, p in SWAP_CASES] + [("int4", 54, 0)]
+    for precision, n, prefetch in cases:
+        t0 = time.perf_counter()
+        target = model
+        if precision == "int4":
+            offload.merge_block_suffix(model)  # the bf16 model back whole, then its int4 copy
+            int4 = copy.deepcopy(model)
+            quantize_params(int4, "int4")
+            with torch.no_grad():
+                resident["int4"] = int4(*args)
+            target = int4
+        name = f"{precision}_swap{n}_prefetch{prefetch}"
+        out = {"phase": "block_swap", "case": name, "config": "xxl", "blocks_to_swap": n,
+               "prefetch_blocks": prefetch}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        offload.offload_block_suffix(target, n)
+        torch.cuda.synchronize()
+        out["split_s"] = time.perf_counter() - t1
+        out["partition"] = offload.partition_report(target)
+        check(all(t.is_pinned() for family in offload.FAMILIES
+                  for i in offload.swapped_blocks(target, family)
+                  for t in offload.block_tensors(getattr(target, family)[i]).values()),
+              f"{name}: a swapped block's tensors are not page-locked")
+        with torch.no_grad():
+            got = target(*args, offload_prefetch=prefetch + 1)
+        check(torch.equal(got, resident[precision]),
+              f"{name}: the swapped velocity differs from the resident one")
+        out["velocity_equal"] = True
+        out["device_gib"] = _device_bytes(target) / 2 ** 30
+        bundle = ModelBundle(target, dac, pipeline_cfg, compute_dtype=torch.bfloat16,
+                             offload_prefetch=prefetch + 1)
+        req, _ = _request(torch, dev, bundle, pipeline_cfg)
+        out["request"] = req
+        launches[name] = req["k1_launches"]
+        gb_step = out["partition"]["host_mb"] / 1e3
+        out["h2d_gb_per_step"] = gb_step
+        out["request_h2d_gb_per_s"] = gb_step * STEPS / req["wall_s"]
+        out["copy_gb_per_s"] = _copy_rates(torch, target)
+        out["seconds"] = time.perf_counter() - t0
+        del bundle, got
+        emit(out)
+    del int4
+    offload.merge_block_suffix(model)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def main() -> int:
@@ -1702,9 +1958,7 @@ def main() -> int:
     from foley_tpu_torch.pipeline.generate import ModelBundle
 
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    smi_line = smi.stdout.strip().splitlines()[0]
+    smi_line = card_line()
     print(smi_line, flush=True)
     emit({"phase": "device", "name": torch.cuda.get_device_name(0), "nvidia_smi": smi_line,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -1730,7 +1984,7 @@ def main() -> int:
           "mmdit_params": param_count(model),
           "dac_decoder_params": param_count(dac.decoder) + param_count(dac.post_quant_conv),
           "dac_encoder_params": param_count(dac.encoder) + param_count(dac.quant_conv)})
-    forward_phase(torch, dev, model, cfg, XXL)
+    forward_phase(torch, dev, model, XXL)
     bundle = ModelBundle(model, dac, XXL, compute_dtype=torch.bfloat16)
     launches, t2a_latents = main_path_phase(torch, dev, bundle, XXL)
     profile_phase(torch, bundle)
@@ -1741,7 +1995,11 @@ def main() -> int:
     nodes_phase(torch, dev, bundle, XXL, clap_encoder, video_encoders)
     serving_k1, serving_k2 = serving_phase(torch, dev, bundle, XXL, clap_encoder,
                                            video_encoders)
-    del model, dac, bundle, clap_encoder, video_encoders, text, uncond, t2a_latents
+    del bundle, clap_encoder, video_encoders, text, uncond, t2a_latents
+    torch.cuda.empty_cache()
+    quant_k1 = quant_phase(torch, dev, model, dac, XXL)
+    swap_k1 = block_swap_phase(torch, dev, model, dac, XXL)
+    del model, dac
     torch.cuda.empty_cache()
     encode_k2 = precision_phase(torch, dev, XXL)
     cli_k1 = cli_phase(torch, dev, XXL)
@@ -1777,6 +2035,7 @@ def main() -> int:
                 "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
                 "library_ms": mean("library_ms"), **extra}
 
+    print(card_line(), flush=True)  # again near the end, where a cut log still shows it
     k2 = flash["siglip2_5s"]  # the main V2A path's shape (the 24 s run's is siglip2_24s)
     k3_bound = gemm["probe_full"]  # the probe's shape: one sweep of the probe
     emit({"kernels": [{
@@ -1784,7 +2043,8 @@ def main() -> int:
         "source": "foley_tpu_torch/csrc/fused_qk_attention.cu",
         "replaces": "foley_tpu/ops/pallas/fused_attention.py:82",
         "launches": launches, "launches_longform": long_k1,
-        "launches_serving": serving_k1,
+        "launches_serving": serving_k1, "launches_quant": quant_k1,
+        "launches_block_swap": swap_k1, "launches_cli_int8_swap30": cli_k1["int8_swap30"],
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
         "ms": avg("kernel_ms"), "plain_ms": avg("plain_ms"), "bound_ms": k1_bound["bound_ms"],
         "bound_by": k1_bound["bound_by"],

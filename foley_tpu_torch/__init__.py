@@ -10,7 +10,10 @@ without a device they raise. Every TPU kernel of the JAX package has a hand-writ
 counterpart under ``csrc/`` (built with ``nvcc`` at first use, ``ops/kernels/build.py``):
 the fused qk-norm + RoPE attention (``ops/kernels/fused_attention.py``) and the flash
 attention (``ops/kernels/flash_attention.py``), each in bf16, fp16 and fp32, and the GEMM
-sweep probe's kernel (``ops/kernels/gemm_sweep.py``).
+sweep probe's kernel (``ops/kernels/gemm_sweep.py``). The memory modes are quantized
+weight storage (``io/quantize.py``: fp8, int8, int8_dynamic, int4) and block swap
+(``parallel/offload.py``: the last blocks in page-locked host memory, streamed on a side
+CUDA stream).
 
 The public surface mirrors the JAX package's lazy exports (the reference's re-exports,
 ``hunyuanvideo_foley/__init__.py:15-18``): ``load_model`` / ``feature_process`` /

@@ -19,8 +19,16 @@ Mapping of the JAX package's mechanisms:
 - the compile config warms the declared buckets with one generation each (the port compiles
   nothing per shape; the first run of a bucket pays cuDNN's algorithm search, the
   allocator's growth and the kernels' build);
-- quantization, LoRA and block swap raise (ROADMAP item 12), and so does the orbax
-  directory route, which is JAX only.
+- ``quantization`` puts the denoiser's weights in fp8, int8, int8_dynamic or int4 storage
+  after the precision cast (``io/quantize.py``; ``auto``: the checkpoint's fp8 type, else
+  fp8_e4m3fn); an fp8 checkpoint's tensors load as they are, whatever the quantization;
+- ``HunyuanBlockSwap`` parks the last ``blocks_to_swap`` blocks in page-locked host memory and
+  streams them through ``prefetch_blocks + 1`` device slots a family
+  (``parallel/offload.py``); the split persists on the model, ``blocks_to_swap=0`` merges
+  it back, and ``force_offload`` leaves the swapped blocks in host memory;
+- LoRA raises: an adapter comes only from the JAX package's training loop, stored through
+  orbax (ROADMAP item 13, with training); so does the orbax directory route, which is JAX
+  only.
 """
 
 from __future__ import annotations
@@ -39,14 +47,20 @@ from foley_tpu_torch.core.params import param_bytes, perturb_zero_leaves
 from foley_tpu_torch.io.convert import (
     convert_dac_state_dict,
     convert_mmdit_state_dict,
+    detect_ckpt_fp8,
     detect_ckpt_major_precision,
     infer_dac_config,
     load_torch_state_dict,
     module_from_state_dict,
-    refuse_fp8,
 )
+from foley_tpu_torch.io.quantize import MODES, quantize_params
 from foley_tpu_torch.models import mmdit
 from foley_tpu_torch.models.dac_vae import DAC
+from foley_tpu_torch.parallel.offload import (
+    log_partition_report,
+    merge_block_suffix,
+    offload_block_suffix,
+)
 from foley_tpu_torch.pipeline import features
 from foley_tpu_torch.pipeline.generate import (
     ModelBundle,
@@ -59,13 +73,28 @@ logger = logging.getLogger("foley_tpu_torch")
 
 SOLVERS = ["euler", "heun-2", "midpoint-2", "kutta-4"]
 DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16, "fp32": torch.float32}
-_ITEM12 = "not ported yet (ROADMAP item 12, the memory modes)"
+LORA_REFUSAL = ("LoRA merge at load: not ported yet (ROADMAP item 13: an adapter comes only "
+                "from the JAX package's training loop, stored through orbax)")
 
 
 def resolve_dtype(precision: str) -> torch.dtype:
     if precision not in DTYPES:
         raise ValueError(f"precision {precision!r}: expected one of {sorted(DTYPES)}")
     return DTYPES[precision]
+
+
+def _check_quantization(quantization: str) -> None:
+    if quantization not in ("none", "auto") + MODES:
+        raise ValueError(f"quantization {quantization!r}: expected none, auto or one of "
+                         f"{MODES}")
+
+
+def quantize_model(model: mmdit.MMDiT, mode: str) -> None:
+    """Quantize the denoiser in place (``io/quantize.py``) and log the counts and the GiB
+    saved."""
+    counts, saved = quantize_params(model, mode)
+    logger.info(f"{mode} wrap: {counts['quantized']} weights quantized, "
+                f"{saved / 2**30:.2f} GiB saved")
 
 
 class HunyuanModelLoader:
@@ -95,10 +124,9 @@ class HunyuanModelLoader:
                    quantization: str = "none", config: str = "xxl",
                    lora_path: str = "", lora_scale: float = 1.0,
                    device: DeviceLike = None):
-        if quantization != "none":
-            raise NotImplementedError(f"quantization={quantization!r}: {_ITEM12}")
+        _check_quantization(quantization)
         if lora_path:
-            raise NotImplementedError(f"LoRA merge at load: {_ITEM12}")
+            raise NotImplementedError(LORA_REFUSAL)
         if os.path.isdir(model_name):
             raise NotImplementedError(
                 f"{model_name} is a directory: the pre-converted orbax route is the JAX "
@@ -108,21 +136,30 @@ class HunyuanModelLoader:
         if precision != "auto":  # a bad name raises before the minutes-long read
             resolve_dtype(precision)
         sd = load_torch_state_dict(model_name)
-        refuse_fp8(sd, "HunyuanModelLoader")
+        ckpt_fp8 = detect_ckpt_fp8(sd)
         if precision == "auto":
             precision = detect_ckpt_major_precision(sd)
         dtype = resolve_dtype(precision)
         state = convert_mmdit_state_dict(sd, cfg.model, consume=True)
+        # fp8 tensors keep their bits; the precision cast takes the rest
         model = module_from_state_dict(mmdit.MMDiT, state, cfg.model, dev, dtype)
-        logger.info(f"MMDiT loaded: {param_bytes(model) / 2**30:.2f} GiB ({precision})")
+        if quantization != "none":
+            quantize_model(model, (ckpt_fp8 or "fp8_e4m3fn") if quantization == "auto"
+                           else quantization)
+        logger.info(f"MMDiT loaded: {param_bytes(model) / 2**30:.2f} GiB resident "
+                    f"({precision})")
         return ({"params": model, "cfg": cfg, "dtype": dtype},)
 
     @staticmethod
     def init_random(config: str = "tiny", precision: str = "bf16", seed: int = 0,
-                    perturb: bool = False, device: DeviceLike = None):
+                    perturb: bool = False, device: DeviceLike = None,
+                    quantization: str = "none"):
         """A randomly initialized FOLEY_MODEL (tests and benchmarks, no checkpoint).
         ``perturb`` gives the zero-initialized leaves small random values, so the model
-        emits a real velocity (``core/params.py::perturb_zero_leaves``)."""
+        emits a real velocity (``core/params.py::perturb_zero_leaves``). ``quantization``
+        other than ``none`` and ``auto`` (which reads a checkpoint's type: there is none)
+        quantizes after the perturbation, as the JAX CLI's random-init route does."""
+        _check_quantization(quantization)
         dev = resolve_device(device)
         cfg = get_config(config)
         dtype = resolve_dtype(precision)
@@ -130,6 +167,8 @@ class HunyuanModelLoader:
                            device=dev, dtype=dtype)
         if perturb:
             perturb_zero_leaves(model, torch.Generator(device=dev).manual_seed(int(seed) + 1))
+        if quantization not in ("none", "auto"):
+            quantize_model(model, quantization)
         return {"params": model, "cfg": cfg, "dtype": dtype}
 
 
@@ -179,7 +218,8 @@ class HunyuanDependenciesLoader:
         dev = resolve_device(device)
         dtype = resolve_dtype(precision)
         sd = load_torch_state_dict(vae_model)
-        refuse_fp8(sd, "HunyuanDependenciesLoader")
+        # an fp8 DAC tensor upcasts exactly into the fp32 codec (the JAX package keeps it in
+        # fp8 and upcasts at use: the same values)
         dac_cfg = infer_dac_config(sd)  # DACConfig() for vae_128d_48k
         dac = module_from_state_dict(DAC, convert_dac_state_dict(sd, dac_cfg, consume=True),
                                      dac_cfg, dev, torch.float32)
@@ -228,8 +268,11 @@ class HunyuanCompileConfig:
 
 
 class HunyuanBlockSwap:
-    """Host-offload knobs (reference ``nodes.py:609-631``). The sampler refuses
-    ``blocks_to_swap > 0``: block swap is ROADMAP item 12."""
+    """Host-offload knobs (reference ``nodes.py:609-631``): the sampler parks the last
+    ``blocks_to_swap`` blocks in page-locked host memory and streams them through a window
+    of ``prefetch_blocks + 1`` device slots a family (``parallel/offload.py``). Every copy
+    is asynchronous on a side stream (``use_non_blocking`` is taken and has no other
+    setting); ``block_swap_debug`` logs the placement report and the denoise seconds."""
 
     @classmethod
     def INPUT_TYPES(cls):
@@ -320,10 +363,16 @@ class HunyuanFoleySampler:
                        torch_compile_cfg: Optional[Dict] = None,
                        block_swap_args: Optional[Dict] = None,
                        allow_unconditioned: bool = False, progress: bool = False):
-        if block_swap_args and block_swap_args.get("blocks_to_swap", 0) > 0:
-            raise NotImplementedError(f"block swap (blocks_to_swap > 0): {_ITEM12}")
         model = _resident_params(foley_model)
         cfg: PipelineConfig = foley_model["cfg"]
+        swap = block_swap_args or {}
+        if swap.get("blocks_to_swap", 0) > 0:
+            # the split persists on the model: an unswapped copy kept alive would defeat it
+            offload_block_suffix(model, int(swap["blocks_to_swap"]))
+            if swap.get("block_swap_debug"):
+                log_partition_report(model)
+        elif block_swap_args is not None:
+            merge_block_suffix(model)  # the node attached with 0: every block back
 
         # phase 1: features
         text_feat, uncond_text_feat = self._encode_text(dependencies, prompt, negative_prompt,
@@ -343,14 +392,20 @@ class HunyuanFoleySampler:
 
         bundle = ModelBundle(model, dependencies["dac_params"], cfg, encoders=dependencies,
                              compute_dtype=foley_model.get("dtype", torch.bfloat16),
-                             latent_stats=foley_model.get("latent_stats"), progress=progress)
+                             latent_stats=foley_model.get("latent_stats"), progress=progress,
+                             offload_prefetch=1 + int(swap.get("prefetch_blocks", 0)))
         if torch_compile_cfg:
             self._warmup_compile(foley_model, bundle, torch_compile_cfg, cfg_scale, steps,
                                  sampler)
 
         # phase 2: denoise + decode
+        t0 = time.perf_counter()
         result = self._generate(bundle, text_feat, uncond_text_feat, duration, clip_feat,
                                 sync_feat, cfg_scale, steps, sampler, batch_size, seed)
+        if swap.get("block_swap_debug"):
+            dt = time.perf_counter() - t0
+            logger.info(f"block_swap_debug: denoise+decode {dt:.2f}s, "
+                        f"{1000.0 * dt / max(steps, 1):.1f} ms a step with the decode")
         if force_offload:
             _offload(foley_model)
         sr = result.sample_rate

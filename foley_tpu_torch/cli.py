@@ -18,11 +18,20 @@ windows), SDEdit (``--audio_input``), continuation (``--continue_audio``), the P
 fp32 on the card (each has its K1 / K2 kernels); with ``--model_path``, bf16 means the
 checkpoint's own dtype (``auto``), as in the JAX package.
 
-Refused, exit code 2 and a message naming the ROADMAP item: ``--quantization`` other than
-``none``, ``--blocks_to_swap``, ``--prefetch_blocks``, ``--lora`` (item 12, the memory
-modes); ``--single_video``, a CSV row with a video, ``--merge_video``, ``--desync_score``,
-``--v2a_preprocess pil`` and ``--mesh`` (item 13: video files need PIL, ffmpeg or PyAV, which
-the card's machine has not, and multi-card serving is not ported).
+Memory modes: ``--quantization`` (fp8_e4m3fn, fp8_e5m2, int8, int8_dynamic, int4; ``auto``
+takes a checkpoint's fp8 type) stores the denoiser's weights quantized
+(``io/quantize.py``), and ``--blocks_to_swap N`` keeps its last N blocks in page-locked
+host memory, streamed through ``--prefetch_blocks + 1`` device slots a block family
+(``parallel/offload.py``), on every route. E.g., on the card:
+
+    python -m foley_tpu_torch.cli --random_init xxl --random_init_perturb \
+        --quantization int8 --blocks_to_swap 30 --prefetch_blocks 1 --output out.wav
+
+Refused, exit code 2 and a message naming the ROADMAP item: ``--prefetch_blocks`` without
+``--blocks_to_swap``; ``--lora``, ``--single_video``, a CSV row with a video,
+``--merge_video``, ``--desync_score``, ``--v2a_preprocess pil`` and ``--mesh`` (item 13: an
+adapter comes only from the JAX package's training loop, video files need PIL, ffmpeg or
+PyAV, which the card's machine has not, and multi-card serving is not ported).
 """
 
 from __future__ import annotations
@@ -35,7 +44,6 @@ import time
 
 logger = logging.getLogger("foley_tpu_torch")
 
-_ITEM12 = "not ported yet (ROADMAP item 12, the memory modes)"
 _ITEM13 = "not ported yet (ROADMAP item 13: video files need PIL, ffmpeg or PyAV)"
 
 
@@ -72,12 +80,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quantization", type=str, default="none",
                    choices=["none", "auto", "fp8_e4m3fn", "fp8_e5m2", "int8", "int8_dynamic",
                             "int4"],
-                   help=f"weight quantization other than none: {_ITEM12}")
-    p.add_argument("--blocks_to_swap", type=int, default=0, help=f"block swap: {_ITEM12}")
+                   help="weight storage of the denoiser (io/quantize.py); auto: the "
+                        "checkpoint's fp8 type, else fp8_e4m3fn")
+    p.add_argument("--blocks_to_swap", type=int, default=0,
+                   help="keep the LAST N of the 54 blocks in page-locked host memory, "
+                        "streamed to the card each step (parallel/offload.py); composes "
+                        "with --quantization")
     p.add_argument("--prefetch_blocks", type=int, default=0,
-                   help=f"block-swap prefetch: {_ITEM12}")
+                   help="extra swapped-block copies in flight (device window = N+1)")
     p.add_argument("--lora", type=str, default=None, metavar="DIR",
-                   help=f"LoRA adapter merged at load: {_ITEM12}")
+                   help="LoRA adapter merged at load: not ported yet (ROADMAP item 13)")
     p.add_argument("--lora_scale", type=float, default=1.0,
                    help="multiplier on the adapter's own recommended scale; 0 disables")
     p.add_argument("--output", type=str, default="output.wav")
@@ -124,12 +136,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refusal(args) -> str:
     """The first flag the port does not carry yet, as a message naming its ROADMAP item."""
-    if args.quantization != "none":
-        return f"--quantization {args.quantization}: {_ITEM12}"
-    if args.blocks_to_swap or args.prefetch_blocks:
-        return f"--blocks_to_swap / --prefetch_blocks (block swap): {_ITEM12}"
     if args.lora:
-        return f"--lora (LoRA merge at load): {_ITEM12}"
+        from foley_tpu_torch.api.nodes import LORA_REFUSAL
+
+        return f"--lora: {LORA_REFUSAL}"
     if args.mesh:
         return "--mesh (multi-card serving): not ported yet (ROADMAP item 13)"
     if args.single_video:
@@ -176,8 +186,12 @@ def main(argv=None) -> int:
                       "--durations", str(args.duration),
                       "--warmup_steps", str(args.num_inference_steps),
                       "--max_batch", str(args.max_batch),
-                      "--v2a_preprocess", args.v2a_preprocess,
-                      "--device", args.device]
+                      "--v2a_preprocess", args.v2a_preprocess]
+        if args.blocks_to_swap:
+            serve_argv += ["--blocks_to_swap", str(args.blocks_to_swap)]
+            if args.prefetch_blocks:
+                serve_argv += ["--prefetch_blocks", str(args.prefetch_blocks)]
+        serve_argv += ["--device", args.device]
         if args.random_init:
             serve_argv += ["--random_init", args.random_init]
         elif args.model_path:
@@ -210,7 +224,7 @@ def main(argv=None) -> int:
 
             foley_model = HunyuanModelLoader.init_random(
                 args.random_init, args.precision, args.seed, perturb=args.random_init_perturb,
-                device=dev)
+                device=dev, quantization=args.quantization)
             cfg = get_config(args.random_init)
             dac = dac_vae.init(cfg.dac, torch.Generator(device=dev).manual_seed(args.seed + 1),
                                device=dev)
@@ -223,7 +237,7 @@ def main(argv=None) -> int:
             (foley_model,) = HunyuanModelLoader().load_model(
                 os.path.join(mp, "hunyuanvideo_foley.safetensors"),
                 precision="auto" if args.precision == "bf16" else args.precision,
-                config=args.config, device=dev)
+                quantization=args.quantization, config=args.config, device=dev)
             # encoders colocated under the model dir load automatically (clap/, siglip2/:
             # the layout pipeline/standalone.py uses); absent dirs are skipped
             clap_dir, siglip_dir = os.path.join(mp, "clap"), os.path.join(mp, "siglip2")
@@ -244,9 +258,13 @@ def main(argv=None) -> int:
         if args.audio_input:
             return _edit_audio(args, foley_model, dependencies)
 
+        swap_args = ({"blocks_to_swap": args.blocks_to_swap,
+                      "prefetch_blocks": args.prefetch_blocks}
+                     if args.blocks_to_swap > 0 else None)
         t0 = time.perf_counter()
         audio_first, _ = HunyuanFoleySampler().generate_audio(
-            foley_model, dependencies, frame_rate=16.0, duration=args.duration,
+            foley_model, dependencies, block_swap_args=swap_args, frame_rate=16.0,
+            duration=args.duration,
             prompt=args.single_prompt, negative_prompt=args.neg_prompt,
             cfg_scale=args.guidance_scale, steps=args.num_inference_steps,
             sampler=args.sampler, batch_size=args.batch_size, seed=args.seed,
@@ -267,7 +285,8 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         if _looks_like_oom(e):
             print("hint: the models and their workspace exceeded the card's memory. fp32 "
-                  "weights take twice bf16's: retry with --precision bf16, or a shorter "
+                  "weights take twice bf16's: retry with --precision bf16, "
+                  "--quantization int8 or int4, --blocks_to_swap N, or a shorter "
                   "--duration (past the config's cap, windows bound the memory).",
                   file=sys.stderr)
         return 1
@@ -298,16 +317,21 @@ def _read_wav_mono(path: str):
 
 def _bundle_and_text(args, foley_model, dependencies):
     """The ModelBundle and the (text, uncond) features the edit, continuation and stream
-    routes take: CLAP's when it is loaded, zeros (with a warning) when not."""
+    routes take: CLAP's when it is loaded, zeros (with a warning) when not. ``--blocks_to_swap``
+    splits the denoiser here, as the sampler node does on the T2A route."""
     import torch
 
+    from foley_tpu_torch.parallel.offload import offload_block_suffix
     from foley_tpu_torch.pipeline.features import encode_text
     from foley_tpu_torch.pipeline.generate import ModelBundle
 
     cfg = foley_model["cfg"]
+    if args.blocks_to_swap > 0:
+        offload_block_suffix(foley_model["params"], args.blocks_to_swap)
     bundle = ModelBundle(foley_model["params"], dependencies["dac_params"], cfg,
                          compute_dtype=foley_model.get("dtype", torch.bfloat16),
-                         latent_stats=foley_model.get("latent_stats"), progress=args.progress)
+                         latent_stats=foley_model.get("latent_stats"), progress=args.progress,
+                         offload_prefetch=args.prefetch_blocks + 1)
     if "clap" in dependencies:
         text, uncond = encode_text(dependencies, args.single_prompt, args.neg_prompt)
     else:

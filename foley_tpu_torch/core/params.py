@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 from torch import nn
 
@@ -29,4 +31,6 @@ def param_count(module: nn.Module) -> int:
 
 
 def param_bytes(module: nn.Module) -> int:
-    return sum(p.numel() * p.element_size() for p in module.parameters())
+    """The bytes of every parameter and buffer (quantized codes and scales are buffers)."""
+    return sum(t.numel() * t.element_size()
+               for t in itertools.chain(module.parameters(), module.buffers()))

@@ -13,9 +13,11 @@ except:
 
 ``.safetensors`` goes through the port's own reader (``load_safetensors``: an 8-byte header
 length, a JSON header, then raw little-endian buffers), since the card's machine has no
-``safetensors`` package; ``.pth`` through ``torch.load(weights_only=True)``. fp8 checkpoints
-are refused (ROADMAP item 12: quantized storage is not ported). The RVQ and discriminator
-converters serve training and wait for ROADMAP item 13.
+``safetensors`` package; ``.pth`` through ``torch.load(weights_only=True)``. An fp8 checkpoint
+loads as it is: ``module_from_state_dict`` keeps every fp8 ``Dense`` / ``Conv1d`` weight in
+fp8 (upcast at use, ``ops/nn.py::_match``), as the JAX package keeps fp8 leaves, and casts
+the rest (an fp8 tensor elsewhere upcasts exactly). The RVQ and discriminator converters
+serve training and wait for ROADMAP item 13.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ import torch
 
 from foley_tpu_torch.configs import DACConfig, MMDiTConfig
 from foley_tpu_torch.core.device import DeviceLike, resolve_device
-from foley_tpu_torch.ops.nn import fold_weight_norm
+from foley_tpu_torch.io.quantize import FP8_DTYPES
+from foley_tpu_torch.ops.nn import QUANT_KINDS, QuantizableWeight, fold_weight_norm
 
 logger = logging.getLogger("foley_tpu_torch")
 
@@ -159,14 +162,6 @@ def detect_ckpt_major_precision(sd: Dict[str, torch.Tensor]) -> str:
         if v.dtype in names:
             counts[names[v.dtype]] += v.numel()
     return max(counts, key=counts.get)
-
-
-def refuse_fp8(sd: Dict[str, torch.Tensor], what: str) -> None:
-    fp8 = detect_ckpt_fp8(sd)
-    if fp8:
-        raise NotImplementedError(
-            f"{what}: the checkpoint stores {fp8} tensors; quantized storage is not ported "
-            "(ROADMAP item 12)")
 
 
 # ---------------------------------------------------------------------------------
@@ -410,10 +405,30 @@ def dac_reference_state_dict(state: Dict[str, torch.Tensor],
     return out
 
 
+def _adopt_storage(model: torch.nn.Module, state: Dict[str, torch.Tensor],
+                   device: torch.device) -> None:
+    """Give each ``Dense`` / ``Conv1d`` the storage ``state`` holds for it: fp8 weights and
+    quantized codes and scales (``weight_<kind>``, ``weight_scale``) keep their own dtypes."""
+    for name, m in model.named_modules():
+        if not isinstance(m, QuantizableWeight):
+            continue
+        p = f"{name}." if name else ""
+        for kind in QUANT_KINDS:
+            if p + "weight_" + kind in state:
+                m.set_quantized(kind, state[p + "weight_" + kind].to(device),
+                                state[p + "weight_scale"].to(device))
+        w = state.get(p + "weight")
+        if w is not None and w.dtype in FP8_DTYPES.values():
+            m.set_weight(w.to(device))
+
+
 def module_from_state_dict(cls, state: Dict[str, torch.Tensor], cfg, device: DeviceLike = None,
                            dtype=torch.float32) -> torch.nn.Module:
     """``cls(cfg)`` allocated on ``device`` (``cuda`` unless given) in ``dtype``, holding
-    ``state`` (every key, cast to ``dtype``)."""
-    model = cls(cfg, dtype=dtype, device=resolve_device(device))
+    ``state``: every key cast to ``dtype``, except the ``Dense`` / ``Conv1d`` weights stored
+    in fp8 or quantized, which keep their bits."""
+    dev = resolve_device(device)
+    model = cls(cfg, dtype=dtype, device=dev)
+    _adopt_storage(model, state, dev)
     model.load_state_dict(state, strict=True)
     return model

@@ -13,8 +13,15 @@ two packages:
   ``position_embedding``, ``probe``, ``cls_token``, ``pos_embed`` and ``temp_embed``, and
   CLAP's ``word``, ``position`` and ``token_type`` tables, pass through unchanged).
 
-bf16 leaves (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses) pass through a
-``uint16`` view.
+A JAX-quantized tree (``foley_tpu/io/quantize.py``) crosses too: a ``{kind, "scale"}`` leaf
+(kind ``int8``, ``int8_dyn`` or ``int4``) becomes the buffers ``weight_<kind>`` and
+``weight_scale`` (``ops/nn.py::QuantizedWeight``): the codes take the weight's layout change
+(int4's packed rows are input rows, so they do too), an int8 scale takes it as well
+(``[.., 1, out]`` -> ``[out, 1(, ..)]``), and an int4 scale ``[(K,) n_groups, 1, out]`` becomes
+``[out, n_groups, 1(, K)]``. fp8 leaves stay fp8 (``module_from_state_dict`` keeps them).
+
+bf16 and fp8 leaves (``ml_dtypes`` types, which ``torch.from_numpy`` refuses) pass through a
+``uint16`` / ``uint8`` view.
 """
 
 from __future__ import annotations
@@ -26,20 +33,30 @@ import torch
 
 from foley_tpu_torch.configs import DACConfig, MMDiTConfig
 from foley_tpu_torch.core.device import DeviceLike
+from foley_tpu_torch.ops.nn import QUANT_KINDS
 
 _STACKED = ("triple_blocks", "single_blocks")
+_VIEWS = {"bfloat16": (np.uint16, torch.bfloat16),
+          "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+          "float8_e5m2": (np.uint8, torch.float8_e5m2)}
 
 
 def to_tensor(a) -> torch.Tensor:
-    """numpy array (fp32, fp16, int, or ml_dtypes bfloat16) -> CPU tensor, same bits."""
+    """numpy array (fp32, fp16, int, or ml_dtypes bfloat16 / float8) -> CPU tensor, same
+    bits."""
     a = np.ascontiguousarray(a)
-    if str(a.dtype) == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    if str(a.dtype) in _VIEWS:
+        view, dtype = _VIEWS[str(a.dtype)]
+        return torch.from_numpy(a.view(view).copy()).view(dtype)
     return torch.from_numpy(a.copy())
 
 
 def _leaves(tree, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, np.ndarray]]:
-    if isinstance(tree, dict):
+    if isinstance(tree, dict) and "scale" in tree:  # a quantized weight: name its scale's kind
+        kind = next(k for k in QUANT_KINDS if k in tree)
+        yield prefix + (kind,), np.asarray(tree[kind])
+        yield prefix + ("scale_" + kind,), np.asarray(tree["scale"])
+    elif isinstance(tree, dict):
         for k, v in tree.items():
             yield from _leaves(v, prefix + (str(k),))
     elif isinstance(tree, (list, tuple)):
@@ -49,16 +66,28 @@ def _leaves(tree, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, np.ndarray]]:
         yield prefix, np.asarray(tree)
 
 
+def _weight_layout(path: Tuple[str, ...], a: np.ndarray) -> np.ndarray:
+    if a.ndim == 2:
+        return a.T
+    if a.ndim == 3:
+        return a.transpose(1, 2, 0) if "conv_t" in path else a.transpose(2, 1, 0)
+    return a
+
+
 def _convert(path: Tuple[str, ...], a: np.ndarray) -> Tuple[str, np.ndarray]:
     name = path[-1]
     if name == "b":
         name = "bias"
     elif name == "w":
         name = "weight"
-        if a.ndim == 2:
-            a = a.T
-        elif a.ndim == 3:
-            a = a.transpose(1, 2, 0) if "conv_t" in path else a.transpose(2, 1, 0)
+        a = _weight_layout(path, a)
+    elif path[-2:-1] == ("w",) and name in QUANT_KINDS:
+        return ".".join(path[:-2] + ("weight_" + name,)), _weight_layout(path, a)
+    elif path[-2:-1] == ("w",) and name == "scale_int4":  # [(K,) n_groups, 1, out]
+        a = a.transpose(2, 0, 1) if a.ndim == 3 else a.transpose(3, 1, 2, 0)
+        return ".".join(path[:-2] + ("weight_scale",)), a
+    elif path[-2:-1] == ("w",) and name.startswith("scale_"):
+        return ".".join(path[:-2] + ("weight_scale",)), _weight_layout(path, a)
     return ".".join(path[:-1] + (name,)), a
 
 
@@ -77,7 +106,10 @@ def state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
 
 
 def _dtype_of(state: Dict[str, torch.Tensor]) -> torch.dtype:
-    return next(t.dtype for t in state.values() if t.is_floating_point())
+    """The model's float dtype: that of its first float tensor that is neither fp8 storage nor
+    a quantized weight's fp32 scale."""
+    return next(t.dtype for k, t in state.items() if t.is_floating_point()
+                and t.element_size() > 1 and not k.endswith("weight_scale"))
 
 
 def _module_from_jax(cls, params: Dict, cfg, device: DeviceLike, dtype):

@@ -14,8 +14,15 @@ plain version for CPU tensors, in the parameters' type (bf16, fp16 or fp32; an f
 runs its products in true fp32, ``ops/nn.py::exact_fp32``). The configurations outside that
 kernel's precondition in the
 JAX package (``qk_norm`` off, ``use_attention_mask``, non-interleaved RoPE, a failed
-interleave identity check) raise ``NotImplementedError``; so do LoRA and block offload,
-which this port does not carry yet.
+interleave identity check) raise ``NotImplementedError``.
+
+Memory modes: the ``Dense`` / ``Conv1d`` weights may be in quantized storage
+(``io/quantize.py``), and the last blocks may live in host memory (``block_swap``,
+``parallel/offload.py``): the block loops fetch each swapped block through
+``offload.stream_blocks``, whose window ``offload_prefetch`` the forward takes. The qk-norm
+weight tables K1 reads are built on the device whatever the block's place, and the
+timestep-invariant hoists (``precompute_text_kv``, ``precompute_triple_mods``) return
+None when the triple stack is split, as in the JAX package: the blocks then compute them.
 
 Parameter names follow the JAX tree (``w``/``b`` become ``weight``/``bias``; the stacked
 block axis becomes ``triple_blocks.<i>`` / ``single_blocks.<i>``), so ``io/from_jax.py``
@@ -42,6 +49,7 @@ from foley_tpu_torch.ops.modulate import apply_gate, modulate, modulate_ref
 from foley_tpu_torch.ops.nn import Conv1d, Dense, exact_fp32, init_parameters
 from foley_tpu_torch.ops.norms import layer_norm, rms_norm
 from foley_tpu_torch.ops.rope import apply_rotary_emb, rope_table
+from foley_tpu_torch.parallel import offload
 
 
 # ---------------------------------------------------------------------------------
@@ -433,6 +441,12 @@ class MMDiT(nn.Module):
             TripleBlock(cfg, **kw) for _ in range(cfg.depth_triple_blocks))
         self.single_blocks = nn.ModuleList(
             SingleBlock(cfg, **kw) for _ in range(cfg.depth_single_blocks))
+        self.block_swap: Optional[offload.BlockSwap] = None  # parallel/offload.py
+
+    @property
+    def device(self) -> torch.device:
+        """Where the model computes: a parameter no memory mode moves or quantizes."""
+        return self.empty_clip_feat.device
 
     @torch.no_grad()
     def init_(self, g: torch.Generator) -> None:
@@ -453,23 +467,27 @@ class MMDiT(nn.Module):
                 f"{visual_len}); the exact interleave/decouple path is not ported")
         joint_rope = tuple(torch.cat([vt, at], dim=0)
                            for vt, at in zip(ropes.visual_joint, ropes.audio_joint))
+        # a swapped block's norm weights are in host memory: K1 gets its tables on the device
+        on = lambda tabs: tuple(t.to(joint_rope[0].device) for t in tabs)  # noqa: E731
         return AttentionTables(
             ropes=ropes, joint_rope=joint_rope,
-            triple_norms=tuple(b.norm_tables(audio_len, visual_len) for b in self.triple_blocks),
-            single_norms=tuple(b.norm_tables(audio_len) for b in self.single_blocks))
+            triple_norms=tuple(on(b.norm_tables(audio_len, visual_len))
+                               for b in self.triple_blocks),
+            single_norms=tuple(on(b.norm_tables(audio_len)) for b in self.single_blocks))
 
     def forward(self, x, t, cond, clip_feat, sync_feat, *, text_kv=None, triple_mods=None,
-                tables: Optional[AttentionTables] = None,
-                visual_rows_shared: bool = False) -> torch.Tensor:
+                tables: Optional[AttentionTables] = None, visual_rows_shared: bool = False,
+                offload_prefetch: int = 1) -> torch.Tensor:
         """``_velocity``, in true fp32 when ``x`` is fp32 (``ops/nn.py::exact_fp32``)."""
         with exact_fp32(x.dtype):
             return self._velocity(x, t, cond, clip_feat, sync_feat, text_kv=text_kv,
                                   triple_mods=triple_mods, tables=tables,
-                                  visual_rows_shared=visual_rows_shared)
+                                  visual_rows_shared=visual_rows_shared,
+                                  offload_prefetch=offload_prefetch)
 
     def _velocity(self, x, t, cond, clip_feat, sync_feat, *, text_kv=None, triple_mods=None,
-                  tables: Optional[AttentionTables] = None,
-                  visual_rows_shared: bool = False) -> torch.Tensor:
+                  tables: Optional[AttentionTables] = None, visual_rows_shared: bool = False,
+                  offload_prefetch: int = 1) -> torch.Tensor:
         """Velocity [B, T, C_latent] (the JAX ``apply``).
 
         x: audio latents [B, T, C_latent]; t: [B] timesteps in [0, 1000); cond: text
@@ -480,6 +498,8 @@ class MMDiT(nn.Module):
         these lengths (built here when None). ``visual_rows_shared``: the caller's promise
         that the two CFG halves of ``clip_feat`` and ``sync_feat`` are identical; the
         visual-derived projections then run on the first half and are tiled.
+        ``offload_prefetch``: the device window of each swapped block family
+        (``offload.stream_blocks``; 1 fetches each block after the last one ran).
         """
         cfg = self.cfg
         bs, tl = x.shape[0], x.shape[1] // cfg.patch_size
@@ -524,7 +544,8 @@ class MMDiT(nn.Module):
 
         if cfg.add_sync_feat_to_audio:
             audio = audio + sync_add  # injected before block 0
-        for i, block in enumerate(self.triple_blocks):
+        for i, block in enumerate(offload.stream_blocks(self, "triple_blocks",
+                                                         offload_prefetch)):
             audio, v_cond = block(
                 audio, cond, v_cond, vec, ropes, tables.joint_rope, tables.triple_norms[i],
                 sync_vec=sync_vec,
@@ -542,7 +563,8 @@ class MMDiT(nn.Module):
         else:
             vec_tok = vec  # per-batch 2-D modulation (reference parity)
         mod_vec = vec_tok_mod if vec_tok_mod is not None else vec_tok
-        for block, norms in zip(self.single_blocks, tables.single_norms):
+        blocks = offload.stream_blocks(self, "single_blocks", offload_prefetch)
+        for block, norms in zip(blocks, tables.single_norms):
             audio = block(audio, mod_vec, ropes, norms)
 
         out = self.final_layer(audio, sync_vec if sync_vec is not None else vec_tok)
@@ -553,7 +575,10 @@ class MMDiT(nn.Module):
     def precompute_text_kv(self, cond: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Every triple block's text cross-attention K/V, once per generation (they do not
         depend on the timestep). ``cond``: raw text features in the compute dtype. Returns
-        (t_k, t_v), each stacked [N_blocks, B, L_text, H, D]."""
+        (t_k, t_v), each stacked [N_blocks, B, L_text, H, D], or None when triple blocks are
+        swapped (they compute their K/V in-block)."""
+        if offload.swapped_blocks(self, "triple_blocks"):
+            return None
         with exact_fp32(cond.dtype):
             cond_p = self.cond_in(cond)
             ropes_text = rope_table(cond.shape[1], self.cfg.head_dim, self.cfg.rope_theta,
@@ -567,8 +592,9 @@ class MMDiT(nn.Module):
         With ``sync_modulation`` off (every shipped config) the modulation source is the
         timestep embedding alone, and every CFG row shares the timestep, so one vector per
         (step, block) serves the batch. Returns (a_mods, v_mods), each [S, N, 1, 9H] in the
-        compute dtype, or None when the source is per-token (``sync_modulation``)."""
-        if self.cfg.sync_modulation:
+        compute dtype, or None when the source is per-token (``sync_modulation``) or triple
+        blocks are swapped (they compute their vectors in-block)."""
+        if self.cfg.sync_modulation or offload.swapped_blocks(self, "triple_blocks"):
             return None
         with exact_fp32(compute_dtype):
             sv = F.silu(self.time_in(timesteps, compute_dtype))  # [S, H]

@@ -7,6 +7,12 @@ Weights use torch's layouts; ``io/from_jax.py`` converts the JAX ones:
 - conv1d:           [out, in, K]     (JAX: [K, in, out])
 - conv_transpose1d: [in, out, K]     (JAX: [K, in, out])
 
+A ``Dense`` or ``Conv1d`` weight may be held in quantized storage (``io/quantize.py``): fp8
+in the ``weight`` parameter itself, or codes and scales in the buffers ``weight_<kind>`` and
+``weight_scale`` (``QuantizedWeight``). Every op dequantizes at use, in the activation dtype,
+in the JAX package's order (``_match``); a dense of an ``int8_dyn`` weight runs an exact
+int8 x int8 -> int32 product instead (``dense``).
+
 bf16, fp16 and fp32. fp32 means true fp32: ``true_fp32()`` turns TF32 off for matmuls and
 cuDNN convolutions, whose default would otherwise run fp32 convs in TF32, and which a
 caller's ``torch.set_float32_matmul_precision("high")`` would turn on for matmuls; every fp32
@@ -19,7 +25,7 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -28,9 +34,72 @@ from torch import nn
 from foley_tpu_torch.ops.norms import layer_norm
 
 
-def _match(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Cast a weight to the activation dtype (quantized storage is not ported yet)."""
+QUANT_KINDS = ("int8", "int8_dyn", "int4")
+
+
+class QuantizedWeight(NamedTuple):
+    """A weight in integer storage (``io/quantize.py``), the JAX package's ``{kind, "scale"}``
+    leaf in the port's layouts:
+
+    - ``int8`` / ``int8_dyn``: ``q`` int8 codes in the weight's layout, ``scale`` fp32 per
+      output channel: ``[out, 1]`` (dense), ``[out, 1, 1]`` (a block's conv) or
+      ``[out, 1, K]`` (a conv outside the blocks, one scale per tap);
+    - ``int4``: ``q`` uint8 ``[out, in/2(, K)]``, split-half along the input axis (byte i
+      holds input row i in its low nibble and row i + in/2 in its high one, each biased by
+      +8), ``scale`` fp32 ``[out, n_groups, 1(, K)]`` over groups of input rows."""
+
+    kind: str
+    q: torch.Tensor
+    scale: torch.Tensor
+
+
+def _match(w, x: torch.Tensor) -> torch.Tensor:
+    """The weight in the activation dtype: a cast, or the dequant of integer storage in the
+    JAX package's order (``foley_tpu/ops/nn.py::_match``): the codes and the scale each cast
+    to ``x.dtype``, then multiplied (int4: unpacked by shift and mask, the halves
+    concatenated, then grouped). fp8 casts exactly to bf16, fp16 and fp32."""
+    if isinstance(w, QuantizedWeight):
+        if w.kind == "int4":
+            lo = (w.q & 0xF).to(torch.int8) - 8  # input rows [0, in/2)
+            hi = (w.q >> 4).to(torch.int8) - 8   # input rows [in/2, in)
+            q = torch.cat([lo, hi], dim=1).to(x.dtype)
+            grouped = q.unflatten(1, (w.scale.shape[1], -1)) * w.scale.to(x.dtype)
+            return grouped.flatten(1, 2)
+        return w.q.to(x.dtype) * w.scale.to(x.dtype)
     return w if w.dtype == x.dtype else w.to(x.dtype)
+
+
+def divide(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c``, correctly rounded on every device. On CUDA, ``x / 127.0`` multiplies by a
+    rounded reciprocal (a Python number is a CPU scalar, which the division kernel inverts
+    once), one place off the CPU's and the JAX package's quotient; a divisor on the tensor's
+    own device takes the true division."""
+    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+
+
+def quantize_act(x: torch.Tensor):
+    """Per-token symmetric int8 quantization (``foley_tpu/ops/nn.py::_quantize_act``):
+    (codes int8 [..., in], scale fp32 [..., 1])."""
+    xf = x.float()
+    s = torch.clamp_min(divide(xf.abs().amax(dim=-1, keepdim=True), 127.0), 1e-12)
+    return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
+
+
+def int_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact int8 ``a [M, K] @ w[N, K]^T`` -> int32 ``[M, N]`` through ``torch._int_mm``.
+
+    On the card ``_int_mm`` takes more than 16 rows and inner and outer sizes that are
+    multiples of 8, and the timestep MLP and adaLN inputs have one or two rows: the operands
+    are padded with zero rows and columns, which add nothing to any sum, and the product is
+    cut back. (A float product would not be exact above 2^24.)"""
+    m, k = a.shape
+    n = w.shape[0]
+    pad_m, pad_k, pad_n = max(17 - m, 0), -k % 8, -n % 8
+    if pad_m or pad_k:
+        a = F.pad(a, (0, pad_k, 0, pad_m))
+    if pad_k or pad_n:
+        w = F.pad(w, (0, pad_k, 0, pad_n))
+    return torch._int_mm(a, w.t())[:m, :n]
 
 
 _fp32_lock = threading.Lock()
@@ -70,14 +139,24 @@ def exact_fp32(dtype: torch.dtype):
     return true_fp32() if dtype == torch.float32 else contextlib.nullcontext()
 
 
-def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x [..., in] @ w[out, in]^T (+ b [out])."""
+def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x [..., in] @ w[out, in]^T (+ b [out]).
+
+    An ``int8_dyn`` weight takes the integer path (``foley_tpu/ops/nn.py::dense``): the
+    activations quantized per token, an exact int32 product, ``(acc * sx) * scale`` in fp32,
+    cast to the activation dtype, then the bias added."""
+    if isinstance(w, QuantizedWeight) and w.kind == "int8_dyn":
+        xq, sx = quantize_act(x)
+        acc = int_mm(xq.reshape(-1, xq.shape[-1]), w.q).reshape(*x.shape[:-1], -1)
+        out = (acc.float() * sx * w.scale.reshape(-1)).to(x.dtype)
+        return out if b is None else out + _match(b, x)
     return F.linear(x, _match(w, x), None if b is None else _match(b, x))
 
 
-def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+def conv1d(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
            stride: int = 1, padding: int = 0, dilation: int = 1) -> torch.Tensor:
-    """Channel-last 1-D convolution. x [B, T, Cin], w [Cout, Cin, K] -> [B, T', Cout]."""
+    """Channel-last 1-D convolution. x [B, T, Cin], w [Cout, Cin, K] -> [B, T', Cout]. An
+    ``int8_dyn`` weight is dequantized like ``int8`` (as in the JAX package)."""
     out = F.conv1d(x.transpose(1, 2), _match(w, x), None if b is None else _match(b, x),
                    stride=stride, padding=padding, dilation=dilation)
     return out.transpose(1, 2)
@@ -114,7 +193,33 @@ def empty_parameter(*shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, dtype=dtype, device=device), requires_grad=False)
 
 
-class Dense(nn.Module):
+class QuantizableWeight(nn.Module):
+    """A module with a ``weight`` that ``io/quantize.py`` may put in quantized storage."""
+
+    def stored_weight(self):
+        """``weight``, or its ``QuantizedWeight`` when the codes replaced it."""
+        for kind in QUANT_KINDS:
+            q = self._buffers.get("weight_" + kind)
+            if q is not None:
+                return QuantizedWeight(kind, q, self._buffers["weight_scale"])
+        return self.weight
+
+    def set_quantized(self, kind: str, q: torch.Tensor, scale: torch.Tensor) -> None:
+        """Replace the ``weight`` parameter with the buffers ``weight_<kind>`` and
+        ``weight_scale``, so ``state_dict``, ``param_bytes``, ``park`` and the block swap
+        see them."""
+        if kind not in QUANT_KINDS:
+            raise ValueError(f"quantized kind {kind!r}: expected one of {QUANT_KINDS}")
+        del self.weight
+        self.register_buffer("weight_" + kind, q)
+        self.register_buffer("weight_scale", scale)
+
+    def set_weight(self, w: torch.Tensor) -> None:
+        """Hold ``w`` (an fp8 weight) as the ``weight`` parameter, in its own dtype."""
+        self.weight = nn.Parameter(w, requires_grad=False)
+
+
+class Dense(QuantizableWeight):
     """``scheme``: ``torch`` (nn.Linear's Kaiming-uniform fan_in), ``zeros`` (adaLN and final
     layers), ``normal02`` (timestep MLP) or ``normal02_zero_bias`` (the vision encoders)."""
 
@@ -126,7 +231,7 @@ class Dense(nn.Module):
         self.bias = empty_parameter(out_dim, dtype=dtype, device=device) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(x, self.weight, self.bias)
+        return dense(x, self.stored_weight(), self.bias)
 
     @torch.no_grad()
     def init_(self, g: torch.Generator) -> None:
@@ -145,7 +250,7 @@ class Dense(nn.Module):
                 self.bias.uniform_(-limit, limit, generator=g)
 
 
-class Conv1d(nn.Module):
+class Conv1d(QuantizableWeight):
     """Channel-last conv; weight [out, in, K]; torch's default Kaiming-uniform init."""
 
     def __init__(self, in_dim: int, out_dim: int, kernel_size: int, bias: bool = True,
@@ -155,7 +260,7 @@ class Conv1d(nn.Module):
         self.bias = empty_parameter(out_dim, dtype=dtype, device=device) if bias else None
 
     def forward(self, x: torch.Tensor, **kw) -> torch.Tensor:
-        return conv1d(x, self.weight, self.bias, **kw)
+        return conv1d(x, self.stored_weight(), self.bias, **kw)
 
     @torch.no_grad()
     def init_(self, g: torch.Generator) -> None:

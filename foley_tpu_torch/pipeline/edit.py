@@ -69,7 +69,8 @@ def edit_audio(bundle: ModelBundle, audio: np.ndarray, text_feat, uncond_text_fe
     final = denoise_latents(
         bundle.mmdit, latents, features, guidance_scale, diffusion=cfg.diffusion,
         num_steps=num_inference_steps, solver=sampler, use_cfg=use_cfg,
-        compute_dtype=bundle.compute_dtype, begin_index=begin_index)
+        compute_dtype=bundle.compute_dtype, begin_index=begin_index,
+        offload_prefetch=bundle.offload_prefetch)
     if bundle.latent_stats is not None:
         mean, std = bundle.latent_stats
         final = final * std + mean

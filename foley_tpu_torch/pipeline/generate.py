@@ -6,8 +6,9 @@ The models run where their parameters live: ``mmdit.init`` and ``dac_vae.init`` 
 ``cuda`` unless the caller names another device. Text features may come from anywhere; they
 are moved to that device; so are the visual features of V2A, which
 ``pipeline/features.py::encode_video`` makes with ``bundle.encoders``. Parking a model in
-host memory between requests is the nodes' ``force_offload`` (``pipeline/manager.py``); block
-swap and LoRA are not ported yet.
+host memory between requests is the nodes' ``force_offload`` (``pipeline/manager.py``); a
+denoiser whose last blocks are swapped (``parallel/offload.py``) streams them with the
+bundle's ``offload_prefetch`` window. LoRA is not ported yet.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ class ModelBundle(NamedTuple):
     compute_dtype: torch.dtype = torch.bfloat16
     latent_stats: Optional[tuple] = None  # (mean[C], std[C]) for from-scratch-trained models
     progress: bool = False  # a host line per denoise step (the reference's ProgressBar)
+    offload_prefetch: int = 1  # the device window of swapped blocks (1: fetch, then compute)
 
 
 @dataclasses.dataclass
@@ -63,7 +65,7 @@ _DECODE_CHUNK_FRAMES = 512
 
 
 def _device_of(bundle: ModelBundle) -> torch.device:
-    return next(bundle.mmdit.parameters()).device
+    return bundle.mmdit.device
 
 
 def encode_latents(bundle: ModelBundle, wav: torch.Tensor) -> torch.Tensor:
@@ -94,7 +96,7 @@ def _run(bundle: ModelBundle, latents, features, guidance_scale, num_inference_s
         decode_chunk_frames=(_DECODE_CHUNK_FRAMES if latent_len > _DECODE_CHUNK_THRESHOLD
                              else None),
         output_pcm16=output_pcm16, visual_rows_shared=visual_rows_shared,
-        progress=bundle.progress)
+        progress=bundle.progress, offload_prefetch=bundle.offload_prefetch)
 
 
 def _to_host(audio: torch.Tensor, duration_s: float, sample_rate: int,

@@ -265,7 +265,7 @@ def _run_windows(bundle: ModelBundle, prep: _LongPrep, *, guidance_scale: float,
             use_cfg=prep.use_cfg, compute_dtype=bundle.compute_dtype,
             # under CFG the T2A halves share visual rows; V2A halves differ (empty vs real)
             visual_rows_shared=prep.use_cfg and not prep.v2a, known_frames=known,
-            progress=bundle.progress)
+            progress=bundle.progress, offload_prefetch=bundle.offload_prefetch)
         # the clamped prefix equals the previous tail exactly, so the whole window is copied
         prep.stitched[:, start: start + win] = win_out
         yield w_i, start, win

@@ -6,11 +6,14 @@ counterpart).
 module at them, which frees its device memory; ``restore`` copies them back to the module's
 device. The host buffers are allocated at the first park and reused by every later one
 (page-locked when the module lives on a card, so both copies run at the card's copy rate),
-so a park-restore cycle allocates no host memory. The values round-trip bit for bit.
+so a park-restore cycle allocates no host memory. The values round-trip bit for bit. The
+blocks a block swap keeps in host memory (``parallel/offload.py``) are left where they are:
+``park`` and ``restore`` move only the rest.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
@@ -24,12 +27,21 @@ INFERENCE_MODELS = ("foley", "dac")
 
 
 def _tensors(module: nn.Module) -> Iterator[Tuple[str, torch.Tensor]]:
-    yield from module.named_parameters()
-    yield from module.named_buffers()
+    """Every parameter and buffer of ``module``, but those of the blocks its block swap holds
+    in host memory (``parallel/offload.py``)."""
+    swap = getattr(module, "block_swap", None)
+    skip = swap.prefixes() if swap is not None else ()
+    for name, t in itertools.chain(module.named_parameters(), module.named_buffers()):
+        if not name.startswith(skip):
+            yield name, t
 
 
 def module_device(module: nn.Module) -> torch.device:
     return next(t for _, t in _tensors(module)).device
+
+
+def _signature(module: nn.Module):
+    return [(name, t.shape, t.dtype) for name, t in _tensors(module)]
 
 
 class HostBuffers:
@@ -45,6 +57,7 @@ class HostBuffers:
         self.flat = torch.empty(max(total, 1), dtype=torch.uint8)
         self.pinned = pin and int(torch.cuda.cudart().cudaHostRegister(
             self.flat.data_ptr(), self.flat.numel(), 0)) == 0
+        self.signature = _signature(module)
         self.views = {
             name: self.flat[offsets[name]: offsets[name] + t.numel() * t.element_size()]
             .view(t.dtype).view(t.shape) for name, t in _tensors(module)}
@@ -56,11 +69,12 @@ class HostBuffers:
 
 @torch.no_grad()
 def park(module: nn.Module, host: Optional[HostBuffers] = None) -> HostBuffers:
-    """Move ``module``'s weights into ``host`` (allocated here when None), synchronously, and
-    point the module at them. Returns the buffers, which the next park of the same module
-    reuses."""
+    """Move ``module``'s weights into ``host`` (allocated here when None, or when the module's
+    tensors changed since: a block swap moved blocks or a quantization replaced weights),
+    synchronously, and point the module at them. Returns the buffers, which the next park
+    of the same module reuses."""
     device = module_device(module)
-    if host is None:
+    if host is None or host.signature != _signature(module):
         host = HostBuffers(module, pin=device.type == "cuda")
     for name, t in _tensors(module):
         host.views[name].copy_(t, non_blocking=host.pinned)

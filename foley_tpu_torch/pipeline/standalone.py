@@ -41,7 +41,9 @@ def load_model(model_path: str, config: str = "xxl", precision: str = "auto",
     ``model_utils.load_model``): ``foley`` (a FOLEY_MODEL), ``dac`` (``{"params": DAC,
     "cfg": DACConfig}``), ``synchformer``, ``clap`` (``<model_path>/clap``) and ``siglip2``
     (``<model_path>/siglip2``), each on ``device`` (``cuda`` unless given) at its first
-    access. The visual encoders run in ``encoder_precision``."""
+    access. The visual encoders run in ``encoder_precision``; ``quantization`` is the model
+    loader's (``io/quantize.py`` modes, ``auto`` the checkpoint's fp8 type). ``lora_path``
+    raises (ROADMAP item 13)."""
     from foley_tpu_torch.api.nodes import resolve_dtype
 
     dev = resolve_device(device)

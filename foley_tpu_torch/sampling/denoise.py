@@ -49,7 +49,7 @@ def denoise_latents(model, latents: torch.Tensor, features: DenoiseFeatures,
                     diffusion: DiffusionConfig, num_steps: int, solver: str = "euler",
                     use_cfg: bool = True, compute_dtype=torch.bfloat16, begin_index: int = 0,
                     visual_rows_shared: bool = False, known_frames: int = 0,
-                    progress: bool = False) -> torch.Tensor:
+                    progress: bool = False, offload_prefetch: int = 1) -> torch.Tensor:
     """Run the flow-matching ODE. latents: [B, T, C] -> fp32 [B, T, C].
 
     ``begin_index`` starts mid-schedule (latents already noised to ``sigmas[begin_index]``).
@@ -59,6 +59,8 @@ def denoise_latents(model, latents: torch.Tensor, features: DenoiseFeatures,
     solver step to the interpolant ``(1-sigma)*known + sigma*noise0`` at the sigma the
     sample nominally sits at, and hard-set to ``known_latents`` after the loop.
     ``progress``: log a line per step (``_progress_tick``) from a host copy of the schedule.
+    ``offload_prefetch``: the device window of the model's swapped blocks
+    (``parallel/offload.py``).
     """
     device = latents.device
 
@@ -97,7 +99,8 @@ def denoise_latents(model, latents: torch.Tensor, features: DenoiseFeatures,
         if progress:
             _progress_tick(i, len(host_t), host_t[i])
         v = model(latent_input, t_expand, cond, clip_feat, sync_feat, text_kv=text_kv,
-                  triple_mods=mods, tables=tables, visual_rows_shared=shared).float()
+                  triple_mods=mods, tables=tables, visual_rows_shared=shared,
+                  offload_prefetch=offload_prefetch).float()
         if use_cfg:
             v_uncond, v_cond = v.chunk(2, dim=0)
             v = v_uncond + g * (v_cond - v_uncond)
@@ -118,7 +121,8 @@ def denoise_and_decode(model, dac, latents: torch.Tensor, features: DenoiseFeatu
                        dac_cfg: DACConfig, num_steps: int, solver: str = "euler",
                        use_cfg: bool = True, compute_dtype=torch.bfloat16, begin_index: int = 0,
                        decode_chunk_frames: Optional[int] = None, output_pcm16: bool = False,
-                       visual_rows_shared: bool = False, progress: bool = False):
+                       visual_rows_shared: bool = False, progress: bool = False,
+                       offload_prefetch: int = 1):
     """Denoise + DAC decode. Returns (final_latents fp32 in model latent space, audio
     [B, T*hop, 1]: fp32, or int16 PCM with ``output_pcm16``).
 
@@ -131,7 +135,8 @@ def denoise_and_decode(model, dac, latents: torch.Tensor, features: DenoiseFeatu
     final_latents = denoise_latents(
         model, latents, features, guidance_scale, diffusion=diffusion, num_steps=num_steps,
         solver=solver, use_cfg=use_cfg, compute_dtype=compute_dtype, begin_index=begin_index,
-        visual_rows_shared=visual_rows_shared, progress=progress)
+        visual_rows_shared=visual_rows_shared, progress=progress,
+        offload_prefetch=offload_prefetch)
     raw = final_latents
     if latent_stats is not None:
         mean, std = latent_stats

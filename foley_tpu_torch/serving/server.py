@@ -13,6 +13,11 @@ counterpart): a thread-safe ``FoleyService`` around a ``ModelBundle``, warmed ov
   float [0, 1], "frames_fps": float}. Continuation: {"continue_b64": base64 of a 16-bit WAV
   at the DAC's rate, "context_s": float}.
 
+The memory modes are the CLI's: ``--quantization`` stores the denoiser's weights quantized
+(``io/quantize.py``) and ``--blocks_to_swap N`` keeps its last N blocks in page-locked host
+memory, streamed through ``--prefetch_blocks + 1`` device slots a family
+(``parallel/offload.py``).
+
 Requests the port cannot serve answer 400 with the reason: ``frames_path`` and
 ``mux_video`` (with ``"response": "avi"``) need PIL or ffmpeg, which wait for ROADMAP item
 13. Any other failure answers 500, as in the JAX package.
@@ -577,8 +582,10 @@ def main(argv=None) -> int:
                    help="torch device the models run on (default cuda)")
     p.add_argument("--precision", default="bf16", choices=["auto", "bf16", "fp16", "fp32"])
     p.add_argument("--quantization", default="none",
-                   help="weight quantization: only 'none' (ROADMAP item 12)")
-    p.add_argument("--lora", default="", help="LoRA adapter: not ported (ROADMAP item 12)")
+                   choices=["none", "auto", "fp8_e4m3fn", "fp8_e5m2", "int8", "int8_dynamic",
+                            "int4"],
+                   help="weight storage of the denoiser (the HunyuanModelLoader node's modes)")
+    p.add_argument("--lora", default="", help="LoRA adapter: not ported (ROADMAP item 13)")
     p.add_argument("--config", default="xxl", choices=["xxl", "xl", "tiny"])
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8321)
@@ -597,17 +604,19 @@ def main(argv=None) -> int:
     p.add_argument("--mesh", default="", help="multi-card serving: not ported (ROADMAP "
                                               "item 13, torch.distributed DP/TP)")
     p.add_argument("--blocks_to_swap", type=int, default=0,
-                   help="block swap: not ported (ROADMAP item 12)")
+                   help="keep the LAST N of the 54 blocks in page-locked host memory, "
+                        "streamed to the card each step; composes with --quantization")
     p.add_argument("--prefetch_blocks", type=int, default=0,
-                   help="block-swap prefetch: not ported (ROADMAP item 12)")
+                   help="extra swapped-block copies in flight (device window = N+1)")
     args = p.parse_args(argv)
     if args.mesh:
         p.error("--mesh: multi-card serving is not ported (ROADMAP item 13)")
-    if args.blocks_to_swap or args.prefetch_blocks:
-        p.error("--blocks_to_swap / --prefetch_blocks: block swap is not ported "
-                "(ROADMAP item 12)")
-    if args.quantization != "none" or args.lora:
-        p.error("--quantization / --lora: not ported (ROADMAP item 12)")
+    if args.prefetch_blocks and not args.blocks_to_swap:
+        p.error("--prefetch_blocks only applies with --blocks_to_swap > 0")
+    if args.lora:
+        from foley_tpu_torch.api.nodes import LORA_REFUSAL
+
+        p.error(f"--lora: {LORA_REFUSAL}")
     if args.v2a_preprocess != "device":
         p.error("--v2a_preprocess pil needs PIL (ROADMAP item 13)")
     if args.frames_root:
@@ -629,7 +638,8 @@ def main(argv=None) -> int:
 
         if args.precision == "auto":
             p.error("--precision auto reads a checkpoint's dtype; name one with --random_init")
-        fm = HunyuanModelLoader.init_random(args.random_init, args.precision, 0, device=dev)
+        fm = HunyuanModelLoader.init_random(args.random_init, args.precision, 0, device=dev,
+                                            quantization=args.quantization)
         cfg = get_config(args.random_init)
         dac = dac_vae.init(cfg.dac, torch.Generator(device=dev).manual_seed(1), device=dev)
         bundle = ModelBundle(fm["params"], dac, cfg, compute_dtype=fm["dtype"])
@@ -645,7 +655,7 @@ def main(argv=None) -> int:
         from foley_tpu_torch.pipeline.standalone import load_model
 
         manager = load_model(args.model_path, config=args.config, precision=args.precision,
-                             device=dev)
+                             quantization=args.quantization, device=dev)
         bundle = ModelBundle(manager.foley["params"], manager.dac["params"],
                              manager.pipeline_cfg, compute_dtype=manager.foley["dtype"],
                              latent_stats=manager.foley.get("latent_stats"))
@@ -653,6 +663,12 @@ def main(argv=None) -> int:
         video_encoders = None
         if args.enable_v2a:
             video_encoders = {"siglip2": manager.siglip2, "synchformer": manager.synchformer}
+
+    if args.blocks_to_swap > 0:
+        from foley_tpu_torch.parallel.offload import offload_block_suffix
+
+        offload_block_suffix(bundle.mmdit, args.blocks_to_swap)
+        bundle = bundle._replace(offload_prefetch=args.prefetch_blocks + 1)
 
     service_cls = FoleyService if args.max_batch <= 1 else BatchingFoleyService
     extra = {} if args.max_batch <= 1 else {"max_batch": args.max_batch}

@@ -159,7 +159,8 @@ def test_gradio_hands_the_server_the_jax_argv(monkeypatch, source):
     monkeypatch.setattr(jserver, "main", lambda argv: seen.setdefault("jax", argv) and 0)
     monkeypatch.setattr(tserver, "main", lambda argv: seen.setdefault("port", argv) and 0)
     argv = ["--gradio", "--port", "9000", "--precision", "fp16", "--duration", "8",
-            "--num_inference_steps", "20", "--max_batch", "2", "--config", "xl"] + source
+            "--num_inference_steps", "20", "--max_batch", "2", "--config", "xl",
+            "--quantization", "int8", "--blocks_to_swap", "30", "--prefetch_blocks", "1"] + source
     assert jcli.main(argv) == 0 and tcli.main(argv + ["--device", "cpu"]) == 0
     port = seen["port"]
     i = port.index("--device")
@@ -168,9 +169,7 @@ def test_gradio_hands_the_server_the_jax_argv(monkeypatch, source):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--quantization", "int8"], "item 12"), (["--blocks_to_swap", "4"], "item 12"),
-    (["--blocks_to_swap", "4", "--prefetch_blocks", "1"], "item 12"),
-    (["--lora", "adapter"], "item 12"), (["--single_video", "clip.mp4"], "item 13"),
+    (["--lora", "adapter"], "item 13"), (["--single_video", "clip.mp4"], "item 13"),
     (["--merge_video"], "item 13"), (["--desync_score"], "item 13"),
     (["--mesh", "data=4"], "item 13"), (["--v2a_preprocess", "pil"], "item 13"),
     (["--gradio", "--mesh", "data=4"], "item 13")])
@@ -178,6 +177,33 @@ def test_refusals_name_their_roadmap_item(capsys, argv, item):
     """What the port does not carry yet exits 2 before any model work, naming its item."""
     assert tcli.main(["--random_init", "tiny", "--device", "cpu"] + argv) == 2
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--quantization", "int8"], ["--quantization", "int4"],
+    ["--quantization", "fp8_e4m3fn", "--blocks_to_swap", "4"],
+    ["--quantization", "int8_dynamic", "--blocks_to_swap", "5", "--prefetch_blocks", "1"]])
+def test_memory_modes_match_jax(model_dir, monkeypatch, tmp_path, argv):
+    """The memory-mode flags through the checkpoint route of both CLIs: the same
+    quantization on both sides (the JAX CLI's block swap needs a ``pinned_host`` memory kind
+    and runs unsplit here; the port's split forward is exact, ``test_torch_offload.py``)."""
+    ref, got = _both(monkeypatch, tmp_path,
+                     ["--model_path", str(model_dir), "--duration", "1"] + RUN + argv)
+    assert got.shape == ref.shape == (48000,)
+    assert np.abs(got - ref).max() <= PCM_TOL
+
+
+def test_random_init_block_swap_is_exact(tmp_path):
+    """``--blocks_to_swap`` with ``--prefetch_blocks`` on the random-init route (the card's
+    ``cli`` phase): the same WAV as the resident model, int4 storage on both."""
+    base = ["--random_init", "tiny", "--random_init_perturb", "--precision", "fp32",
+            "--quantization", "int4", "--duration", "1", "--num_inference_steps", "2",
+            "--device", "cpu"]
+    assert tcli.main(base + ["--output", str(tmp_path / "resident.wav")]) == 0
+    assert tcli.main(base + ["--blocks_to_swap", "5", "--prefetch_blocks", "1", "--output",
+                             str(tmp_path / "swapped.wav")]) == 0
+    np.testing.assert_array_equal(_read(tmp_path / "swapped.wav"),
+                                  _read(tmp_path / "resident.wav"))
 
 
 @pytest.mark.parametrize("argv", [

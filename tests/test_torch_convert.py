@@ -145,15 +145,31 @@ def test_fold_weight_norm_matches_torch_parametrization():
 
 
 def test_detect_precision_and_refuse_fp8():
+    """The dtype detection, and what became of the fp8 refusal: an fp8 checkpoint now loads
+    bit for bit. ``module_from_state_dict`` keeps a ``Dense`` / ``Conv1d`` weight stored in
+    fp8 as it is (the precision cast skips it) and upcasts any other fp8 tensor exactly."""
     sd = {"a": torch.zeros(10, dtype=torch.bfloat16), "b": torch.zeros(4)}
     assert tconv.detect_ckpt_major_precision(sd) == "bf16"
     assert tconv.detect_ckpt_fp8(sd) is None
-    tconv.refuse_fp8(sd, "test")
     for dtype, name in ((torch.float8_e4m3fn, "fp8_e4m3fn"), (torch.float8_e5m2, "fp8_e5m2")):
         sd["c"] = torch.zeros(2, dtype=dtype)
         assert tconv.detect_ckpt_fp8(sd) == name
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tconv.refuse_fp8(sd, "test")
+        state = tconv.convert_mmdit_state_dict(
+            {k: torch.from_numpy(np.array(v)) for k, v in _synthetic_mmdit_sd(
+                J_TINY.model).items()}, TINY.model)
+        state = {k: v.to(dtype) if k.endswith(".weight") and v.ndim >= 2 else v
+                 for k, v in state.items()}
+        state["empty_clip_feat"] = state["empty_clip_feat"].to(dtype)
+        model = tconv.module_from_state_dict(tmm.MMDiT, state, TINY.model, "cpu",
+                                             torch.bfloat16)
+        got = model.state_dict()
+        w = got["single_blocks.0.linear_qkv.weight"]
+        assert w.dtype == dtype
+        assert torch.equal(w.view(torch.uint8),
+                           state["single_blocks.0.linear_qkv.weight"].view(torch.uint8))
+        assert got["single_blocks.0.linear_qkv.bias"].dtype == torch.bfloat16
+        assert got["empty_clip_feat"].dtype == torch.bfloat16  # not a layer: upcast exactly
+        assert torch.equal(got["empty_clip_feat"].float(), state["empty_clip_feat"].float())
 
 
 # ---------------------------------------------------------------------------------

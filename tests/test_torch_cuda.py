@@ -519,3 +519,77 @@ def test_http_round_trip_on_card_launches_the_kernel(dev):
         assert (f.getframerate(), f.getnframes()) == (48000, 48000)
         pcm = np.frombuffer(f.readframes(48000), "<i2")
     assert np.abs(pcm).max() > 0
+
+
+# ---------------------------------------------------------------------------------
+# The memory modes: int8_dynamic's integer product and block swap on the card
+# ---------------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows", [1, 2, 17, 250])
+def test_int8_dynamic_dense_on_card_equals_the_cpu(dev, rows):
+    """``torch._int_mm`` on the card (rows padded past 16) gives the CPU's exact int32 sums,
+    and the fp32 epilogue the same bits."""
+    from foley_tpu_torch.ops.nn import QuantizedWeight, dense, int_mm, quantize_act
+
+    gen = torch.Generator().manual_seed(rows)
+    w = torch.randint(-127, 128, (4608, 1536), generator=gen, dtype=torch.int8)
+    scale = torch.rand(4608, 1, generator=gen) * 1e-3 + 1e-4
+    x = torch.randn(rows, 1536, generator=gen).to(torch.bfloat16)
+    bias = torch.randn(4608, generator=gen).to(torch.bfloat16)
+    xq, _ = quantize_act(x)
+    assert torch.equal(int_mm(xq.to(dev), w.to(dev)).cpu(), int_mm(xq, w))
+    qw = QuantizedWeight("int8_dyn", w, scale)
+    got = dense(x.to(dev), QuantizedWeight("int8_dyn", w.to(dev), scale.to(dev)), bias.to(dev))
+    assert torch.equal(got.cpu(), dense(x, qw, bias))
+
+
+def _swap_model(dev):
+    cfg = dataclasses.replace(TINY.model, hidden_size=256)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return cfg, perturb_zero_leaves(mmdit.init(cfg, gen, device=dev, dtype=torch.bfloat16), gen)
+
+
+def _swap_inputs(dev, cfg):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rnd = lambda *s: torch.randn(*s, device=dev, generator=gen).to(torch.bfloat16)  # noqa
+    return (rnd(2, 20, cfg.audio_vae_latent_dim), torch.full((2,), 500.0, device=dev),
+            rnd(2, 8, cfg.condition_dim), rnd(2, 4, cfg.clip_dim), rnd(2, 8, cfg.sync_feat_dim))
+
+
+@pytest.mark.parametrize("n", [3, 6])
+@pytest.mark.parametrize("prefetch_blocks", [0, 1])
+def test_swapped_forward_equals_resident_on_card(dev, n, prefetch_blocks):
+    """The swapped blocks in page-locked host memory, copied on the side stream into the
+    window's slots: the velocity equals the resident one bit for bit, K1 still launches once
+    a block, and the card holds at most the window's swapped blocks."""
+    from foley_tpu_torch.parallel import offload
+
+    cfg, model = _swap_model(dev)
+    args = _swap_inputs(dev, cfg)
+    with torch.no_grad():
+        resident = model(*args)
+        offload.offload_block_suffix(model, n)
+        for family in offload.FAMILIES:
+            for i in offload.swapped_blocks(model, family):
+                tensors = offload.block_tensors(getattr(model, family)[i]).values()
+                assert all(t.device.type == "cpu" and t.is_pinned() for t in tensors)
+        before = FA.fused_qk_attention.launches
+        got = model(*args, offload_prefetch=prefetch_blocks + 1)
+        torch.cuda.synchronize()
+    assert FA.fused_qk_attention.launches - before == (cfg.depth_triple_blocks
+                                                       + cfg.depth_single_blocks)
+    assert torch.equal(got, resident)
+    for fam in model.block_swap.families.values():
+        assert len(fam.slots) <= prefetch_blocks + 1
+        assert all(t.device.type == "cuda" for slot in fam.slots for t in slot.values())
+
+
+def test_swapped_block_k1_tables_are_on_the_card(dev):
+    from foley_tpu_torch.parallel import offload
+
+    cfg, model = _swap_model(dev)
+    offload.offload_block_suffix(model, 6)
+    assert model.triple_blocks[1].audio_self_q_norm.weight.device.type == "cpu"
+    tables = model.attention_tables(20, 4, 8, dev)
+    for tab in tables.triple_norms + tables.single_norms:
+        assert all(t.device.type == "cuda" for t in tab)

@@ -30,6 +30,7 @@ from foley_tpu_torch.api import nodes as tnodes
 from foley_tpu_torch.configs import TINY, SynchformerConfig
 from foley_tpu_torch.io.convert import save_safetensors
 from foley_tpu_torch.models import synchformer as tsync
+from foley_tpu_torch.parallel import offload
 from foley_tpu_torch.pipeline import generate as tgen
 from foley_tpu_torch.pipeline import longform as tlong
 from helpers import save_dac_checkpoint, save_tiny_clap_checkpoint, save_tiny_siglip2_checkpoint
@@ -225,22 +226,65 @@ def test_node_schemas_equal_jax():
                        for k in t[part]), (name, part)
 
 
+@pytest.mark.parametrize("quantization,swap", [
+    ("fp8_e4m3fn", 0), ("fp8_e5m2", 0), ("int8", 4), ("int8_dynamic", 0), ("int4", 5),
+    ("auto", 0)])
+def test_memory_modes_match_jax(ckpts, graphs, monkeypatch, quantization, swap):
+    """``HunyuanModelLoader(quantization=...)`` on both packages, then the sampler with
+    ``HunyuanBlockSwap`` (the JAX sampler needs a ``pinned_host`` memory kind to split and
+    runs unsplit here): the same audio; the port's split persists on its model."""
+    ckpt = str(ckpts / "hunyuanvideo_foley.safetensors")
+    (j_model,) = jnodes.HunyuanModelLoader().load_model(ckpt, quantization=quantization,
+                                                        config="tiny")
+    (t_model,) = tnodes.HunyuanModelLoader().load_model(ckpt, quantization=quantization,
+                                                        config="tiny", device="cpu")
+    (args,) = tnodes.HunyuanBlockSwap().set_args(blocks_to_swap=swap, prefetch_blocks=1)
+    ref, got = _pair(graphs, monkeypatch, "HunyuanFoleySampler", "generate_audio",
+                     j_model=j_model, t_model=t_model, duration=1.0, prompt="glass shattering",
+                     force_offload=False, block_swap_args=args if swap else None, **KW)
+    _assert_audio(got, ref, (1, 1, 48000))
+    assert offload.partition_report(t_model["params"])["host_blocks"] == swap
+
+
+def test_fp8_checkpoint_loads_bit_for_bit(ckpts, tmp_path):
+    """A checkpoint that stores fp8 weights: its fp8 tensors load as they are (the
+    precision cast skips them), ``auto`` quantization takes the checkpoint's fp8 type, and
+    every tensor equals the JAX loader's on the same file, bit for bit."""
+    from foley_tpu_torch.io.convert import load_torch_state_dict
+    from foley_tpu_torch.io.from_jax import state_dict_from_jax
+
+    sd = load_torch_state_dict(str(ckpts / "hunyuanvideo_foley.safetensors"))
+    path = str(tmp_path / "fp8.safetensors")
+    save_safetensors(path, {k: v.to(torch.float8_e5m2) if k.endswith("linear_qkv.weight")
+                            else v for k, v in sd.items()})
+    for quantization in ("none", "auto"):
+        kw = dict(precision="bf16", quantization=quantization, config="tiny")
+        (j_model,) = jnodes.HunyuanModelLoader().load_model(path, **kw)
+        (t_model,) = tnodes.HunyuanModelLoader().load_model(path, device="cpu", **kw)
+        model = t_model["params"]
+        assert model.single_blocks[1].linear_qkv.weight.dtype == torch.float8_e5m2
+        assert model.single_blocks[1].modulation.weight.dtype == (
+            torch.bfloat16 if quantization == "none" else torch.float8_e5m2)
+        ref = state_dict_from_jax(jax.device_get(j_model["params"]))
+        got = model.state_dict()
+        assert set(got) == set(ref)
+        for k, v in got.items():
+            assert v.dtype == ref[k].dtype, k
+            assert torch.equal(v.view(torch.uint8), ref[k].view(torch.uint8)) if (
+                v.element_size() == 1) else torch.equal(v, ref[k]), k
+
+
 def test_refusals(ckpts, graphs, tmp_path):
+    """What the loaders still refuse: LoRA (ROADMAP item 13, with training), the orbax
+    directory route, PIL preprocessing, an unknown quantization; and the sampler without
+    text features. The memory modes load and run (``test_memory_modes_match_jax``)."""
     loader, ckpt = tnodes.HunyuanModelLoader(), str(ckpts / "hunyuanvideo_foley.safetensors")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        loader.load_model(ckpt, quantization="fp8_e4m3fn", config="tiny", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="quantization"):
+        loader.load_model(ckpt, quantization="int3", config="tiny", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13"):
         loader.load_model(ckpt, lora_path="adapter", config="tiny", device="cpu")
     with pytest.raises(NotImplementedError, match="orbax"):
         loader.load_model(str(tmp_path), config="tiny", device="cpu")
-    fp8 = {"w": torch.zeros(4, dtype=torch.float8_e4m3fn)}
-    save_safetensors(str(tmp_path / "fp8.safetensors"), fp8)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        loader.load_model(str(tmp_path / "fp8.safetensors"), config="tiny", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tnodes.HunyuanFoleySampler().generate_audio(
-            graphs[2], graphs[3], duration=1.0, prompt="x", steps=STEPS,
-            block_swap_args=tnodes.HunyuanBlockSwap().set_args(blocks_to_swap=4)[0])
     with pytest.raises(NotImplementedError, match="item 13"):
         tnodes.HunyuanDependenciesLoader().load_dependencies(
             str(ckpts / "vae_128d_48k.safetensors"), None, video_preprocess="pil",

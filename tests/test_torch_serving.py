@@ -256,8 +256,8 @@ def test_batching_failure_does_not_wedge_and_buckets_split(services):
 
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "data=2", "--random_init", "tiny"], "item 13"),
-    (["--blocks_to_swap", "4", "--random_init", "tiny"], "item 12"),
-    (["--quantization", "int8", "--random_init", "tiny"], "item 12"),
+    (["--lora", "adapter", "--random_init", "tiny"], "item 13"),
+    (["--prefetch_blocks", "1", "--random_init", "tiny"], "--blocks_to_swap"),
     (["--v2a_preprocess", "pil", "--random_init", "tiny"], "item 13"),
     (["--frames_root", "/data", "--random_init", "tiny"], "item 13"),
 ])
@@ -265,3 +265,32 @@ def test_main_refuses_unported_options(argv, match, capsys):
     with pytest.raises(SystemExit):
         tserver.main(argv + ["--device", "cpu"])
     assert match in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("quantization,swap,prefetch", [("int8", 3, 1), ("int4", 6, 0)])
+def test_main_serves_the_memory_modes(monkeypatch, quantization, swap, prefetch):
+    """``--quantization``, ``--blocks_to_swap`` and ``--prefetch_blocks``: the served bundle
+    holds the quantized, split denoiser with the window, and the warm-up generates through
+    it (the HTTP server itself is stubbed)."""
+    from foley_tpu_torch.parallel import offload
+
+    served = {}
+
+    class NoServer:
+        def serve_forever(self):
+            pass
+
+    monkeypatch.setattr(tserver, "create_server",
+                        lambda service, host, port: served.setdefault("svc", service)
+                        and NoServer())
+    assert tserver.main(["--random_init", "tiny", "--device", "cpu", "--durations", "1",
+                         "--warmup_steps", "2", "--quantization", quantization,
+                         "--blocks_to_swap", str(swap), "--prefetch_blocks",
+                         str(prefetch)]) == 0
+    bundle = served["svc"].bundle
+    assert bundle.offload_prefetch == prefetch + 1
+    assert offload.partition_report(bundle.mmdit)["host_blocks"] == swap
+    kind = {"int8": "weight_int8", "int4": "weight_int4"}[quantization]
+    assert hasattr(bundle.mmdit.single_blocks[0].linear_qkv, kind)
+    out = served["svc"].generate(dict(BASE, seed=1))
+    assert out["waveform"].shape == (1, 48000) and np.abs(out["waveform"]).max() > 0

@@ -86,11 +86,31 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   in fp32, and in bf16 with ``--quantization int8 --blocks_to_swap 30 --prefetch_blocks
   1``: the WAV (48 kHz, mono, 240,000 frames, non-silent), 2,700 K1 launches of the type
   and the wall;
+- ``configs``: the joint attention off K1's precondition at XXL bf16 (the exact interleave /
+  decouple path; a ``use_attention_mask`` config with an all-true mask), through the plain
+  attention, against the K1 forward on the same weights (relative L2);
+- ``video_ingest``: 125 PNG frames of the 1280x720 clip written with the standard library
+  (every scanline filter) and read back equal (the decode's seconds and peak device
+  memory); V2A from the directory
+  through ``cli.main --single_video DIR`` (its WAV equal to the sampler node's on the same
+  model, encoders, clip and seed), the server's ``frames_path`` and
+  ``standalone.feature_process`` (the features equal to the clip's), 2,700 K1 and 12 K2
+  launches a request; a ``.mp4`` raises, naming ffmpeg and PyAV;
+- ``lora``: a rank-16 XXL adapter written by the port's writer, merged through the loader's
+  code in-process (scale 0: the base latents; the card's merge of a triple and a single
+  block equal to the CPU's bit for bit), through ``cli.main --lora`` and the server's
+  ``--lora`` (their weights equal to the in-process merge's), and an int8 request of the
+  merged model: 2,700 K1 launches a request, the merge's seconds and the adapter's bytes;
+- ``desync``: the real-width desync scorer (random reference-layout checkpoint) through
+  ``cli.main --desync_score`` on the ``video_ingest`` frames and the ``lora`` request's WAV:
+  the offset on the class grid, finite logits, the whole clip's logits against the CPU;
 - ``{"kernels": [...]}``: every ported kernel with its launches on its path (K1 in
   ``main_path`` and, as ``launches_longform``, in the 75 s request and, as
   ``launches_serving``, over the ``serving`` requests, and per request of ``quant``,
-  ``block_swap`` and the ``cli`` memory-mode run; K2 in ``v2a_path``, the 24 s V2A
-  request and the served V2A request; K3 in one sweep of ``probe_gemm``; K3's times are the
+  ``block_swap``, the ``cli`` memory-mode run, ``lora``'s requests, ``video_ingest``'s
+  and ``configs``' forwards; K2 in ``v2a_path``, the 24 s V2A
+  request, the served V2A requests and ``video_ingest``'s (fp32 encoders in the fp32 row);
+  K3 in one sweep of ``probe_gemm``; K3's times are the
   probe's graph-replayed device times), then the fp16 and fp32 kernels of K1 (launches in
   the ``cli`` request of their type) and K2 (launches in the ``precision`` encode of their
   type);
@@ -1188,8 +1208,9 @@ def serving_phase(torch, dev, bundle, pipeline_cfg, clap_encoder, video_encoders
     4 s context, ``/healthz`` and ``/metrics``. Per request: the client's wall, the
     generation inside it and the server's own share. Then a ``BatchingFoleyService``
     (``max_batch=2``): two concurrent requests coalesced into one batch-2 call, each row's
-    latents within 1e-5 of its request served alone. Returns K1's and K2's launches over
-    the served requests."""
+    latents within 1e-5 of its request served alone and each client's WAV nearer its own
+    solo run's samples than the other client's (``AV_RMS_RATIO``).
+    Returns K1's and K2's launches over the served requests."""
     import base64
     import io
     import threading
@@ -1199,6 +1220,7 @@ def serving_phase(torch, dev, bundle, pipeline_cfg, clap_encoder, video_encoders
 
     import numpy as np
 
+    from foley_tpu_torch.io.native import float_to_pcm16
     from foley_tpu_torch.ops.kernels import flash_attention as FL
     from foley_tpu_torch.ops.kernels import fused_attention as FA
     from foley_tpu_torch.pipeline import generate as gen_mod
@@ -1350,7 +1372,7 @@ def serving_phase(torch, dev, bundle, pipeline_cfg, clap_encoder, video_encoders
           f"the batch's rows carry seeds {row_seeds}")
     check(k1 == per_k1, f"the coalesced call: K1 {k1}, expected {per_k1}")
     deps = {"clap": clap_encoder}
-    rows = []
+    rows, solo_pcm = [], []
     for i, body in enumerate(pair):
         text, uncond = encode_text(deps, body["prompt"], body["negative_prompt"])
         solo = gen_mod.generate_audio(bundle, text, uncond, DURATION_S, guidance_scale=GUIDANCE,
@@ -1360,10 +1382,25 @@ def serving_phase(torch, dev, bundle, pipeline_cfg, clap_encoder, video_encoders
         ok = bool((diff <= 1e-5 + 1e-5 * np.abs(solo.latents[0])).all())
         rows.append(float(diff.max()))
         check(ok, f"coalesced row {i}: latents {float(diff.max())} from its solo run")
-        check(samples(outs[i], n).shape == (n,), "coalesced WAV")
+        solo_pcm.append(float_to_pcm16(np.asarray(solo.audio_first)[0, 0]).astype(np.int32))
+    # each client's WAV against its own solo run's samples and the other client's: its RMS
+    # distance to its own must be under AV_RMS_RATIO of that to the other's, so a server that
+    # swapped the two responses fails here (the decodes of a batch of 2 and of 1 sum in
+    # another order, and the random DAC's gain turns that into PCM steps)
+    wav_steps, wav_rms = [], []
+    for i in range(len(pair)):
+        got = samples(outs[i], n).astype(np.int32)
+        own, other = (float(np.sqrt(np.mean((got - solo_pcm[j]).astype(np.float64) ** 2)))
+                      for j in (i, 1 - i))
+        wav_steps.append(int(np.abs(got - solo_pcm[i]).max()))
+        wav_rms.append([own, other])
+        check(own < AV_RMS_RATIO * other, f"coalesced client {i}: WAV at RMS {own} steps "
+              f"from its solo run, {other} from the other client's")
     solo_walls = [r["client_wall_s"] for r in results if r["request"] == "t2a_wav"]
     emit({"phase": "serving", "request": "coalesced_pair", "client_wall_s": coalesced_s,
           "solo_t2a_wall_s": solo_walls[0], "rows_max_abs_latent_diff": rows,
+          "clients_max_wav_steps_vs_solo": wav_steps,
+          "clients_wav_rms_steps_own_other": wav_rms, "rms_ratio_limit": AV_RMS_RATIO,
           "row_seeds": row_seeds,
           "k1_launches": k1, "warmup_s": warm_s,
           "phase_seconds": time.perf_counter() - t_phase})
@@ -1937,6 +1974,509 @@ def block_swap_phase(torch, dev, model, dac, pipeline_cfg) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------------
+# The rest of inference: the denoiser configs off K1, video ingest, LoRA, the desync scorer
+# ---------------------------------------------------------------------------------
+
+LORA_RANK, LORA_META_SCALE = 16, 0.5
+AV_RMS_RATIO = 0.1         # a coalesced client's WAV: RMS distance to its own solo run under
+                           # this share of that to the other client's solo run
+DESYNC_REL_TOL = 1e-4      # the scorer's logits on the card against the CPU, relative L2, both
+                           # in true fp32 (sums in another order read ~1e-6)
+
+
+def _counts(torch):
+    """Reset and return K1's and K2's wrappers (their launch counters at 0)."""
+    from foley_tpu_torch.ops.kernels import flash_attention as FL
+    from foley_tpu_torch.ops.kernels import fused_attention as FA
+    from foley_tpu_torch.ops.kernels.common import reset_launches
+
+    reset_launches(FA.fused_qk_attention)
+    reset_launches(FL.flash_attention)
+    return FA.fused_qk_attention, FL.flash_attention
+
+
+def _write_png(path: str, rgb, zlib_level: int = 1) -> None:
+    """An 8-bit RGB PNG with the standard library: scanline r filtered with type r % 5 (None,
+    Sub, Up, Average, Paeth), so every filter the reader undoes is in every frame."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, _ = rgb.shape
+    img = rgb.astype(np.int16)
+    left, up, upleft = (np.zeros_like(img) for _ in range(3))
+    left[:, 1:], up[1:], upleft[1:, 1:] = img[:, :-1], img[:-1], img[:-1, :-1]
+    pa, pb = np.abs(up - upleft), np.abs(left - upleft)
+    pc = np.abs(left + up - 2 * upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    preds = (np.zeros_like(img), left, up, (left + up) >> 1, paeth)
+    body = np.empty((h, 1 + 3 * w), np.uint8)
+    for r in range(h):
+        body[r, 0] = r % 5
+        body[r, 1:] = ((img[r] - preds[r % 5][r]) & 0xFF).astype(np.uint8).reshape(-1)
+
+    def chunk(kind, payload):
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(body.tobytes(), zlib_level)) + chunk(b"IEND", b""))
+
+
+def _random_xxl(torch, dev, config, perturb):
+    """``HunyuanModelLoader.init_random`` in bf16 from seed 0: what the CLI
+    (``--random_init_perturb``) and the server build."""
+    from foley_tpu_torch.api import nodes
+
+    return nodes.HunyuanModelLoader.init_random(config, "bf16", 0, perturb=perturb, device=dev)
+
+
+def _stub_server(srv_mod, argv):
+    """``serving.server.main(argv)`` with the HTTP server replaced: returns the service."""
+    served = {}
+
+    class NoServer:
+        def serve_forever(self):
+            pass
+
+    original = srv_mod.create_server
+    srv_mod.create_server = lambda service, host, port: served.setdefault("svc", service) and (
+        NoServer())
+    try:
+        check(srv_mod.main(argv) == 0, f"server main {argv} failed")
+    finally:
+        srv_mod.create_server = original
+    return served["svc"]
+
+
+def _wav_samples(path):
+    import wave
+
+    import numpy as np
+
+    with wave.open(path) as f:
+        check((f.getframerate(), f.getnchannels(), f.getsampwidth()) == (48000, 1, 2),
+              f"WAV {f.getparams()}")
+        return np.frombuffer(f.readframes(f.getnframes()), "<i2")
+
+
+def configs_phase(torch, dev, model, pipeline_cfg):
+    """The joint attention off K1's precondition at XXL bf16, 5 s shapes, on ``model``: the
+    exact interleave / rotate / decouple path (the plain route's tables: K1's decomposed
+    interleave tables dropped) and a ``use_attention_mask`` config with an all-true text
+    mask, both through the plain ``sdpa``, each held against the decomposed K1 forward on the
+    same weights and inputs (relative L2 within the forward's bf16 bound). K1 launches a
+    forward: 54 fused, 36 (the single blocks) on the plain route."""
+    import dataclasses
+
+    from foley_tpu_torch.models import mmdit
+
+    t_phase = time.perf_counter()
+    cfg = pipeline_cfg.model
+    args = _forward_args(torch, dev, pipeline_cfg)
+    audio_len, visual_len, text_len = args[0].shape[1], args[3].shape[1], args[2].shape[1]
+    k1, _ = _counts(torch)
+    out, launches = {}, {}
+    with torch.no_grad():
+        fused = model(*args)
+        launches["fused"] = k1.launches
+        k1.launches = 0
+        tables = model.attention_tables(audio_len, visual_len, text_len, dev)
+        exact = model(*args, tables=mmdit.AttentionTables(
+            ropes=tables.ropes._replace(audio_joint=None, visual_joint=None), joint_rope=None,
+            triple_norms=None, single_norms=tables.single_norms))
+        launches["exact_interleave"] = k1.launches
+        k1.launches = 0
+        model.cfg = dataclasses.replace(cfg, use_attention_mask=True)
+        try:
+            mask = torch.ones(args[2].shape[:2], dtype=torch.bool, device=dev)
+            masked = model(*args, cond_mask=mask)
+        finally:
+            model.cfg = cfg
+        launches["masked"] = k1.launches
+    torch.cuda.synchronize()
+    for name, got in (("exact_interleave", exact), ("masked_all_true", masked)):
+        out[name] = _rel_l2(got, fused)
+        check(bool(torch.isfinite(got).all()), f"configs {name}: non-finite velocity")
+        check(out[name] <= FORWARD_REL_TOL, f"configs {name}: relative L2 {out[name]} from "
+              f"the K1 forward, limit {FORWARD_REL_TOL}")
+    n_single = cfg.depth_single_blocks
+    check(launches == {"fused": n_single + cfg.depth_triple_blocks,
+                       "exact_interleave": n_single, "masked": n_single},
+          f"configs: K1 launches {launches}")
+    emit({"phase": "configs", "rel_l2_vs_k1": out, "tol": FORWARD_REL_TOL,
+          "k1_launches": launches, "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def video_ingest_phase(torch, dev, foley_model, dac, pipeline_cfg, config="xxl"):
+    """V2A from a directory of PNG frames: 125 frames of the 25 fps 1280x720 clip written with
+    the standard library (every scanline filter in every frame), read back equal to the clip
+    (the decode's seconds and peak device memory); then through ``cli.main --single_video
+    DIR --frames_fps 25 --random_init xxl --random_init_perturb`` (its WAV equal to the sampler node's on the
+    same model, encoders, clip and seed, bit for bit), the server's ``frames_path``
+    (``--random_init xxl --enable_v2a``; its visual features equal to the same encoders' on
+    the clip) and ``standalone.feature_process(DIR)`` (the features equal, then one
+    ``denoise_process``): 2,700 K1 and 12 K2 launches a request. A ``.mp4`` raises, naming
+    ffmpeg and PyAV (the card's machine has neither). Returns {surface: (K1, K2)} and the
+    frames directory."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from foley_tpu_torch import cli
+    from foley_tpu_torch.api import nodes
+    from foley_tpu_torch.configs import ClapTextConfig
+    from foley_tpu_torch.io.native import float_to_pcm16
+    from foley_tpu_torch.models import clap, siglip2, synchformer
+    from foley_tpu_torch.pipeline import features, standalone, video
+    from foley_tpu_torch.pipeline.manager import OffloadModelManager
+    from foley_tpu_torch.serving import server as srv_mod
+
+    t_phase = time.perf_counter()
+    cfg = pipeline_cfg.model
+    per_k1 = STEPS * (cfg.depth_triple_blocks + cfg.depth_single_blocks)
+    frames_dir = "build/chip_smoke/frames_720p"
+    shutil.rmtree(frames_dir, ignore_errors=True)
+    os.makedirs(frames_dir)
+    clip_u8 = make_clip(np, 1, DURATION_S, CLIP_HW)
+    t0 = time.perf_counter()
+    for i, frame in enumerate(clip_u8):
+        _write_png(os.path.join(frames_dir, f"frame_{i + 1}.png"), frame)
+    write_s = time.perf_counter() - t0
+    clip = clip_u8.astype(np.float32) / 255.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    frames, fps = video.read_frames_dir(frames_dir, fps=float(CLIP_FPS), device=dev)
+    decode_s = time.perf_counter() - t0
+    decode_peak_bytes = torch.cuda.max_memory_allocated() - resident
+    check(fps == CLIP_FPS and np.array_equal(frames, clip),
+          "the PNG frames read back differ from the clip")
+    launches = {}
+
+    # the command line, against the sampler node on the same model, encoders, clip and seed
+    wav_path = "build/chip_smoke/video_cli.wav"
+    k1, k2 = _counts(torch)
+    t0 = time.perf_counter()
+    rc = cli.main(["--random_init", config, "--random_init_perturb", "--single_video",
+                   frames_dir, "--frames_fps", str(CLIP_FPS), "--duration", str(DURATION_S),
+                   "--num_inference_steps", str(STEPS), "--guidance_scale", str(GUIDANCE),
+                   "--device", dev.type, "--output", wav_path])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    check(rc == 0, f"cli --single_video exited {rc}")
+    launches["cli"] = (k1.launches, k2.launches)
+    deps = {"dac_params": dac, "dac_cfg": pipeline_cfg.dac,
+            "siglip2": siglip2.init_random(2, cfg.clip_dim, device=dev),
+            "synchformer": synchformer.init_random(3, cfg.sync_feat_dim, device=dev)}
+    audio, _ = nodes.HunyuanFoleySampler().generate_audio(
+        foley_model, deps, frame_rate=float(CLIP_FPS), image=clip, duration=DURATION_S,
+        prompt="", negative_prompt="noisy, harsh", cfg_scale=GUIDANCE, steps=STEPS,
+        sampler="euler", batch_size=1, seed=0, force_offload=False, allow_unconditioned=True)
+    ref = float_to_pcm16(np.asarray(audio["waveform"])[0, 0])
+    got = _wav_samples(wav_path)
+    os.remove(wav_path)
+    check(np.array_equal(got, ref), f"cli V2A WAV differs from the sampler node's: max "
+          f"{int(np.abs(got.astype(np.int32) - ref).max())} steps")
+
+    # the server's frames_path
+    svc = _stub_server(srv_mod, ["--random_init", config, "--enable_v2a", "--device", dev.type,
+                                 "--durations", str(DURATION_S), "--warmup_steps", "1"])
+    body = {"frames_path": frames_dir, "frames_fps": float(CLIP_FPS), "duration": DURATION_S,
+            "steps": STEPS, "cfg_scale": GUIDANCE, "seed": 0}
+    path_feats = svc._visual_features(body, DURATION_S)
+    clip_feats = features.encode_video(svc.video_encoders, clip, CLIP_FPS, DURATION_S,
+                                       pipeline_cfg)
+    check(all(torch.equal(a, b) for a, b in zip(path_feats, clip_feats)),
+          "frames_path features differ from the clip's")
+    k1, k2 = _counts(torch)
+    t0 = time.perf_counter()
+    served = svc.generate(dict(body))
+    torch.cuda.synchronize()
+    server_s = time.perf_counter() - t0
+    launches["server"] = (k1.launches, k2.launches)
+    check(np.abs(served["waveform"]).max() > 0, "silent frames_path response")
+    del svc, served, path_feats, clip_feats
+    torch.cuda.empty_cache()
+
+    # standalone.feature_process on the directory, then denoise_process
+    manager = OffloadModelManager(policy="drop")
+    manager.pipeline_cfg, manager.device = pipeline_cfg, dev
+    manager.register("foley", lambda: foley_model)
+    manager.register("dac", lambda: {"params": dac, "cfg": pipeline_cfg.dac})
+    manager.register("siglip2", lambda: deps["siglip2"])
+    manager.register("synchformer", lambda: deps["synchformer"])
+    ccfg = ClapTextConfig()
+    manager.register("clap", lambda: clap.ClapTextEncoder(
+        clap.init(ccfg, torch.Generator(device=dev).manual_seed(5), device=dev),
+        SeededTokenizer(ccfg.vocab_size, ccfg.pad_token_id)))
+    k1, k2 = _counts(torch)
+    t0 = time.perf_counter()
+    vis, text, length = standalone.feature_process(frames_dir, PROMPT, manager,
+                                                   duration_s=DURATION_S)
+    out, _ = standalone.denoise_process(vis, text, length, manager, guidance_scale=GUIDANCE,
+                                        num_inference_steps=STEPS, seed=0)
+    torch.cuda.synchronize()
+    fp_s = time.perf_counter() - t0
+    launches["feature_process"] = (k1.launches, k2.launches)
+    # feature_process declares a directory's frames at 16 fps, as the JAX package does
+    f8 = features.resample_frames(clip, 16.0, DURATION_S, pipeline_cfg.siglip2_fps)
+    f25 = features.resample_frames(clip, 16.0, DURATION_S, pipeline_cfg.synchformer_fps)
+    check(torch.equal(vis["siglip2_feat"], deps["siglip2"].encode(f8))
+          and torch.equal(vis["syncformer_feat"],
+                          synchformer.encode_segments(deps["synchformer"], f25)),
+          "feature_process features differ from the clip's")
+    check(np.abs(out).max() > 0 and out.shape == (1, 1, int(length * 48000)),
+          f"feature_process audio {out.shape}")
+    for name, (n1, n2) in launches.items():
+        check(n1 == per_k1 and n2 == deps["siglip2"].cfg.num_hidden_layers,
+              f"video_ingest {name}: K1 {n1}, K2 {n2}")
+    try:
+        video.read_video_frames("build/chip_smoke/clip.mp4", device=dev)
+        raise AssertionError("unreachable")
+    except RuntimeError as e:
+        check("ffmpeg" in str(e) and "PyAV" in str(e), f".mp4 raised {e}")
+        mp4_error = str(e)
+    emit({"phase": "video_ingest", "frames": int(frames.shape[0]), "hw": list(CLIP_HW),
+          "png_write_s": write_s, "png_bytes": sum(os.path.getsize(os.path.join(frames_dir, n))
+                                                   for n in os.listdir(frames_dir)),
+          "decode_s": decode_s, "decode_peak_bytes": decode_peak_bytes, "cli_wall_s": cli_s,
+          "server_request_s": server_s,
+          "feature_process_request_s": fp_s, "launches_k1_k2": launches,
+          "mp4_error": mp4_error, "phase_seconds": time.perf_counter() - t_phase})
+    return launches, frames_dir
+
+
+def _lora_adapter(torch, model, rank: int, seed: int) -> dict:
+    """A rank-``rank`` adapter over ``models/lora.py::DEFAULT_TARGETS`` for ``model``'s
+    blocks, in the JAX tree's flat names and layouts: ``a`` Kaiming-uniform over the fan-in
+    (the JAX ``init_lora``'s), ``b`` normal(0.02), not zero, drawn on the CPU from ``seed``."""
+    from foley_tpu_torch.models.lora import DEFAULT_TARGETS, FAMILIES
+    from foley_tpu_torch.ops.nn import QuantizableWeight
+
+    g = torch.Generator().manual_seed(seed)
+    adapter = {}
+    for family in FAMILIES:
+        blocks = getattr(model, family)
+        for path, m in blocks[0].named_modules():
+            if not (isinstance(m, QuantizableWeight)
+                    and any(p in DEFAULT_TARGETS for p in path.split("."))):
+                continue
+            n, w = len(blocks), m.weight
+            taps = () if w.ndim == 2 else (w.shape[2],)
+            fan_in = w.shape[1] * (taps[0] if taps else 1)
+            a = (torch.rand(n, *taps, w.shape[1], rank, generator=g) * 2 - 1) * fan_in ** -0.5
+            adapter[f"{family}.{path}.a"] = a
+            adapter[f"{family}.{path}.b"] = torch.randn(n, *taps, rank, w.shape[0],
+                                                        generator=g) * 0.02
+    return adapter
+
+
+def lora_phase(torch, dev, foley_model, dac, pipeline_cfg, config="xxl"):
+    """LoRA merge at load at XXL: a rank-16 adapter over the default targets (``b`` not
+    zero) written by ``models/lora.py::save_lora`` (meta scale 0.5). On ``foley_model`` (the
+    CLI's ``--random_init xxl --random_init_perturb`` model): a 5 s T2A request on the base
+    weights, the merge at scale 0 (the same latents), the merge at scale 0.5 (its seconds;
+    one triple and one single block merged on the CPU equal the card's bit for bit) and a
+    request; then ``cli.main --random_init xxl --random_init_perturb --lora`` and the
+    server's ``main --random_init xxl --lora``, each one request: their merged weights equal
+    the in-process merge's bit for bit (the server's model is not perturbed, which touches
+    no adapted weight); last a request with the merged model in int8. 2,700 K1 launches a
+    request. Returns the K1 launches by request and the WAV of the merged request."""
+    import copy
+    import os
+
+    import numpy as np
+
+    from foley_tpu_torch import cli
+    from foley_tpu_torch.api import nodes
+    from foley_tpu_torch.io.audio import write_wav
+    from foley_tpu_torch.models import lora
+    from foley_tpu_torch.pipeline.generate import ModelBundle
+    from foley_tpu_torch.serving import server as srv_mod
+
+    t_phase = time.perf_counter()
+    model = foley_model["params"]
+    adapter_dir = "build/chip_smoke/lora_xxl"
+    t0 = time.perf_counter()
+    lora.save_lora(adapter_dir, _lora_adapter(torch, model, LORA_RANK, 7), LORA_RANK,
+                   LORA_META_SCALE)
+    write_s = time.perf_counter() - t0
+    adapter_bytes = sum(os.path.getsize(os.path.join(adapter_dir, n))
+                        for n in os.listdir(adapter_dir))
+    adapter, meta_scale = lora.load_lora(adapter_dir)
+    check(meta_scale == LORA_META_SCALE, f"meta scale {meta_scale}")
+    bundle = ModelBundle(model, dac, pipeline_cfg, compute_dtype=torch.bfloat16)
+    k1_by_request = {}
+    base, res_base = _request(torch, dev, bundle, pipeline_cfg)
+    k1_by_request["base"] = base["k1_launches"]
+    cpu_blocks = torch.nn.Module()
+    cpu_blocks.triple_blocks = torch.nn.ModuleList([copy.deepcopy(model.triple_blocks[0]).cpu()])
+    cpu_blocks.single_blocks = torch.nn.ModuleList([copy.deepcopy(model.single_blocks[0]).cpu()])
+    cpu_blocks.block_swap = None
+    lora.merge_lora(model, adapter, 0.0)
+    zero, res_zero = _request(torch, dev, bundle, pipeline_cfg)
+    k1_by_request["scale_0"] = zero["k1_launches"]
+    check(torch.equal(torch.as_tensor(res_zero.latents), torch.as_tensor(res_base.latents)),
+          "lora_scale 0: latents differ from the base model's")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_merged = lora.merge_lora(model, adapter, meta_scale)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    lora.merge_lora(cpu_blocks, {k: v[:1] for k, v in adapter.items()}, meta_scale)
+    for fam in lora.FAMILIES:
+        card = getattr(model, fam)[0].state_dict()
+        for k, v in getattr(cpu_blocks, fam)[0].state_dict().items():
+            check(torch.equal(card[k].cpu(), v), f"{fam}[0].{k}: card merge != CPU merge")
+    merged, res_merged = _request(torch, dev, bundle, pipeline_cfg)
+    k1_by_request["merged"] = merged["k1_launches"]
+    check(_rel_l2(torch.as_tensor(res_merged.latents), torch.as_tensor(res_base.latents))
+          > 0, "the adapter did not move the latents")
+    wav_path = "build/chip_smoke/lora_t2a.wav"
+    write_wav(wav_path, res_merged.audio_first[0], pipeline_cfg.dac.sample_rate)
+    adapted = []  # "triple_blocks.<i>.<path>.weight" of every adapted weight
+    for name in adapter:
+        if name.endswith(".a"):
+            fam, _, path = name[:-2].partition(".")
+            adapted += [f"{fam}.{i}.{path}.weight" for i in range(len(getattr(model, fam)))]
+    ref = model.state_dict()
+
+    def same_merge(other, keys, name):
+        got = other.state_dict()
+        for k in keys:
+            check(torch.equal(got[k], ref[k]), f"{name}: {k} differs from the in-process merge")
+
+    # the command line: capture its model at the sampler
+    seen = {}
+    original = nodes.HunyuanFoleySampler.generate_audio
+
+    def capture(self, fm, *a, **k):
+        seen["model"] = fm["params"]
+        return original(self, fm, *a, **k)
+
+    nodes.HunyuanFoleySampler.generate_audio = capture
+    k1, _ = _counts(torch)
+    path = "build/chip_smoke/lora_cli.wav"
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(["--random_init", config, "--random_init_perturb", "--lora", adapter_dir,
+                       "--duration", str(DURATION_S), "--num_inference_steps", str(STEPS),
+                       "--guidance_scale", str(GUIDANCE), "--device", dev.type, "--output", path])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    finally:
+        nodes.HunyuanFoleySampler.generate_audio = original
+    check(rc == 0, f"cli --lora exited {rc}")
+    k1_by_request["cli"] = k1.launches
+    check(np.abs(_wav_samples(path)).max() > 0, "cli --lora: silent WAV")
+    os.remove(path)
+    same_merge(seen.pop("model"), ref.keys(), "cli --lora")
+    torch.cuda.empty_cache()
+
+    svc = _stub_server(srv_mod, ["--random_init", config, "--lora", adapter_dir, "--device",
+                                 dev.type, "--durations", str(DURATION_S), "--warmup_steps", "1"])
+    same_merge(svc.bundle.mmdit, adapted, "server --lora")
+    k1, _ = _counts(torch)
+    t0 = time.perf_counter()
+    out = svc.generate({"duration": DURATION_S, "steps": STEPS, "cfg_scale": GUIDANCE,
+                        "seed": 0})
+    torch.cuda.synchronize()
+    server_s = time.perf_counter() - t0
+    k1_by_request["server"] = k1.launches
+    check(out["waveform"].shape == (1, int(DURATION_S * 48000)), "server --lora response")
+    del svc, out
+    torch.cuda.empty_cache()
+
+    nodes.quantize_model(model, "int8")
+    int8, _ = _request(torch, dev, bundle, pipeline_cfg)
+    k1_by_request["merged_int8"] = int8["k1_launches"]
+    per_k1 = STEPS * (pipeline_cfg.model.depth_triple_blocks
+                      + pipeline_cfg.model.depth_single_blocks)
+    check(all(n == per_k1 for n in k1_by_request.values()), f"lora K1 {k1_by_request}")
+    emit({"phase": "lora", "rank": LORA_RANK, "adapter_bytes": adapter_bytes,
+          "adapter_write_s": write_s, "weights_merged": n_merged, "merge_s": merge_s,
+          "scale": meta_scale, "request_wall_s": {"base": base["wall_s"],
+                                                  "merged": merged["wall_s"],
+                                                  "merged_int8": int8["wall_s"]},
+          "cli_wall_s": cli_s, "server_request_s": server_s, "k1_launches": k1_by_request,
+          "latent_rel_l2_merged_vs_base": _rel_l2(torch.as_tensor(res_merged.latents),
+                                                  torch.as_tensor(res_base.latents)),
+          "phase_seconds": time.perf_counter() - t_phase})
+    return k1_by_request, wav_path
+
+
+def desync_phase(torch, dev, frames_dir: str, wav_path: str):
+    """The AV desync scorer at its real widths (Synchformer ``divided_224_16x4``, AST base,
+    the 3-layer head), random weights written as a reference-layout checkpoint
+    (``sync_scorer.random_checkpoint``): ``cli.main --desync_score --single_video DIR
+    --audio_input WAV`` on the ``video_ingest`` frames and the ``lora`` request's WAV (the
+    offset on the 21-class grid, the seconds); the logits on the card finite, and within
+    ``DESYNC_REL_TOL`` of the same scorer on the CPU on the whole clip (every segment)."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+
+    from foley_tpu_torch import cli
+    from foley_tpu_torch.io.audio import read_wav
+    from foley_tpu_torch.io.convert import save_safetensors
+    from foley_tpu_torch.models import sync_scorer
+    from foley_tpu_torch.pipeline import video
+
+    t_phase = time.perf_counter()
+    ckpt_dir = "build/chip_smoke/desync"
+    os.makedirs(ckpt_dir, exist_ok=True)
+    ckpt = os.path.join(ckpt_dir, "synchformer_state_dict.safetensors")
+    t0 = time.perf_counter()
+    save_safetensors(ckpt, sync_scorer.random_checkpoint(13))
+    ckpt_s = time.perf_counter() - t0
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        rc = cli.main(["--desync_score", "--single_video", frames_dir, "--frames_fps",
+                       str(CLIP_FPS), "--audio_input", wav_path, "--model_path", ckpt_dir,
+                       "--device", dev.type])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    line = stdout.getvalue().strip().splitlines()[-1]
+    check(rc == 0 and line.startswith("predicted AV offset: "), f"--desync_score: {rc} {line}")
+    offset = float(line.split(": ")[1].split()[0])
+    check(bool(np.isclose(sync_scorer.make_class_grid(), offset, atol=5e-3).any()),
+          f"offset {offset} is not on the class grid")
+    scorer = sync_scorer.load_desync_scorer(ckpt, dev)
+    frames, _ = video.read_video_frames(frames_dir, target_fps=25, dir_fps=float(CLIP_FPS),
+                                        device=dev)
+    wav, _ = read_wav(wav_path, target_sr=16000)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = scorer.logits(frames, wav)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (1, 21),
+          f"logits {tuple(logits.shape)}")
+    check(abs(float(sync_scorer.predicted_offset_seconds(logits)[0]) - offset) < 5e-3,
+          "the CLI's offset differs from the scorer's")
+    del scorer
+    t0 = time.perf_counter()
+    cpu = sync_scorer.load_desync_scorer(ckpt, "cpu").logits(frames, wav)
+    cpu_s = time.perf_counter() - t0
+    rel = _rel_l2(logits.cpu(), cpu)
+    check(rel <= DESYNC_REL_TOL, f"desync logits {rel} from the CPU's, limit {DESYNC_REL_TOL}")
+    os.remove(ckpt)
+    emit({"phase": "desync", "offset_s": offset, "cli_wall_s": cli_s, "score_s": score_s,
+          "checkpoint_write_s": ckpt_s, "logits": logits[0].tolist(),
+          "rel_l2_vs_cpu": rel, "rel_tol": DESYNC_REL_TOL, "cpu_load_and_score_s": cpu_s,
+          "phase_seconds": time.perf_counter() - t_phase})
+
+
 def card_line() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2004,6 +2544,17 @@ def main() -> int:
     encode_k2 = precision_phase(torch, dev, XXL)
     cli_k1 = cli_phase(torch, dev, XXL)
 
+    t_new = time.perf_counter()
+    foley_model = _random_xxl(torch, dev, "xxl", perturb=True)  # the CLI's model, seed 0
+    dac = dac_vae.init(XXL.dac, torch.Generator(device=dev).manual_seed(1), device=dev)
+    configs_k1 = configs_phase(torch, dev, foley_model["params"], XXL)
+    video_launches, frames_dir = video_ingest_phase(torch, dev, foley_model, dac, XXL)
+    lora_k1, lora_wav = lora_phase(torch, dev, foley_model, dac, XXL)
+    del foley_model, dac
+    torch.cuda.empty_cache()
+    desync_phase(torch, dev, frames_dir, lora_wav)
+    emit({"phase": "rest_of_inference", "seconds": time.perf_counter() - t_new})
+
     # per-launch figures weighted by the main path's mix: each step runs one joint call per
     # triple block and one single call per single block
     mix = {"joint_5s": cfg.depth_triple_blocks, "single_5s": cfg.depth_single_blocks}
@@ -2045,6 +2596,9 @@ def main() -> int:
         "launches": launches, "launches_longform": long_k1,
         "launches_serving": serving_k1, "launches_quant": quant_k1,
         "launches_block_swap": swap_k1, "launches_cli_int8_swap30": cli_k1["int8_swap30"],
+        "launches_lora": lora_k1,
+        "launches_video_ingest": {k: v[0] for k, v in video_launches.items()},
+        "launches_configs_forward": configs_k1,
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
         "ms": avg("kernel_ms"), "plain_ms": avg("plain_ms"), "bound_ms": k1_bound["bound_ms"],
         "bound_by": k1_bound["bound_by"],
@@ -2055,6 +2609,7 @@ def main() -> int:
         "replaces": "foley_tpu/ops/pallas/flash_attention.py:60",
         "launches": flash_launches, "launches_longform": long_k2,
         "launches_serving": serving_k2,
+        "launches_video_ingest_server": video_launches["server"][1],
         "max_abs_err": max(r["max_abs_err"] for r in flash.values()),
         "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
@@ -2079,8 +2634,12 @@ def main() -> int:
                 "foley_tpu/ops/pallas/fused_attention.py:82", cli_k1["fp32"]),
         variant("flash_attention", "fp16", "foley_tpu_torch/csrc/flash_attention.cu",
                 "foley_tpu/ops/pallas/flash_attention.py:60", encode_k2["fp16"]),
-        variant("flash_attention", "fp32", "foley_tpu_torch/csrc/attention_f32.cu",
-                "foley_tpu/ops/pallas/flash_attention.py:60", encode_k2["fp32"]),
+        dict(variant("flash_attention", "fp32", "foley_tpu_torch/csrc/attention_f32.cu",
+                     "foley_tpu/ops/pallas/flash_attention.py:60", encode_k2["fp32"]),
+             # the CLI's and feature_process's random-init encoders are fp32, as in the JAX
+             # package
+             launches_video_ingest={k: v[1] for k, v in video_launches.items()
+                                    if k != "server"}),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -19,8 +19,9 @@ The public surface mirrors the JAX package's lazy exports (the reference's re-ex
 ``hunyuanvideo_foley/__init__.py:15-18``): ``load_model`` / ``feature_process`` /
 ``denoise_process`` (``pipeline/standalone.py``), ``AttributeDict``
 (``utils/config_utils.py``) and the nodes' ``NODE_CLASS_MAPPINGS`` /
-``NODE_DISPLAY_NAME_MAPPINGS``. ``merge_audio_video`` (``io/audio.py``) raises: muxing needs
-ffmpeg (ROADMAP item 13). The command line is ``python -m foley_tpu_torch.cli``; the ComfyUI
+``NODE_DISPLAY_NAME_MAPPINGS``. ``merge_audio_video`` (``io/audio.py``) muxes onto a video
+file with ffmpeg (a frames directory's AVI needs PIL, which the card's machine has not, and
+raises). The command line is ``python -m foley_tpu_torch.cli``; the ComfyUI
 node pack is ``foley_tpu_torch/comfyui``.
 """
 

@@ -26,9 +26,13 @@ Mapping of the JAX package's mechanisms:
   streams them through ``prefetch_blocks + 1`` device slots a family
   (``parallel/offload.py``); the split persists on the model, ``blocks_to_swap=0`` merges
   it back, and ``force_offload`` leaves the swapped blocks in host memory;
-- LoRA raises: an adapter comes only from the JAX package's training loop, stored through
-  orbax (ROADMAP item 13, with training); so does the orbax directory route, which is JAX
-  only.
+- ``lora_path`` names an adapter directory in the port's format (``models/lora.py``:
+  ``lora.safetensors`` + ``lora_meta.json``; ``tools/lora_to_safetensors.py`` converts an
+  orbax adapter of the JAX package), merged after the precision cast and before any
+  quantization, with ``lora_meta.json``'s scale multiplying the widget's;
+- still refused: the orbax directory route of the model loader (orbax is the JAX package's
+  storage and is not on the card's machine) and ``video_preprocess="pil"`` (PIL is not on
+  the card's machine either; the port resizes frames on the device).
 """
 
 from __future__ import annotations
@@ -73,8 +77,6 @@ logger = logging.getLogger("foley_tpu_torch")
 
 SOLVERS = ["euler", "heun-2", "midpoint-2", "kutta-4"]
 DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16, "fp32": torch.float32}
-LORA_REFUSAL = ("LoRA merge at load: not ported yet (ROADMAP item 13: an adapter comes only "
-                "from the JAX package's training loop, stored through orbax)")
 
 
 def resolve_dtype(precision: str) -> torch.dtype:
@@ -89,12 +91,38 @@ def _check_quantization(quantization: str) -> None:
                          f"{MODES}")
 
 
+def _merge_lora_if_given(model: mmdit.MMDiT, lora_path: str, lora_scale: float) -> None:
+    """Fold an adapter into the loaded weights in place (``models/lora.py::merge_lora``), after
+    the precision cast and before any quantization or block swap, as the JAX loader does; the
+    adapter's ``lora_meta.json`` scale multiplies ``lora_scale``."""
+    if not lora_path:
+        return
+    from foley_tpu_torch.models.lora import load_lora, merge_lora
+
+    adapter, meta_scale = load_lora(lora_path)
+    scale = float(lora_scale) * meta_scale
+    merge_lora(model, adapter, scale)
+    logger.info(f"LoRA merged from {lora_path} (scale {scale:g})")
+
+
 def quantize_model(model: mmdit.MMDiT, mode: str) -> None:
     """Quantize the denoiser in place (``io/quantize.py``) and log the counts and the GiB
     saved."""
     counts, saved = quantize_params(model, mode)
     logger.info(f"{mode} wrap: {counts['quantized']} weights quantized, "
                 f"{saved / 2**30:.2f} GiB saved")
+
+
+def adapt_random_model(model: mmdit.MMDiT, lora_path: str, lora_scale: float,
+                       quantization: str) -> None:
+    """The checkpoint-free route's merge and quantization (the CLI's and the server's
+    ``--random_init``), as the JAX CLI does them: the adapter merges into the initialized
+    weights, then ``quantization`` other than ``none`` and ``auto`` (which reads a
+    checkpoint's type: there is none) quantizes."""
+    _check_quantization(quantization)
+    _merge_lora_if_given(model, lora_path, lora_scale)
+    if quantization not in ("none", "auto"):
+        quantize_model(model, quantization)
 
 
 class HunyuanModelLoader:
@@ -125,8 +153,6 @@ class HunyuanModelLoader:
                    lora_path: str = "", lora_scale: float = 1.0,
                    device: DeviceLike = None):
         _check_quantization(quantization)
-        if lora_path:
-            raise NotImplementedError(LORA_REFUSAL)
         if os.path.isdir(model_name):
             raise NotImplementedError(
                 f"{model_name} is a directory: the pre-converted orbax route is the JAX "
@@ -143,6 +169,7 @@ class HunyuanModelLoader:
         state = convert_mmdit_state_dict(sd, cfg.model, consume=True)
         # fp8 tensors keep their bits; the precision cast takes the rest
         model = module_from_state_dict(mmdit.MMDiT, state, cfg.model, dev, dtype)
+        _merge_lora_if_given(model, lora_path, lora_scale)
         if quantization != "none":
             quantize_model(model, (ckpt_fp8 or "fp8_e4m3fn") if quantization == "auto"
                            else quantization)
@@ -152,14 +179,10 @@ class HunyuanModelLoader:
 
     @staticmethod
     def init_random(config: str = "tiny", precision: str = "bf16", seed: int = 0,
-                    perturb: bool = False, device: DeviceLike = None,
-                    quantization: str = "none"):
+                    perturb: bool = False, device: DeviceLike = None):
         """A randomly initialized FOLEY_MODEL (tests and benchmarks, no checkpoint).
         ``perturb`` gives the zero-initialized leaves small random values, so the model
-        emits a real velocity (``core/params.py::perturb_zero_leaves``). ``quantization``
-        other than ``none`` and ``auto`` (which reads a checkpoint's type: there is none)
-        quantizes after the perturbation, as the JAX CLI's random-init route does."""
-        _check_quantization(quantization)
+        emits a real velocity (``core/params.py::perturb_zero_leaves``)."""
         dev = resolve_device(device)
         cfg = get_config(config)
         dtype = resolve_dtype(precision)
@@ -167,8 +190,6 @@ class HunyuanModelLoader:
                            device=dev, dtype=dtype)
         if perturb:
             perturb_zero_leaves(model, torch.Generator(device=dev).manual_seed(int(seed) + 1))
-        if quantization not in ("none", "auto"):
-            quantize_model(model, quantization)
         return {"params": model, "cfg": cfg, "dtype": dtype}
 
 
@@ -194,8 +215,8 @@ class HunyuanDependenciesLoader:
                 "clap_tokenizer": ("STRING", {"default": ""}),
                 "video_preprocess": (["device", "pil"], {
                     "default": "device",
-                    "tooltip": "V2A frame resize on the card (the port's only route; PIL's "
-                               "waits for ROADMAP item 13)"}),
+                    "tooltip": "V2A frame resize on the card (the port's only route: the "
+                               "card's machine has no PIL)"}),
             },
         }
 
@@ -213,8 +234,8 @@ class HunyuanDependenciesLoader:
 
         if video_preprocess != "device":
             raise NotImplementedError(
-                f"video_preprocess={video_preprocess!r}: the PIL route needs PIL (ROADMAP "
-                "item 13); the port resizes frames on the device")
+                f"video_preprocess={video_preprocess!r}: the PIL route needs PIL, which the "
+                "card's machine has not; the port resizes frames on the device")
         dev = resolve_device(device)
         dtype = resolve_dtype(precision)
         sd = load_torch_state_dict(vae_model)

@@ -12,9 +12,14 @@ Examples:
         --duration 1 --num_inference_steps 10 --precision fp32 --output /tmp/t2a.wav
 
 Routes: text-to-audio through the sampler node (``--duration`` past the config's cap runs in
-windows), SDEdit (``--audio_input``), continuation (``--continue_audio``), the PCM stream
-(``--stream_pcm``, T2A and continuation, ``--first_window``), ``--csv_path`` batches and
-``--gradio`` (the HTTP server, ``serving/server.py``). ``--precision`` takes bf16, fp16 and
+windows), video-to-audio (``--single_video``: a directory of PNG frames, read without PIL,
+or a video file through ffmpeg; ``--merge_video`` muxes the result onto a video file with
+ffmpeg), SDEdit (``--audio_input``), continuation (``--continue_audio``), the PCM stream
+(``--stream_pcm``: T2A, V2A and continuation, ``--first_window``), ``--csv_path`` batches,
+the AV desync score of a video's audio (``--desync_score``) and ``--gradio`` (the HTTP
+server, ``serving/server.py``). ``--lora DIR`` merges an adapter in the port's format
+(``models/lora.py``; ``tools/lora_to_safetensors.py`` converts the JAX package's orbax
+adapters) into the denoiser at load, before any ``--quantization``. ``--precision`` takes bf16, fp16 and
 fp32 on the card (each has its K1 / K2 kernels); with ``--model_path``, bf16 means the
 checkpoint's own dtype (``auto``), as in the JAX package.
 
@@ -27,11 +32,12 @@ host memory, streamed through ``--prefetch_blocks + 1`` device slots a block fam
     python -m foley_tpu_torch.cli --random_init xxl --random_init_perturb \
         --quantization int8 --blocks_to_swap 30 --prefetch_blocks 1 --output out.wav
 
-Refused, exit code 2 and a message naming the ROADMAP item: ``--prefetch_blocks`` without
-``--blocks_to_swap``; ``--lora``, ``--single_video``, a CSV row with a video,
-``--merge_video``, ``--desync_score``, ``--v2a_preprocess pil`` and ``--mesh`` (item 13: an
-adapter comes only from the JAX package's training loop, video files need PIL, ffmpeg or
-PyAV, which the card's machine has not, and multi-card serving is not ported).
+Refused, exit code 2 and a message saying why: ``--prefetch_blocks`` without
+``--blocks_to_swap``; ``--v2a_preprocess pil`` and ``--merge_video`` onto a frames
+directory (PIL: the frame resize of the reference, and the JPEG frames of the AVI the JAX
+package writes there; the card's machine has no PIL); ``--mesh`` (multi-card serving,
+ROADMAP item 13h). A video file needs ffmpeg on ``PATH`` (the JAX package's PyAV route is
+not ported), and JPEG frames or an MJPEG AVI's frames need PIL: those raise when read.
 """
 
 from __future__ import annotations
@@ -41,10 +47,11 @@ import logging
 import os
 import sys
 import time
+from typing import Optional
 
 logger = logging.getLogger("foley_tpu_torch")
 
-_ITEM13 = "not ported yet (ROADMAP item 13: video files need PIL, ffmpeg or PyAV)"
+_NO_PIL = "needs PIL, which the card's machine has not"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,11 +71,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--single_prompt", type=str, default="")
     p.add_argument("--neg_prompt", type=str, default="noisy, harsh")
     p.add_argument("--single_video", type=str, default=None,
-                   help=f"Video file or frames directory for V2A: {_ITEM13}")
+                   help="Video file (ffmpeg) or directory of PNG frames for V2A")
     p.add_argument("--frames_fps", type=float, default=16.0,
                    help="Frame rate declared for --single_video when it is a frames directory")
     p.add_argument("--csv_path", type=str, default=None,
-                   help="Batch CSV: video_path,prompt (rows without a video)")
+                   help="Batch CSV: video_path,prompt")
     p.add_argument("--duration", type=float, default=5.0)
     p.add_argument("--guidance_scale", type=float, default=4.5)
     p.add_argument("--num_inference_steps", type=int, default=50)
@@ -89,20 +96,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefetch_blocks", type=int, default=0,
                    help="extra swapped-block copies in flight (device window = N+1)")
     p.add_argument("--lora", type=str, default=None, metavar="DIR",
-                   help="LoRA adapter merged at load: not ported yet (ROADMAP item 13)")
+                   help="LoRA adapter directory (lora.safetensors + lora_meta.json) merged "
+                        "into the denoiser at load (before any --quantization)")
     p.add_argument("--lora_scale", type=float, default=1.0,
                    help="multiplier on the adapter's own recommended scale; 0 disables")
     p.add_argument("--output", type=str, default="output.wav")
     p.add_argument("--merge_video", action="store_true",
-                   help=f"Mux generated audio onto --single_video with ffmpeg: {_ITEM13}")
+                   help="Mux generated audio onto --single_video (a video file) with ffmpeg")
     p.add_argument("--desync_score", action="store_true",
-                   help=f"Score AV sync of --single_video's own audio: {_ITEM13}")
+                   help="Score AV sync of --single_video's own audio (Synchformer offset head)")
     p.add_argument("--audio_input", type=str, default=None,
                    help="Edit an existing 48 kHz 16-bit WAV toward the prompt (SDEdit-style "
-                        "partial denoise)")
+                        "partial denoise); with --desync_score, the audio track to score "
+                        "against (no ffmpeg needed; required when --single_video is a frames "
+                        "dir)")
     p.add_argument("--v2a_preprocess", type=str, default="device", choices=["device", "pil"],
-                   help="V2A frame resize on the device (the port's only route; pil needs PIL, "
-                        "ROADMAP item 13)")
+                   help=f"V2A frame resize on the device (the port's only route; pil {_NO_PIL})")
     p.add_argument("--strength", type=float, default=0.6,
                    help="Edit strength in (0, 1]: fraction of the schedule to re-run")
     p.add_argument("--continue_audio", type=str, default=None, metavar="WAV",
@@ -130,26 +139,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="--gradio only: >1 enables request coalescing in the server")
     p.add_argument("--mesh", type=str, default="",
                    help="--gradio only: multi-card serving mesh: not ported yet (ROADMAP "
-                        "item 13)")
+                        "item 13h)")
     return p
 
 
 def _refusal(args) -> str:
-    """The first flag the port does not carry yet, as a message naming its ROADMAP item."""
-    if args.lora:
-        from foley_tpu_torch.api.nodes import LORA_REFUSAL
-
-        return f"--lora: {LORA_REFUSAL}"
+    """The first flag the port refuses, as a message saying why."""
     if args.mesh:
-        return "--mesh (multi-card serving): not ported yet (ROADMAP item 13)"
-    if args.single_video:
-        return f"--single_video {args.single_video!r}: {_ITEM13}"
-    if args.merge_video:
-        return f"--merge_video (ffmpeg): {_ITEM13}"
-    if args.desync_score:
-        return f"--desync_score (the sync scorer reads the video's own audio): {_ITEM13}"
+        return "--mesh (multi-card serving): not ported yet (ROADMAP item 13h)"
     if args.v2a_preprocess != "device":
-        return f"--v2a_preprocess {args.v2a_preprocess}: {_ITEM13}"
+        return f"--v2a_preprocess {args.v2a_preprocess}: the PIL resize {_NO_PIL}"
+    if args.merge_video and args.single_video and os.path.isdir(args.single_video):
+        return (f"--merge_video onto the frames directory {args.single_video!r}: its MJPEG "
+                f"AVI (each frame a JPEG) {_NO_PIL}; mux onto a video file with ffmpeg")
     return ""
 
 
@@ -191,6 +193,8 @@ def main(argv=None) -> int:
             serve_argv += ["--blocks_to_swap", str(args.blocks_to_swap)]
             if args.prefetch_blocks:
                 serve_argv += ["--prefetch_blocks", str(args.prefetch_blocks)]
+        if args.lora:
+            serve_argv += ["--lora", args.lora, "--lora_scale", str(args.lora_scale)]
         serve_argv += ["--device", args.device]
         if args.random_init:
             serve_argv += ["--random_init", args.random_init]
@@ -200,6 +204,9 @@ def main(argv=None) -> int:
             print("error: --gradio needs --model_path or --random_init", file=sys.stderr)
             return 2
         return serving_server.main(serve_argv)
+
+    if args.desync_score:
+        return _desync_score(args)
 
     if args.csv_path:
         return _process_batch(args)
@@ -211,6 +218,7 @@ def main(argv=None) -> int:
             HunyuanDependenciesLoader,
             HunyuanFoleySampler,
             HunyuanModelLoader,
+            adapt_random_model,
         )
         from foley_tpu_torch.core.device import resolve_device
         from foley_tpu_torch.io.audio import write_wav
@@ -224,11 +232,22 @@ def main(argv=None) -> int:
 
             foley_model = HunyuanModelLoader.init_random(
                 args.random_init, args.precision, args.seed, perturb=args.random_init_perturb,
-                device=dev, quantization=args.quantization)
+                device=dev)
+            adapt_random_model(foley_model["params"], args.lora, args.lora_scale,
+                               args.quantization)
             cfg = get_config(args.random_init)
             dac = dac_vae.init(cfg.dac, torch.Generator(device=dev).manual_seed(args.seed + 1),
                                device=dev)
             dependencies = {"dac_params": dac, "dac_cfg": cfg.dac}
+            if args.single_video:
+                # checkpoint-free V2A: random-weight encoders matched to the model's widths,
+                # fp32 as in the JAX CLI
+                from foley_tpu_torch.models import siglip2, synchformer
+
+                dependencies["siglip2"] = siglip2.init_random(
+                    args.seed + 2, cfg.model.clip_dim, device=dev)
+                dependencies["synchformer"] = synchformer.init_random(
+                    args.seed + 3, cfg.model.sync_feat_dim, device=dev)
         else:
             if not args.model_path:
                 print("error: provide --model_path or --random_init", file=sys.stderr)
@@ -237,7 +256,8 @@ def main(argv=None) -> int:
             (foley_model,) = HunyuanModelLoader().load_model(
                 os.path.join(mp, "hunyuanvideo_foley.safetensors"),
                 precision="auto" if args.precision == "bf16" else args.precision,
-                quantization=args.quantization, config=args.config, device=dev)
+                quantization=args.quantization, config=args.config,
+                lora_path=args.lora or "", lora_scale=args.lora_scale, device=dev)
             # encoders colocated under the model dir load automatically (clap/, siglip2/:
             # the layout pipeline/standalone.py uses); absent dirs are skipped
             clap_dir, siglip_dir = os.path.join(mp, "clap"), os.path.join(mp, "siglip2")
@@ -258,13 +278,23 @@ def main(argv=None) -> int:
         if args.audio_input:
             return _edit_audio(args, foley_model, dependencies)
 
+        image, fps = None, 16.0
+        if args.single_video:
+            from foley_tpu_torch.pipeline.video import read_video_frames
+
+            t_read = time.perf_counter()
+            image, fps = read_video_frames(args.single_video, dir_fps=args.frames_fps,
+                                           device=dev)
+            logger.info(f"read {image.shape[0]} frames @ {fps} fps in "
+                        f"{time.perf_counter() - t_read:.2f}s")
+
         swap_args = ({"blocks_to_swap": args.blocks_to_swap,
                       "prefetch_blocks": args.prefetch_blocks}
                      if args.blocks_to_swap > 0 else None)
         t0 = time.perf_counter()
         audio_first, _ = HunyuanFoleySampler().generate_audio(
-            foley_model, dependencies, block_swap_args=swap_args, frame_rate=16.0,
-            duration=args.duration,
+            foley_model, dependencies, block_swap_args=swap_args, frame_rate=fps,
+            image=image, duration=args.duration,
             prompt=args.single_prompt, negative_prompt=args.neg_prompt,
             cfg_scale=args.guidance_scale, steps=args.num_inference_steps,
             sampler=args.sampler, batch_size=args.batch_size, seed=args.seed,
@@ -277,6 +307,13 @@ def main(argv=None) -> int:
         write_wav(args.output, wf, audio_first["sample_rate"])
         logger.info(f"wrote {args.output}: {wf.shape[-1] / audio_first['sample_rate']:.2f}s "
                     f"audio in {dt:.2f}s wall")
+        if args.merge_video and args.single_video:
+            from foley_tpu_torch.io.audio import merge_audio_video
+
+            out_video = merge_audio_video(args.single_video, args.output,
+                                          os.path.splitext(args.output)[0] + ".mp4",
+                                          frames_fps=args.frames_fps)
+            logger.info(f"muxed {out_video}")
         return 0
     except ImportError as e:
         print(f"missing dependency: {e}", file=sys.stderr)
@@ -376,7 +413,9 @@ def _continue_audio(args, foley_model, dependencies) -> int:
 def _stream_pcm(args, foley_model, dependencies, out=None) -> int:
     """--stream_pcm: raw int16 mono PCM to stdout chunk by chunk as long-form windows
     finalize (the CLI analog of the server's ``response=pcm16_stream``). Logs go to stderr,
-    so a pipe stays clean. T2A prompts and --continue_audio runs."""
+    so a pipe stays clean. T2A prompts, V2A (--single_video: the whole video's features,
+    encoded once at ``plan_v2a_long``'s duration, each window taking its slice) and
+    --continue_audio runs."""
     from foley_tpu_torch.pipeline.longform import (
         continue_audio_stream,
         default_window_s,
@@ -394,6 +433,20 @@ def _stream_pcm(args, foley_model, dependencies, out=None) -> int:
         chunks = continue_audio_stream(bundle, _read_wav_mono(args.continue_audio), text,
                                        uncond, args.duration, context_s=args.context_s,
                                        **common)
+    elif args.single_video:
+        from foley_tpu_torch.pipeline.features import encode_video
+        from foley_tpu_torch.pipeline.longform import plan_v2a_long
+        from foley_tpu_torch.pipeline.video import read_video_frames
+
+        frames, fps = read_video_frames(args.single_video, dir_fps=args.frames_fps,
+                                        device=bundle.mmdit.device)
+        logger.info(f"read {frames.shape[0]} frames @ {fps} fps")
+        feat_dur, _, _ = plan_v2a_long(bundle.pipeline_cfg, args.duration,
+                                       window_s=common["window_s"])
+        clip_feat, sync_feat = encode_video(dependencies, frames, fps, feat_dur,
+                                            bundle.pipeline_cfg)
+        chunks = generate_audio_long_stream(bundle, text, uncond, args.duration,
+                                            clip_feat=clip_feat, sync_feat=sync_feat, **common)
     else:
         chunks = generate_audio_long_stream(bundle, text, uncond, args.duration, **common)
     out = out if out is not None else sys.stdout.buffer
@@ -412,8 +465,8 @@ def _stream_pcm(args, foley_model, dependencies, out=None) -> int:
 
 def _process_batch(args) -> int:
     """CSV batch mode: rows of ``video_path,prompt`` (the reference's ``cli.py:126-137``
-    contract, run in this process). A row with a video fails (ROADMAP item 13) and the
-    batch goes on; the batch returns 1 when any row failed."""
+    contract, run in this process). A row that fails is logged and the batch goes on; the
+    batch returns 1 when any row failed."""
     import csv
 
     rows = []
@@ -436,6 +489,71 @@ def _process_batch(args) -> int:
             logger.warning(f"row {i} ({video!r}) failed with rc={rc}")
             failures += 1
     return 1 if failures else 0
+
+
+def _desync_waveform(video: str, audio_input) -> "Optional[np.ndarray]":
+    """The 16 kHz mono waveform ``--desync_score`` scores, by the JAX CLI's three routes in
+    order: ``--audio_input`` (a WAV, resampled linearly), the PCM track of an MJPEG AVI, else
+    ffmpeg's extraction at 16 kHz mono f32le (the JAX argv). None when ffmpeg is needed and
+    missing."""
+    import shutil
+    import subprocess
+
+    import numpy as np
+
+    if audio_input:
+        from foley_tpu_torch.io.audio import read_wav
+
+        return read_wav(audio_input, target_sr=16000)[0]
+    if not os.path.isdir(video):
+        from foley_tpu_torch.io.avi import is_mjpeg_avi, read_avi_audio
+
+        if is_mjpeg_avi(video):
+            try:
+                audio, sr = read_avi_audio(video)
+            except ValueError:
+                audio = None
+            if audio is not None:
+                from foley_tpu_torch.io.native import resample_linear
+
+                return resample_linear(audio, sr, 16000) if sr != 16000 else audio
+    ffmpeg = shutil.which("ffmpeg")
+    if ffmpeg is None:
+        return None
+    raw = subprocess.run([ffmpeg, "-v", "quiet", "-i", video, "-ac", "1", "-ar", "16000",
+                          "-f", "f32le", "pipe:1"], capture_output=True, check=True).stdout
+    return np.frombuffer(raw, np.float32)
+
+
+def _desync_score(args) -> int:
+    """``--desync_score``: the predicted AV offset of ``--single_video``'s frames (25 fps)
+    against its audio (``_desync_waveform``), from the Synchformer checkpoint under
+    ``--model_path`` (``models/sync_scorer.py``, frames resized on the device)."""
+    try:
+        if not args.single_video:
+            print("error: --desync_score requires --single_video", file=sys.stderr)
+            return 2
+        from foley_tpu_torch.core.device import resolve_device
+        from foley_tpu_torch.models.sync_scorer import load_desync_scorer
+        from foley_tpu_torch.pipeline.video import read_video_frames
+
+        dev = resolve_device(args.device)
+        scorer = load_desync_scorer(
+            os.path.join(args.model_path or ".", "synchformer_state_dict.safetensors"),
+            device=dev)
+        frames, _ = read_video_frames(args.single_video, target_fps=25,
+                                      dir_fps=args.frames_fps, device=dev)
+        waveform = _desync_waveform(args.single_video, args.audio_input)
+        if waveform is None:
+            print("error: ffmpeg required for audio extraction "
+                  "(or pass the audio as --audio_input x.wav)", file=sys.stderr)
+            return 1
+        offset = scorer.score(frames, waveform)
+        print(f"predicted AV offset: {float(offset[0]):+.2f} s")
+        return 0
+    except Exception as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
 
 
 def main_single(args) -> int:

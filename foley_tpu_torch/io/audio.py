@@ -1,13 +1,16 @@
 """Audio IO: WAV writing and reading (``foley_tpu/io/audio.py`` counterpart).
 
-Waveforms are 48 kHz AUDIO dicts, written as 16-bit PCM WAV through ``io/native.py``. Muxing
-audio onto video needs ffmpeg, which the card's machine lacks, and the JAX package's
-no-ffmpeg fallback (an MJPEG AVI writer) needs PIL: both wait for ROADMAP item 13, and
-``merge_audio_video`` raises.
+Waveforms are 48 kHz AUDIO dicts, written as 16-bit PCM WAV through ``io/native.py``.
+``merge_audio_video`` muxes audio onto a video file with the JAX package's ffmpeg command;
+its no-ffmpeg route for a frames directory (an MJPEG AVI, each frame a JPEG encoded by PIL)
+is refused: the card's machine has no PIL.
 """
 
 from __future__ import annotations
 
+import os
+import shutil
+import subprocess
 from typing import Optional
 
 import numpy as np
@@ -15,6 +18,9 @@ import numpy as np
 from foley_tpu_torch.io.native import MediaProcessingError, load_wav_mono, wav_image
 
 __all__ = ["MediaProcessingError", "merge_audio_video", "read_wav", "write_wav"]
+
+AUDIO_QUALITY_SETTINGS = {"high": ["-b:a", "192k"], "medium": ["-b:a", "128k"],
+                          "low": ["-b:a", "96k"]}
 
 
 def write_wav(path: str, waveform: np.ndarray, sample_rate: int = 48000) -> None:
@@ -37,7 +43,24 @@ def read_wav(path: str, target_sr: Optional[int] = None) -> "tuple[np.ndarray, i
 def merge_audio_video(video_path: str, audio_path: str, output_path: str,
                       quality: str = "high", ffmpeg_bin: Optional[str] = None,
                       frames_fps: float = 16.0) -> str:
-    """Muxing audio onto a video is not ported: it needs ffmpeg or PIL (ROADMAP item 13)."""
-    raise MediaProcessingError(
-        "merge_audio_video is not ported: muxing needs ffmpeg (a video file) or PIL (a "
-        "frames directory's AVI), which wait for ROADMAP item 13")
+    """Mux audio onto a video file with ffmpeg: the video stream copied, the mono audio
+    panned to AAC stereo (the JAX package's command). Returns ``output_path``. A frames
+    directory raises: its AVI needs PIL's JPEG encoder."""
+    if os.path.isdir(video_path):
+        raise MediaProcessingError(
+            f"{video_path} is a frames directory: muxing it writes an MJPEG AVI whose frames "
+            "are JPEG-encoded by PIL, which the card's machine has not; mux onto a video "
+            "file with ffmpeg")
+    ffmpeg = ffmpeg_bin or shutil.which("ffmpeg")
+    if ffmpeg is None:
+        raise MediaProcessingError(
+            "ffmpeg not found (required to mux onto a video FILE; a frames directory "
+            "input muxes without it). Install ffmpeg: https://ffmpeg.org/download.html")
+    cmd = [ffmpeg, "-y", "-i", video_path, "-i", audio_path, "-c:v", "copy", "-c:a", "aac",
+           "-ac", "2", "-af", "pan=stereo|c0=c0|c1=c0",
+           *AUDIO_QUALITY_SETTINGS.get(quality, AUDIO_QUALITY_SETTINGS["high"]),
+           "-map", "0:v:0", "-map", "1:a:0", "-shortest", output_path]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise MediaProcessingError(f"ffmpeg failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    return output_path

@@ -17,7 +17,7 @@ length, a JSON header, then raw little-endian buffers), since the card's machine
 loads as it is: ``module_from_state_dict`` keeps every fp8 ``Dense`` / ``Conv1d`` weight in
 fp8 (upcast at use, ``ops/nn.py::_match``), as the JAX package keeps fp8 leaves, and casts
 the rest (an fp8 tensor elsewhere upcasts exactly). The RVQ and discriminator converters
-serve training and wait for ROADMAP item 13.
+serve training and wait for ROADMAP item 13g.
 """
 
 from __future__ import annotations

@@ -158,3 +158,35 @@ def synchformer_from_jax(params: Dict, cfg, device: DeviceLike = None, dtype=Non
     from foley_tpu_torch.models.synchformer import Synchformer
 
     return _module_from_jax(Synchformer, params, cfg, device, dtype)
+
+
+def lora_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX LoRA tree (``foley_tpu/models/lora.py::init_lora`` / ``load_lora``, fetched to
+    the host) -> the port's adapter tensors (``models/lora.py``): the tree's flat names
+    (``triple_blocks.audio_mlp.fc1.a``), each factor in its JAX layout with the stacked block
+    axis first; ``merge_lora`` maps each delta onto the port's weight layout."""
+    return {".".join(path): to_tensor(a) for path, a in _leaves(tree)}
+
+
+def ast_from_jax(params: Dict, freq_agg_params: Dict, cfg, device: DeviceLike = None,
+                 dtype=None):
+    """Build the port's ``AST`` and its frequency pooling (``synchformer.SpatialAgg``) from
+    the JAX ``ast`` tree and its ``freq_agg`` tree (``cfg``: the port's ``ASTConfig``).
+    Returns (ast, freq_agg)."""
+    from foley_tpu_torch.core.device import resolve_device
+    from foley_tpu_torch.models.ast import AST
+    from foley_tpu_torch.models.synchformer import SpatialAgg
+
+    state = state_dict_from_jax(freq_agg_params)
+    hidden, d = state["linear1.weight"].shape
+    freq_agg = SpatialAgg(d, hidden, dtype or _dtype_of(state), resolve_device(device))
+    freq_agg.load_state_dict(state, strict=True)
+    return _module_from_jax(AST, params, cfg, device, dtype), freq_agg
+
+
+def sync_scorer_from_jax(params: Dict, cfg, device: DeviceLike = None, dtype=None):
+    """Build the port's ``SyncScorer`` (the GlobalTransformer head) from a JAX
+    ``sync_scorer`` tree (``cfg``: the port's ``SyncScorerConfig``)."""
+    from foley_tpu_torch.models.sync_scorer import SyncScorer
+
+    return _module_from_jax(SyncScorer, params, cfg, device, dtype)

@@ -7,14 +7,17 @@ modulation, fused qkv, conv output projections), with learned empty clip/sync fe
 CFG/T2A, interleaved audio-visual RoPE and additive Synchformer conditioning before the
 first triple block.
 
-``MMDiT.forward`` is the JAX ``apply``. Both self-attention sites (the joint
-``[v_cond; audio]`` attention of every triple block and the attention of every single
-block) always go through ``fused_qk_attention``: the Hopper kernel for CUDA tensors, its
-plain version for CPU tensors, in the parameters' type (bf16, fp16 or fp32; an fp32 model
-runs its products in true fp32, ``ops/nn.py::exact_fp32``). The configurations outside that
-kernel's precondition in the
-JAX package (``qk_norm`` off, ``use_attention_mask``, non-interleaved RoPE, a failed
-interleave identity check) raise ``NotImplementedError``.
+``MMDiT.forward`` is the JAX ``apply``. The attention of every single block goes through
+``fused_qk_attention`` (K1): the Hopper kernel for CUDA tensors, its plain version for CPU
+tensors, in the parameters' type (bf16, fp16 or fp32; an fp32 model runs its products in
+true fp32, ``ops/nn.py::exact_fp32``). So does the joint ``[v_cond; audio]`` attention of
+every triple block under K1's precondition in the JAX package (``qk_norm`` on, no attention
+mask, interleaved RoPE whose decomposition holds at these lengths: every shipped config).
+Outside it the joint attention takes the JAX package's XLA route on every device: qk-norm
+when configured, the RoPE of the config (the exact interleave / rotate / decouple path when
+the identity check fails, ``ops/rope.py``), then the plain ``ops/attention.py::sdpa`` with
+the mask the JAX ``apply`` builds. ``attention_tables`` makes that choice once per config
+and lengths, before any launch.
 
 Memory modes: the ``Dense`` / ``Conv1d`` weights may be in quantized storage
 (``io/quantize.py``), and the last blocks may live in host memory (``block_swap``,
@@ -48,7 +51,12 @@ from foley_tpu_torch.ops.kernels.fused_attention import fused_qk_attention
 from foley_tpu_torch.ops.modulate import apply_gate, modulate, modulate_ref
 from foley_tpu_torch.ops.nn import Conv1d, Dense, exact_fp32, init_parameters
 from foley_tpu_torch.ops.norms import layer_norm, rms_norm
-from foley_tpu_torch.ops.rope import apply_rotary_emb, rope_table
+from foley_tpu_torch.ops.rope import (
+    apply_rotary_emb,
+    decouple_interleaved,
+    interleave_sequences,
+    rope_table,
+)
 from foley_tpu_torch.parallel import offload
 
 
@@ -188,6 +196,17 @@ def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return x.unflatten(-1, (num_heads, -1))
 
 
+def _qk_norm(norm: Optional["RMSNorm"], x: torch.Tensor) -> torch.Tensor:
+    """The qk RMSNorm, or ``x`` itself without ``qk_norm`` (the JAX ``_qk_norm``)."""
+    return x if norm is None else norm(x)
+
+
+def _on(tables: tuple, device) -> tuple:
+    """A block's norm tables on the computing device (a swapped block's weights are in host
+    memory)."""
+    return tuple(t.to(device) for t in tables)
+
+
 # ---------------------------------------------------------------------------------
 # RoPE tables
 # ---------------------------------------------------------------------------------
@@ -248,14 +267,36 @@ def build_rope_tables(cfg: MMDiTConfig, audio_len: int, visual_len: int, text_le
     )
 
 
+def fused_joint(cfg: MMDiTConfig, ropes: RopeTables) -> bool:
+    """K1's precondition for the joint attention, as the JAX ``triple_block_apply`` states
+    it: qk-norm on, no attention mask, interleaved RoPE whose decomposition holds."""
+    return (cfg.qk_norm and not cfg.use_attention_mask and cfg.interleaved_audio_visual_rope
+            and ropes.audio_joint is not None)
+
+
+def joint_attention_mask(cond_mask: torch.Tensor, visual_len: int,
+                         audio_len: int) -> torch.Tensor:
+    """The JAX ``apply``'s ``use_attention_mask`` mask (reference ``hifi_foley.py:774-793``):
+    the full ``[text; visual; audio]`` mask, column 0 forced on, then its
+    ``[visual; audio]`` block, [B, 1, L, L] boolean (True = attend)."""
+    bs, text_len = cond_mask.shape
+    seq_len = text_len + visual_len + audio_len
+    ones_av = torch.ones(bs, visual_len + audio_len, dtype=torch.bool, device=cond_mask.device)
+    concat = torch.cat([cond_mask.to(torch.bool), ones_av], dim=1)
+    m1 = concat[:, None, None, :].expand(bs, 1, seq_len, seq_len)
+    full = m1 & m1.transpose(2, 3)
+    full[:, :, :, 0] = True
+    return full[:, :, text_len:, text_len:]
+
+
 class AttentionTables(NamedTuple):
     """The timestep-invariant tables of a forward pass at one set of lengths: built once
     per generation by ``MMDiT.attention_tables`` and passed to every step."""
 
     ropes: RopeTables
-    joint_rope: tuple    # (cos, sin) [L_visual + T_audio, D] over [v_cond; audio]
-    triple_norms: tuple  # per triple block: (wq, wk) fp32 [L_visual + T_audio, D]
-    single_norms: tuple  # per single block: (wq, wk) fp32 [T_audio, D]
+    joint_rope: Optional[tuple]    # (cos, sin) [L_visual + T_audio, D]; None: plain route
+    triple_norms: Optional[tuple]  # per triple block: (wq, wk) fp32; None: plain route
+    single_norms: tuple            # per single block: (wq, wk) fp32 [T_audio, D]
 
 
 # ---------------------------------------------------------------------------------
@@ -271,22 +312,26 @@ class TripleBlock(nn.Module):
         h, hd, eps = cfg.hidden_size, cfg.head_dim, cfg.qk_norm_eps
         kw = dict(dtype=dtype, device=device)
         qb = dict(bias=cfg.qkv_bias, **kw)
+
+        def qk_norm():  # the JAX tree's leaf is empty without qk_norm
+            return RMSNorm(hd, eps, **kw) if cfg.qk_norm else None
+
         self.audio_mod = Dense(h, 9 * h, scheme="zeros", **kw)
         self.v_cond_mod = Dense(h, 9 * h, scheme="zeros", **kw)
         self.audio_self_attn_qkv = Dense(h, 3 * h, **qb)
-        self.audio_self_q_norm = RMSNorm(hd, eps, **kw)
-        self.audio_self_k_norm = RMSNorm(hd, eps, **kw)
+        self.audio_self_q_norm = qk_norm()
+        self.audio_self_k_norm = qk_norm()
         self.audio_self_proj = Dense(h, h, **qb)
         self.v_cond_attn_qkv = Dense(h, 3 * h, **qb)
-        self.v_cond_attn_q_norm = RMSNorm(hd, eps, **kw)
-        self.v_cond_attn_k_norm = RMSNorm(hd, eps, **kw)
+        self.v_cond_attn_q_norm = qk_norm()
+        self.v_cond_attn_k_norm = qk_norm()
         self.v_cond_self_proj = Dense(h, h, **qb)
         self.audio_cross_q = Dense(h, h, **qb)
         self.v_cond_cross_q = Dense(h, h, **qb)
         self.text_cross_kv = Dense(h, 2 * h, **qb)
-        self.audio_cross_q_norm = RMSNorm(hd, eps, **kw)
-        self.v_cond_cross_q_norm = RMSNorm(hd, eps, **kw)
-        self.text_cross_k_norm = RMSNorm(hd, eps, **kw)
+        self.audio_cross_q_norm = qk_norm()
+        self.v_cond_cross_q_norm = qk_norm()
+        self.text_cross_k_norm = qk_norm()
         self.audio_cross_proj = Dense(h, h, **qb)
         self.v_cond_cross_proj = Dense(h, h, **qb)
         self.audio_mlp = Mlp(h, cfg.mlp_hidden_dim, cfg.mlp_act_type, **kw)
@@ -297,7 +342,7 @@ class TripleBlock(nn.Module):
         timestep-invariant)."""
         t_k, t_v = (_split_heads(u, self.cfg.num_heads)
                     for u in self.text_cross_kv(cond).chunk(2, dim=-1))
-        t_k = apply_rotary_emb(self.text_cross_k_norm(t_k), *ropes_text)
+        t_k = apply_rotary_emb(_qk_norm(self.text_cross_k_norm, t_k), *ropes_text)
         return t_k, t_v
 
     def norm_tables(self, audio_len: int, visual_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -310,10 +355,36 @@ class TripleBlock(nn.Module):
         return (cat_tab(self.v_cond_attn_q_norm.weight, self.audio_self_q_norm.weight),
                 cat_tab(self.v_cond_attn_k_norm.weight, self.audio_self_k_norm.weight))
 
+    def plain_joint_attention(self, a_q, a_k, a_v, v_q, v_k, v_v, ropes: RopeTables,
+                              attn_mask=None) -> torch.Tensor:
+        """The JAX package's XLA route of the joint attention (outside K1's precondition):
+        qk-norm when configured, the config's RoPE (decomposed, exact interleave / decouple,
+        or per stream), then the plain attention over ``[v_cond; audio]`` with ``attn_mask``."""
+        a_q = _qk_norm(self.audio_self_q_norm, a_q)
+        a_k = _qk_norm(self.audio_self_k_norm, a_k)
+        v_q = _qk_norm(self.v_cond_attn_q_norm, v_q)
+        v_k = _qk_norm(self.v_cond_attn_k_norm, v_k)
+        audio_len, visual_len = a_q.shape[1], v_q.shape[1]
+        if self.cfg.interleaved_audio_visual_rope and ropes.audio_joint is not None:
+            a_q, a_k = (apply_rotary_emb(u, *ropes.audio_joint) for u in (a_q, a_k))
+            v_q, v_k = (apply_rotary_emb(u, *ropes.visual_joint) for u in (v_q, v_k))
+        elif self.cfg.interleaved_audio_visual_rope:
+            q_i = apply_rotary_emb(interleave_sequences(a_q, v_q), *ropes.joint)
+            k_i = apply_rotary_emb(interleave_sequences(a_k, v_k), *ropes.joint)
+            a_q, v_q = decouple_interleaved(q_i, audio_len, visual_len)
+            a_k, v_k = decouple_interleaved(k_i, audio_len, visual_len)
+        else:
+            a_q, a_k = (apply_rotary_emb(u, *ropes.joint) for u in (a_q, a_k))
+            if ropes.v_joint is not None:
+                v_q, v_k = (apply_rotary_emb(u, *ropes.v_joint) for u in (v_q, v_k))
+        return sdpa(torch.cat([v_q, a_q], dim=1), torch.cat([v_k, a_k], dim=1),
+                    torch.cat([v_v, a_v], dim=1), mask=attn_mask)
+
     def forward(self, audio, cond, v_cond, vec, ropes: RopeTables, joint_rope, norms,
-                sync_vec=None, text_kv=None, mods=None):
+                sync_vec=None, text_kv=None, mods=None, attn_mask=None):
         """Returns (audio, v_cond). ``joint_rope``: the (cos, sin) tables of the
-        ``[v_cond; audio]`` sequence; ``norms``: this block's ``norm_tables``. ``text_kv``:
+        ``[v_cond; audio]`` sequence and ``norms`` this block's ``norm_tables``, both None on
+        the plain route (``plain_joint_attention``, with ``attn_mask``). ``text_kv``:
         precomputed (t_k, t_v) of this block (then ``cond`` is unused). ``mods``: precomputed
         (a_mod, v_mod) [1, 9H] adaLN vectors."""
         nh, eps = self.cfg.num_heads, self.cfg.qk_norm_eps
@@ -337,11 +408,13 @@ class TripleBlock(nn.Module):
         v_q, v_k, v_v = (_split_heads(u, nh)
                          for u in self.v_cond_attn_qkv(v_in).chunk(3, dim=-1))
 
-        cos, sin = joint_rope
-        q = torch.cat([v_q, a_q], dim=1)
-        k = torch.cat([v_k, a_k], dim=1)
-        v = torch.cat([v_v, a_v], dim=1)
-        attn = fused_qk_attention(q, k, v, *norms, cos, sin, cos, sin, eps=eps)
+        if norms is None:
+            attn = self.plain_joint_attention(a_q, a_k, a_v, v_q, v_k, v_v, ropes, attn_mask)
+        else:
+            cos, sin = joint_rope
+            attn = fused_qk_attention(torch.cat([v_q, a_q], dim=1), torch.cat([v_k, a_k], dim=1),
+                                      torch.cat([v_v, a_v], dim=1), *norms, cos, sin, cos, sin,
+                                      eps=eps)
         v_attn, a_attn = attn[:, :visual_len], attn[:, visual_len:]
         audio = audio + apply_gate(self.audio_self_proj(a_attn.flatten(2)), a1_gate)
         v_cond = v_cond + apply_gate(self.v_cond_self_proj(v_attn.flatten(2)), v1_gate)
@@ -349,8 +422,8 @@ class TripleBlock(nn.Module):
         # ---- 2. cross-attention: [v_cond; audio] queries vs text k/v ----
         a_in = modulate_ref(layer_norm(audio), a2_shift, a2_scale)
         v_in = modulate_ref(layer_norm(v_cond), v2_shift, v2_scale)
-        a_q = self.audio_cross_q_norm(_split_heads(self.audio_cross_q(a_in), nh))
-        v_q = self.v_cond_cross_q_norm(_split_heads(self.v_cond_cross_q(v_in), nh))
+        a_q = _qk_norm(self.audio_cross_q_norm, _split_heads(self.audio_cross_q(a_in), nh))
+        v_q = _qk_norm(self.v_cond_cross_q_norm, _split_heads(self.v_cond_cross_q(v_in), nh))
         t_k, t_v = text_kv if text_kv is not None else self.text_kv(cond, ropes.text)
         a_q = apply_rotary_emb(a_q, *ropes.audio)
         v_q = apply_rotary_emb(v_q, *ropes.visual_cross)
@@ -415,10 +488,6 @@ class SingleBlock(nn.Module):
 class MMDiT(nn.Module):
     def __init__(self, cfg: MMDiTConfig, dtype=torch.float32, device=None):
         super().__init__()
-        if not cfg.qk_norm or cfg.use_attention_mask or not cfg.interleaved_audio_visual_rope:
-            raise NotImplementedError(
-                "the port runs the fused qk-norm + RoPE attention only: qk_norm on, no "
-                "attention mask, interleaved audio-visual RoPE")
         self.cfg = cfg
         h = cfg.hidden_size
         kw = dict(dtype=dtype, device=device)
@@ -458,42 +527,44 @@ class MMDiT(nn.Module):
     def attention_tables(self, audio_len: int, visual_len: int, text_len: int,
                          device=None) -> AttentionTables:
         """Every RoPE and qk-norm weight table of a forward pass at these lengths (they do
-        not depend on the timestep). Raises ``NotImplementedError`` when the interleaved
-        RoPE identity check fails: the exact interleave/decouple path is not ported."""
-        ropes = build_rope_tables(self.cfg, audio_len, visual_len, text_len, device=device)
-        if ropes.audio_joint is None:
-            raise NotImplementedError(
-                f"interleaved RoPE identity check failed (audio {audio_len}, visual "
-                f"{visual_len}); the exact interleave/decouple path is not ported")
+        not depend on the timestep), and with them the joint attention's route: K1 under its
+        precondition (``fused_joint``), else the plain route, whose ``joint_rope`` and
+        ``triple_norms`` are None."""
+        cfg = self.cfg
+        ropes = build_rope_tables(cfg, audio_len, visual_len, text_len, device=device)
+        single_norms = tuple(_on(b.norm_tables(audio_len), ropes.audio[0].device)
+                             for b in self.single_blocks)
+        if not fused_joint(cfg, ropes):
+            return AttentionTables(ropes=ropes, joint_rope=None, triple_norms=None,
+                                   single_norms=single_norms)
         joint_rope = tuple(torch.cat([vt, at], dim=0)
                            for vt, at in zip(ropes.visual_joint, ropes.audio_joint))
-        # a swapped block's norm weights are in host memory: K1 gets its tables on the device
-        on = lambda tabs: tuple(t.to(joint_rope[0].device) for t in tabs)  # noqa: E731
         return AttentionTables(
             ropes=ropes, joint_rope=joint_rope,
-            triple_norms=tuple(on(b.norm_tables(audio_len, visual_len))
+            triple_norms=tuple(_on(b.norm_tables(audio_len, visual_len), joint_rope[0].device)
                                for b in self.triple_blocks),
-            single_norms=tuple(on(b.norm_tables(audio_len)) for b in self.single_blocks))
+            single_norms=single_norms)
 
-    def forward(self, x, t, cond, clip_feat, sync_feat, *, text_kv=None, triple_mods=None,
-                tables: Optional[AttentionTables] = None, visual_rows_shared: bool = False,
-                offload_prefetch: int = 1) -> torch.Tensor:
+    def forward(self, x, t, cond, clip_feat, sync_feat, *, cond_mask=None, text_kv=None,
+                triple_mods=None, tables: Optional[AttentionTables] = None,
+                visual_rows_shared: bool = False, offload_prefetch: int = 1) -> torch.Tensor:
         """``_velocity``, in true fp32 when ``x`` is fp32 (``ops/nn.py::exact_fp32``)."""
         with exact_fp32(x.dtype):
-            return self._velocity(x, t, cond, clip_feat, sync_feat, text_kv=text_kv,
-                                  triple_mods=triple_mods, tables=tables,
+            return self._velocity(x, t, cond, clip_feat, sync_feat, cond_mask=cond_mask,
+                                  text_kv=text_kv, triple_mods=triple_mods, tables=tables,
                                   visual_rows_shared=visual_rows_shared,
                                   offload_prefetch=offload_prefetch)
 
-    def _velocity(self, x, t, cond, clip_feat, sync_feat, *, text_kv=None, triple_mods=None,
-                  tables: Optional[AttentionTables] = None, visual_rows_shared: bool = False,
-                  offload_prefetch: int = 1) -> torch.Tensor:
+    def _velocity(self, x, t, cond, clip_feat, sync_feat, *, cond_mask=None, text_kv=None,
+                  triple_mods=None, tables: Optional[AttentionTables] = None,
+                  visual_rows_shared: bool = False, offload_prefetch: int = 1) -> torch.Tensor:
         """Velocity [B, T, C_latent] (the JAX ``apply``).
 
         x: audio latents [B, T, C_latent]; t: [B] timesteps in [0, 1000); cond: text
         features [B, L_text, condition_dim] (raw: projected here, unless ``text_kv`` holds
         the hoisted per-block text K/V); clip_feat [B, L_clip, clip_dim]; sync_feat
-        [B, S*8, sync_feat_dim]. ``triple_mods``: this step's hoisted adaLN vectors
+        [B, S*8, sync_feat_dim]. ``cond_mask``: [B, L_text] text mask, read only by a
+        ``use_attention_mask`` config (the JAX ``apply``'s mask). ``triple_mods``: this step's hoisted adaLN vectors
         (a_mods, v_mods), each [N, 1, 9H]. ``tables``: the hoisted ``attention_tables`` of
         these lengths (built here when None). ``visual_rows_shared``: the caller's promise
         that the two CFG halves of ``clip_feat`` and ``sync_feat`` are identical; the
@@ -537,18 +608,26 @@ class MMDiT(nn.Module):
         audio_len, visual_len = audio.shape[1], v_cond.shape[1]
         if tables is None:
             tables = self.attention_tables(audio_len, visual_len, cond.shape[1], x.device)
-        elif tables.joint_rope[0].shape[0] != visual_len + audio_len:
-            raise ValueError(f"attention tables cover {tables.joint_rope[0].shape[0]} joint "
-                             f"positions, the input {visual_len} + {audio_len}")
+        elif (tables.ropes.audio[0].shape[0], tables.ropes.visual_cross[0].shape[0]) != (
+                audio_len, visual_len):
+            raise ValueError(f"attention tables cover {tables.ropes.visual_cross[0].shape[0]} "
+                             f"+ {tables.ropes.audio[0].shape[0]} joint positions, the input "
+                             f"{visual_len} + {audio_len}")
         ropes = tables.ropes
+        attn_mask = None
+        if cfg.use_attention_mask:
+            if cond_mask is None:
+                raise ValueError("use_attention_mask needs the text mask cond_mask")
+            attn_mask = joint_attention_mask(cond_mask, visual_len, audio_len)
 
         if cfg.add_sync_feat_to_audio:
             audio = audio + sync_add  # injected before block 0
         for i, block in enumerate(offload.stream_blocks(self, "triple_blocks",
                                                          offload_prefetch)):
             audio, v_cond = block(
-                audio, cond, v_cond, vec, ropes, tables.joint_rope, tables.triple_norms[i],
-                sync_vec=sync_vec,
+                audio, cond, v_cond, vec, ropes, tables.joint_rope,
+                None if tables.triple_norms is None else tables.triple_norms[i],
+                sync_vec=sync_vec, attn_mask=attn_mask,
                 text_kv=None if text_kv is None else (text_kv[0][i], text_kv[1][i]),
                 mods=None if triple_mods is None else (triple_mods[0][i], triple_mods[1][i]))
 

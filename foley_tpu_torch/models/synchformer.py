@@ -18,7 +18,9 @@ Architecture (config ``divided_224_16x4``: ViT-B/16, depth 12, heads 12, tempora
 The JAX package computes all of this attention outside any Pallas kernel, so it stays plain
 here (matmul and softmax). Frames take the ``preprocess="device"`` route only: the unique
 25 fps frames are uploaded once as uint8 and windowed into segments on the card.
-The PIL route is not ported. ``load`` reads the reference's ``synchformer_state_dict``
+The PIL route is not ported: the card's machine has no PIL. ``encode_frames_device`` is the
+V2A route (host box-downsample of large frames first); ``encode_segments`` the desync
+scorer's and ``feature_process``'s (every frame resized on the device). ``load`` reads the reference's ``synchformer_state_dict``
 (``vfeat_extractor.*`` keys; the audio branch's keys are ignored).
 """
 
@@ -67,11 +69,11 @@ class Block(nn.Module):
 
 
 class SpatialAgg(nn.Module):
-    """SpatialTransformerEncoderLayer: a CLS probe and a pre-LN torch encoder layer."""
+    """SpatialTransformerEncoderLayer: a CLS probe and a pre-LN torch encoder layer of width
+    ``d`` and MLP width ``hidden`` (also AST's frequency pooling, ``models/ast.py``)."""
 
-    def __init__(self, cfg: SynchformerConfig, dtype, device):
+    def __init__(self, d: int, hidden: int, dtype, device):
         super().__init__()
-        d, hidden = cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio)
         self.cls_token = empty_parameter(1, 1, d, dtype=dtype, device=device)
         self.q, self.k, self.v, self.out = (_dense(d, d, dtype, device) for _ in range(4))
         self.linear1 = _dense(d, hidden, dtype, device)
@@ -97,7 +99,7 @@ class Synchformer(nn.Module):
         self.temp_embed = empty_parameter(1, cfg.temporal_resolution, d, **kw)
         self.norm = LayerNorm(d, EPS, dtype, device)
         self.blocks = nn.ModuleList(Block(cfg, dtype, device) for _ in range(cfg.depth))
-        self.spatial_agg = SpatialAgg(cfg, dtype, device)
+        self.spatial_agg = SpatialAgg(d, int(d * cfg.mlp_ratio), dtype, device)
 
     @torch.no_grad()
     def init_(self, g: torch.Generator) -> None:
@@ -268,20 +270,37 @@ def upload_frames_async(frames: np.ndarray, target_short_side: int,
     return u8.to(device)
 
 
-def encode_frames_device(encoder: "SynchformerEncoder",
-                         frames_25fps: np.ndarray) -> torch.Tensor:
-    """25 fps frames [T, H, W, C] -> [1, S*8, D]: each unique frame is uploaded once as
-    uint8, resized on the device, then windowed into overlapping segments of
-    ``cfg.num_frames`` (16) at ``cfg.segment_stride`` (8) by a gather (short inputs repeat
-    the last frame, as ``pipeline/features.py::sync_segments`` does)."""
+def _encode_windows(encoder: "SynchformerEncoder", u8: torch.Tensor) -> torch.Tensor:
+    """Unique frames [T, H, W, C] on the device -> [1, S*8, D]: resized on the device, then
+    windowed into overlapping segments of ``cfg.num_frames`` (16) at ``cfg.segment_stride``
+    (8) by a gather (short inputs repeat the last frame, as
+    ``pipeline/features.py::sync_segments`` does)."""
     segment_size, stride = encoder.cfg.num_frames, encoder.cfg.segment_stride
-    t = frames_25fps.shape[0]
+    t = u8.shape[0]
     num = max((t - segment_size) // stride + 1, 1)
-    u8 = upload_frames_async(frames_25fps, encoder.cfg.img_size, encoder.device)
     dev = preprocess_frames_device(u8, encoder.cfg.img_size)
     idx = np.minimum(np.arange(num)[:, None] * stride + np.arange(segment_size)[None, :], t - 1)
     segs = dev.index_select(0, torch.from_numpy(idx.reshape(-1)).to(dev.device))
     return encoder.encode(segs.reshape(num, segment_size, *dev.shape[1:]))
+
+
+def encode_frames_device(encoder: "SynchformerEncoder",
+                         frames_25fps: np.ndarray) -> torch.Tensor:
+    """25 fps frames [T, H, W, C] -> [1, S*8, D], the V2A route (the JAX
+    ``encode_frames_device``): each unique frame is box-downsampled on the host when it is
+    more than twice the encoder's resolution, uploaded once as uint8, then
+    ``_encode_windows``."""
+    return _encode_windows(encoder, upload_frames_async(frames_25fps, encoder.cfg.img_size,
+                                                        encoder.device))
+
+
+def encode_segments(encoder: "SynchformerEncoder", frames_25fps: np.ndarray) -> torch.Tensor:
+    """25 fps frames [T, H, W, C] -> [1, S*8, D], the JAX ``encode_segments(encoder,
+    sync_segments(frames))`` on its device route (the desync scorer and
+    ``standalone.feature_process``): every frame resized on the device from its own
+    resolution, no host downsample."""
+    u8 = torch.from_numpy(frames_to_u8(np.asarray(frames_25fps))).to(encoder.device)
+    return _encode_windows(encoder, u8)
 
 
 class SynchformerEncoder:

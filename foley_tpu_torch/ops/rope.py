@@ -39,3 +39,27 @@ def apply_rotary_emb(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> t
     cos, sin = cos[None, :, None], sin[None, :, None]
     xf = x.float()
     return (xf * cos + _rotate_half(xf) * sin).to(x.dtype)
+
+
+def interleave_sequences(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """Interleave two [B, N, H, C] sequences token by token -> [B, 2 * N1, H, C]; ``x2`` is
+    first resized to ``N1`` by nearest-exact gathering when the lengths differ (reference
+    ``hifi_foley.py:35-47``)."""
+    from foley_tpu_torch.ops.interp import nearest_exact_resize
+
+    n1 = x1.shape[1]
+    x2 = nearest_exact_resize(x2, n1, dim=1)
+    return torch.stack([x1, x2], dim=2).reshape(x1.shape[0], n1 * 2, *x1.shape[2:])
+
+
+def decouple_interleaved(x: torch.Tensor, len1: int, len2: int) -> Tuple[torch.Tensor,
+                                                                          torch.Tensor]:
+    """The inverse of ``interleave_sequences`` (reference ``hifi_foley.py:49-60``): the
+    second stream resized back to ``len2``."""
+    from foley_tpu_torch.ops.interp import nearest_exact_resize
+
+    b, n = x.shape[:2]
+    if n % 2 or n // 2 != len1:
+        raise ValueError(f"interleaved length {n} does not hold {len1} pairs")
+    x = x.reshape(b, n // 2, 2, *x.shape[2:])
+    return x[:, :, 0], nearest_exact_resize(x[:, :, 1], len2, dim=1)

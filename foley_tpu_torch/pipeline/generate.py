@@ -8,7 +8,8 @@ are moved to that device; so are the visual features of V2A, which
 ``pipeline/features.py::encode_video`` makes with ``bundle.encoders``. Parking a model in
 host memory between requests is the nodes' ``force_offload`` (``pipeline/manager.py``); a
 denoiser whose last blocks are swapped (``parallel/offload.py``) streams them with the
-bundle's ``offload_prefetch`` window. LoRA is not ported yet.
+bundle's ``offload_prefetch`` window. A LoRA adapter is merged into the denoiser's weights
+at load (``models/lora.py``), so generation sees only the merged weights.
 """
 
 from __future__ import annotations

@@ -126,7 +126,7 @@ class OffloadModelManager:
         self._loaders[name] = loader
 
     def __getattr__(self, name: str):
-        if name.startswith("_") or name in ("policy", "pipeline_cfg"):
+        if name.startswith("_") or name in ("policy", "pipeline_cfg", "device"):
             raise AttributeError(name)
         return self.get(name)
 

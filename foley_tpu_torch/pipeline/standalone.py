@@ -2,9 +2,9 @@
 reference's ``load_model`` / ``feature_process`` / ``denoise_process`` (reference
 ``model_utils.py:17-487``, ``feature_utils.py:20-164``). ``load_model`` puts the five models
 of a checkpoint directory behind the lazy ``OffloadModelManager`` (the server's checkpoint
-route too); the other two run a text-to-audio request on them. A ``video_path`` raises: the
-port does not read video files yet (ROADMAP item 13; the card's machine has no PIL, ffmpeg or
-PyAV), and V2A runs through the sampler node's ``image`` or ``pipeline/features.py``.
+route too); the other two run a text-to-audio or, from ``feature_process``'s
+``video_path`` (a video file through ffmpeg or a directory of PNG frames,
+``pipeline/video.py``), a video-to-audio request on them.
 """
 
 from __future__ import annotations
@@ -41,9 +41,9 @@ def load_model(model_path: str, config: str = "xxl", precision: str = "auto",
     ``model_utils.load_model``): ``foley`` (a FOLEY_MODEL), ``dac`` (``{"params": DAC,
     "cfg": DACConfig}``), ``synchformer``, ``clap`` (``<model_path>/clap``) and ``siglip2``
     (``<model_path>/siglip2``), each on ``device`` (``cuda`` unless given) at its first
-    access. The visual encoders run in ``encoder_precision``; ``quantization`` is the model
-    loader's (``io/quantize.py`` modes, ``auto`` the checkpoint's fp8 type). ``lora_path``
-    raises (ROADMAP item 13)."""
+    access. The visual encoders run in ``encoder_precision``; ``quantization``,
+    ``lora_path`` and ``lora_scale`` are the model loader's (``io/quantize.py`` modes,
+    ``auto`` the checkpoint's fp8 type; an adapter directory of ``models/lora.py``)."""
     from foley_tpu_torch.api.nodes import resolve_dtype
 
     dev = resolve_device(device)
@@ -53,6 +53,7 @@ def load_model(model_path: str, config: str = "xxl", precision: str = "auto",
         resolve_dtype(precision)
     manager = OffloadModelManager(policy="host" if enable_offload else "drop")
     manager.pipeline_cfg = cfg  # type: ignore[attr-defined]
+    manager.device = dev  # type: ignore[attr-defined]  (frame directories unfilter there)
 
     def load_foley():
         from foley_tpu_torch.api.nodes import HunyuanModelLoader
@@ -102,19 +103,35 @@ def feature_process(video_path: Optional[str], prompt: str, model_dict: OffloadM
                     neg_prompt: str = "noisy, harsh",
                     duration_s: Optional[float] = None) -> Tuple[Dict, Dict, float]:
     """Conditioning features (reference ``feature_utils.feature_process``): returns
-    (visual_feats, text_feats, audio_len_in_s). ``video_path=None`` is the T2A path, whose
-    empty learned visual sequences the denoise substitutes; its length is ``duration_s``
-    (5 s unless given). The text features are CLAP's ``[neg_prompt, prompt]`` rows."""
+    (visual_feats, text_feats, audio_len_in_s). ``video_path`` (a video file or a directory
+    of PNG frames at 16 fps) gives SigLIP2's and Synchformer's features (the JAX package's
+    ``encode_frames`` and ``encode_segments`` on the device route) and an audio length of
+    the 25 fps stream's; ``video_path=None`` is the T2A path, whose empty learned visual
+    sequences the denoise substitutes, of ``duration_s`` (5 s unless given). The text
+    features are CLAP's ``[neg_prompt, prompt]`` rows."""
+    cfg: PipelineConfig = model_dict.pipeline_cfg  # type: ignore[attr-defined]
+    visual_feats: Dict = {}
     if video_path is not None:
-        raise NotImplementedError(
-            f"feature_process(video_path={video_path!r}): reading a video file is not ported "
-            "yet (ROADMAP item 13: it needs PIL, ffmpeg or PyAV); pass frames to the sampler "
-            "node's image input or to pipeline/features.py::encode_video")
+        from foley_tpu_torch.models import synchformer
+        from foley_tpu_torch.pipeline.features import resample_frames
+        from foley_tpu_torch.pipeline.video import read_video_frames
+
+        frames, fps = read_video_frames(video_path,
+                                        device=getattr(model_dict, "device", None))
+        audio_len = duration_s or frames.shape[0] / fps
+        f8 = resample_frames(frames, fps, audio_len, cfg.siglip2_fps)
+        f25 = resample_frames(frames, fps, audio_len, cfg.synchformer_fps)
+        visual_feats["siglip2_feat"] = model_dict.siglip2.encode(f8)
+        visual_feats["syncformer_feat"] = synchformer.encode_segments(model_dict.synchformer,
+                                                                      f25)
+        audio_len = f25.shape[0] / cfg.synchformer_fps  # reference utils.py:281
+    else:
+        audio_len = duration_s or 5.0
     from foley_tpu_torch.models import clap as clap_mod
 
     text = clap_mod.encode_text(model_dict.clap, [neg_prompt, prompt])
     text_feats = {"text_feat": text[1:2], "uncond_text_feat": text[0:1]}
-    return {}, text_feats, duration_s or 5.0
+    return visual_feats, text_feats, audio_len
 
 
 def denoise_process(visual_feats: Dict, text_feats: Dict, audio_len_in_s: float,

@@ -10,17 +10,21 @@ counterpart): a thread-safe ``FoleyService`` around a ``ModelBundle``, warmed ov
   Body: {"prompt", "negative_prompt", "duration", "steps", "cfg_scale", "sampler",
   "batch_size", "seed", "response": "wav"|"json"|"pcm16_stream"}. V2A (a server with video
   encoders): add {"frames_b64": base64 of an .npz holding "frames" [T, H, W, 3] uint8 or
-  float [0, 1], "frames_fps": float}. Continuation: {"continue_b64": base64 of a 16-bit WAV
-  at the DAC's rate, "context_s": float}.
+  float [0, 1], "frames_fps": float} or {"frames_path": a server-local video file or
+  directory of PNG frames, read by ``pipeline/video.py``, "frames_fps": float}; a
+  ``frames_path`` must lie under the server's ``frames_root`` (``--frames_root``; the whole
+  file system on a loopback bind, nothing on another bind unless given). Continuation:
+  {"continue_b64": base64 of a 16-bit WAV at the DAC's rate, "context_s": float}.
 
 The memory modes are the CLI's: ``--quantization`` stores the denoiser's weights quantized
 (``io/quantize.py``) and ``--blocks_to_swap N`` keeps its last N blocks in page-locked host
 memory, streamed through ``--prefetch_blocks + 1`` device slots a family
-(``parallel/offload.py``).
+(``parallel/offload.py``). ``--lora DIR`` merges an adapter (``models/lora.py``) into the
+denoiser at load, before any quantization or block swap.
 
-Requests the port cannot serve answer 400 with the reason: ``frames_path`` and
-``mux_video`` (with ``"response": "avi"``) need PIL or ffmpeg, which wait for ROADMAP item
-13. Any other failure answers 500, as in the JAX package.
+Requests the port cannot serve answer 400 with the reason: ``mux_video`` (with
+``"response": "avi"``) writes an MJPEG AVI whose frames PIL encodes, and the card's machine
+has no PIL. Any other failure answers 500, as in the JAX package.
 
 Device work is serialized by a lock (one generation on the card at a time); a duration is
 snapped up to the smallest warmed bucket that holds it, and one past the largest bucket
@@ -67,7 +71,7 @@ from foley_tpu_torch.pipeline.longform import (
 
 logger = logging.getLogger("foley_tpu_torch")
 
-_ITEM13 = "needs PIL or ffmpeg, which wait for ROADMAP item 13"
+_NO_PIL = "needs PIL's JPEG encoder, which the card's machine has not"
 
 
 class UnsupportedRequest(ValueError):
@@ -83,8 +87,12 @@ class FoleyService:
                  durations: Sequence[float] = (5.0,), batch_sizes: Sequence[int] = (1,),
                  text_buckets: Sequence[int] = (77,), default_steps: int = 50,
                  video_encoders: Optional[Dict] = None,
-                 v2a_warmup_hw: Optional[Tuple[int, int]] = None):
+                 v2a_warmup_hw: Optional[Tuple[int, int]] = None,
+                 frames_root: Optional[str] = "/"):
         self.bundle = bundle
+        # frames_path allowlist: requests read only under this directory (None: no
+        # frames_path); main narrows it by the bind, the default serves in-process callers
+        self.frames_root = frames_root
         self.text_encoder = text_encoder
         self.video_encoders = video_encoders
         # (H, W) of the frames the video warm-up encodes
@@ -190,11 +198,24 @@ class FoleyService:
 
     # -- V2A inputs -------------------------------------------------------------
     def _frames_from_request(self, request: Dict):
-        """A request's ``frames_b64`` -> ([T, H, W, 3] float [0, 1], fps)."""
-        if "frames_path" in request:
-            raise UnsupportedRequest(f"frames_path (a server-side video file or frames "
-                                     f"directory) {_ITEM13}; send frames_b64 instead")
+        """A request's ``frames_b64`` or ``frames_path`` -> ([T, H, W, 3] float [0, 1],
+        fps)."""
         fps = float(request.get("frames_fps", 16.0))
+        if "frames_b64" not in request:
+            import os
+
+            from foley_tpu_torch.pipeline.video import read_video_frames
+
+            # frames_path makes the server read a local file for a client: only under the
+            # allowlist, so a non-loopback deployment does not probe local files
+            if self.frames_root is None:
+                raise ValueError("frames_path is disabled on this server (non-loopback bind "
+                                 "without --frames_root); send frames_b64 instead")
+            path = os.path.realpath(str(request["frames_path"]))
+            root = os.path.realpath(self.frames_root)
+            if path != root and not path.startswith(root.rstrip(os.sep) + os.sep):
+                raise ValueError("frames_path outside the server's --frames_root allowlist")
+            return read_video_frames(path, dir_fps=fps, device=self.bundle.mmdit.device)
         raw = base64.b64decode(request["frames_b64"])
         with np.load(io.BytesIO(raw)) as z:
             frames = z["frames"]
@@ -207,8 +228,8 @@ class FoleyService:
         if not _has_video(request):
             return None, None
         if not self.video_encoders:
-            raise ValueError("V2A request (frames_b64) but the server has no video encoders; "
-                             "start it with --enable_v2a")
+            raise ValueError("V2A request (frames_b64/frames_path) but the server has no "
+                             "video encoders; start it with --enable_v2a")
         frames, fps = self._frames_from_request(request)
         return features.encode_video(self.video_encoders, frames, fps, bucket_duration,
                                      self.bundle.pipeline_cfg)
@@ -226,13 +247,12 @@ class FoleyService:
         refusals: a duration past the largest bucket runs long-form in windows of the
         largest; long-form V2A encodes at ``plan_v2a_long``'s snapped duration."""
         if request.get("mux_video") or request.get("response") == "avi":
-            raise UnsupportedRequest(f"mux_video (an AVI of the frames and the audio) {_ITEM13}")
-        if "frames_path" in request:
-            self._frames_from_request(request)  # raises UnsupportedRequest
+            raise UnsupportedRequest(f"mux_video (an MJPEG AVI of the frames and the audio) "
+                                     f"{_NO_PIL}")
         cont_wav = self._continuation_wav(request)
         if cont_wav is not None and _has_video(request):
             raise ValueError("continuation (continue_b64) is text-conditioned only; "
-                             "remove frames_b64")
+                             "remove frames_b64/frames_path")
         duration = float(request.get("duration", 5.0))
         long_form = duration > self.durations[-1]
         bucket_duration = duration if long_form else self._snap_duration(duration)
@@ -279,7 +299,7 @@ class FoleyService:
         Long-form and continuation requests emit one chunk per window as it is denoised;
         in-bucket requests one chunk. Streams the first batch row and bypasses batching."""
         if request.get("mux_video"):
-            raise UnsupportedRequest(f"mux_video {_ITEM13}")
+            raise UnsupportedRequest(f"mux_video {_NO_PIL}")
         duration, long_form, bucket_duration, cont_wav = self._plan(request)
         # the latency ramp applies to windowed runs; checked before the header is sent
         ramp = {}
@@ -569,7 +589,11 @@ def main(argv=None) -> int:
     card, or ``--device cpu --random_init tiny`` on the CPU."""
     import argparse
 
-    from foley_tpu_torch.api.nodes import HunyuanModelLoader, resolve_dtype
+    from foley_tpu_torch.api.nodes import (
+        HunyuanModelLoader,
+        adapt_random_model,
+        resolve_dtype,
+    )
     from foley_tpu_torch.core.device import resolve_device
 
     p = argparse.ArgumentParser("foley-serve", description=__doc__,
@@ -585,7 +609,11 @@ def main(argv=None) -> int:
                    choices=["none", "auto", "fp8_e4m3fn", "fp8_e5m2", "int8", "int8_dynamic",
                             "int4"],
                    help="weight storage of the denoiser (the HunyuanModelLoader node's modes)")
-    p.add_argument("--lora", default="", help="LoRA adapter: not ported (ROADMAP item 13)")
+    p.add_argument("--lora", default="",
+                   help="LoRA adapter directory (models/lora.py) merged into the denoiser at "
+                        "load (before any --quantization)")
+    p.add_argument("--lora_scale", type=float, default=1.0,
+                   help="multiplier on the adapter's own recommended scale")
     p.add_argument("--config", default="xxl", choices=["xxl", "xl", "tiny"])
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8321)
@@ -595,14 +623,16 @@ def main(argv=None) -> int:
                    help=">1 enables request coalescing (BatchingFoleyService)")
     p.add_argument("--enable_v2a", action="store_true",
                    help="load the SigLIP2/Synchformer encoders so requests may carry "
-                        "frames_b64")
+                        "frames_b64 / frames_path")
     p.add_argument("--v2a_preprocess", default="device", choices=["device", "pil"])
     p.add_argument("--v2a_warmup_hw", default="",
                    help='source frame geometry "HxW" (e.g. 360x640) for the V2A warm-up')
     p.add_argument("--frames_root", default=None,
-                   help="frames_path allowlist: frames_path is not ported (ROADMAP item 13)")
+                   help="directory allowlist for request frames_path reads; required to "
+                        "enable frames_path on a non-loopback --host (loopback binds allow "
+                        "any local path)")
     p.add_argument("--mesh", default="", help="multi-card serving: not ported (ROADMAP "
-                                              "item 13, torch.distributed DP/TP)")
+                                              "item 13h, torch.distributed DP/TP)")
     p.add_argument("--blocks_to_swap", type=int, default=0,
                    help="keep the LAST N of the 54 blocks in page-locked host memory, "
                         "streamed to the card each step; composes with --quantization")
@@ -610,17 +640,12 @@ def main(argv=None) -> int:
                    help="extra swapped-block copies in flight (device window = N+1)")
     args = p.parse_args(argv)
     if args.mesh:
-        p.error("--mesh: multi-card serving is not ported (ROADMAP item 13)")
+        p.error("--mesh: multi-card serving is not ported (ROADMAP item 13h)")
     if args.prefetch_blocks and not args.blocks_to_swap:
         p.error("--prefetch_blocks only applies with --blocks_to_swap > 0")
-    if args.lora:
-        from foley_tpu_torch.api.nodes import LORA_REFUSAL
-
-        p.error(f"--lora: {LORA_REFUSAL}")
     if args.v2a_preprocess != "device":
-        p.error("--v2a_preprocess pil needs PIL (ROADMAP item 13)")
-    if args.frames_root:
-        p.error("--frames_root: frames_path is not ported (ROADMAP item 13)")
+        p.error("--v2a_preprocess pil: the PIL resize needs PIL, which the card's machine "
+                "has not")
     if bool(args.random_init) == bool(args.model_path):
         p.error("pass exactly one of --random_init and --model_path")
     warmup_hw = None
@@ -638,8 +663,8 @@ def main(argv=None) -> int:
 
         if args.precision == "auto":
             p.error("--precision auto reads a checkpoint's dtype; name one with --random_init")
-        fm = HunyuanModelLoader.init_random(args.random_init, args.precision, 0, device=dev,
-                                            quantization=args.quantization)
+        fm = HunyuanModelLoader.init_random(args.random_init, args.precision, 0, device=dev)
+        adapt_random_model(fm["params"], args.lora, args.lora_scale, args.quantization)
         cfg = get_config(args.random_init)
         dac = dac_vae.init(cfg.dac, torch.Generator(device=dev).manual_seed(1), device=dev)
         bundle = ModelBundle(fm["params"], dac, cfg, compute_dtype=fm["dtype"])
@@ -655,7 +680,8 @@ def main(argv=None) -> int:
         from foley_tpu_torch.pipeline.standalone import load_model
 
         manager = load_model(args.model_path, config=args.config, precision=args.precision,
-                             quantization=args.quantization, device=dev)
+                             quantization=args.quantization, lora_path=args.lora,
+                             lora_scale=args.lora_scale, device=dev)
         bundle = ModelBundle(manager.foley["params"], manager.dac["params"],
                              manager.pipeline_cfg, compute_dtype=manager.foley["dtype"],
                              latent_stats=manager.foley.get("latent_stats"))
@@ -670,11 +696,18 @@ def main(argv=None) -> int:
         offload_block_suffix(bundle.mmdit, args.blocks_to_swap)
         bundle = bundle._replace(offload_prefetch=args.prefetch_blocks + 1)
 
+    if args.frames_root:
+        frames_root = args.frames_root
+    elif args.host in ("127.0.0.1", "localhost", "::1"):
+        frames_root = "/"  # loopback clients already have local file access
+    else:
+        frames_root = None  # a public bind: no frames_path unless allowlisted
     service_cls = FoleyService if args.max_batch <= 1 else BatchingFoleyService
     extra = {} if args.max_batch <= 1 else {"max_batch": args.max_batch}
     service = service_cls(bundle, text_encoder,
                           durations=tuple(float(x) for x in args.durations.split(",")),
-                          video_encoders=video_encoders, v2a_warmup_hw=warmup_hw, **extra)
+                          video_encoders=video_encoders, v2a_warmup_hw=warmup_hw,
+                          frames_root=frames_root, **extra)
     service.warmup(steps=args.warmup_steps)
     server = create_server(service, args.host, args.port)
     logger.info(f"serving on http://{args.host}:{args.port}")

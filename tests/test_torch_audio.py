@@ -125,5 +125,5 @@ def test_read_wav_refusals(tmp_path):
     alaw.write_bytes(_wav_bytes(6, 8, 1, 8000, b"\0" * 16))
     with pytest.raises(taudio.MediaProcessingError, match="unsupported"):
         taudio.read_wav(str(alaw))
-    with pytest.raises(taudio.MediaProcessingError, match="item 13"):
-        taudio.merge_audio_video("clip.mp4", "a.wav", "out.mp4")
+    with pytest.raises(taudio.MediaProcessingError, match="PIL"):
+        taudio.merge_audio_video(str(tmp_path), "a.wav", "out.mp4")  # a frames directory

@@ -133,8 +133,8 @@ def test_random_init_writes_the_wav(tmp_path):
 
 def test_csv_batch(tmp_path):
     """Rows of ``video,prompt``: a row without a video generates (the same audio as the same
-    run alone), a row with one fails (ROADMAP item 13) and the batch goes on, returning 1;
-    comments are skipped."""
+    run alone), a row whose video cannot be read (no ffmpeg on ``PATH``) fails and the batch
+    goes on, returning 1; comments are skipped."""
     csv_path = tmp_path / "rows.csv"
     csv_path.write_text("# video,prompt\n,rain on a roof\nclip.mp4,thunder\n,wind\n")
     base = ["--random_init", "tiny", "--random_init_perturb", "--precision", "fp32",
@@ -169,12 +169,16 @@ def test_gradio_hands_the_server_the_jax_argv(monkeypatch, source):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--lora", "adapter"], "item 13"), (["--single_video", "clip.mp4"], "item 13"),
-    (["--merge_video"], "item 13"), (["--desync_score"], "item 13"),
-    (["--mesh", "data=4"], "item 13"), (["--v2a_preprocess", "pil"], "item 13"),
-    (["--gradio", "--mesh", "data=4"], "item 13")])
+    (["--merge_video", "--single_video", "tests"], "PIL"),
+    (["--merge_video", "--single_video", "tests", "--gradio"], "PIL"),
+    (["--desync_score"], "requires --single_video"),
+    (["--mesh", "data=4"], "item 13h"), (["--v2a_preprocess", "pil"], "PIL"),
+    (["--gradio", "--v2a_preprocess", "pil"], "PIL"),
+    (["--gradio", "--mesh", "data=4"], "item 13h")])
 def test_refusals_name_their_roadmap_item(capsys, argv, item):
-    """What the port does not carry yet exits 2 before any model work, naming its item."""
+    """What the port refuses exits 2 before any model work, saying why: multi-card serving
+    names its ROADMAP item, the PIL routes name PIL (muxing onto a frames directory writes
+    JPEG frames), the desync score needs a video."""
     assert tcli.main(["--random_init", "tiny", "--device", "cpu"] + argv) == 2
     assert item in capsys.readouterr().err
 

@@ -5,8 +5,8 @@ and final layers, empty features, the sync position embedding) is replaced with 
 values and the qk-norm weights (ones at init) with seeded values in [0.5, 1.5], so the
 modulation, the gates and the per-stream norm tables all reach the velocity.
 
-The port always takes the fused qk-norm + RoPE attention (its plain version on the CPU);
-it is held against JAX ``attn_impl="pallas_fused"`` with the Pallas kernel in interpret mode
+Every shipped config takes the fused qk-norm + RoPE attention (its plain version on the
+CPU; ``tests/test_torch_mmdit_configs.py`` holds the others); it is held against JAX ``attn_impl="pallas_fused"`` with the Pallas kernel in interpret mode
 and against ``attn_impl="xla"``. fp32 atol 1e-5 / rtol 1e-4.
 """
 
@@ -165,20 +165,39 @@ def test_tables_of_other_lengths_raise(models):
         model(*(torch.from_numpy(a) for a in arrays), tables=tables)
 
 
-def test_failed_identity_check_raises(models):
+def test_failed_identity_check_raises(models, monkeypatch):
+    """More visual tokens than audio ones fail the interleave identity check: the tables
+    choose the plain route before any launch (no norm tables), and only the single blocks
+    call K1, as the JAX package's ``pallas_fused`` route does
+    (``tests/test_torch_mmdit_configs.py`` holds the velocity against JAX)."""
     _, model = models
     x, ts, cond, _, sync = _inputs(False, False)
     clip = np.zeros((2, 30, CFG.clip_dim), np.float32)  # more visual tokens than audio
-    with pytest.raises(NotImplementedError):
-        model(*(torch.from_numpy(a) for a in (x, ts, cond, clip, sync)))
+    tables = model.attention_tables(x.shape[1], 30, cond.shape[1])
+    assert tables.ropes.audio_joint is None and tables.triple_norms is None
+    calls = []
+    monkeypatch.setattr(tmm, "fused_qk_attention",
+                        lambda *a, **k: calls.append(a[0].shape) or tmm.sdpa(*a[:3]))
+    with torch.no_grad():
+        out = model(*(torch.from_numpy(a) for a in (x, ts, cond, clip, sync)), tables=tables)
+    assert out.shape == x.shape
+    assert calls == [(2, x.shape[1], CFG.num_heads, CFG.head_dim)] * CFG.depth_single_blocks
 
 
 @pytest.mark.parametrize("change", [dict(use_attention_mask=True),
                                     dict(interleaved_audio_visual_rope=False),
                                     dict(qk_norm=False)])
 def test_configs_outside_the_fused_kernel_raise(change):
-    with pytest.raises(NotImplementedError):
-        tmm.MMDiT(dataclasses.replace(CFG, **change), device="cpu")
+    """Each configuration outside K1's precondition builds, and its tables take the plain
+    route for the joint attention; without ``qk_norm`` the triple blocks hold no qk-norm
+    weights, as the JAX tree holds none."""
+    model = tmm.init(dataclasses.replace(CFG, **change), torch.Generator().manual_seed(0),
+                     device="cpu")
+    tables = model.attention_tables(20, 4, 8)
+    assert tables.triple_norms is None and tables.joint_rope is None
+    assert len(tables.single_norms) == CFG.depth_single_blocks
+    has_norm = any("audio_self_q_norm" in k for k in model.state_dict())
+    assert has_norm == dataclasses.replace(CFG, **change).qk_norm
 
 
 def test_init_schemes_and_param_count():

@@ -275,17 +275,19 @@ def test_fp8_checkpoint_loads_bit_for_bit(ckpts, tmp_path):
 
 
 def test_refusals(ckpts, graphs, tmp_path):
-    """What the loaders still refuse: LoRA (ROADMAP item 13, with training), the orbax
-    directory route, PIL preprocessing, an unknown quantization; and the sampler without
-    text features. The memory modes load and run (``test_memory_modes_match_jax``)."""
+    """What the loaders still refuse: the orbax directory route, PIL preprocessing (the
+    card's machine has no PIL), an unknown quantization, an adapter directory that is not
+    there; and the sampler without text features. The memory modes load and run
+    (``test_memory_modes_match_jax``), LoRA merges (``tests/test_torch_lora.py``)."""
     loader, ckpt = tnodes.HunyuanModelLoader(), str(ckpts / "hunyuanvideo_foley.safetensors")
     with pytest.raises(ValueError, match="quantization"):
         loader.load_model(ckpt, quantization="int3", config="tiny", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        loader.load_model(ckpt, lora_path="adapter", config="tiny", device="cpu")
+    with pytest.raises(FileNotFoundError):
+        loader.load_model(ckpt, lora_path=str(tmp_path / "no_adapter"), config="tiny",
+                          device="cpu")
     with pytest.raises(NotImplementedError, match="orbax"):
         loader.load_model(str(tmp_path), config="tiny", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="PIL"):
         tnodes.HunyuanDependenciesLoader().load_dependencies(
             str(ckpts / "vae_128d_48k.safetensors"), None, video_preprocess="pil",
             device="cpu")

@@ -6,6 +6,8 @@ CLAP with a byte-level BPE tokenizer beside it) through ``load_model``,
 draw, injected into the port. Tolerance: text features 1e-5 (fp32 CLAP,
 ``tests/test_torch_clap.py``), audio atol 1e-4 (``tests/test_torch_nodes.py``'s)."""
 
+import sys
+
 import numpy as np
 import pytest
 
@@ -45,9 +47,14 @@ def test_feature_process_matches_jax(managers):
     assert tsa.feature_process(None, "x", t_md)[2] == jsa.feature_process(None, "x", j_md)[2]
 
 
-def test_feature_process_refuses_a_video_naming_item_13(managers):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tsa.feature_process("clip.mp4", "rain", managers[1])
+def test_feature_process_refuses_a_video_naming_item_13(managers, monkeypatch, tmp_path):
+    """A video file needs ffmpeg: without one on ``PATH`` the port raises the JAX package's
+    message (``tests/test_torch_video.py`` runs the frames-directory and ffmpeg routes)."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setitem(sys.modules, "av", None)  # no PyAV either, as on the card's machine
+    (tmp_path / "clip.mp4").write_bytes(b"\0" * 64)
+    with pytest.raises(RuntimeError, match="no video decoder"):
+        tsa.feature_process(str(tmp_path / "clip.mp4"), "rain", managers[1])
 
 
 @pytest.mark.parametrize("batch_size", [1, 2])
@@ -66,7 +73,7 @@ def test_denoise_process_matches_jax(managers, monkeypatch, batch_size):
     assert float(np.abs(got).max()) > 0
 
 
-def test_lazy_exports_match_jax():
+def test_lazy_exports_match_jax(monkeypatch, tmp_path):
     names = ["load_model", "denoise_process", "feature_process", "merge_audio_video",
              "AttributeDict", "NODE_CLASS_MAPPINGS", "NODE_DISPLAY_NAME_MAPPINGS"]
     assert set(names) <= set(foley_tpu_torch.__all__)
@@ -76,7 +83,8 @@ def test_lazy_exports_match_jax():
     assert foley_tpu_torch.denoise_process is tsa.denoise_process
     assert set(foley_tpu_torch.NODE_CLASS_MAPPINGS) == set(foley_tpu.NODE_CLASS_MAPPINGS)
     assert foley_tpu_torch.AttributeDict({"a": {"b": 1}}).a.b == 1
-    with pytest.raises(MediaProcessingError, match="item 13"):
+    monkeypatch.setenv("PATH", str(tmp_path))  # no ffmpeg
+    with pytest.raises(MediaProcessingError, match="ffmpeg not found"):
         foley_tpu_torch.merge_audio_video("v.mp4", "a.wav", "out.mp4")
     with pytest.raises(AttributeError):
         foley_tpu_torch.not_an_export

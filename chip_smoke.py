@@ -104,16 +104,32 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
 - ``desync``: the real-width desync scorer (random reference-layout checkpoint) through
   ``cli.main --desync_score`` on the ``video_ingest`` frames and the ``lora`` request's WAV:
   the offset on the class grid, finite logits, the whole clip's logits against the CPU;
+- ``train_grad``: the train step at the XXL width cut to 1 + 1 blocks in fp32, the loss and
+  every parameter's and a rank-16 adapter's factors' gradients on the card against the CPU
+  (also under ``"high"`` precision), and a control with ``true_fp32`` bypassed;
+- ``train_lora``: LoRA training at XXL (bf16 base, rank-16 fp32 factors, 5 s, batch 1, remat):
+  the first loss equal to the base's, gradients with and without remat, the loss falling
+  over ten steps, no kernel launch in a step and K1 / K2 refusing grad-requiring operands,
+  the base unchanged, an exact resume from a ``.safetensors`` checkpoint, the exported
+  adapter merged at load against the runtime adapter, one 5 s request (2,700 K1 launches);
+- ``train_full``: full training at XXL in bf16 (AdamW, bf16 moments, remat), a few steps,
+  ``export_for_inference`` with latent statistics, the loader's directory route and one 5 s
+  request from the export (2,700 K1 launches);
+- ``train_data``: four 5 s WAV tones -> ``encode_corpus`` (XXL DAC) -> shards ->
+  ``flow_match_batches`` -> ``PrefetchLoader`` -> ``train_lora``, then ``python -m
+  foley_tpu_torch.tools.train_t2a`` (TINY) in a child process; each training phase prints
+  ms a step, peak memory, the trainable, state and checkpoint bytes, beside the card's
+  name and power limit;
 - ``{"kernels": [...]}``: every ported kernel with its launches on its path (K1 in
   ``main_path`` and, as ``launches_longform``, in the 75 s request and, as
   ``launches_serving``, over the ``serving`` requests, and per request of ``quant``,
   ``block_swap``, the ``cli`` memory-mode run, ``lora``'s requests, ``video_ingest``'s
-  and ``configs``' forwards; K2 in ``v2a_path``, the 24 s V2A
-  request, the served V2A requests and ``video_ingest``'s (fp32 encoders in the fp32 row);
-  K3 in one sweep of ``probe_gemm``; K3's times are the
-  probe's graph-replayed device times), then the fp16 and fp32 kernels of K1 (launches in
-  the ``cli`` request of their type) and K2 (launches in the ``precision`` encode of their
-  type);
+  and ``configs``' forwards, the requests on the trained models, and none in a train
+  step; K2 in ``v2a_path``, the 24 s V2A request, the served V2A requests and
+  ``video_ingest``'s (fp32 encoders in the fp32 row); K3 in one sweep of ``probe_gemm``;
+  K3's times are the probe's graph-replayed device times), then the fp16 and fp32
+  kernels of K1 (launches in the ``cli`` request of their type) and K2 (launches in the
+  ``precision`` encode of their type);
 - last, ``{"ok": true, "device": {...}}`` (the card's name and power limit are printed
   again just before the ``kernels`` line).
 
@@ -2477,6 +2493,532 @@ def desync_phase(torch, dev, frames_dir: str, wav_path: str):
           "phase_seconds": time.perf_counter() - t_phase})
 
 
+# ---------------------------------------------------------------------------------
+# Training (the denoiser's flow-matching steps, the loop, the data pipeline, the handoff)
+# ---------------------------------------------------------------------------------
+
+TRAIN_GRAD_REL_TOL = 1e-5  # the card's fp32 loss and gradients against the CPU's, relative L2
+                           # per leaf, both in true fp32 (sums in another order); the control,
+                           # TF32 let in, must break it
+TRAIN_LR = 1e-3            # Adam's rate in the LoRA phases: at the step's default 1e-4 ten steps
+                           # move a bf16 merged weight by less than its rounding step (~1.5e-4
+                           # at |w| ~ 0.02), and the loss on a fixed batch could not fall
+TRAIN_FALL_STEPS = 10      # steps on one fixed batch over which the LoRA loss must fall
+TRAIN_FULL_STEPS = 3
+TRAIN_DATA_STEPS = 3
+TRAIN_TONES_HZ = (220.0, 330.0, 440.0, 550.0)
+
+
+def _train_batch(torch, dev, pipeline_cfg, seed: int):
+    """One flow-matching batch of one 5 s clip (latents, text, clip and sync features, all
+    random), its noise and its sigma, from ``seed``, on ``dev``."""
+    cfg = pipeline_cfg.model
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    clip_len, sync_len = pipeline_cfg.t2a_lengths(DURATION_S)
+    t_len = pipeline_cfg.latent_length(DURATION_S)
+    rnd = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
+    batch = {"latents": rnd(1, t_len, cfg.audio_vae_latent_dim),
+             "cond": rnd(1, cfg.text_length, cfg.condition_dim),
+             "clip_feat": rnd(1, clip_len, cfg.clip_dim),
+             "sync_feat": rnd(1, sync_len, cfg.sync_feat_dim)}
+    return batch, rnd(1, t_len, cfg.audio_vae_latent_dim), torch.rand(1, device=dev,
+                                                                       generator=gen)
+
+
+def _loss_grads(torch, model, batch, noise, sigma, leaves, lora=None, remat=True,
+                compute_dtype=None):
+    """The flow-matching loss and its gradients with respect to ``leaves`` (the model's
+    parameters, or the adapter's factors with ``lora``) through ``training/train.py``'s
+    ``value_and_grad``; ``remat`` False runs ``flow_match_loss``'s arithmetic with the blocks
+    not checkpointed."""
+    from foley_tpu_torch.training import train
+
+    dtype = compute_dtype or torch.bfloat16
+
+    def loss_fn():
+        if remat:
+            return train.flow_match_loss(model, batch, compute_dtype=dtype, lora=lora,
+                                         noise=noise, sigma=sigma)
+        x1 = batch["latents"].float()
+        x = (1.0 - sigma)[:, None, None] * x1 + sigma[:, None, None] * noise
+        pred = model(x.to(dtype), sigma * 1000, *(batch[k].to(dtype) for k in (
+            "cond", "clip_feat", "sync_feat")), attn_impl="xla", remat=False, lora=lora)
+        return (pred.float() - (noise - x1)).square().mean()
+
+    for t in leaves.values():
+        t.requires_grad_(True)
+    try:
+        return train.value_and_grad(loss_fn, leaves)
+    finally:
+        for t in leaves.values():
+            t.requires_grad_(False)
+
+
+def _worst_rel(torch, got: dict, ref: dict) -> float:
+    """The largest relative L2 error over the leaves ``ref`` gives a gradient; a leaf the
+    loss does not reach is None or zero on both sides."""
+    worst = 0.0
+    for name, r in ref.items():
+        g = got[name]
+        if r is None or not r.any():
+            check(g is None or not g.any(), f"{name}: a gradient where the reference has none")
+            continue
+        check(g is not None and bool(torch.isfinite(g).all()), f"{name}: no finite gradient")
+        worst = max(worst, _rel_l2(g.cpu(), r.cpu()))
+    return worst
+
+
+def _bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def train_grad_phase(torch, dev, pipeline_cfg, card: str):
+    """The link JAX <-> CPU <-> card of the train step: the XXL width cut to 1 triple and 1
+    single block, fp32, perturbed from a seed; the loss and every parameter's gradient, then
+    a rank-16 adapter's (``b`` not zero) loss and factor gradients, on the card (at the
+    default matmul precision and at ``"high"``) against the same step on the CPU in this
+    process (the CPU step is held against ``jax.grad`` by ``tests/test_torch_train.py``):
+    within ``TRAIN_GRAD_REL_TOL`` per leaf. The control: the card's step with ``true_fp32``
+    bypassed under ``"high"`` must break the bound."""
+    import contextlib
+    import copy
+    import dataclasses
+
+    from foley_tpu_torch.core.params import perturb_zero_leaves
+    from foley_tpu_torch.models import lora as lora_mod
+    from foley_tpu_torch.models import mmdit
+    from foley_tpu_torch.ops import nn as nn_mod
+    from foley_tpu_torch.training import train
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(pipeline_cfg.model, depth_triple_blocks=1, depth_single_blocks=1)
+    gen = torch.Generator().manual_seed(21)
+    cpu = perturb_zero_leaves(mmdit.init(cfg, gen, device="cpu"), gen)
+    on_card = copy.deepcopy(cpu).to(dev)
+    batch, noise, sigma = _train_batch(torch, "cpu", pipeline_cfg, 22)
+    adapter = _lora_adapter(torch, cpu, LORA_RANK, 23)
+
+    def step(model, d):
+        b = {k: v.to(d) for k, v in batch.items()}
+        lora = {k: v.to(d) for k, v in adapter.items()}
+        args = (b, noise.to(d), sigma.to(d))
+        full = _loss_grads(torch, model, *args, dict(model.named_parameters()),
+                           compute_dtype=torch.float32)
+        return full, _loss_grads(torch, model, *args, lora, lora=lora,
+                                 compute_dtype=torch.float32)
+
+    def rel(got, ref):
+        (fl, fg), (ll, lg) = got
+        (rfl, rfg), (rll, rlg) = ref
+        return {"full_loss": _rel_l2(fl.cpu(), rfl), "full_grads": _worst_rel(torch, fg, rfg),
+                "lora_loss": _rel_l2(ll.cpu(), rll), "lora_grads": _worst_rel(torch, lg, rlg)}
+
+    t0 = time.perf_counter()
+    ref = step(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    saved = torch.get_float32_matmul_precision()
+    results, walls = {}, []
+    try:
+        for precision in ("highest", "high"):
+            torch.set_float32_matmul_precision(precision)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[precision] = rel(step(on_card, dev), ref)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            check(max(results[precision].values()) <= TRAIN_GRAD_REL_TOL,
+                  f"train step on the card ({precision}) against the CPU: "
+                  f"{results[precision]}, limit {TRAIN_GRAD_REL_TOL}")
+        bypass = (train, "true_fp32", contextlib.nullcontext), (
+            lora_mod, "true_fp32", contextlib.nullcontext), (
+            mmdit, "exact_fp32", lambda dtype: contextlib.nullcontext())
+        try:
+            for mod, name, stub in bypass:
+                setattr(mod, name, stub)
+            results["tf32_control"] = rel(step(on_card, dev), ref)
+        finally:
+            train.true_fp32 = lora_mod.true_fp32 = nn_mod.true_fp32
+            mmdit.exact_fp32 = nn_mod.exact_fp32
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    check(max(results["tf32_control"].values()) > TRAIN_GRAD_REL_TOL,
+          f"control: the step with TF32 reads {results['tf32_control']} from the CPU, within "
+          f"the limit {TRAIN_GRAD_REL_TOL}: the bound cannot tell TF32 from fp32")
+    emit({"phase": "train_grad", "card": card, "config": "xxl width, 1 + 1 blocks, fp32",
+          "params": sum(p.numel() for p in cpu.parameters()), "lora_rank": LORA_RANK,
+          "rel_l2_vs_cpu": results["highest"], "rel_l2_vs_cpu_high": results["high"],
+          "control_tf32_rel_l2_vs_cpu": results["tf32_control"],
+          "rel_tol": TRAIN_GRAD_REL_TOL, "card_walls_s": walls, "cpu_s": cpu_s,
+          "phase_seconds": time.perf_counter() - t_phase})
+
+
+def train_lora_phase(torch, dev, dac, pipeline_cfg, card: str, config="xxl"):
+    """LoRA fine-tuning at XXL: a bf16 base (perturbed, from a seed), rank-16 fp32 factors,
+    5 s clips (250 latent frames), batch 1, every block checkpointed, Adam at ``TRAIN_LR``.
+
+    Checks: the first step's loss with fresh factors equals the bare base's bit for bit (the
+    same x0 and sigma); every factor gradient finite, ``b``'s not zero, and equal with the
+    blocks checkpointed and not; the loss falls over ``TRAIN_FALL_STEPS`` steps on one
+    fixed batch; no K1 or K2 launch in any step, and a direct K1 or K2 call on operands that
+    require a gradient raises; the base's weights unchanged bit for bit; 2 steps, a
+    checkpoint, a restore and 2 steps equal 4 steps bit for bit (``training/loop.py``); the
+    adapter exported (``export_lora``) and the base exported (``export_for_inference``),
+    then loaded through ``HunyuanModelLoader`` with the adapter as ``lora_path``: its
+    velocity within ``FORWARD_REL_TOL`` of the runtime adapter's; one 5 s request on the
+    loaded model, 2,700 K1 launches. Returns K1's launches in that request and in the steps."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from foley_tpu_torch.api import nodes
+    from foley_tpu_torch.core.params import perturb_zero_leaves
+    from foley_tpu_torch.models import lora as lora_mod
+    from foley_tpu_torch.models import mmdit
+    from foley_tpu_torch.pipeline.generate import ModelBundle
+    from foley_tpu_torch.training import loop, optim, train
+
+    t_phase = time.perf_counter()
+    phase_base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    cfg = pipeline_cfg.model
+    gen = torch.Generator(device=dev).manual_seed(31)
+    model = perturb_zero_leaves(mmdit.init(cfg, gen, device=dev, dtype=torch.bfloat16), gen)
+    base = {k: v.clone() for k, v in model.state_dict().items()}
+    lora0 = lora_mod.init_lora(model, torch.Generator(device=dev).manual_seed(32), LORA_RANK)
+    batch, noise, sigma = _train_batch(torch, dev, pipeline_cfg, 33)
+
+    def adam():
+        return optim.adam(TRAIN_LR, b1=0.9, b2=0.95)
+
+    k1, k2 = _counts(torch)
+    with torch.no_grad(), train.step_context():
+        base_loss = train.flow_match_loss(model, batch, noise=noise, sigma=sigma)
+    grads = {}
+    for remat in (True, False):
+        factors = {k: v.clone() for k, v in lora0.items()}
+        loss, grads[remat] = _loss_grads(torch, model, batch, noise, sigma, factors,
+                                         lora=factors, remat=remat)
+        check(torch.equal(loss, base_loss), f"fresh factors (remat {remat}): loss "
+              f"{float(loss)} != the base model's {float(base_loss)}")
+    for name, g in grads[True].items():
+        check(g is not None and bool(torch.isfinite(g).all()), f"{name}: no finite gradient")
+        if name.endswith(".b"):
+            check(bool(g.any()), f"{name}: zero gradient")
+    remat_equal = all(torch.equal(g, grads[False][k]) for k, g in grads[True].items())
+    remat_rel = _worst_rel(torch, grads[False], grads[True])
+    check(remat_equal, f"factor gradients differ with the blocks checkpointed and not: "
+          f"worst relative L2 {remat_rel}")
+    del grads
+
+    init_state, step = train.make_lora_train_step(model, optimizer=adam())
+    state = init_state(lora0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_FALL_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, batch, noise=noise, sigma=sigma)
+        losses.append(loss)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+
+    def one_step():
+        step(state, batch, noise=noise, sigma=sigma)
+        torch.cuda.synchronize()
+
+    profile = profiled(torch, one_step)  # two more steps: where a step's time goes
+    check(torch.equal(losses[0], base_loss), "the first step's loss differs from the base's")
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"LoRA losses {losses}")
+    step_launches = k1.launches + k2.launches
+    check(step_launches == 0, f"{k1.launches} K1 and {k2.launches} K2 launches in the steps")
+    raised = _kernels_refuse_grad(torch, dev)
+    check(k1.launches + k2.launches == 0, "a refused call launched a kernel")
+    for k, v in model.state_dict().items():
+        check(torch.equal(v, base[k]), f"the base's {k} changed in training")
+    del base
+
+    batches = [_train_batch(torch, dev, pipeline_cfg, 40 + i)[0] for i in range(4)]
+    kw = dict(compute_dtype=torch.bfloat16, seed=5, log_every=0)
+    straight = loop.train_lora(model, lora0, iter(batches), 4, optimizer=adam(), **kw)
+    ckpt = "build/chip_smoke/train_lora_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    loop.train_lora(model, lora0, iter(batches[:2]), 2, ckpt_dir=ckpt, optimizer=adam(), **kw)
+    resumed = loop.train_lora(model, lora0, iter(batches[2:]), 4, ckpt_dir=ckpt,
+                              optimizer=adam(), **kw)
+    check(resumed.step == straight.step == 4, f"steps {resumed.step}, {straight.step}")
+    for name, t in straight.lora.items():
+        check(torch.equal(t, resumed.lora[name]) and torch.equal(
+            straight.opt_state.mu[name], resumed.opt_state.mu[name]) and torch.equal(
+            straight.opt_state.nu[name], resumed.opt_state.nu[name]),
+            f"resumed {name} differs from the uninterrupted run's")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = loop.save_checkpoint(ckpt, straight)
+    save_s = time.perf_counter() - t0
+    ckpt_bytes = os.path.getsize(os.path.join(path, loop.STATE_FILE))
+    t0 = time.perf_counter()
+    loop.restore_checkpoint(path, straight)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(ckpt)
+
+    adapter_dir = "build/chip_smoke/train_lora_adapter"
+    base_dir = "build/chip_smoke/train_lora_base"
+    t0 = time.perf_counter()
+    loop.export_lora(resumed, adapter_dir, rank=LORA_RANK)
+    export_s = time.perf_counter() - t0
+    # the base as an export directory, for the loader: the deployed model is the base with
+    # the adapter merged at load (``lora_path``)
+    loop.export_for_inference(train.TrainState(dict(model.named_parameters()), None, 0),
+                              base_dir)
+    t0 = time.perf_counter()
+    (fm,) = nodes.HunyuanModelLoader().load_model(base_dir, config=config,
+                                                  lora_path=adapter_dir, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    shutil.rmtree(base_dir)
+    shutil.rmtree(adapter_dir)
+    args = _forward_args(torch, dev, pipeline_cfg)
+    with torch.no_grad():
+        runtime = model(*args, lora=resumed.lora).float()
+        merged = fm["params"](*args).float()
+    rel = _rel_l2(merged, runtime)
+    check(rel <= FORWARD_REL_TOL, f"exported adapter merged at load: velocity {rel} from the "
+          f"runtime adapter's, limit {FORWARD_REL_TOL}")
+    del model, runtime, merged
+    torch.cuda.empty_cache()
+    req, _ = _request(torch, dev, ModelBundle(fm["params"], dac, pipeline_cfg), pipeline_cfg)
+    trainable = _bytes(lora0.values())
+    emit({"phase": "train_lora", "card": card, "config": config, "base_dtype": "bf16",
+          "rank": LORA_RANK, "latent_frames": pipeline_cfg.latent_length(DURATION_S),
+          "batch": 1, "remat": True, "lr": TRAIN_LR, "losses": losses,
+          "step_ms": step_ms, "median_step_ms": statistics.median(step_ms),
+          "peak_mem_gib": peak / 2 ** 30, "peak_above_phase_gib": (peak - phase_base) / 2 ** 30,
+          "trainable_bytes": trainable,
+          "state_bytes": 3 * trainable, "checkpoint_bytes": ckpt_bytes,
+          "checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
+          "resume_bit_exact": True, "remat_grads_bit_exact": remat_equal,
+          "kernel_launches_in_steps": step_launches, "grad_guard_raised": raised,
+          "export_lora_s": export_s, "load_with_lora_path_s": load_s,
+          "merged_vs_runtime_rel_l2": rel, "request": req, "step_profile": profile,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return req["k1_launches"], step_launches
+
+
+def _kernels_refuse_grad(torch, dev) -> dict:
+    """K1 and K2 called directly on bf16 operands that require a gradient: each must raise
+    (``ops/kernels/common.py::refuse_grad``). Returns each one's message."""
+    from foley_tpu_torch.ops.kernels import flash_attention as FL
+    from foley_tpu_torch.ops.kernels import fused_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(1, 64, 2, 128, device=dev, generator=gen, dtype=torch.bfloat16)
+    q.requires_grad_(True)
+    tab = torch.ones(64, 128, device=dev)
+    calls = {"fused_qk_attention": lambda: FA.fused_qk_attention(q, q, q, tab, tab, tab, tab,
+                                                                 tab, tab),
+             "flash_attention": lambda: FL.flash_attention(q, q, q)}
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            out[name] = str(e)
+        check("no backward" in out.get(name, ""), f"{name} on grad-requiring operands did not "
+              "raise")
+    return out
+
+
+def train_full_phase(torch, dev, dac, pipeline_cfg, card: str, config="xxl"):
+    """Full training at XXL: bf16 parameters and bf16 moments (the state four times 9.56
+    GiB with the gradients), ``make_train_step``'s defaults (AdamW 1e-4, b1 0.9, b2 0.95,
+    weight decay 0.01), every block checkpointed, 5 s, batch 1, ``TRAIN_FULL_STEPS`` steps
+    (finite losses, no K1 launch); then ``export_for_inference`` with latent statistics,
+    the loader's directory route (the weights and the statistics equal to what was
+    exported) and one 5 s request, 2,700 K1 launches. fp32 full training at XXL is out: its
+    parameters, gradients and moments alone take 4 x 19.13 GiB. Returns the loaded model
+    and K1's launches in the request and in the steps."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from foley_tpu_torch.api import nodes
+    from foley_tpu_torch.core.params import perturb_zero_leaves
+    from foley_tpu_torch.models import mmdit
+    from foley_tpu_torch.pipeline.generate import ModelBundle
+    from foley_tpu_torch.training import loop, train
+
+    t_phase = time.perf_counter()
+    phase_base = torch.cuda.memory_allocated()
+    cfg = pipeline_cfg.model
+    gen = torch.Generator(device=dev).manual_seed(51)
+    model = perturb_zero_leaves(mmdit.init(cfg, gen, device=dev, dtype=torch.bfloat16), gen)
+    batch, _, _ = _train_batch(torch, dev, pipeline_cfg, 52)
+    init_state, step = train.make_train_step(model)
+    state = init_state(model)
+    state_bytes = _bytes(list(state.params.values()) + list(state.opt_state.mu.values())
+                         + list(state.opt_state.nu.values()))
+    k1, k2 = _counts(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for i in range(TRAIN_FULL_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, batch, loop.step_generator(53, i, dev))
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    profile = profiled(torch, lambda: (step(state, batch, loop.step_generator(53, 9, dev)),
+                                       torch.cuda.synchronize()))  # two more steps
+    check(all(np.isfinite(losses)), f"full-training losses {losses}")
+    step_launches = k1.launches + k2.launches
+    check(step_launches == 0, f"{k1.launches} K1 and {k2.launches} K2 launches in the steps")
+
+    c = cfg.audio_vae_latent_dim
+    stats_gen = np.random.default_rng(54)
+    stats = (stats_gen.normal(size=c).astype(np.float32),
+             stats_gen.uniform(0.5, 2.0, c).astype(np.float32))
+    export_dir = "build/chip_smoke/train_full_export"
+    shutil.rmtree(export_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop.export_for_inference(state, export_dir, latent_stats=stats)
+    export_s = time.perf_counter() - t0
+    export_bytes = sum(os.path.getsize(os.path.join(export_dir, n))
+                       for n in os.listdir(export_dir))
+    trained = {k: v.detach() for k, v in state.params.items()}
+    del state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (fm,) = nodes.HunyuanModelLoader().load_model(export_dir, config=config, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    shutil.rmtree(export_dir)
+    check(fm["dtype"] == torch.bfloat16, f"the export loaded as {fm['dtype']}")
+    for got, want in zip(fm["latent_stats"], stats):
+        check(np.array_equal(got.cpu().numpy(), want), "latent stats differ from the export's")
+    for k, v in fm["params"].state_dict().items():
+        check(torch.equal(v, trained[k]), f"loaded {k} differs from the trained weight")
+    del model, trained
+    torch.cuda.empty_cache()
+    bundle = ModelBundle(fm["params"], dac, pipeline_cfg, latent_stats=fm["latent_stats"])
+    req, _ = _request(torch, dev, bundle, pipeline_cfg)
+    emit({"phase": "train_full", "card": card, "config": config, "dtype": "bf16",
+          "optimizer": "adamw(1e-4, b1=0.9, b2=0.95, weight_decay=0.01)",
+          "latent_frames": pipeline_cfg.latent_length(DURATION_S), "batch": 1, "remat": True,
+          "losses": losses, "step_ms": step_ms, "median_step_ms": statistics.median(step_ms),
+          "peak_mem_gib": peak / 2 ** 30, "peak_above_phase_gib": (peak - phase_base) / 2 ** 30,
+          "trainable_bytes": state_bytes // 3,
+          "state_bytes": state_bytes, "export_bytes": export_bytes, "export_s": export_s,
+          "load_s": load_s, "kernel_launches_in_steps": step_launches, "request": req,
+          "step_profile": profile, "phase_seconds": time.perf_counter() - t_phase})
+    return fm["params"], req["k1_launches"], step_launches
+
+
+def _write_tone(path: str, hz: float, seconds: float, rate: int = 48000) -> None:
+    """A decaying sine as 16-bit mono PCM, with the standard library's ``wave``."""
+    import wave
+
+    import numpy as np
+
+    t = np.arange(int(rate * seconds)) / rate
+    pcm = np.round(0.3 * np.sin(2 * np.pi * hz * t) * np.exp(-0.4 * t) * 32767)
+    with wave.open(path, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(rate)
+        f.writeframes(pcm.astype("<i2").tobytes())
+
+
+def train_data_phase(torch, dev, model, dac, pipeline_cfg, card: str):
+    """The training data path at XXL: four 5 s tones written as WAV files, ``encode_corpus``
+    with the XXL DAC on the card into ``.npz`` shards, then ``NpzShardDataset`` ->
+    ``flow_match_batches`` (standardized by ``latent_stats_from_shards``) ->
+    ``PrefetchLoader`` (page-locked batches copied on a side stream) -> ``loop.train_lora``
+    for ``TRAIN_DATA_STEPS`` steps over ``model``; last ``python -m
+    foley_tpu_torch.tools.train_t2a`` at its defaults (TINY) in a child process."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from foley_tpu_torch.models import lora as lora_mod
+    from foley_tpu_torch.training import data, loop, optim
+
+    t_phase = time.perf_counter()
+    root = "build/chip_smoke/train_data"
+    shutil.rmtree(root, ignore_errors=True)
+    wav_dir, shard_dir = os.path.join(root, "wavs"), os.path.join(root, "shards")
+    os.makedirs(wav_dir)
+    for i, hz in enumerate(TRAIN_TONES_HZ):
+        _write_tone(os.path.join(wav_dir, f"tone_{i}.wav"), hz, DURATION_S)
+    sr = pipeline_cfg.dac.sample_rate
+    dataset = data.AudioFolderDataset(wav_dir, DURATION_S, sr, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shards = data.encode_corpus(dac, dataset, shard_dir, num_clips=len(TRAIN_TONES_HZ),
+                                batch_size=2)
+    encode_s = time.perf_counter() - t0
+    with np.load(shards[0]) as z:
+        lat = z["latents"]
+    t_len = pipeline_cfg.latent_length(DURATION_S)
+    check(lat.shape == (len(TRAIN_TONES_HZ), t_len, pipeline_cfg.model.audio_vae_latent_dim)
+          and bool(np.isfinite(lat).all()), f"shard latents {lat.shape}")
+    stats = data.latent_stats_from_shards(shard_dir)
+    loader = data.PrefetchLoader(data.flow_match_batches(
+        iter(data.NpzShardDataset(shard_dir)), model, pipeline_cfg, batch_size=1,
+        latent_stats=stats), depth=2, device=dev)
+    devices, stamps = set(), []
+
+    def batches():
+        for b in loader:
+            devices.update(t.device.type for t in b.values())
+            yield b
+
+    k1, k2 = _counts(torch)
+    lora0 = lora_mod.init_lora(model, torch.Generator(device=dev).manual_seed(61), LORA_RANK)
+    torch.cuda.synchronize()
+    phase_base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        state = loop.train_lora(model, lora0, batches(), TRAIN_DATA_STEPS,
+                                compute_dtype=torch.bfloat16,
+                                optimizer=optim.adam(TRAIN_LR, b1=0.9, b2=0.95), log_every=1,
+                                metrics_fn=lambda s, v: stamps.append((time.perf_counter(), v)))
+    finally:
+        loader.close()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_launches = k1.launches + k2.launches
+    check(state.step == TRAIN_DATA_STEPS and devices == {dev.type} and step_launches == 0
+          and all(np.isfinite(v) for _, v in stamps),
+          f"steps {state.step}, batches on {devices}, {step_launches} kernel launches")
+    step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    shard_bytes = sum(os.path.getsize(s) for s in shards)
+    shutil.rmtree(root)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "foley_tpu_torch.tools.train_t2a"],
+                         capture_output=True, text=True, timeout=600)
+    tool_s = time.perf_counter() - t0
+    check(out.returncode == 0 and "done: 10 steps" in out.stdout,
+          f"train_t2a exited {out.returncode}: {out.stdout[-500:]} {out.stderr[-2000:]}")
+    emit({"phase": "train_data", "card": card, "clips": len(TRAIN_TONES_HZ),
+          "clip_s": DURATION_S, "encode_s": encode_s, "shard_bytes": shard_bytes,
+          "latent_mean_abs": float(np.abs(stats[0]).mean()), "steps": state.step,
+          "train_s": train_s, "step_ms": step_ms, "losses": [v for _, v in stamps],
+          "peak_mem_gib": peak / 2 ** 30, "peak_above_phase_gib": (peak - phase_base) / 2 ** 30,
+          "trainable_bytes": _bytes(lora0.values()),
+          "kernel_launches_in_steps": step_launches, "train_t2a_s": tool_s,
+          "train_t2a_tail": out.stdout.strip().splitlines()[-1],
+          "phase_seconds": time.perf_counter() - t_phase})
+    return step_launches
+
+
 def card_line() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2555,6 +3097,18 @@ def main() -> int:
     desync_phase(torch, dev, frames_dir, lora_wav)
     emit({"phase": "rest_of_inference", "seconds": time.perf_counter() - t_new})
 
+    t_train = time.perf_counter()
+    train_card = card_line()
+    train_grad_phase(torch, dev, XXL, train_card)
+    dac = dac_vae.init(XXL.dac, torch.Generator(device=dev).manual_seed(1), device=dev)
+    lora_trained_k1, lora_step_k1 = train_lora_phase(torch, dev, dac, XXL, train_card)
+    torch.cuda.empty_cache()
+    trained, full_trained_k1, full_step_k1 = train_full_phase(torch, dev, dac, XXL, train_card)
+    data_step_k1 = train_data_phase(torch, dev, trained, dac, XXL, train_card)
+    del trained, dac
+    torch.cuda.empty_cache()
+    emit({"phase": "training", "seconds": time.perf_counter() - t_train})
+
     # per-launch figures weighted by the main path's mix: each step runs one joint call per
     # triple block and one single call per single block
     mix = {"joint_5s": cfg.depth_triple_blocks, "single_5s": cfg.depth_single_blocks}
@@ -2599,6 +3153,8 @@ def main() -> int:
         "launches_lora": lora_k1,
         "launches_video_ingest": {k: v[0] for k, v in video_launches.items()},
         "launches_configs_forward": configs_k1,
+        "launches_trained": {"lora_merged": lora_trained_k1, "full_export": full_trained_k1},
+        "launches_in_train_steps": lora_step_k1 + full_step_k1 + data_step_k1,
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
         "ms": avg("kernel_ms"), "plain_ms": avg("plain_ms"), "bound_ms": k1_bound["bound_ms"],
         "bound_by": k1_bound["bound_by"],

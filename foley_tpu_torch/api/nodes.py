@@ -30,6 +30,10 @@ Mapping of the JAX package's mechanisms:
   ``lora.safetensors`` + ``lora_meta.json``; ``tools/lora_to_safetensors.py`` converts an
   orbax adapter of the JAX package), merged after the precision cast and before any
   quantization, with ``lora_meta.json``'s scale multiplying the widget's;
+- a directory the port's ``training/loop.py::export_for_inference`` wrote loads as the
+  trained model (its ``mmdit.safetensors`` in the port's names), with its
+  ``latent_stats.npz`` re-attached as the bundle's ``latent_stats``, as the JAX loader does
+  for its orbax exports: the train -> deploy handoff;
 - still refused: the orbax directory route of the model loader (orbax is the JAX package's
   storage and is not on the card's machine) and ``video_preprocess="pil"`` (PIL is not on
   the card's machine either; the port resizes frames on the device).
@@ -152,8 +156,11 @@ class HunyuanModelLoader:
                    quantization: str = "none", config: str = "xxl",
                    lora_path: str = "", lora_scale: float = 1.0,
                    device: DeviceLike = None):
+        from foley_tpu_torch.training import loop
+
         _check_quantization(quantization)
-        if os.path.isdir(model_name):
+        exported = os.path.isdir(model_name) and loop.is_export(model_name)
+        if os.path.isdir(model_name) and not exported:
             raise NotImplementedError(
                 f"{model_name} is a directory: the pre-converted orbax route is the JAX "
                 "package's own; pass the reference .safetensors / .pth checkpoint")
@@ -161,12 +168,16 @@ class HunyuanModelLoader:
         cfg = get_config(config)
         if precision != "auto":  # a bad name raises before the minutes-long read
             resolve_dtype(precision)
-        sd = load_torch_state_dict(model_name)
+        if exported:
+            sd, stats = loop.load_export(model_name)
+        else:
+            sd, stats = load_torch_state_dict(model_name), None
         ckpt_fp8 = detect_ckpt_fp8(sd)
         if precision == "auto":
             precision = detect_ckpt_major_precision(sd)
         dtype = resolve_dtype(precision)
-        state = convert_mmdit_state_dict(sd, cfg.model, consume=True)
+        # an export holds the port's own names and layouts: no conversion
+        state = sd if exported else convert_mmdit_state_dict(sd, cfg.model, consume=True)
         # fp8 tensors keep their bits; the precision cast takes the rest
         model = module_from_state_dict(mmdit.MMDiT, state, cfg.model, dev, dtype)
         _merge_lora_if_given(model, lora_path, lora_scale)
@@ -175,7 +186,11 @@ class HunyuanModelLoader:
                            else quantization)
         logger.info(f"MMDiT loaded: {param_bytes(model) / 2**30:.2f} GiB resident "
                     f"({precision})")
-        return ({"params": model, "cfg": cfg, "dtype": dtype},)
+        out = {"params": model, "cfg": cfg, "dtype": dtype}
+        if stats is not None:  # a from-scratch export: the sampler un-standardizes with them
+            out["latent_stats"] = tuple(torch.from_numpy(a).to(dev) for a in stats)
+            logger.info("latent standardization stats attached (from-scratch export)")
+        return (out,)
 
     @staticmethod
     def init_random(config: str = "tiny", precision: str = "bf16", seed: int = 0,

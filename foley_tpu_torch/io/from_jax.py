@@ -1,4 +1,5 @@
-"""Weight bridge: JAX parameter trees (as numpy arrays) -> the port's modules.
+"""Weight bridge: JAX parameter trees (as numpy arrays) -> the port's modules, and optax
+Adam state -> the port's (``optimizer_state_from_jax``).
 
 The trees are those of the JAX ``init`` functions (``mmdit``, ``dac_vae``, ``siglip2``,
 ``synchformer``, ``clap``) after the caller has fetched them to the host
@@ -190,3 +191,29 @@ def sync_scorer_from_jax(params: Dict, cfg, device: DeviceLike = None, dtype=Non
     from foley_tpu_torch.models.sync_scorer import SyncScorer
 
     return _module_from_jax(SyncScorer, params, cfg, device, dtype)
+
+
+def optimizer_state_from_jax(opt_state, lora: bool = False):
+    """An optax Adam / AdamW state (``optax.adam(...).init`` or ``adamw``'s chain, fetched to
+    the host) -> the port's ``training/optim.py::AdamState``: the ``ScaleByAdamState``'s
+    ``mu`` and ``nu`` trees in the port's names and layouts (the parameters' with
+    ``state_dict_from_jax``; with ``lora``, the adapter's with ``lora_from_jax``) and its
+    ``count``. The chain's other members (weight decay, learning rate) hold no state."""
+    from foley_tpu_torch.training.optim import AdamState
+
+    def find(node):
+        if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+            return node
+        if isinstance(node, (list, tuple)):
+            for child in node:
+                found = find(child)
+                if found is not None:
+                    return found
+        return None
+
+    adam_state = find(opt_state)
+    if adam_state is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the optimizer state")
+    convert = lora_from_jax if lora else state_dict_from_jax
+    return AdamState(mu=convert(adam_state.mu), nu=convert(adam_state.nu),
+                     count=int(np.asarray(adam_state.count)))

@@ -27,20 +27,31 @@ package's eager one, copied and not improved:
 The adapter format of the port is a directory holding ``lora.safetensors`` (those names) and
 ``lora_meta.json`` (``{"rank", "scale"}``), written by ``save_lora`` or by
 ``tools/lora_to_safetensors.py`` from an orbax adapter of the JAX package.
+
+The training side (``training/train.py``) applies an adapter unmerged, inside each block:
+``init_lora`` draws a fresh adapter, ``block_factors`` splits one into per-block factor views
+and ``block_lora`` sets each adapted weight's effective ``merge_block_lora(w, a, b, scale)``
+for the duration of one block's forward. With the block checkpointed (``MMDiT.forward``'s
+``remat``) autograd keeps only the factors, and the backward re-forms one block's weights at
+a time: no second weight stack is ever held. That merge is the JAX ``merge_block_lora``'s
+differentiable arithmetic (``a @ b`` in fp32, TF32 off, cast to the weight's dtype, then
+``w + scale * delta``), not ``lora_delta``'s emulated fused multiply-adds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 from collections import defaultdict
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from foley_tpu_torch.io.convert import load_safetensors, save_safetensors
-from foley_tpu_torch.ops.nn import QuantizableWeight
+from foley_tpu_torch.ops.nn import QuantizableWeight, true_fp32
 from foley_tpu_torch.parallel import offload
 
 ADAPTER_FILE = "lora.safetensors"
@@ -118,14 +129,18 @@ def _pairs(adapter: Dict[str, torch.Tensor]) -> Iterator[Tuple[str, str, torch.T
         yield family, path, groups[stem]["a"], groups[stem]["b"]
 
 
-@torch.no_grad()
-def _merge_weight(m: QuantizableWeight, name: str, a: torch.Tensor, b: torch.Tensor,
-                  scale: float) -> None:
+def _check_mergeable(m: QuantizableWeight, name: str) -> None:
     if "weight" not in m._parameters:
         raise ValueError(
             f"cannot merge LoRA into '{name}': leaf has no dense 'w' (quantized "
             "storage?) — merge BEFORE quantization (the loader does; see "
             "_merge_lora_if_given), and train over an unquantized base")
+
+
+@torch.no_grad()
+def _merge_weight(m: QuantizableWeight, name: str, a: torch.Tensor, b: torch.Tensor,
+                  scale: float) -> None:
+    _check_mergeable(m, name)
     w = m.weight
     dev = w.device
     delta32 = lora_delta(a.to(dev), b.to(dev))
@@ -160,3 +175,86 @@ def merge_lora(model: nn.Module, adapter: Dict[str, torch.Tensor], scale: float 
             _merge_weight(m, path.rpartition(".")[2], a[i], b[i], scale)
             merged += 1
     return merged
+
+
+# ---------------------------------------------------------------------------------
+# The training side: a fresh adapter, and the adapter applied unmerged inside each block
+# ---------------------------------------------------------------------------------
+
+def init_lora(model: nn.Module, generator: torch.Generator, rank: int = 16,
+              targets: Optional[Iterable[str]] = None,
+              dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """A fresh adapter for ``model`` (the port's ``MMDiT``), on the model's device, in the
+    adapter format's names and layouts (the JAX ``init_lora``): a weight of the blocks is
+    adapted when its path names one of ``targets`` (``DEFAULT_TARGETS`` when None; a
+    targeted non-leaf, such as ``linear2``, adapts every weight under it); ``a`` uniform in
+    ±1/sqrt(fan_in) (a conv's fan_in is K * in, as its base weight's init), ``b`` zeros, so
+    the adapted model equals the base exactly. Drawn from ``generator`` (on the model's
+    device) in name order; a weight in integer storage is left out, as JAX leaves it."""
+    tset = DEFAULT_TARGETS if targets is None else frozenset(targets)
+    out: Dict[str, torch.Tensor] = {}
+    for family in FAMILIES:
+        blocks = getattr(model, family)
+        mods = dict(blocks[0].named_modules()) if len(blocks) else {}
+        for path in sorted(mods):
+            m = mods[path]
+            if not (isinstance(m, QuantizableWeight) and tset & set(path.split("."))
+                    and "weight" in m._parameters):
+                continue
+            w = m.weight
+            out_dim, in_dim = w.shape[0], w.shape[1]
+            taps = () if w.ndim == 2 else (w.shape[2],)
+            limit = 1.0 / math.sqrt(in_dim * (taps[0] if taps else 1))
+            a = torch.empty(len(blocks), *taps, in_dim, rank, dtype=dtype, device=w.device)
+            out[f"{family}.{path}.a"] = a.uniform_(-limit, limit, generator=generator)
+            out[f"{family}.{path}.b"] = torch.zeros(len(blocks), *taps, rank, out_dim,
+                                                    dtype=dtype, device=w.device)
+    if not out:
+        raise ValueError(f"no LoRA targets matched in params (targets={sorted(tset)})")
+    return out
+
+
+def merge_block_lora(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                     scale: float) -> torch.Tensor:
+    """``w + scale * a @ b`` in the port's layout, differentiable in ``a`` and ``b`` (the JAX
+    ``merge_block_lora`` of one weight): ``a @ b`` in the factors' dtype with TF32 off, cast
+    to ``w``'s dtype, then ``w + scale * delta`` in that dtype, ``scale`` first rounded to
+    it."""
+    with true_fp32():
+        delta = a @ b
+    s = float(torch.tensor(scale, dtype=w.dtype))
+    return w + _port_layout(delta.to(w.dtype)) * s
+
+
+def block_factors(model: nn.Module, adapter: Dict[str, torch.Tensor]
+                  ) -> Dict[str, List[Dict[str, Tuple[torch.Tensor, torch.Tensor]]]]:
+    """An adapter split by block: ``{family: [{path: (a_i, b_i)} for each block i]}``, the
+    factors unbound along the block axis (views, so their gradients land in the stacked
+    factors)."""
+    out = {family: [{} for _ in getattr(model, family)] for family in FAMILIES}
+    for family, path, a, b in _pairs(adapter):
+        n = len(out[family])
+        if a.shape[0] != n or b.shape[0] != n:
+            raise ValueError(f"adapter {family}.{path}: {a.shape[0]} blocks, the model {n}")
+        for blk, ai, bi in zip(out[family], a.unbind(0), b.unbind(0)):
+            blk[path] = (ai, bi)
+    return out
+
+
+@contextlib.contextmanager
+def block_lora(block: nn.Module, factors: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
+               scale: float):
+    """Within the block, every adapted weight reads ``merge_block_lora`` of its factors
+    (``QuantizableWeight.lora_weight``); a weight in integer storage raises, as the JAX
+    merge does."""
+    mods = []
+    try:
+        for path, (a, b) in factors.items():
+            m = block.get_submodule(path)
+            _check_mergeable(m, path.rpartition(".")[2])
+            m.lora_weight = merge_block_lora(m.weight, a, b, scale)
+            mods.append(m)
+        yield
+    finally:
+        for m in mods:
+            m.lora_weight = None

@@ -27,6 +27,13 @@ weight tables K1 reads are built on the device whatever the block's place, and t
 timestep-invariant hoists (``precompute_text_kv``, ``precompute_triple_mods``) return
 None when the triple stack is split, as in the JAX package: the blocks then compute them.
 
+Training (``training/train.py``) takes the JAX package's ``"xla"`` route, which no kernel
+lies on (``attn_impl="xla"``: the plain joint attention in the triple blocks, qk-norm, RoPE
+and ``sdpa`` in the single blocks, as ``jax.grad`` differentiates them), with each block
+checkpointed (``remat``, the JAX ``_run_stack``'s ``jax.checkpoint``) and, for LoRA, the
+adapter applied unmerged inside each block (``lora``, ``models/lora.py::block_lora``). The
+kernels have no backward and raise under autograd.
+
 Parameter names follow the JAX tree (``w``/``b`` become ``weight``/``bias``; the stacked
 block axis becomes ``triple_blocks.<i>`` / ``single_blocks.<i>``), so ``io/from_jax.py``
 maps one onto the other by name.
@@ -34,6 +41,8 @@ maps one onto the other by name.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -41,9 +50,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from foley_tpu_torch.configs import MMDiTConfig
 from foley_tpu_torch.core.device import DeviceLike, resolve_device
+from foley_tpu_torch.models import lora as lora_mod
 from foley_tpu_torch.ops.activations import get_activation, swiglu
 from foley_tpu_torch.ops.attention import sdpa
 from foley_tpu_torch.ops.interp import nearest_exact_indices, nearest_exact_resize
@@ -464,7 +475,8 @@ class SingleBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, vec: torch.Tensor, ropes: RopeTables,
                 norms) -> torch.Tensor:
-        """``norms``: this block's ``norm_tables``."""
+        """``norms``: this block's ``norm_tables`` (K1), or None for the JAX package's XLA
+        route: RMS-norm of q and k, RoPE, then the plain ``sdpa``."""
         mod = self.modulation(F.silu(vec))
         if mod.shape[0] != x.shape[0]:
             mod = torch.cat([mod] * (x.shape[0] // mod.shape[0]), dim=0)
@@ -474,8 +486,13 @@ class SingleBlock(nn.Module):
         q, k, v = (_split_heads(u, self.cfg.num_heads)
                    for u in self.linear_qkv(x_n).chunk(3, dim=-1))
         cos, sin = ropes.audio
-        out = fused_qk_attention(q, k, v, *norms, cos, sin, cos, sin,
-                                 eps=self.cfg.qk_norm_eps).flatten(2)
+        eps = self.cfg.qk_norm_eps
+        if norms is None:
+            q = apply_rotary_emb(rms_norm(q, self.q_norm.weight, eps=eps), cos, sin)
+            k = apply_rotary_emb(rms_norm(k, self.k_norm.weight, eps=eps), cos, sin)
+            out = sdpa(q, k, v).flatten(2)
+        else:
+            out = fused_qk_attention(q, k, v, *norms, cos, sin, cos, sin, eps=eps).flatten(2)
         x = x + apply_gate(self.linear1(out, padding=1), gate_msa)
         x_n = modulate(layer_norm(x), shift_mlp, scale_mlp)
         return x + apply_gate(self.linear2(x_n, kernel_size=3), gate_mlp)
@@ -547,17 +564,22 @@ class MMDiT(nn.Module):
 
     def forward(self, x, t, cond, clip_feat, sync_feat, *, cond_mask=None, text_kv=None,
                 triple_mods=None, tables: Optional[AttentionTables] = None,
-                visual_rows_shared: bool = False, offload_prefetch: int = 1) -> torch.Tensor:
+                visual_rows_shared: bool = False, offload_prefetch: int = 1,
+                attn_impl: str = "fused", remat: bool = False, lora=None,
+                lora_scale: float = 1.0) -> torch.Tensor:
         """``_velocity``, in true fp32 when ``x`` is fp32 (``ops/nn.py::exact_fp32``)."""
         with exact_fp32(x.dtype):
             return self._velocity(x, t, cond, clip_feat, sync_feat, cond_mask=cond_mask,
                                   text_kv=text_kv, triple_mods=triple_mods, tables=tables,
                                   visual_rows_shared=visual_rows_shared,
-                                  offload_prefetch=offload_prefetch)
+                                  offload_prefetch=offload_prefetch, attn_impl=attn_impl,
+                                  remat=remat, lora=lora, lora_scale=lora_scale)
 
     def _velocity(self, x, t, cond, clip_feat, sync_feat, *, cond_mask=None, text_kv=None,
                   triple_mods=None, tables: Optional[AttentionTables] = None,
-                  visual_rows_shared: bool = False, offload_prefetch: int = 1) -> torch.Tensor:
+                  visual_rows_shared: bool = False, offload_prefetch: int = 1,
+                  attn_impl: str = "fused", remat: bool = False, lora=None,
+                  lora_scale: float = 1.0) -> torch.Tensor:
         """Velocity [B, T, C_latent] (the JAX ``apply``).
 
         x: audio latents [B, T, C_latent]; t: [B] timesteps in [0, 1000); cond: text
@@ -571,12 +593,43 @@ class MMDiT(nn.Module):
         visual-derived projections then run on the first half and are tiled.
         ``offload_prefetch``: the device window of each swapped block family
         (``offload.stream_blocks``; 1 fetches each block after the last one ran).
+
+        Training (the JAX ``apply``'s ``attn_impl``, ``remat``, ``lora``, ``lora_scale``):
+        ``attn_impl`` ``"fused"`` sends the attention to K1 as described above, ``"xla"``
+        takes the plain route in every block (what the train step differentiates).
+        ``remat`` checkpoints each block (``torch.utils.checkpoint``, non-reentrant): the
+        backward recomputes it from its inputs. ``lora``: an unmerged adapter
+        (``models/lora.py``'s names), applied inside each block at ``lora_scale``; it
+        refuses the hoists, whose weights would bypass it, and swapped blocks, as does
+        ``remat`` (a recomputed block would read a device slot handed on since).
         """
         cfg = self.cfg
+        if attn_impl not in ("fused", "xla"):
+            raise ValueError(f"attn_impl {attn_impl!r}: expected 'fused' or 'xla'")
+        if lora is not None and (text_kv is not None or triple_mods is not None):
+            raise ValueError(
+                "runtime (unmerged) LoRA is the training path; the denoise hoists read block "
+                "weights directly — use lora.merge_lora(params, lora, scale) for inference")
+        if (lora is not None or remat) and any(offload.swapped_blocks(self, f)
+                                               for f in lora_mod.FAMILIES):
+            raise ValueError("extra_xs is unsupported for placement-split stacks: runtime "
+                             "LoRA and remat need every block on the device (merge the block "
+                             "swap back first)")
+        factors = None if lora is None else lora_mod.block_factors(self, lora)
         bs, tl = x.shape[0], x.shape[1] // cfg.patch_size
         if visual_rows_shared and bs % 2:
             raise ValueError(f"visual_rows_shared needs an even CFG batch, got {bs}")
         half = bs // 2
+
+        def run(block, family: str, i: int, *args, **kwargs):
+            """Block ``i`` of ``family``: checkpointed under ``remat``, its adapter applied."""
+            f = None if factors is None else factors[family][i]
+            if not remat and f is None:
+                return block(*args, **kwargs)
+            fn = functools.partial(_run_block, block, f, lora_scale, x.dtype)
+            if remat:
+                return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+            return fn(*args, **kwargs)
 
         vec = self.time_in(t, x.dtype)  # [B, H]
 
@@ -613,6 +666,8 @@ class MMDiT(nn.Module):
             raise ValueError(f"attention tables cover {tables.ropes.visual_cross[0].shape[0]} "
                              f"+ {tables.ropes.audio[0].shape[0]} joint positions, the input "
                              f"{visual_len} + {audio_len}")
+        if attn_impl == "xla":  # the RoPE tables alone: no block takes K1
+            tables = tables._replace(joint_rope=None, triple_norms=None, single_norms=None)
         ropes = tables.ropes
         attn_mask = None
         if cfg.use_attention_mask:
@@ -624,8 +679,8 @@ class MMDiT(nn.Module):
             audio = audio + sync_add  # injected before block 0
         for i, block in enumerate(offload.stream_blocks(self, "triple_blocks",
                                                          offload_prefetch)):
-            audio, v_cond = block(
-                audio, cond, v_cond, vec, ropes, tables.joint_rope,
+            audio, v_cond = run(
+                block, "triple_blocks", i, audio, cond, v_cond, vec, ropes, tables.joint_rope,
                 None if tables.triple_norms is None else tables.triple_norms[i],
                 sync_vec=sync_vec, attn_mask=attn_mask,
                 text_kv=None if text_kv is None else (text_kv[0][i], text_kv[1][i]),
@@ -643,8 +698,9 @@ class MMDiT(nn.Module):
             vec_tok = vec  # per-batch 2-D modulation (reference parity)
         mod_vec = vec_tok_mod if vec_tok_mod is not None else vec_tok
         blocks = offload.stream_blocks(self, "single_blocks", offload_prefetch)
-        for block, norms in zip(blocks, tables.single_norms):
-            audio = block(audio, mod_vec, ropes, norms)
+        for i, block in enumerate(blocks):
+            norms = None if tables.single_norms is None else tables.single_norms[i]
+            audio = run(block, "single_blocks", i, audio, mod_vec, ropes, norms)
 
         out = self.final_layer(audio, sync_vec if sync_vec is not None else vec_tok)
         if cfg.patch_size != 1:
@@ -680,6 +736,17 @@ class MMDiT(nn.Module):
             a_mods = torch.stack([b.audio_mod(sv) for b in self.triple_blocks], dim=1)
             v_mods = torch.stack([b.v_cond_mod(sv) for b in self.triple_blocks], dim=1)
             return a_mods[:, :, None, :], v_mods[:, :, None, :]
+
+
+def _run_block(block: nn.Module, factors, scale: float, dtype, *args, **kwargs):
+    """One block's forward with its adapter applied (``factors`` None: none). A checkpointed
+    block runs this again in the backward, after ``MMDiT.forward``'s ``exact_fp32`` has
+    exited: so it enters ``exact_fp32`` itself, and the recomputed activations of an fp32
+    model equal the saved ones whatever the caller's matmul precision."""
+    adapter = (contextlib.nullcontext() if factors is None
+               else lora_mod.block_lora(block, factors, scale))
+    with exact_fp32(dtype), adapter:
+        return block(*args, **kwargs)
 
 
 # ---------------------------------------------------------------------------------

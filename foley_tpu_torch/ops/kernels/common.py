@@ -56,6 +56,17 @@ def check_launch(kernel: str, err: int) -> None:
                            f"{'no cuTensorMapEncodeTiled' if err == -2 else f'cudaError {err}'}")
 
 
+def refuse_grad(kernel: str, route: str, *operands: torch.Tensor) -> None:
+    """Raise when autograd would record a call of ``kernel``: the kernels are launched through
+    ``ctypes`` into a fresh tensor, which carries no ``grad_fn``, and none has a backward (the
+    JAX package's Pallas kernels have none either). Without this check a backward through the
+    call would drop every operand's gradient and raise nothing. ``route`` names the plain
+    route that differentiates."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        raise RuntimeError(f"{kernel}: the CUDA kernel has no backward, and an operand requires "
+                           f"a gradient; differentiate through {route}")
+
+
 _launch_lock = threading.Lock()
 
 

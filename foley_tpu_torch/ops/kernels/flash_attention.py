@@ -43,6 +43,7 @@ from foley_tpu_torch.ops.kernels.common import (
     check_operand,
     count_launch,
     on_device,
+    refuse_grad,
 )
 
 HEAD_DIMS = (64, 128)
@@ -115,12 +116,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, Lq, H, D].
 
     Unmasked CUDA tensors launch the kernel of their type (bf16, fp16 or fp32, D 64 or 128;
-    anything else raises);
+    anything else raises), and raise where autograd would record the call
+    (``common.refuse_grad``);
     unmasked CPU tensors take ``flash_attention_plain``. ``mask`` (boolean [B, 1, Lq, Lk],
     True = attend) takes the plain masked attention on any device, as the TPU wrapper does."""
     if mask is not None:
         return sdpa(q, k, v, mask)
     if q.device.type == "cuda":
+        refuse_grad("flash_attention", "the plain attention, ops/attention.py::sdpa", q, k, v)
         return _launch(q, k, v)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")

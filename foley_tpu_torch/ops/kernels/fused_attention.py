@@ -40,6 +40,7 @@ from foley_tpu_torch.ops.kernels.common import (
     check_operand,
     count_launch,
     on_device,
+    refuse_grad,
 )
 from foley_tpu_torch.ops.rope import _rotate_half
 
@@ -140,8 +141,11 @@ def fused_qk_attention(q, k, v, wq, wk, cos_q, sin_q, cos_k, sin_k, eps=1e-6):
     [Lk, D] per-position tables (a [D] weight broadcasts). Returns [B, Lq, H, D].
 
     CUDA tensors launch the kernel of their type (bf16, fp16 or fp32, D=128; anything else
-    raises); CPU tensors take ``fused_qk_attention_plain``."""
+    raises), and raise where autograd would record the call (``common.refuse_grad``); CPU
+    tensors take ``fused_qk_attention_plain``."""
     if q.device.type == "cuda":
+        refuse_grad("fused_qk_attention", 'the plain route, MMDiT.forward(..., attn_impl="xla"), '
+                    "as training does", q, k, v, wq, wk, cos_q, sin_q, cos_k, sin_k)
         return _launch(q, k, v, wq, wk, cos_q, sin_q, cos_k, sin_k, eps)
     if q.device.type != "cpu":
         raise ValueError(f"fused_qk_attention runs on cuda or cpu, got {q.device}")

@@ -194,10 +194,19 @@ def empty_parameter(*shape, dtype, device) -> nn.Parameter:
 
 
 class QuantizableWeight(nn.Module):
-    """A module with a ``weight`` that ``io/quantize.py`` may put in quantized storage."""
+    """A module with a ``weight`` that ``io/quantize.py`` may put in quantized storage.
+
+    ``lora_weight``: the effective weight of a runtime LoRA adapter, ``w + scale * a @ b``,
+    set only while ``models/lora.py::block_lora`` holds one block's adapter; ops read it in
+    place of ``weight``."""
+
+    lora_weight: Optional[torch.Tensor] = None
 
     def stored_weight(self):
-        """``weight``, or its ``QuantizedWeight`` when the codes replaced it."""
+        """``lora_weight`` while an adapter is applied, else ``weight``, or its
+        ``QuantizedWeight`` when the codes replaced it."""
+        if self.lora_weight is not None:
+            return self.lora_weight
         for kind in QUANT_KINDS:
             q = self._buffers.get("weight_" + kind)
             if q is not None:

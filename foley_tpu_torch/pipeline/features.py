@@ -85,6 +85,18 @@ def prepare_cfg_features(model: mmdit.MMDiT, text_feat: torch.Tensor,
     )
 
 
+def apply_drop_visual(model: mmdit.MMDiT, clip_feat: torch.Tensor, sync_feat: torch.Tensor,
+                      drop_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Replace each example's visual features with the learned empty sequences where
+    ``drop_mask`` [B] is True (reference ``hifi_foley.py:739-741`` ``drop_visual``, the
+    structural CFG-uncond mechanism; the sampler passes explicit empty sequences instead)."""
+    b = clip_feat.shape[0]
+    empty_clip = mmdit.get_empty_clip_sequence(model, b, clip_feat.shape[1]).to(clip_feat.dtype)
+    empty_sync = mmdit.get_empty_sync_sequence(model, b, sync_feat.shape[1]).to(sync_feat.dtype)
+    m = drop_mask.reshape(b, 1, 1).to(clip_feat.device)
+    return torch.where(m, empty_clip, clip_feat), torch.where(m, empty_sync, sync_feat)
+
+
 def encode_text(encoders: Dict, prompt: str,
                 negative_prompt: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """(text_feat [1, L, D], uncond_text_feat [1, L, D]) of a prompt through

@@ -593,3 +593,51 @@ def test_swapped_block_k1_tables_are_on_the_card(dev):
     tables = model.attention_tables(20, 4, 8, dev)
     for tab in tables.triple_norms + tables.single_norms:
         assert all(t.device.type == "cuda" for t in tab)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernels_refuse_operands_that_require_a_gradient(dev, dtype):
+    """K1 and K2 have no backward: under autograd, operands that require a gradient raise
+    (a launch would return a tensor without ``grad_fn`` and drop every gradient), naming the
+    plain route; under ``no_grad`` the same call launches."""
+    q, k, v, *tabs = _operands(dev, 1, 16, 16, 2, dtype=dtype, seed=5)
+    before = (FA.fused_qk_attention.launches, FL.flash_attention.launches)
+    for leaf in (q, tabs[0]):  # an activation, or a norm table (a trained weight)
+        leaf.requires_grad_(True)
+        with pytest.raises(RuntimeError, match='no backward.*attn_impl="xla"'):
+            FA.fused_qk_attention(q, k, v, *tabs)
+        leaf.requires_grad_(False)
+    v.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward.*sdpa"):
+        FL.flash_attention(q, k, v)
+    assert (FA.fused_qk_attention.launches, FL.flash_attention.launches) == before
+    with torch.no_grad():
+        FA.fused_qk_attention(q, k, v, *tabs)
+        FL.flash_attention(q, k, v)
+    assert (FA.fused_qk_attention.launches, FL.flash_attention.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_lora_train_step_on_card_launches_no_kernel(dev):
+    """A LoRA train step on the card at TINY depth with K1's head size (hidden 256, heads of
+    128): the plain attention route, so no K1 launch, finite factor gradients, the base
+    unchanged; then the default route under ``no_grad`` launches K1 once a block."""
+    from foley_tpu_torch.models.lora import init_lora
+    from foley_tpu_torch.training import train
+
+    cfg, model = _swap_model(dev)
+    base = {k: v.clone() for k, v in model.state_dict().items()}
+    args = _swap_inputs(dev, cfg)
+    batch = dict(zip(("latents", "cond", "clip_feat", "sync_feat"), (args[0], *args[2:])))
+    init_state, step = train.make_lora_train_step(model)
+    state = init_state(init_lora(model, torch.Generator(device=dev).manual_seed(2), rank=4))
+    before = FA.fused_qk_attention.launches
+    state, loss = step(state, batch, torch.Generator(device=dev).manual_seed(3))
+    assert FA.fused_qk_attention.launches == before and bool(torch.isfinite(loss))
+    assert any(bool(v.any()) for k, v in state.lora.items() if k.endswith(".b"))
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, base[k]), k
+    with torch.no_grad():
+        model(*args)
+    assert FA.fused_qk_attention.launches == before + cfg.depth_triple_blocks + (
+        cfg.depth_single_blocks)

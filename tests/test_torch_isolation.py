@@ -1,6 +1,6 @@
-"""The port stands alone: it imports nothing of JAX, flax, yaml, PIL, safetensors,
-transformers or the JAX package (the machine with the card has none of them), and its entry
-points never fall back to the CPU on their own."""
+"""The port stands alone: it imports nothing of JAX, flax, optax, orbax, yaml, PIL,
+safetensors, transformers or the JAX package (the machine with the card has none of them),
+and its entry points never fall back to the CPU on their own."""
 
 import ast
 import os
@@ -20,8 +20,8 @@ from foley_tpu_torch.pipeline import standalone
 from foley_tpu_torch.serving import server
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "yaml", "PIL", "foley_tpu", "safetensors",
-             "transformers", "tokenizers"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "yaml", "PIL", "foley_tpu",
+             "safetensors", "transformers", "tokenizers"}
 
 
 def _port_sources():

@@ -51,6 +51,8 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   (``edit_audio``, strength 0.6), 24 s of video-to-audio from a 640x360 clip in 16 s
   windows (``encode_video`` then ``generate_audio_long``), with K1's and K2's launches, and
   one 30 s window profiled as in ``profile`` (K1's share of the busy time);
+- from here on every request runs ``SURFACE_STEPS`` (10) Euler steps, 540 K1 launches at
+  XXL (the paths above run the 50 of the main path);
 - ``nodes``: the node API on the ``main_path`` bundle: its DAC written as a reference-layout
   ``.safetensors`` under ``build/`` and read back through ``HunyuanDependenciesLoader``
   (every weight equal, the write and load seconds); the sampler node on 5 s T2A twice with
@@ -70,11 +72,11 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   CPU's quantization of the same blocks (equal bit for bit), the 5 s forward's relative L2
   against the bf16 one, one XXL dense against the bf16 weight's (within the JAX tests'
   bounds: int8 1%, int8_dynamic 2%, int4 8% max-relative), and one 5 s request (wall, peak
-  memory above the phase's start, 2,700 K1 launches);
+  memory above the phase's start, 540 K1 launches);
 - ``block_swap``: the ``main_path`` denoiser with its last 30 blocks in page-locked host
   memory (the block-swap node's default), and 54 at ``prefetch_blocks`` 0 and 1, then an
   int4 copy with 54: the 5 s velocity equal bit for bit to the resident model's, the
-  partition report, the bytes on the card, one 5 s request (wall, peak memory, 2,700 K1
+  partition report, the bytes on the card, one 5 s request (wall, peak memory, 540 K1
   launches), the host -> card GB a step, a timed pass of the copies alone and the request's
   copy rate;
 - ``precision``: the XXL denoiser in fp16 and in fp32 (``HunyuanModelLoader.init_random``,
@@ -82,9 +84,9 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   under ``"high"`` matmul precision (equal within 1e-5); SigLIP2 and Synchformer in the same
   type encoding the 5 s 1280x720 clip, 12 K2 launches of that type, SigLIP2's features
   against the plain attention;
-- ``cli``: ``foley_tpu_torch.cli.main`` in this process, XXL 5 s T2A with 50 steps in fp16,
+- ``cli``: ``foley_tpu_torch.cli.main`` in this process, XXL 5 s T2A with 10 steps in fp16,
   in fp32, and in bf16 with ``--quantization int8 --blocks_to_swap 30 --prefetch_blocks
-  1``: the WAV (48 kHz, mono, 240,000 frames, non-silent), 2,700 K1 launches of the type
+  1``: the WAV (48 kHz, mono, 240,000 frames, non-silent), 540 K1 launches of the type
   and the wall;
 - ``configs``: the joint attention off K1's precondition at XXL bf16 (the exact interleave /
   decouple path; a ``use_attention_mask`` config with an all-true mask), through the plain
@@ -94,13 +96,13 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   memory); V2A from the directory
   through ``cli.main --single_video DIR`` (its WAV equal to the sampler node's on the same
   model, encoders, clip and seed), the server's ``frames_path`` and
-  ``standalone.feature_process`` (the features equal to the clip's), 2,700 K1 and 12 K2
+  ``standalone.feature_process`` (the features equal to the clip's), 540 K1 and 12 K2
   launches a request; a ``.mp4`` raises, naming ffmpeg and PyAV;
 - ``lora``: a rank-16 XXL adapter written by the port's writer, merged through the loader's
   code in-process (scale 0: the base latents; the card's merge of a triple and a single
   block equal to the CPU's bit for bit), through ``cli.main --lora`` and the server's
   ``--lora`` (their weights equal to the in-process merge's), and an int8 request of the
-  merged model: 2,700 K1 launches a request, the merge's seconds and the adapter's bytes;
+  merged model: 540 K1 launches a request, the merge's seconds and the adapter's bytes;
 - ``desync``: the real-width desync scorer (random reference-layout checkpoint) through
   ``cli.main --desync_score`` on the ``video_ingest`` frames and the ``lora`` request's WAV:
   the offset on the class grid, finite logits, the whole clip's logits against the CPU;
@@ -111,22 +113,42 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   the first loss equal to the base's, gradients with and without remat, the loss falling
   over ten steps, no kernel launch in a step and K1 / K2 refusing grad-requiring operands,
   the base unchanged, an exact resume from a ``.safetensors`` checkpoint, the exported
-  adapter merged at load against the runtime adapter, one 5 s request (2,700 K1 launches);
+  adapter merged at load against the runtime adapter, one 5 s request (540 K1 launches);
 - ``train_full``: full training at XXL in bf16 (AdamW, bf16 moments, remat), a few steps,
   ``export_for_inference`` with latent statistics, the loader's directory route and one 5 s
-  request from the export (2,700 K1 launches);
+  request from the export (540 K1 launches);
 - ``train_data``: four 5 s WAV tones -> ``encode_corpus`` (XXL DAC) -> shards ->
   ``flow_match_batches`` -> ``PrefetchLoader`` -> ``train_lora``, then ``python -m
   foley_tpu_torch.tools.train_t2a`` (TINY) in a child process; each training phase prints
   ms a step, peak memory, the trainable, state and checkpoint bytes, beside the card's
   name and power limit;
+- ``dac_train``: DAC-VAE GAN training at the real codec (371.6 M generator parameters)
+  against the default discriminators (MPD, MRD), five D + G steps of
+  ``make_dac_train_steps`` on one batch of eight seeded 0.4 s excerpts: ms a step, the D / G
+  split, peak memory, one profiled step, the models' and the optimizer state's bytes, every
+  loss part (finite, ``mel`` falling); the gradients of both losses on a 2-hop excerpt
+  against the CPU's with the posterior noise injected, and a TF32 control that must break
+  the bound;
+- ``codec``: ``compress`` / ``decompress`` at full width of the ``main_path`` request's 5 s
+  and of a 30 s signal (seconds, artifact bytes), equal to ``decode(encode(chunks).mode())``
+  and chunk by chunk within 1e-4; the RVQ's ``apply``, ``from_codes`` and ``from_latents``
+  agreeing on the card, an artifact of codes decoded;
+- ``transforms``: ``eval_transforms`` and ``train_transforms`` over the V2A clip (125 frames
+  of 1280x720, 5 s of 16 kHz audio) with their resizes and mel on the card and on the CPU:
+  equal bit for bit (the mel within 1e-5), ms an item each way;
+- ``pil_preprocess``: one 5 s XXL V2A request through ``cli.main --v2a_preprocess pil`` on
+  the ``video_ingest`` frames (540 K1 and 12 K2 launches, the PIL-exact resize reached, the
+  device resize not), ``ops/pil_resize.py`` on the card equal to the CPU's bit for bit at
+  SigLIP2's and Synchformer's sizes (host seconds of each), and the PIL route's features
+  against the device route's;
 - ``{"kernels": [...]}``: every ported kernel with its launches on its path (K1 in
   ``main_path`` and, as ``launches_longform``, in the 75 s request and, as
   ``launches_serving``, over the ``serving`` requests, and per request of ``quant``,
   ``block_swap``, the ``cli`` memory-mode run, ``lora``'s requests, ``video_ingest``'s
-  and ``configs``' forwards, the requests on the trained models, and none in a train
-  step; K2 in ``v2a_path``, the 24 s V2A request, the served V2A requests and
-  ``video_ingest``'s (fp32 encoders in the fp32 row); K3 in one sweep of ``probe_gemm``;
+  and ``configs``' forwards, the requests on the trained models and ``pil_preprocess``'s,
+  and none in a train step; K2 in ``v2a_path``, the 24 s V2A request, the served V2A
+  requests and ``video_ingest``'s and ``pil_preprocess``'s (fp32 encoders in the fp32 row);
+  K3 in one sweep of ``probe_gemm``;
   K3's times are the probe's graph-replayed device times), then the fp16 and fp32
   kernels of K1 (launches in the ``cli`` request of their type) and K2 (launches in the
   ``precision`` encode of their type);
@@ -138,6 +160,7 @@ repository, it exits non-zero before printing anything.
 """
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -146,6 +169,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 DURATION_S = 5.0
 STEPS = 50
+SURFACE_STEPS = 10  # Euler steps of every request after ``longform_path`` (the surfaces, the
+                    # memory modes, the CLI, ingest, LoRA, the trained models, the PIL route):
+                    # at 50 the whole script took 1,212.9 s of its 1,200 s limit (PERF.md §4)
 GUIDANCE = 4.5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 (and fp16) tensor-core peak
@@ -3019,6 +3045,512 @@ def train_data_phase(torch, dev, model, dac, pipeline_cfg, card: str):
     return step_launches
 
 
+DAC_TRAIN_BATCH = 8         # excerpts a step
+DAC_TRAIN_HOPS = 20         # 20 hops of 960 samples: 0.4 s at 48 kHz, the recipe's sub-second excerpts
+DAC_TRAIN_STEPS = 5         # D + G steps on one batch (the mel loss must fall over them)
+DAC_GRAD_HOPS = 2           # the card-vs-CPU gradient check's excerpt
+DAC_GRAD_REL_TOL = 3e-2     # the card's fp32 gradients against the CPU's, relative L2 of the
+                            # worst leaf, both in true fp32 (sums in another order through the
+                            # FFTs and 40+ conv layers; a leaf whose gradient is small, as an
+                            # MRD band with little energy, reads its rounding: 9.2e-3 in my
+                            # first run); the control, TF32 let in (0.19 there), must break it
+CODEC_CHUNK_REL = 1e-4      # a chunk encoded and decoded alone against the batched round trip
+                            # (cuDNN's algorithms may change with the batch size)
+CODEC_LONG_S = 30.0
+TRANSFORM_SPEC_ATOL = 1e-5  # the normalised log-mel on the card against the CPU's: cuFFT's
+                            # bins differ from the CPU FFT's in the last places, most in a
+                            # quiet bin (1.8e-6 read in my first run; 1e-6 was too tight)
+TRANSFORM_CROP_S = 5.0
+PIL_CPU_FRAMES = 8          # frames of each resize also run on the CPU (each frame's bytes are
+                            # its own: a subset holds the card to the CPU; 40 + 125 frames took
+                            # 31 s there)
+
+
+def _dac_audio(torch, dev, batch: int, hops: int, hop: int, seed: int):
+    """[batch, hops * hop, 1] seeded excerpts: three tones with a decay and noise, on dev."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.arange(hops * hop, device=dev, dtype=torch.float32) / 48000.0
+    hz = 110.0 + 880.0 * torch.rand(batch, 3, 1, device=dev, generator=gen)
+    tones = torch.sin(2 * torch.pi * hz * t).sum(dim=1) / 3.0
+    noise = 0.02 * torch.randn(batch, hops * hop, device=dev, generator=gen)
+    return (0.4 * tones * torch.exp(-2.0 * t) + noise)[..., None]
+
+
+def _dac_grads(torch, gen, disc, audio, noise_d, noise_g):
+    """The discriminators' and the generator's loss gradients (one step's, before any
+    update) through ``training/dac_train.py``, the posterior noise injected."""
+    from foley_tpu_torch.training import dac_train
+
+    _, d_grads = dac_train.loss_and_grads(
+        lambda: dac_train.discriminator_loss(gen, disc, audio, noise=noise_d),
+        dict(disc.named_parameters()))
+    _, g_grads = dac_train.loss_and_grads(
+        lambda: dac_train.generator_loss(gen, disc, audio, noise=noise_g)[0],
+        dict(gen.named_parameters()))
+    return {**{"d." + k: v for k, v in d_grads.items()},
+            **{"g." + k: v for k, v in g_grads.items()}}
+
+
+def _condition_codec(torch, gen, audio, mean_rms: float = 0.5, out_rms: float = 0.1):
+    """Scale ``gen``'s encoder conv weights, then its decoder's, each by one factor found by
+    geometric bisection, so that the posterior mean of ``audio`` has RMS ``mean_rms`` and its
+    decode ``out_rms``. A random init's activations grow through the codec's unnormalised
+    layers to latents of ~1e4 and log-variances clipped at 20, where ``exp(logvar)`` in the
+    KL's gradient magnifies fp32 rounding a hundred-million-fold and the clip's edges switch
+    gradients on and off: no two fp32 implementations agree there. Returns the factors."""
+    from foley_tpu_torch.models import dac_vae
+
+    def weights(prefix):
+        return [p for n, p in gen.named_parameters()
+                if n.startswith(prefix) and n.endswith("weight")]
+
+    def mean():
+        return dac_vae.encode(gen, audio).mean
+
+    def rms(x):
+        return float(x.square().mean().sqrt())
+
+    factors = []
+    for group, measure, target in ((weights("encoder."), lambda: rms(mean()), mean_rms),
+                                   (weights("decoder."),
+                                    lambda: rms(dac_vae.decode(gen, mean())), out_rms)):
+        base = [p.detach().clone() for p in group]
+        lo, hi = 0.2, 1.5
+
+        def scale(f):
+            with torch.no_grad():
+                for p, b in zip(group, base):
+                    p.copy_(b * f)
+
+        for _ in range(12):
+            mid = (lo * hi) ** 0.5
+            scale(mid)
+            lo, hi = (lo, mid) if measure() > target else (mid, hi)
+        factors.append((lo * hi) ** 0.5)
+        scale(factors[-1])
+    return factors
+
+
+def dac_train_phase(torch, dev, pipeline_cfg, card: str):
+    """DAC-VAE GAN training at the real codec (``DACConfig``: 371.6 M generator parameters)
+    against the default discriminators (MPD periods 2, 3, 5, 7, 11; MRD FFT sizes 2048,
+    1024, 512), through ``training/dac_train.py::make_dac_train_steps``: ``DAC_TRAIN_STEPS``
+    D + G steps on one batch of ``DAC_TRAIN_BATCH`` seeded 0.4 s excerpts (the step's
+    defaults: the DAC recipe's loss weights, AdamW at 1e-4), the noise from ``loop.step_generator``, the random init conditioned
+    by ``_condition_codec`` (unconditioned, its KL grows from 5.6e11 to 1.4e27 in five
+    steps, and fp32 overflows a few steps later). Reports ms a step (median),
+    the D / G split, peak memory, one profiled step (launches, busy time, idle share), the
+    bytes of both models and their optimizer state, every loss part (all finite, ``mel``
+    falling). Then (``dac_train_grad``) the gradients of both losses on a
+    ``DAC_GRAD_HOPS``-hop excerpt with the posterior noise injected, of a fresh init
+    conditioned by ``_condition_codec``, on the card against a copy on the CPU (within
+    ``DAC_GRAD_REL_TOL`` per leaf), and the control: ``"high"`` matmul precision, cuDNN's
+    TF32 on and ``true_fp32`` bypassed must break the bound. No kernel of the port runs in
+    the step (K1 / K2 / K3 serve the denoiser and the encoders)."""
+    import contextlib
+    import copy
+
+    from foley_tpu_torch.models import dac_discriminator, dac_losses, dac_vae
+    from foley_tpu_torch.ops import audio_dsp
+    from foley_tpu_torch.ops import nn as nn_mod
+    from foley_tpu_torch.training import dac_train, loop
+    from foley_tpu_torch.training import train as train_mod
+
+    t_phase = time.perf_counter()
+    cfg = pipeline_cfg.dac
+    dcfg = dac_discriminator.DiscriminatorConfig(sample_rate=cfg.sample_rate)
+    gen = dac_vae.init(cfg, torch.Generator(device=dev).manual_seed(71), device=dev)
+    disc = dac_discriminator.init(dcfg, torch.Generator(device=dev).manual_seed(72), device=dev)
+    audio = _dac_audio(torch, dev, DAC_TRAIN_BATCH, DAC_TRAIN_HOPS, cfg.hop_length, 73)
+    factors = _condition_codec(torch, gen, audio[:1])
+    init_state, train_step = dac_train.make_dac_train_steps(gen, disc)
+    state = init_state()
+    marks = []
+    real_loss_and_grads = dac_train.loss_and_grads
+
+    def marked(fn, leaves):  # the D / G split: a mark at each half's start
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return real_loss_and_grads(fn, leaves)
+
+    k1, k2 = _counts(torch)
+    torch.cuda.synchronize()
+    phase_base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    history, step_ms, d_ms, g_ms = [], [], [], []
+    dac_train.loss_and_grads = marked
+    try:
+        for i in range(DAC_TRAIN_STEPS):
+            marks.clear()
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, audio, loop.step_generator(0, i, dev))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step_ms.append((t1 - t0) * 1e3)
+            d_ms.append((marks[1] - t0) * 1e3)
+            g_ms.append((t1 - marks[1]) * 1e3)
+            history.append({k: float(v) for k, v in metrics.items()})
+    finally:
+        dac_train.loss_and_grads = real_loss_and_grads
+    peak = torch.cuda.max_memory_allocated()
+    launches = k1.launches + k2.launches
+    check(all(math.isfinite(v) for h in history for v in h.values()),
+          f"dac_train: a loss is not finite: {history}")
+    check(history[-1]["mel"] < history[0]["mel"],
+          f"dac_train: mel did not fall over {DAC_TRAIN_STEPS} steps: "
+          f"{[h['mel'] for h in history]}")
+    check(launches == 0 and not any(p.requires_grad for p in (*gen.parameters(),
+                                                              *disc.parameters())),
+          f"dac_train: {launches} kernel launches in the steps, or gradients left on")
+
+    def one_step():
+        nonlocal state
+        state, _ = train_step(state, audio, loop.step_generator(0, state.step, dev))
+        torch.cuda.synchronize()
+
+    prof = profiled(torch, one_step)
+    opt_bytes = _bytes([*state.gen_opt.mu.values(), *state.gen_opt.nu.values(),
+                        *state.disc_opt.mu.values(), *state.disc_opt.nu.values()])
+    sizes = {"gen_params": sum(p.numel() for p in gen.parameters()),
+             "disc_params": sum(p.numel() for p in disc.parameters()),
+             "gen_bytes": _bytes(gen.parameters()), "disc_bytes": _bytes(disc.parameters()),
+             "optimizer_state_bytes": opt_bytes}
+    del state, init_state, train_step, gen, disc
+    torch.cuda.empty_cache()
+    emit({"phase": "dac_train", "card": card, "codec": "DACConfig (full width)",
+          "discriminators": {"periods": list(dcfg.periods), "fft_sizes": list(dcfg.fft_sizes),
+                             "rates": list(dcfg.rates)},
+          "batch": DAC_TRAIN_BATCH, "excerpt_samples": DAC_TRAIN_HOPS * cfg.hop_length,
+          "lr": 1e-4, "conditioning_factors": factors, "steps": DAC_TRAIN_STEPS,
+          "step_ms": step_ms,
+          "step_ms_median": statistics.median(step_ms[1:]), "d_ms": d_ms, "g_ms": g_ms,
+          "peak_mem_gib": peak / 2 ** 30, "peak_above_phase_gib": (peak - phase_base) / 2 ** 30,
+          **sizes, "losses": history, "profiled_step": prof,
+          "kernel_launches_in_steps": launches, "phase_seconds": time.perf_counter() - t_phase})
+
+    # the card's gradients against the CPU's, on a conditioned fresh init copied to the CPU
+    t_grad = time.perf_counter()
+    gen_card = dac_vae.init(cfg, torch.Generator(device=dev).manual_seed(74), device=dev)
+    disc_card = dac_discriminator.init(dcfg, torch.Generator(device=dev).manual_seed(75),
+                                       device=dev)
+    small = _dac_audio(torch, "cpu", 1, DAC_GRAD_HOPS, cfg.hop_length, 76)
+    factors = _condition_codec(torch, gen_card, small.to(dev))
+    gen_cpu, disc_cpu = copy.deepcopy(gen_card).cpu(), copy.deepcopy(disc_card).cpu()
+    lat = (1, DAC_GRAD_HOPS, cfg.latent_dim)
+    ng = torch.Generator().manual_seed(77)
+    noise_d, noise_g = torch.randn(lat, generator=ng), torch.randn(lat, generator=ng)
+    t0 = time.perf_counter()
+    ref = _dac_grads(torch, gen_cpu, disc_cpu, small, noise_d, noise_g)
+    cpu_s = time.perf_counter() - t0
+
+    def card_rel():
+        """(worst leaf's relative L2, its name, all leaves' relative L2 together)."""
+        got = _dac_grads(torch, gen_card, disc_card, small.to(dev), noise_d.to(dev),
+                         noise_g.to(dev))
+        worst = _worst_rel(torch, got, ref)
+        name = max(ref, key=lambda k: _rel_l2(got[k].cpu(), ref[k]) if ref[k] is not None
+                   and ref[k].any() else -1.0)
+        flat = lambda d: torch.cat([d[k].cpu().reshape(-1) for k in ref  # noqa: E731
+                                    if ref[k] is not None])
+        return worst, name, _rel_l2(flat(got), flat(ref))
+
+    saved = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    bypass = [(m, "true_fp32") for m in (train_mod, dac_vae, dac_discriminator, dac_losses,
+                                         audio_dsp)]
+    try:
+        rel = {"highest": card_rel()}
+        torch.set_float32_matmul_precision("high")
+        rel["high"] = card_rel()
+        torch.backends.cudnn.allow_tf32 = True
+        for mod, name in bypass:
+            setattr(mod, name, contextlib.nullcontext)
+        rel["tf32_control"] = card_rel()
+    finally:
+        for mod, name in bypass:
+            setattr(mod, name, nn_mod.true_fp32)
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+    del gen_card, disc_card, gen_cpu, disc_cpu
+    torch.cuda.empty_cache()
+    emit({"phase": "dac_train_grad", "card": card,
+          "excerpt_samples": DAC_GRAD_HOPS * cfg.hop_length,
+          "conditioning_factors": {"encoder": factors[0], "decoder": factors[1]},
+          "worst_leaf_rel_l2": rel["highest"][0], "worst_leaf": rel["highest"][1],
+          "all_leaves_rel_l2": rel["highest"][2], "under_high": rel["high"],
+          "tf32_control": rel["tf32_control"], "rel_tol": DAC_GRAD_REL_TOL, "cpu_s": cpu_s,
+          "phase_seconds": time.perf_counter() - t_grad})
+    check(max(rel["highest"][0], rel["high"][0]) <= DAC_GRAD_REL_TOL,
+          f"dac_train: the card's gradients read {rel} from the CPU's, limit {DAC_GRAD_REL_TOL}")
+    check(rel["tf32_control"][0] > DAC_GRAD_REL_TOL,
+          f"control: the step with TF32 reads {rel['tf32_control']} from the CPU, within the "
+          f"limit {DAC_GRAD_REL_TOL}: the bound cannot tell TF32 from fp32")
+
+
+def codec_phase(torch, dev, pipeline_cfg, t2a_latents, card: str):
+    """The codec's chunked artifacts at full width (``models/dac_codec.py``) with the main
+    path's DAC (seed 1): ``compress`` / ``decompress`` of the T2A request's 5 s (its latents
+    decoded) and of a seeded 30 s signal, in 5 s chunks; seconds and artifact bytes; the
+    latents equal to ``encode(chunks).mode()`` and the audio to its decode, and each chunk
+    alone within ``CODEC_CHUNK_REL``. Then the RVQ (9 x 1024 x 8, random) on the 30 s
+    latents on the card: ``from_codes(apply(z).codes)`` equal to ``apply``'s ``z_q`` and
+    ``from_latents`` giving ``apply``'s codes (the latents standardized per channel); an
+    artifact of codes decompressed."""
+    import os
+
+    import numpy as np
+
+    from foley_tpu_torch.models import dac_codec, dac_vae, quantize
+
+    t_phase = time.perf_counter()
+    cfg = pipeline_cfg.dac
+    dac = dac_vae.init(cfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+    t2a = dac_vae.decode(dac, torch.from_numpy(np.asarray(t2a_latents, np.float32)).to(dev))
+    t2a = t2a[0, :, 0].cpu().numpy()
+    rng = np.random.default_rng(81)
+    t = np.arange(int(CODEC_LONG_S * cfg.sample_rate)) / cfg.sample_rate
+    long = (0.3 * np.sin(2 * np.pi * 330 * t) * np.sin(2 * np.pi * 0.5 * t)
+            + 0.05 * rng.normal(size=t.shape)).astype(np.float32)
+    os.makedirs("build/chip_smoke", exist_ok=True)
+    out, rel_chunks = {}, []
+    for name, wav in (("t2a_5s", t2a), ("signal_30s", long)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        art = dac_codec.compress(dac, wav)
+        torch.cuda.synchronize()
+        compress_s = time.perf_counter() - t0
+        path = art.save(f"build/chip_smoke/{name}.dac.npz")
+        t0 = time.perf_counter()
+        back = dac_codec.decompress(dac, dac_codec.DACFile.load(path))
+        torch.cuda.synchronize()
+        decompress_s = time.perf_counter() - t0
+        n_bytes = os.path.getsize(path)
+        os.remove(path)
+        check(back.shape == wav.shape and bool(np.isfinite(back).all()),
+              f"codec {name}: {back.shape} from {wav.shape}")
+        chunk = art.chunk_samples
+        padded = np.zeros((art.payload.shape[0] * chunk,), np.float32)
+        padded[:wav.shape[0]] = wav
+        chunks = torch.from_numpy(padded.reshape(-1, chunk, 1)).to(dev)
+        z = dac_vae.encode(dac, chunks).mode()
+        check(np.array_equal(z.cpu().numpy(), art.payload),
+              f"codec {name}: the latents differ from encode(chunks).mode()")
+        dec = dac_vae.decode(dac, z).reshape(-1).cpu().numpy()[:wav.shape[0]]
+        check(np.array_equal(dec, back), f"codec {name}: the audio differs from the decode")
+        for i in range(chunks.shape[0]):
+            zi = dac_vae.encode(dac, chunks[i:i + 1]).mode()
+            n = min(chunk, wav.shape[0] - i * chunk)
+            rel_chunks.append(max(_rel_l2(zi[0].cpu(), torch.from_numpy(art.payload[i])),
+                                  _rel_l2(dac_vae.decode(dac, zi)[0, :n, 0].cpu(),
+                                          torch.from_numpy(back[i * chunk:i * chunk + n]))))
+        out[name] = {"samples": int(wav.shape[0]), "chunks": int(art.payload.shape[0]),
+                     "compress_s": compress_s, "decompress_s": decompress_s,
+                     "artifact_bytes": n_bytes, "wav_bytes_fp32": int(wav.nbytes),
+                     "round_trip_rel_l2": _rel_l2(torch.from_numpy(back),
+                                                  torch.from_numpy(wav))}
+    check(max(rel_chunks) <= CODEC_CHUNK_REL,
+          f"codec: a chunk alone reads {max(rel_chunks)} from the batch, limit {CODEC_CHUNK_REL}")
+    # the discrete branch on the 30 s latents
+    rcfg = quantize.RVQConfig(input_dim=cfg.latent_dim)
+    rvq = quantize.init(rcfg, torch.Generator(device=dev).manual_seed(82), device=dev)
+    # standardized per channel: the random codec's latents reach 1e4, where the
+    # straight-through sum z_e + (z_q - z_e) rounds a code by |z_e|'s last place
+    zc = torch.from_numpy(art.payload).to(dev)
+    zc = (zc - zc.mean(dim=(0, 1))) / zc.std(dim=(0, 1))
+    with torch.no_grad():
+        q = quantize.apply(rvq, zc)
+        z_codes = quantize.from_codes(rvq, q.codes)
+        _, codes_l = quantize.from_latents(rvq, q.latents)
+    rvq_rel = _rel_l2(z_codes.cpu(), q.z_q.cpu())
+    check(rvq_rel <= 1e-5 and torch.equal(codes_l, q.codes),
+          f"rvq: from_codes reads {rvq_rel} from apply, codes equal {torch.equal(codes_l, q.codes)}")
+    coded = dac_codec.DACFile(q.codes.cpu().numpy().astype(np.int16), True, cfg.sample_rate,
+                              int(long.shape[0]), art.chunk_samples)
+    t0 = time.perf_counter()
+    wav_codes = dac_codec.decompress(dac, coded, rvq=rvq)
+    torch.cuda.synchronize()
+    codes_s = time.perf_counter() - t0
+    check(wav_codes.shape == long.shape and bool(np.isfinite(wav_codes).all()),
+          f"rvq artifact decode {wav_codes.shape}")
+    del dac, rvq
+    torch.cuda.empty_cache()
+    emit({"phase": "codec", "card": card, **out, "chunk_alone_worst_rel_l2": max(rel_chunks),
+          "chunk_rel_tol": CODEC_CHUNK_REL,
+          "rvq": {"codebooks": rcfg.n_codebooks, "codebook_size": rcfg.codebook_size,
+                  "from_codes_rel_l2": rvq_rel, "codes_bytes": int(coded.payload.nbytes),
+                  "commitment_loss": float(q.commitment_loss), "decompress_codes_s": codes_s},
+          "phase_seconds": time.perf_counter() - t_phase})
+
+
+def _items_equal(np, got: dict, ref: dict, spec_atol: float) -> float:
+    """Check two transformed items equal (``a_spec`` within ``spec_atol``); returns a_spec's
+    max abs difference (0 without one)."""
+    check(set(got) == set(ref), f"transform keys {sorted(got)} vs {sorted(ref)}")
+    spec = 0.0
+    for key, r in ref.items():
+        g = got[key]
+        if isinstance(r, np.ndarray):
+            check(g.dtype == r.dtype and g.shape == r.shape, f"transform {key}: {g.shape}")
+            if key == "a_spec":
+                spec = float(np.abs(g - r).max())
+                check(spec <= spec_atol, f"transform a_spec: card vs CPU {spec} > {spec_atol}")
+            else:
+                check(np.array_equal(g, r), f"transform {key}: the card's differs from the CPU's")
+        else:
+            check(g == r, f"transform {key}: {g} vs {r}")
+    return spec
+
+
+def transforms_phase(torch, dev, card: str):
+    """The Synchformer transform suite (``pipeline/transforms.py``) on the V2A phase's clip:
+    125 frames of 25 fps 1280x720 and 5 s of seeded 16 kHz audio. ``eval_transforms`` and
+    ``train_transforms`` (seed 0) with their torch steps
+    (the PIL-exact resizes, the mel) on the card, then the same on the CPU in this process:
+    every output equal bit for bit, ``a_spec`` within ``TRANSFORM_SPEC_ATOL``. Reports ms an
+    item each way (host work: the numpy augmentations)."""
+    import copy
+
+    import numpy as np
+
+    from foley_tpu_torch.pipeline import transforms as tr
+
+    t_phase = time.perf_counter()
+    frames = make_clip(np, 1, DURATION_S, CLIP_HW).astype(np.float32) / 255.0
+    rng = np.random.default_rng(91)
+    n = int(16000 * DURATION_S)
+    t = np.arange(n) / 16000.0
+    audio = (0.2 * np.sin(2 * np.pi * 440 * t) + 0.05 * rng.normal(size=n)).astype(np.float32)
+    item = {"frames": frames, "audio": audio}
+    res = {}
+    for name, build, n_items in (
+            ("eval", lambda d: tr.eval_transforms(TRANSFORM_CROP_S, device=d), 1),
+            ("train", lambda d: tr.train_transforms(TRANSFORM_CROP_S, seed=0, device=d), 1)):
+        outs, ms = {}, {}
+        for d in (dev, "cpu"):
+            pipe = build(d)
+            results, times = [], []
+            for _ in range(n_items):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                results.append(pipe(copy.copy(item)))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            outs[str(d)], ms[str(d)] = results, times
+        spec = max(_items_equal(np, g, r, TRANSFORM_SPEC_ATOL)
+                   for g, r in zip(outs[str(dev)], outs["cpu"]))
+        first = outs["cpu"][0]
+        res[name] = {"items": n_items, "ms_per_item_card": ms[str(dev)],
+                     "ms_per_item_cpu": ms["cpu"], "a_spec_max_abs_card_vs_cpu": spec,
+                     "v_segments": list(first["v_segments"].shape),
+                     "a_spec": list(first["a_spec"].shape),
+                     "offset_targets": [int(o.get("offset_target", -1)) for o in outs["cpu"]]}
+        del outs
+    emit({"phase": "transforms", "card": card, "clip": [int(frames.shape[0]), *CLIP_HW],
+          **res, "spec_atol": TRANSFORM_SPEC_ATOL,
+          "phase_seconds": time.perf_counter() - t_phase})
+
+
+def pil_preprocess_phase(torch, dev, pipeline_cfg, frames_dir: str, card: str) -> dict:
+    """The encoders' PIL route: ``cli.main --random_init xxl --single_video DIR
+    --v2a_preprocess pil`` on the ``video_ingest`` frames (5 s, 50 steps): its WAV, 2,700 K1
+    and 12 K2 launches, ``ops/pil_resize.py`` reached and the device resize not. Then on the
+    clip: ``pil_resize`` on the card equal to the CPU's bit for bit at SigLIP2's and
+    Synchformer's sizes (the host seconds of each resize on the card, and of its first
+    ``PIL_CPU_FRAMES`` frames both ways), and the PIL route's features against the device
+    route's on the same random encoders (relative L2). Returns
+    {"k1": ..., "k2": ...} launches of the request."""
+    import os
+    import wave
+
+    import numpy as np
+
+    from foley_tpu_torch import cli
+    from foley_tpu_torch.models import siglip2, synchformer
+    from foley_tpu_torch.ops import pil_resize
+    from foley_tpu_torch.pipeline import features
+
+    t_phase = time.perf_counter()
+    cfg = pipeline_cfg.model
+    calls = {"pil_resize": 0, "device_resize": 0}
+    real = (pil_resize.resize, siglip2.preprocess_frames_device,
+            synchformer.preprocess_frames_device)
+
+    def counted(key, fn):
+        def wrapper(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    wav_path = "build/chip_smoke/pil_cli.wav"
+    k1, k2 = _counts(torch)
+    pil_resize.resize = counted("pil_resize", real[0])
+    siglip2.preprocess_frames_device = counted("device_resize", real[1])
+    synchformer.preprocess_frames_device = counted("device_resize", real[2])
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(["--random_init", "xxl", "--random_init_perturb", "--single_video",
+                       frames_dir, "--frames_fps", str(CLIP_FPS), "--duration",
+                       str(DURATION_S), "--num_inference_steps", str(STEPS),
+                       "--guidance_scale", str(GUIDANCE), "--v2a_preprocess", "pil",
+                       "--device", dev.type, "--output", wav_path])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    finally:
+        pil_resize.resize, siglip2.preprocess_frames_device = real[0], real[1]
+        synchformer.preprocess_frames_device = real[2]
+    launches = {"k1": k1.launches, "k2": k2.launches,
+                "k2_fp32": k2.launches_by_dtype.get(torch.float32, 0)}
+    check(rc == 0, f"cli --v2a_preprocess pil exited {rc}")
+    per_k1 = STEPS * (cfg.depth_triple_blocks + cfg.depth_single_blocks)
+    check(launches["k1"] == per_k1 and launches["k2"] == 12,
+          f"pil_preprocess: K1 {launches['k1']}, K2 {launches['k2']} (expected {per_k1}, 12)")
+    check(calls["pil_resize"] > 0 and calls["device_resize"] == 0,
+          f"pil_preprocess: the request took the wrong resize: {calls}")
+    with wave.open(wav_path) as f:
+        params = (f.getframerate(), f.getnchannels(), f.getnframes())
+        pcm = np.frombuffer(f.readframes(f.getnframes()), "<i2")
+    os.remove(wav_path)
+    check(params == (48000, 1, int(DURATION_S * 48000)) and np.abs(pcm).max() > 0,
+          f"pil_preprocess WAV {params}")
+
+    clip = make_clip(np, 1, DURATION_S, CLIP_HW).astype(np.float32) / 255.0
+    f8 = features.resample_frames(clip, CLIP_FPS, DURATION_S, pipeline_cfg.siglip2_fps)
+    resize = {}
+    for name, fn, frames in (("siglip2_512", siglip2.preprocess_frames, f8),
+                             ("synchformer_224", synchformer.preprocess_frames, clip)):
+        out = {}
+        for key, d, x_in in (("card", dev, frames), ("card_subset", dev, frames[:PIL_CPU_FRAMES]),
+                             ("cpu_subset", "cpu", frames[:PIL_CPU_FRAMES])):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = fn(x_in, device=d)
+            torch.cuda.synchronize()
+            out[key] = (x.cpu(), time.perf_counter() - t0)
+        check(torch.equal(out["card"][0][:PIL_CPU_FRAMES], out["cpu_subset"][0])
+              and torch.equal(out["card_subset"][0], out["cpu_subset"][0]),
+              f"pil_resize on the card differs from the CPU's ({name})")
+        resize[name] = {"frames": int(frames.shape[0]), "card_s": out["card"][1],
+                        "subset_frames": PIL_CPU_FRAMES,
+                        "subset_card_s": out["card_subset"][1],
+                        "subset_cpu_s": out["cpu_subset"][1]}
+    encoders = {"siglip2": siglip2.init_random(2, cfg.clip_dim, device=dev),
+                "synchformer": synchformer.init_random(3, cfg.sync_feat_dim, device=dev)}
+    feats = {}
+    for route in ("device", "pil"):
+        for enc in encoders.values():
+            enc.preprocess = route
+        feats[route] = features.encode_video(encoders, clip, CLIP_FPS, DURATION_S,
+                                             pipeline_cfg)
+    rel = {k: _rel_l2(p.cpu(), d.cpu()) for k, p, d in zip(("clip_feat", "sync_feat"),
+                                                            feats["pil"], feats["device"])}
+    del encoders, feats
+    torch.cuda.empty_cache()
+    emit({"phase": "pil_preprocess", "card": card, "cli_wall_s": cli_s, "launches": launches,
+          "resize_calls": calls, "wav": list(params), "resize_s": resize,
+          "pil_vs_device_features_rel_l2": rel,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def card_line() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3073,10 +3605,13 @@ def main() -> int:
     flash_launches = v2a_path_phase(torch, dev, bundle, XXL, t2a_latents)
     text, uncond, clap_encoder = clap_phase(torch, dev)
     long_k1, long_k2 = longform_path_phase(torch, dev, bundle, XXL, text, uncond)
+    global STEPS
+    STEPS = SURFACE_STEPS  # the phases below read it at call time
     video_encoders = random_video_encoders(torch, dev, XXL)
     nodes_phase(torch, dev, bundle, XXL, clap_encoder, video_encoders)
     serving_k1, serving_k2 = serving_phase(torch, dev, bundle, XXL, clap_encoder,
                                            video_encoders)
+    t2a_clip_latents = t2a_latents[1]  # the codec phase compresses this request's audio
     del bundle, clap_encoder, video_encoders, text, uncond, t2a_latents
     torch.cuda.empty_cache()
     quant_k1 = quant_phase(torch, dev, model, dac, XXL)
@@ -3108,6 +3643,14 @@ def main() -> int:
     del trained, dac
     torch.cuda.empty_cache()
     emit({"phase": "training", "seconds": time.perf_counter() - t_train})
+
+    t_slice = time.perf_counter()
+    slice_card = card_line()
+    dac_train_phase(torch, dev, XXL, slice_card)
+    codec_phase(torch, dev, XXL, t2a_clip_latents, slice_card)
+    transforms_phase(torch, dev, slice_card)
+    pil_launches = pil_preprocess_phase(torch, dev, XXL, frames_dir, slice_card)
+    emit({"phase": "codec_training_transforms", "seconds": time.perf_counter() - t_slice})
 
     # per-launch figures weighted by the main path's mix: each step runs one joint call per
     # triple block and one single call per single block
@@ -3155,6 +3698,7 @@ def main() -> int:
         "launches_configs_forward": configs_k1,
         "launches_trained": {"lora_merged": lora_trained_k1, "full_export": full_trained_k1},
         "launches_in_train_steps": lora_step_k1 + full_step_k1 + data_step_k1,
+        "launches_pil_preprocess": pil_launches["k1"],
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
         "ms": avg("kernel_ms"), "plain_ms": avg("plain_ms"), "bound_ms": k1_bound["bound_ms"],
         "bound_by": k1_bound["bound_by"],
@@ -3195,7 +3739,8 @@ def main() -> int:
              # the CLI's and feature_process's random-init encoders are fp32, as in the JAX
              # package
              launches_video_ingest={k: v[1] for k, v in video_launches.items()
-                                    if k != "server"}),
+                                    if k != "server"},
+             launches_pil_preprocess=pil_launches["k2_fp32"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -34,9 +34,11 @@ Mapping of the JAX package's mechanisms:
   trained model (its ``mmdit.safetensors`` in the port's names), with its
   ``latent_stats.npz`` re-attached as the bundle's ``latent_stats``, as the JAX loader does
   for its orbax exports: the train -> deploy handoff;
+- ``video_preprocess`` picks the encoders' frame resize: ``device`` (the default) or
+  ``pil`` (PIL's BICUBIC resize of the reference, byte for byte through
+  ``ops/pil_resize.py`` on the device; the card's machine has no PIL and needs none);
 - still refused: the orbax directory route of the model loader (orbax is the JAX package's
-  storage and is not on the card's machine) and ``video_preprocess="pil"`` (PIL is not on
-  the card's machine either; the port resizes frames on the device).
+  storage and is not on the card's machine).
 """
 
 from __future__ import annotations
@@ -230,8 +232,8 @@ class HunyuanDependenciesLoader:
                 "clap_tokenizer": ("STRING", {"default": ""}),
                 "video_preprocess": (["device", "pil"], {
                     "default": "device",
-                    "tooltip": "V2A frame resize on the card (the port's only route: the "
-                               "card's machine has no PIL)"}),
+                    "tooltip": "V2A frame resize: device (antialiased bicubic) or pil "
+                               "(PIL's BICUBIC bytes, computed on the device)"}),
             },
         }
 
@@ -247,10 +249,9 @@ class HunyuanDependenciesLoader:
         from foley_tpu_torch.models import siglip2 as siglip_mod
         from foley_tpu_torch.models import synchformer as sync_mod
 
-        if video_preprocess != "device":
-            raise NotImplementedError(
-                f"video_preprocess={video_preprocess!r}: the PIL route needs PIL, which the "
-                "card's machine has not; the port resizes frames on the device")
+        if video_preprocess not in sync_mod.PREPROCESS_ROUTES:
+            raise ValueError(f"video_preprocess={video_preprocess!r}: expected one of "
+                             f"{sync_mod.PREPROCESS_ROUTES}")
         dev = resolve_device(device)
         dtype = resolve_dtype(precision)
         sd = load_torch_state_dict(vae_model)
@@ -272,6 +273,9 @@ class HunyuanDependenciesLoader:
             deps["clap"] = clap_mod.load(clap_model, tokenizer_path=clap_tokenizer or None,
                                          device=dev)
             logger.info(f"CLAP loaded from {clap_model}")
+        for key in ("siglip2", "synchformer"):
+            if key in deps:
+                deps[key].preprocess = video_preprocess
         return (deps,)
 
 
@@ -513,7 +517,7 @@ class HunyuanFoleySampler:
     def _encode_video(deps: Dict, image: np.ndarray, frame_rate: float, duration: float,
                       cfg: PipelineConfig):
         """[T, H, W, C] frames in [0, 1] -> (clip_feat, sync_feat) through the loaded visual
-        encoders (``pipeline/features.py::encode_video``, the device route)."""
+        encoders (``pipeline/features.py::encode_video``, on their ``preprocess`` routes)."""
         return features.encode_video(deps, np.asarray(image), frame_rate, duration, cfg)
 
 

@@ -32,12 +32,16 @@ host memory, streamed through ``--prefetch_blocks + 1`` device slots a block fam
     python -m foley_tpu_torch.cli --random_init xxl --random_init_perturb \
         --quantization int8 --blocks_to_swap 30 --prefetch_blocks 1 --output out.wav
 
+``--v2a_preprocess`` picks the encoders' frame resize: ``device`` (the default) or ``pil``
+(PIL's BICUBIC resize of the reference, byte for byte through ``ops/pil_resize.py``, on the
+device; no PIL needed).
+
 Refused, exit code 2 and a message saying why: ``--prefetch_blocks`` without
-``--blocks_to_swap``; ``--v2a_preprocess pil`` and ``--merge_video`` onto a frames
-directory (PIL: the frame resize of the reference, and the JPEG frames of the AVI the JAX
-package writes there; the card's machine has no PIL); ``--mesh`` (multi-card serving,
-ROADMAP item 13h). A video file needs ffmpeg on ``PATH`` (the JAX package's PyAV route is
-not ported), and JPEG frames or an MJPEG AVI's frames need PIL: those raise when read.
+``--blocks_to_swap``; ``--merge_video`` onto a frames directory (the JAX package writes an
+MJPEG AVI there, each frame a JPEG from PIL's encoder; the card's machine has no PIL);
+``--mesh`` (multi-card serving, ROADMAP item 13h). A video file needs ffmpeg on ``PATH``
+(the JAX package's PyAV route is not ported), and JPEG frames or an MJPEG AVI's frames need
+PIL's JPEG decoder: those raise when read.
 """
 
 from __future__ import annotations
@@ -111,7 +115,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "against (no ffmpeg needed; required when --single_video is a frames "
                         "dir)")
     p.add_argument("--v2a_preprocess", type=str, default="device", choices=["device", "pil"],
-                   help=f"V2A frame resize on the device (the port's only route; pil {_NO_PIL})")
+                   help="V2A frame resize: device (antialiased bicubic) or pil (PIL's "
+                        "BICUBIC bytes, computed on the device)")
     p.add_argument("--strength", type=float, default=0.6,
                    help="Edit strength in (0, 1]: fraction of the schedule to re-run")
     p.add_argument("--continue_audio", type=str, default=None, metavar="WAV",
@@ -147,8 +152,6 @@ def _refusal(args) -> str:
     """The first flag the port refuses, as a message saying why."""
     if args.mesh:
         return "--mesh (multi-card serving): not ported yet (ROADMAP item 13h)"
-    if args.v2a_preprocess != "device":
-        return f"--v2a_preprocess {args.v2a_preprocess}: the PIL resize {_NO_PIL}"
     if args.merge_video and args.single_video and os.path.isdir(args.single_video):
         return (f"--merge_video onto the frames directory {args.single_video!r}: its MJPEG "
                 f"AVI (each frame a JPEG) {_NO_PIL}; mux onto a video file with ffmpeg")
@@ -266,6 +269,9 @@ def main(argv=None) -> int:
                 os.path.join(mp, "synchformer_state_dict.safetensors"),
                 siglip2_model=siglip_dir if os.path.isdir(siglip_dir) else "",
                 clap_model=clap_dir if os.path.isdir(clap_dir) else "", device=dev)
+        for key in ("siglip2", "synchformer"):
+            if key in dependencies:
+                dependencies[key].preprocess = args.v2a_preprocess
 
         if args.stream_pcm:
             return _stream_pcm(args, foley_model, dependencies)

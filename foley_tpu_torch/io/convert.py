@@ -17,7 +17,8 @@ length, a JSON header, then raw little-endian buffers), since the card's machine
 loads as it is: ``module_from_state_dict`` keeps every fp8 ``Dense`` / ``Conv1d`` weight in
 fp8 (upcast at use, ``ops/nn.py::_match``), as the JAX package keeps fp8 leaves, and casts
 the rest (an fp8 tensor elsewhere upcasts exactly). The RVQ and discriminator converters
-serve training and wait for ROADMAP item 13g.
+serve the codec's training: their weight-norm pairs fold the same way, the RVQ's 1x1 convs
+into dense ``[out, in]`` weights.
 """
 
 from __future__ import annotations
@@ -388,6 +389,54 @@ def convert_dac_state_dict(sd: Dict[str, torch.Tensor], cfg: DACConfig, strict: 
         else:
             _take_linear(t, out, src, dst)
     _report(t, strict, "DAC")
+    return out
+
+
+def convert_rvq_state_dict(sd: Dict[str, torch.Tensor], cfg, strict: bool = False,
+                           consume: bool = False) -> Dict[str, torch.Tensor]:
+    """The reference's ``ResidualVectorQuantize`` state dict (``dac_vae/nn/quantize.py:
+    96-141``) -> the port's ``RVQ`` state dict (``cfg``: an ``RVQConfig``):
+    ``quantizers.<i>.{in_proj, out_proj}`` are weight-normed 1x1 convs, folded to dense
+    ``[out, in]``; ``quantizers.<i>.codebook.weight`` is an embedding [size, dim]."""
+    t = _KeyTracker(sd if consume else dict(sd))
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(cfg.n_codebooks):
+        q = f"quantizers.{i}"
+        for proj in ("in_proj", "out_proj"):
+            _take_wn_conv(t, out, f"{q}.{proj}", f"{q}.{proj}")
+            key = f"{q}.{proj}.weight"
+            if key in out:
+                out[key] = out[key][..., 0]  # [out, in, 1] -> [out, in]
+        _put(out, f"{q}.codebook", t.take(f"{q}.codebook.weight"))
+    _report(t, strict, "RVQ")
+    return out
+
+
+def convert_discriminator_state_dict(sd: Dict[str, torch.Tensor], cfg, strict: bool = False,
+                                     consume: bool = False) -> Dict[str, torch.Tensor]:
+    """The reference's GAN ``Discriminator`` state dict (``dac_vae/model/discriminator.py:
+    175-216``) -> the port's ``Discriminator`` state dict (``cfg``: a
+    ``DiscriminatorConfig``). ``discriminators`` holds the MPDs (one a period), then the MSDs
+    (one a rate), then the MRDs (one an FFT size); a conv with an activation sits at index 0
+    of its Sequential, the ``conv_post`` layers are bare; every conv is weight-normed (folded
+    here, torch's layout kept)."""
+    t = _KeyTracker(sd if consume else dict(sd))
+    out: Dict[str, torch.Tensor] = {}
+    families = ([("mpd", i, 5) for i in range(len(cfg.periods))]
+                + [("msd", i, 6) for i in range(len(cfg.rates))]
+                + [("mrd", i, None) for i in range(len(cfg.fft_sizes))])
+    for idx, (family, i, n_convs) in enumerate(families):
+        src, dst = f"discriminators.{idx}", f"{family}.{i}"
+        if n_convs is None:  # MRD: five bands of five convs
+            for b in range(5):
+                for j in range(5):
+                    _take_wn_conv(t, out, f"{src}.band_convs.{b}.{j}.0",
+                                  f"{dst}.band_convs.{b}.{j}")
+        else:
+            for j in range(n_convs):
+                _take_wn_conv(t, out, f"{src}.convs.{j}.0", f"{dst}.convs.{j}")
+        _take_wn_conv(t, out, f"{src}.conv_post", f"{dst}.post")
+    _report(t, strict, "Discriminator")
     return out
 
 

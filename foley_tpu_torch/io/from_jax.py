@@ -2,14 +2,15 @@
 Adam state -> the port's (``optimizer_state_from_jax``).
 
 The trees are those of the JAX ``init`` functions (``mmdit``, ``dac_vae``, ``siglip2``,
-``synchformer``, ``clap``) after the caller has fetched them to the host
+``synchformer``, ``clap``, ``quantize``, ``dac_discriminator``) after the caller has fetched them to the host
 (``jax.device_get``); this module imports no JAX. It owns every layout change between the
 two packages:
 
 - the depth axis of ``triple_blocks`` / ``single_blocks`` is unstacked into ``<name>.<i>``;
 - dense ``w`` [in, out] -> ``weight`` [out, in];
 - conv ``w`` [K, in, out] -> ``weight`` [out, in, K]; transposed conv (``conv_t``)
-  ``w`` [K, in, out] -> ``weight`` [in, out, K];
+  ``w`` [K, in, out] -> ``weight`` [in, out, K]; 2-D conv (the DAC's discriminators) ``w``
+  HWIO [Kh, Kw, in, out] -> OIHW [out, in, Kh, Kw];
 - ``b`` -> ``bias``; list indices and every other name stay (the encoders'
   ``position_embedding``, ``probe``, ``cls_token``, ``pos_embed`` and ``temp_embed``, and
   CLAP's ``word``, ``position`` and ``token_type`` tables, pass through unchanged).
@@ -72,6 +73,8 @@ def _weight_layout(path: Tuple[str, ...], a: np.ndarray) -> np.ndarray:
         return a.T
     if a.ndim == 3:
         return a.transpose(1, 2, 0) if "conv_t" in path else a.transpose(2, 1, 0)
+    if a.ndim == 4:
+        return a.transpose(3, 2, 0, 1)
     return a
 
 
@@ -135,6 +138,22 @@ def dac_from_jax(params: Dict, cfg: DACConfig, device: DeviceLike = None, dtype=
     from foley_tpu_torch.models.dac_vae import DAC
 
     return _module_from_jax(DAC, params, cfg, device, dtype)
+
+
+def rvq_from_jax(params: Dict, cfg, device: DeviceLike = None, dtype=None):
+    """Build the port's ``RVQ`` from a JAX ``quantize.init`` tree (``cfg``: the port's
+    ``RVQConfig``)."""
+    from foley_tpu_torch.models.quantize import RVQ
+
+    return _module_from_jax(RVQ, params, cfg, device, dtype)
+
+
+def discriminator_from_jax(params: Dict, cfg, device: DeviceLike = None, dtype=None):
+    """Build the port's ``Discriminator`` from a JAX ``dac_discriminator.init`` tree
+    (``cfg``: the port's ``DiscriminatorConfig``)."""
+    from foley_tpu_torch.models.dac_discriminator import Discriminator
+
+    return _module_from_jax(Discriminator, params, cfg, device, dtype)
 
 
 def clap_from_jax(params: Dict, cfg, device: DeviceLike = None, dtype=None):

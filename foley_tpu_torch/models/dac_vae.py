@@ -5,7 +5,10 @@ Decode: post_quant_conv -> WNConv1d k7 -> 5x DecoderBlock (Snake -> ConvTranspos
 Encode: WNConv1d k7 -> 5x EncoderBlock (3 dilated ResidualUnits -> Snake -> strided
 WNConv1d k=2s) -> Snake -> WNConv1d k3 -> quant_conv k1 -> a diagonal Gaussian posterior
 over the latents (``GaussianPosterior``); continuation and SDEdit take its ``mode()``.
-Weight norm is already folded into plain conv weights (as in the JAX tree).
+Weight norm is already folded into plain conv weights (as in the JAX tree). The parameters
+are built with ``requires_grad=False``; the codec's train step switches them on for its
+duration and traces ``encode_body`` / ``decode_body``, of which ``encode`` / ``decode`` are
+the no-grad wrappers inference calls.
 
 The public functions take channel-last tensors ([B, T, C] latents, [B, T, 1] audio), as in
 the JAX package; inside, both halves run channels-first, which is cuDNN's layout, so no
@@ -152,9 +155,8 @@ def init(cfg: DACConfig, generator: torch.Generator, device: DeviceLike = None,
     return model
 
 
-@torch.no_grad()
-def decode(model: DAC, z: torch.Tensor) -> torch.Tensor:
-    """Latents [B, T, latent_dim] -> waveform [B, T*hop, 1], fp32 with TF32 off."""
+def decode_body(model: DAC, z: torch.Tensor) -> torch.Tensor:
+    """``decode`` as autograd traces it (the codec's training, ``training/dac_train.py``)."""
     dec = model.decoder
     with true_fp32():
         x = z.float().transpose(1, 2)  # [B, C, T]
@@ -165,6 +167,12 @@ def decode(model: DAC, z: torch.Tensor) -> torch.Tensor:
         x = snake(x, dec.alpha_out[:, None])
         x = F.conv1d(x, dec.conv_out.weight, dec.conv_out.bias, padding=3)
         return torch.tanh(x).transpose(1, 2)
+
+
+@torch.no_grad()
+def decode(model: DAC, z: torch.Tensor) -> torch.Tensor:
+    """Latents [B, T, latent_dim] -> waveform [B, T*hop, 1], fp32 with TF32 off."""
+    return decode_body(model, z)
 
 
 # Decoder receptive field in latent frames is about +-12; 32 frames of overlap on each side
@@ -221,10 +229,8 @@ class GaussianPosterior(NamedTuple):
                                dim=(1, 2))
 
 
-@torch.no_grad()
-def encode(model: DAC, audio: torch.Tensor) -> GaussianPosterior:
-    """Waveform [B, T, 1] (T a hop multiple, see ``preprocess``) -> the posterior over
-    latents [B, T/hop, latent_dim], fp32 with TF32 off."""
+def encode_body(model: DAC, audio: torch.Tensor) -> GaussianPosterior:
+    """``encode`` as autograd traces it (the codec's training, ``training/dac_train.py``)."""
     enc = model.encoder
     with true_fp32():
         x = audio.float().transpose(1, 2)  # [B, 1, T]
@@ -236,6 +242,13 @@ def encode(model: DAC, audio: torch.Tensor) -> GaussianPosterior:
         moments = F.conv1d(x, model.quant_conv.weight, model.quant_conv.bias).transpose(1, 2)
     mean, logvar = moments.chunk(2, dim=-1)
     return GaussianPosterior(mean, torch.clamp(logvar, -30.0, 20.0))
+
+
+@torch.no_grad()
+def encode(model: DAC, audio: torch.Tensor) -> GaussianPosterior:
+    """Waveform [B, T, 1] (T a hop multiple, see ``preprocess``) -> the posterior over
+    latents [B, T/hop, latent_dim], fp32 with TF32 off."""
+    return encode_body(model, audio)
 
 
 def preprocess(audio: torch.Tensor, cfg: DACConfig) -> torch.Tensor:

@@ -8,9 +8,11 @@ pooling head (a probe token cross-attends every patch token, then LN + residual 
 
 The encoder's self-attention always goes through ``flash_attention``: the Hopper kernel for
 CUDA tensors, its plain version for CPU tensors, at any token count. The MAP head's
-one-query attention stays plain, as in the JAX package. Frames take the JAX package's
-``preprocess="device"`` route only (uint8 upload, antialiased bicubic resize on the card);
-the PIL route is not ported. ``load`` reads a Hugging Face checkpoint (``vision_model.*``
+one-query attention stays plain, as in the JAX package. Frames take either of the JAX
+package's routes, by the encoder's ``preprocess``: ``"device"`` (the default: uint8 upload,
+antialiased bicubic resize on the card) or ``"pil"`` (PIL's BICUBIC resize of every frame,
+the reference's, through ``ops/pil_resize.py``: the same bytes, on the card, without PIL).
+``load`` reads a Hugging Face checkpoint (``vision_model.*``
 keys) with either patch embedding: the fixed-resolution conv ``[h, C, P, P]`` or naflex's
 linear ``[h, P*P*C]``, both mapped onto the port's linear one over (C, Ph, Pw).
 
@@ -36,7 +38,9 @@ from foley_tpu_torch.io.images import box_downsample_u8, frames_to_u8
 from foley_tpu_torch.ops.activations import gelu_tanh
 from foley_tpu_torch.ops.attention import sdpa
 from foley_tpu_torch.ops.kernels.flash_attention import flash_attention
-from foley_tpu_torch.ops.nn import Dense, LayerNorm, empty_parameter, exact_fp32, init_parameters
+from foley_tpu_torch.ops import pil_resize
+from foley_tpu_torch.ops.nn import (Dense, LayerNorm, divide, empty_parameter, exact_fp32,
+                                    init_parameters)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,8 +204,19 @@ def apply(model: Siglip2, images: torch.Tensor, pooled: bool = True) -> torch.Te
 
 
 # ---------------------------------------------------------------------------------
-# Frame preprocessing + encode (the device route)
+# Frame preprocessing + encode
 # ---------------------------------------------------------------------------------
+
+def preprocess_frames(frames: np.ndarray, size: int = 512,
+                      device: DeviceLike = None) -> torch.Tensor:
+    """The PIL route (the JAX ``preprocess_frames``): [T, H, W, C] float [0, 1] (or uint8)
+    -> [T, size, size, C] fp32 on ``device``, (x-0.5)/0.5 of PIL's BICUBIC resize of each
+    frame quantised by ``io/images.py::frames_to_u8``, equal to the JAX function bit for bit
+    (``ops/pil_resize.py``)."""
+    u8 = torch.from_numpy(frames_to_u8(np.asarray(frames)))
+    x = pil_resize.resize(u8.to(resolve_device(device)), (size, size), pil_resize.BICUBIC)
+    return divide(divide(x.float(), 255.0) - 0.5, 0.5)
+
 
 def preprocess_frames_device(frames: torch.Tensor, size: int = 512) -> torch.Tensor:
     """[T, H, W, C] uint8 (or float [0, 1]) frames on any device -> [T, size, size, C] fp32,
@@ -215,11 +230,12 @@ def preprocess_frames_device(frames: torch.Tensor, size: int = 512) -> torch.Ten
 
 
 class Siglip2Encoder:
-    def __init__(self, model: Siglip2, compute_dtype=torch.float32):
+    def __init__(self, model: Siglip2, compute_dtype=torch.float32, preprocess: str = "device"):
         self.model = model
         self.cfg = model.cfg
         # activation dtype of the ViT; features come back in fp32 either way
         self.compute_dtype = compute_dtype
+        self.preprocess = preprocess  # "device" (the resize on the card) | "pil" (PIL's bytes)
 
     @property
     def device(self) -> torch.device:
@@ -229,11 +245,17 @@ class Siglip2Encoder:
     def encode(self, frames: np.ndarray) -> torch.Tensor:
         """[T, H, W, C] frames (float [0, 1] or uint8) -> [1, T, hidden] fp32 pooled features.
 
-        Sources more than twice the encoder's resolution are box-downsampled on the host
-        first, so only pixels the resize can use are uploaded, as uint8."""
-        u8 = box_downsample_u8(frames_to_u8(np.asarray(frames)), self.cfg.image_size)
-        pixels = preprocess_frames_device(torch.from_numpy(u8).to(self.device),
-                                          self.cfg.image_size)
+        The device route box-downsamples sources more than twice the encoder's resolution on
+        the host first, so only pixels the resize can use are uploaded, as uint8; the PIL
+        route uploads each frame whole and resizes it as PIL does."""
+        if self.preprocess == "pil":
+            pixels = preprocess_frames(np.asarray(frames), self.cfg.image_size, self.device)
+        elif self.preprocess == "device":
+            u8 = box_downsample_u8(frames_to_u8(np.asarray(frames)), self.cfg.image_size)
+            pixels = preprocess_frames_device(torch.from_numpy(u8).to(self.device),
+                                              self.cfg.image_size)
+        else:
+            raise ValueError(f"preprocess {self.preprocess!r}: expected 'device' or 'pil'")
         with exact_fp32(self.compute_dtype):
             feats = apply(self.model, pixels.to(self.compute_dtype), pooled=True)  # [T, h]
         return feats[None].float()

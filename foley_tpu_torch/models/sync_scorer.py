@@ -7,17 +7,17 @@ Video features (the MotionFormer, ``models/synchformer.py``) and audio features 
 transformer reads a 21-class offset (desync) prediction off the OFF token, on a +/-2 s grid
 (reference ``synchformer.py:54-68, 115-256``, ``compute_desync_score.py``).
 
-The scorer takes the device route for frames (``synchformer.encode_segments``): the JAX
-scorer's video encoder defaults to the PIL resize (``preprocess="pil"``), and the card's
-machine has no PIL, so the port is held against the JAX scorer with its encoder's
-``preprocess`` set to ``"device"``. Every attention is the plain ``ops/attention.py::sdpa``;
+The scorer's frames take its video encoder's route (``synchformer.encode_segments``): the
+device resize by default, where the JAX scorer's encoder defaults to the PIL resize
+(``preprocess="pil"``, which the port's encoder also takes, byte for byte, through
+``ops/pil_resize.py``); the port is held against the JAX scorer on the device route. Every attention is the plain ``ops/attention.py::sdpa``;
 the whole score runs in true fp32.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -112,6 +112,13 @@ def make_class_grid(leftmost: float = -2.0, rightmost: float = 2.0,
                     grid_size: int = 21) -> np.ndarray:
     """The offset classes in seconds (reference ``data_transforms.py:226-244``)."""
     return np.linspace(leftmost, rightmost, grid_size).astype(np.float32)
+
+
+def quantize_offset(grid: np.ndarray, off_sec: float) -> Tuple[float, int]:
+    """An offset in seconds snapped to the nearest grid class (reference
+    ``data_transforms.py:247-251``): (grid value, class index), the first on a tie."""
+    idx = int(np.abs(np.asarray(grid) - off_sec).argmin())
+    return float(grid[idx]), idx
 
 
 def predicted_offset_seconds(logits: torch.Tensor,

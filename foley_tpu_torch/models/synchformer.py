@@ -16,11 +16,15 @@ Architecture (config ``divided_224_16x4``: ViT-B/16, depth 12, heads 12, tempora
   each frame -> (8, 768).
 
 The JAX package computes all of this attention outside any Pallas kernel, so it stays plain
-here (matmul and softmax). Frames take the ``preprocess="device"`` route only: the unique
-25 fps frames are uploaded once as uint8 and windowed into segments on the card.
-The PIL route is not ported: the card's machine has no PIL. ``encode_frames_device`` is the
-V2A route (host box-downsample of large frames first); ``encode_segments`` the desync
-scorer's and ``feature_process``'s (every frame resized on the device). ``load`` reads the reference's ``synchformer_state_dict``
+here (matmul and softmax). Frames take either of the JAX package's routes, by the
+encoder's ``preprocess``: ``"device"`` (the default: an antialiased bicubic resize on the
+card) or ``"pil"`` (PIL's BICUBIC resize of the short side to 224 and a centre crop, the
+reference's, through ``ops/pil_resize.py``: the same bytes, on the card, without PIL). Either
+way the unique 25 fps frames are resized once and windowed into segments on the device.
+``encode_frames`` is the V2A route (on the device route, a host box-downsample of large
+frames first: ``encode_frames_device``); ``encode_segments`` the desync scorer's and
+``feature_process``'s (on the device route, every frame resized from its own resolution).
+``load`` reads the reference's ``synchformer_state_dict``
 (``vfeat_extractor.*`` keys; the audio branch's keys are ignored).
 """
 
@@ -37,7 +41,9 @@ from foley_tpu_torch.configs import SynchformerConfig
 from foley_tpu_torch.core.device import DeviceLike, resolve_device
 from foley_tpu_torch.io.images import box_downsample_u8, frames_to_u8
 from foley_tpu_torch.ops.activations import gelu
-from foley_tpu_torch.ops.nn import Dense, LayerNorm, empty_parameter, exact_fp32, init_parameters
+from foley_tpu_torch.ops import pil_resize
+from foley_tpu_torch.ops.nn import (Dense, LayerNorm, divide, empty_parameter, exact_fp32,
+                                    init_parameters)
 
 EPS = 1e-6
 
@@ -239,8 +245,28 @@ def apply(model: Synchformer, segments: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------------
-# Preprocessing + encode (the device route)
+# Preprocessing + encode
 # ---------------------------------------------------------------------------------
+
+PREPROCESS_ROUTES = ("device", "pil")
+
+
+def preprocess_frames(frames: np.ndarray, size: int = 224,
+                      device: DeviceLike = None) -> torch.Tensor:
+    """The PIL route (the JAX ``preprocess_frames``): [T, H, W, C] float [0, 1] (or uint8)
+    -> [T, size, size, C] fp32 on ``device``, (x-0.5)/0.5: each frame quantised by
+    ``io/images.py::frames_to_u8``, its short side resized to ``size`` by PIL's BICUBIC (the
+    long side by Python ``round``), then a centre crop; equal to the JAX function bit for bit
+    (``ops/pil_resize.py``)."""
+    u8 = torch.from_numpy(frames_to_u8(np.asarray(frames))).to(resolve_device(device))
+    ht, wd = u8.shape[1:3]
+    scale = size / min(wd, ht)
+    nw, nh = max(size, round(wd * scale)), max(size, round(ht * scale))
+    x = pil_resize.resize(u8, (nw, nh), pil_resize.BICUBIC)
+    left, top = (nw - size) // 2, (nh - size) // 2
+    x = x[:, top:top + size, left:left + size]
+    return divide(divide(x.float(), 255.0) - 0.5, 0.5)
+
 
 def preprocess_frames_device(frames: torch.Tensor, size: int = 224) -> torch.Tensor:
     """[T, H, W, C] uint8 (or float [0, 1]) frames -> [T, size, size, C] fp32, (x-0.5)/0.5:
@@ -270,15 +296,14 @@ def upload_frames_async(frames: np.ndarray, target_short_side: int,
     return u8.to(device)
 
 
-def _encode_windows(encoder: "SynchformerEncoder", u8: torch.Tensor) -> torch.Tensor:
-    """Unique frames [T, H, W, C] on the device -> [1, S*8, D]: resized on the device, then
-    windowed into overlapping segments of ``cfg.num_frames`` (16) at ``cfg.segment_stride``
-    (8) by a gather (short inputs repeat the last frame, as
-    ``pipeline/features.py::sync_segments`` does)."""
+def _encode_windows(encoder: "SynchformerEncoder", dev: torch.Tensor) -> torch.Tensor:
+    """Unique preprocessed frames [T, size, size, C] on the device -> [1, S*8, D]: windowed
+    into overlapping segments of ``cfg.num_frames`` (16) at ``cfg.segment_stride`` (8) by a
+    gather (short inputs repeat the last frame, as ``pipeline/features.py::sync_segments``
+    does)."""
     segment_size, stride = encoder.cfg.num_frames, encoder.cfg.segment_stride
-    t = u8.shape[0]
+    t = dev.shape[0]
     num = max((t - segment_size) // stride + 1, 1)
-    dev = preprocess_frames_device(u8, encoder.cfg.img_size)
     idx = np.minimum(np.arange(num)[:, None] * stride + np.arange(segment_size)[None, :], t - 1)
     segs = dev.index_select(0, torch.from_numpy(idx.reshape(-1)).to(dev.device))
     return encoder.encode(segs.reshape(num, segment_size, *dev.shape[1:]))
@@ -288,27 +313,49 @@ def encode_frames_device(encoder: "SynchformerEncoder",
                          frames_25fps: np.ndarray) -> torch.Tensor:
     """25 fps frames [T, H, W, C] -> [1, S*8, D], the V2A route (the JAX
     ``encode_frames_device``): each unique frame is box-downsampled on the host when it is
-    more than twice the encoder's resolution, uploaded once as uint8, then
-    ``_encode_windows``."""
-    return _encode_windows(encoder, upload_frames_async(frames_25fps, encoder.cfg.img_size,
-                                                        encoder.device))
+    more than twice the encoder's resolution, uploaded once as uint8, resized on the device,
+    then ``_encode_windows``."""
+    u8 = upload_frames_async(frames_25fps, encoder.cfg.img_size, encoder.device)
+    return _encode_windows(encoder, preprocess_frames_device(u8, encoder.cfg.img_size))
+
+
+def _route(encoder: "SynchformerEncoder") -> str:
+    if encoder.preprocess not in PREPROCESS_ROUTES:
+        raise ValueError(f"preprocess {encoder.preprocess!r}: expected one of "
+                         f"{PREPROCESS_ROUTES}")
+    return encoder.preprocess
+
+
+def encode_frames(encoder: "SynchformerEncoder", frames_25fps: np.ndarray) -> torch.Tensor:
+    """25 fps frames [T, H, W, C] -> [1, S*8, D], the V2A route of the encoder's
+    ``preprocess``: ``encode_frames_device``, or the PIL resize of each unique frame (equal
+    to the JAX ``encode_segments(encoder, sync_segments(frames))`` on its PIL route, which
+    resizes every segment's frames: a frame's resize does not depend on its segment)."""
+    if _route(encoder) == "device":
+        return encode_frames_device(encoder, frames_25fps)
+    return _encode_windows(encoder, preprocess_frames(frames_25fps, encoder.cfg.img_size,
+                                                      encoder.device))
 
 
 def encode_segments(encoder: "SynchformerEncoder", frames_25fps: np.ndarray) -> torch.Tensor:
     """25 fps frames [T, H, W, C] -> [1, S*8, D], the JAX ``encode_segments(encoder,
-    sync_segments(frames))`` on its device route (the desync scorer and
-    ``standalone.feature_process``): every frame resized on the device from its own
-    resolution, no host downsample."""
+    sync_segments(frames))`` (the desync scorer and ``standalone.feature_process``): on the
+    device route every frame resized on the device from its own resolution, no host
+    downsample; on the PIL route as ``encode_frames``."""
+    if _route(encoder) == "pil":
+        return encode_frames(encoder, frames_25fps)
     u8 = torch.from_numpy(frames_to_u8(np.asarray(frames_25fps))).to(encoder.device)
-    return _encode_windows(encoder, u8)
+    return _encode_windows(encoder, preprocess_frames_device(u8, encoder.cfg.img_size))
 
 
 class SynchformerEncoder:
-    def __init__(self, model: Synchformer, compute_dtype=torch.float32):
+    def __init__(self, model: Synchformer, compute_dtype=torch.float32,
+                 preprocess: str = "device"):
         self.model = model
         self.cfg = model.cfg
         # activation dtype of the ViT; features come back in fp32 either way
         self.compute_dtype = compute_dtype
+        self.preprocess = preprocess  # "device" (the resize on the card) | "pil" (PIL's bytes)
 
     @property
     def device(self) -> torch.device:

@@ -6,6 +6,7 @@ Weights use torch's layouts; ``io/from_jax.py`` converts the JAX ones:
 - dense:            [out, in]        (JAX: [in, out])
 - conv1d:           [out, in, K]     (JAX: [K, in, out])
 - conv_transpose1d: [in, out, K]     (JAX: [K, in, out])
+- conv2d:           [out, in, Kh, Kw] (JAX: [Kh, Kw, in, out])
 
 A ``Dense`` or ``Conv1d`` weight may be held in quantized storage (``io/quantize.py``): fp8
 in the ``weight`` parameter itself, or codes and scales in the buffers ``weight_<kind>`` and
@@ -154,12 +155,23 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
 
 
 def conv1d(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
-           stride: int = 1, padding: int = 0, dilation: int = 1) -> torch.Tensor:
-    """Channel-last 1-D convolution. x [B, T, Cin], w [Cout, Cin, K] -> [B, T', Cout]. An
-    ``int8_dyn`` weight is dequantized like ``int8`` (as in the JAX package)."""
+           stride: int = 1, padding: int = 0, dilation: int = 1,
+           groups: int = 1) -> torch.Tensor:
+    """Channel-last 1-D convolution. x [B, T, Cin], w [Cout, Cin/groups, K] -> [B, T', Cout].
+    An ``int8_dyn`` weight is dequantized like ``int8`` (as in the JAX package)."""
     out = F.conv1d(x.transpose(1, 2), _match(w, x), None if b is None else _match(b, x),
-                   stride=stride, padding=padding, dilation=dilation)
+                   stride=stride, padding=padding, dilation=dilation, groups=groups)
     return out.transpose(1, 2)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+           stride=(1, 1), padding=(0, 0), dilation=(1, 1), groups: int = 1) -> torch.Tensor:
+    """Channel-last 2-D convolution (``foley_tpu/ops/nn.py::conv2d``). x [B, H, W, Cin],
+    w [Cout, Cin/groups, Kh, Kw] (JAX: [Kh, Kw, Cin/groups, Cout]) -> [B, H', W', Cout]. The
+    DAC's discriminators hold their maps channels-first and call ``F.conv2d`` directly."""
+    out = F.conv2d(x.permute(0, 3, 1, 2), _match(w, x), None if b is None else _match(b, x),
+                   stride=stride, padding=padding, dilation=dilation, groups=groups)
+    return out.permute(0, 2, 3, 1)
 
 
 def conv_transpose1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
@@ -278,6 +290,25 @@ class Conv1d(QuantizableWeight):
         self.weight.uniform_(-limit, limit, generator=g)
         if self.bias is not None:
             self.bias.uniform_(-limit, limit, generator=g)
+
+
+class Conv2d(nn.Module):
+    """A 2-D conv's weight [out, in/groups, Kh, Kw] and bias, drawn as the JAX package's
+    discriminators draw theirs: both uniform in +-1/sqrt(in/groups * Kh * Kw)."""
+
+    def __init__(self, in_dim: int, out_dim: int, kernel_size, groups: int = 1,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        kh, kw = kernel_size
+        self.weight = empty_parameter(out_dim, in_dim // groups, kh, kw, dtype=dtype,
+                                      device=device)
+        self.bias = empty_parameter(out_dim, dtype=dtype, device=device)
+
+    @torch.no_grad()
+    def init_(self, g: torch.Generator) -> None:
+        limit = 1.0 / math.sqrt(self.weight[0].numel())
+        self.weight.uniform_(-limit, limit, generator=g)
+        self.bias.uniform_(-limit, limit, generator=g)
 
 
 class LayerNorm(nn.Module):

@@ -135,8 +135,8 @@ def sync_segments(frames_25fps: np.ndarray, segment_size: int = 16, stride: int 
 
 def encode_video(encoders: Dict, frames: np.ndarray, frame_rate: float, duration_s: float,
                  cfg: PipelineConfig) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """Visual features of a video on the device-preprocess route: the counterpart of
-    ``foley_tpu/api/nodes.py::HunyuanFoleySampler._encode_video``.
+    """Visual features of a video on the encoders' ``preprocess`` routes: the counterpart
+    of ``foley_tpu/api/nodes.py::HunyuanFoleySampler._encode_video``.
 
     ``frames`` [T, H, W, C] (float [0, 1] or uint8) at ``frame_rate``; ``encoders`` may hold
     ``"siglip2"`` (a ``Siglip2Encoder``) and ``"synchformer"`` (a ``SynchformerEncoder``).
@@ -149,5 +149,5 @@ def encode_video(encoders: Dict, frames: np.ndarray, frame_rate: float, duration
         clip_feat = encoders["siglip2"].encode(f8)
     if "synchformer" in encoders:
         f25 = resample_frames(frames, frame_rate, duration_s, cfg.synchformer_fps)
-        sync_feat = synchformer.encode_frames_device(encoders["synchformer"], f25)
+        sync_feat = synchformer.encode_frames(encoders["synchformer"], f25)
     return clip_feat, sync_feat

@@ -105,7 +105,7 @@ def feature_process(video_path: Optional[str], prompt: str, model_dict: OffloadM
     """Conditioning features (reference ``feature_utils.feature_process``): returns
     (visual_feats, text_feats, audio_len_in_s). ``video_path`` (a video file or a directory
     of PNG frames at 16 fps) gives SigLIP2's and Synchformer's features (the JAX package's
-    ``encode_frames`` and ``encode_segments`` on the device route) and an audio length of
+    ``encode_frames`` and ``encode_segments``, on the encoders' ``preprocess`` routes) and an audio length of
     the 25 fps stream's; ``video_path=None`` is the T2A path, whose empty learned visual
     sequences the denoise substitutes, of ``duration_s`` (5 s unless given). The text
     features are CLAP's ``[neg_prompt, prompt]`` rows."""

@@ -643,9 +643,6 @@ def main(argv=None) -> int:
         p.error("--mesh: multi-card serving is not ported (ROADMAP item 13h)")
     if args.prefetch_blocks and not args.blocks_to_swap:
         p.error("--prefetch_blocks only applies with --blocks_to_swap > 0")
-    if args.v2a_preprocess != "device":
-        p.error("--v2a_preprocess pil: the PIL resize needs PIL, which the card's machine "
-                "has not")
     if bool(args.random_init) == bool(args.model_path):
         p.error("pass exactly one of --random_init and --model_path")
     warmup_hw = None
@@ -655,6 +652,10 @@ def main(argv=None) -> int:
             p.error(f'--v2a_warmup_hw: bad geometry {args.v2a_warmup_hw!r} '
                     '(expected "HxW", positive integers)')
         warmup_hw = (int(parts[0]), int(parts[1]))
+    if warmup_hw and args.v2a_preprocess != "device":
+        # the PIL resize outputs a fixed size: no work depends on the source geometry
+        logger.warning("--v2a_warmup_hw has no effect with --v2a_preprocess pil; ignoring")
+        warmup_hw = None
 
     dev = resolve_device(args.device)
     if args.random_init:
@@ -689,6 +690,8 @@ def main(argv=None) -> int:
         video_encoders = None
         if args.enable_v2a:
             video_encoders = {"siglip2": manager.siglip2, "synchformer": manager.synchformer}
+    for enc in (video_encoders or {}).values():
+        enc.preprocess = args.v2a_preprocess
 
     if args.blocks_to_swap > 0:
         from foley_tpu_torch.parallel.offload import offload_block_suffix

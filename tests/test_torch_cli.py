@@ -172,13 +172,15 @@ def test_gradio_hands_the_server_the_jax_argv(monkeypatch, source):
     (["--merge_video", "--single_video", "tests"], "PIL"),
     (["--merge_video", "--single_video", "tests", "--gradio"], "PIL"),
     (["--desync_score"], "requires --single_video"),
-    (["--mesh", "data=4"], "item 13h"), (["--v2a_preprocess", "pil"], "PIL"),
-    (["--gradio", "--v2a_preprocess", "pil"], "PIL"),
+    (["--mesh", "data=4"], "item 13h"),
+    (["--merge_video", "--single_video", "tests", "--v2a_preprocess", "pil"], "PIL"),
+    (["--gradio", "--v2a_preprocess", "pil", "--mesh", "data=4"], "item 13h"),
     (["--gradio", "--mesh", "data=4"], "item 13h")])
 def test_refusals_name_their_roadmap_item(capsys, argv, item):
     """What the port refuses exits 2 before any model work, saying why: multi-card serving
-    names its ROADMAP item, the PIL routes name PIL (muxing onto a frames directory writes
-    JPEG frames), the desync score needs a video."""
+    names its ROADMAP item, muxing onto a frames directory names PIL (it writes JPEG
+    frames; the PIL resize runs without PIL, ``tests/test_torch_pil_resize.py``), the desync
+    score needs a video."""
     assert tcli.main(["--random_init", "tiny", "--device", "cpu"] + argv) == 2
     assert item in capsys.readouterr().err
 

@@ -641,3 +641,69 @@ def test_lora_train_step_on_card_launches_no_kernel(dev):
         model(*args)
     assert FA.fused_qk_attention.launches == before + cfg.depth_triple_blocks + (
         cfg.depth_single_blocks)
+
+
+def test_pil_resize_on_the_card_equals_the_cpu(dev):
+    """Pillow's 8-bit resampler (``ops/pil_resize.py``) gives the same bytes on the card as
+    on the CPU (where ``tests/test_torch_pil_resize.py`` holds it to Pillow), both filters,
+    down and up, at the encoders' sizes among others."""
+    from foley_tpu_torch.ops import pil_resize
+
+    rng = np.random.default_rng(0)
+    for h, w, oh, ow in ((720, 1280, 224, 398), (720, 1280, 512, 512), (48, 48, 512, 512),
+                         (37, 23, 11, 50), (1, 60, 9, 1)):
+        frames = torch.from_numpy(rng.integers(0, 256, (3, h, w, 3), dtype=np.uint8))
+        for kind in (pil_resize.BICUBIC, pil_resize.BILINEAR):
+            got = pil_resize.resize(frames.to(dev), (ow, oh), kind)
+            assert got.device.type == "cuda"
+            assert torch.equal(got.cpu(), pil_resize.resize(frames, (ow, oh), kind)), (h, w, kind)
+
+
+def test_tiny_dac_gan_step_on_the_card_matches_the_cpu(dev):
+    """One discriminator + generator step (``training/dac_train.py``) at TINY's codec on the
+    card against the same step on the CPU, the posterior noise injected: every loss part
+    within 1e-5 relative (``tests/test_torch_dac_train.py``'s bound against JAX) and both
+    first moments (0.2 x the gradients) within 2e-2 relative L2 per leaf: the card's cuDNN
+    and cuFFT sum in other orders than the CPU's, and a leaf whose gradient is small reads
+    its rounding (the MRD's top band, 0.75-1.0 of Nyquist, sees almost no energy of a 220 Hz
+    tone: its first conv's weights read 4.5e-3 on the H100; a Snake alpha of two elements
+    2.5e-4). The init's encoder and decoder weights are scaled (x0.65, x0.7) as there, so the
+    latents stay O(1)."""
+    import copy
+
+    from foley_tpu_torch.models import dac_discriminator, dac_vae
+    from foley_tpu_torch.training import dac_train
+
+    cfg = TINY.dac
+    gen = dac_vae.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with torch.no_grad():
+        for name, p in gen.named_parameters():
+            if name.endswith("weight") and name.split(".")[0] in ("encoder", "decoder"):
+                p.mul_(0.65 if name.startswith("encoder.") else 0.7)
+    disc = dac_discriminator.init(
+        dac_discriminator.DiscriminatorConfig(periods=(2,), fft_sizes=(512,)),
+        torch.Generator().manual_seed(1), device="cpu")
+    t = 2 * cfg.hop_length
+    audio = (0.3 * torch.sin(2 * np.pi * 220 * torch.arange(t) / cfg.sample_rate)).reshape(
+        1, t, 1)
+    ng = torch.Generator().manual_seed(2)
+    noise = tuple(torch.randn(1, 2, cfg.latent_dim, generator=ng) for _ in range(2))
+    kw = dict(gen_lr=1e-3, disc_lr=1e-3, stft_windows=(512,), mel_cfg=((40, 512),))
+    results = []
+    for d in ("cpu", dev):
+        g, dm = copy.deepcopy(gen).to(d), copy.deepcopy(disc).to(d)
+        init_state, step = dac_train.make_dac_train_steps(g, dm, **kw)
+        state, metrics = step(init_state(), audio.to(d), noise=tuple(n.to(d) for n in noise))
+        results.append((state, {k: float(v) for k, v in metrics.items()}))
+    (ref_state, ref), (got_state, got) = results
+    for name, r in ref.items():
+        assert abs(got[name] - r) <= 1e-5 * abs(r), (name, got[name], r)
+    rel = {}
+    for got_opt, ref_opt in ((got_state.gen_opt, ref_state.gen_opt),
+                             (got_state.disc_opt, ref_state.disc_opt)):
+        for name, r in ref_opt.mu.items():
+            diff = float((got_opt.mu[name].cpu() - r).norm())
+            rel[name] = diff / max(float(r.norm()), 1e-30)
+    worst = max(rel, key=rel.get)
+    print(f"worst first-moment leaf {worst}: relative L2 {rel[worst]:.3e}")
+    assert rel[worst] <= 2e-2, (worst, rel[worst])

@@ -275,9 +275,10 @@ def test_fp8_checkpoint_loads_bit_for_bit(ckpts, tmp_path):
 
 
 def test_refusals(ckpts, graphs, tmp_path):
-    """What the loaders still refuse: the orbax directory route, PIL preprocessing (the
-    card's machine has no PIL), an unknown quantization, an adapter directory that is not
-    there; and the sampler without text features. The memory modes load and run
+    """What the loaders still refuse: the orbax directory route, an unknown preprocessing
+    route (``pil`` and ``device`` load: ``tests/test_torch_pil_resize.py``), an unknown
+    quantization, an adapter directory that is not there; and the sampler without text
+    features. The memory modes load and run
     (``test_memory_modes_match_jax``), LoRA merges (``tests/test_torch_lora.py``)."""
     loader, ckpt = tnodes.HunyuanModelLoader(), str(ckpts / "hunyuanvideo_foley.safetensors")
     with pytest.raises(ValueError, match="quantization"):
@@ -287,9 +288,9 @@ def test_refusals(ckpts, graphs, tmp_path):
                           device="cpu")
     with pytest.raises(NotImplementedError, match="orbax"):
         loader.load_model(str(tmp_path), config="tiny", device="cpu")
-    with pytest.raises(NotImplementedError, match="PIL"):
+    with pytest.raises(ValueError, match="video_preprocess"):
         tnodes.HunyuanDependenciesLoader().load_dependencies(
-            str(ckpts / "vae_128d_48k.safetensors"), None, video_preprocess="pil",
+            str(ckpts / "vae_128d_48k.safetensors"), None, video_preprocess="bicubic",
             device="cpu")
     deps = {k: v for k, v in graphs[3].items() if k != "clap"}
     with pytest.raises(ValueError, match="allow_unconditioned"):

@@ -258,7 +258,7 @@ def test_batching_failure_does_not_wedge_and_buckets_split(services):
     (["--mesh", "data=2", "--random_init", "tiny"], "item 13h"),
     (["--random_init", "tiny", "--model_path", "ckpts"], "exactly one"),
     (["--prefetch_blocks", "1", "--random_init", "tiny"], "--blocks_to_swap"),
-    (["--v2a_preprocess", "pil", "--random_init", "tiny"], "PIL"),
+    (["--v2a_warmup_hw", "12x", "--random_init", "tiny"], "bad geometry"),
     (["--precision", "auto", "--random_init", "tiny"], "--precision auto"),
 ])
 def test_main_refuses_unported_options(argv, match, capsys):

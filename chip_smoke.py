@@ -44,6 +44,8 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   and a negative prompt through ``features.encode_text`` (a seeded stand-in tokenizer: the
   tokenizer's files are not in the repository), held against the CPU with the default and
   with ``"high"`` fp32 matmul precision; its features condition every request below;
+- from here on every request runs ``SURFACE_STEPS`` (10) Euler steps, 540 K1 launches a 5 s
+  request at XXL (the paths above run the 50 of the main path);
 - ``longform_path``: XXL long-form on the ``main_path`` denoiser: a 75 s text-to-audio
   request in 30 s windows overlapping 5 s, batch (``generate_audio_long``) and streamed
   (``generate_audio_long_stream``, time to the first chunk, the chunks against the batch
@@ -51,8 +53,6 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   (``edit_audio``, strength 0.6), 24 s of video-to-audio from a 640x360 clip in 16 s
   windows (``encode_video`` then ``generate_audio_long``), with K1's and K2's launches, and
   one 30 s window profiled as in ``profile`` (K1's share of the busy time);
-- from here on every request runs ``SURFACE_STEPS`` (10) Euler steps, 540 K1 launches at
-  XXL (the paths above run the 50 of the main path);
 - ``nodes``: the node API on the ``main_path`` bundle: its DAC written as a reference-layout
   ``.safetensors`` under ``build/`` and read back through ``HunyuanDependenciesLoader``
   (every weight equal, the write and load seconds); the sampler node on 5 s T2A twice with
@@ -141,12 +141,26 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   device resize not), ``ops/pil_resize.py`` on the card equal to the CPU's bit for bit at
   SigLIP2's and Synchformer's sizes (host seconds of each), and the PIL route's features
   against the device route's;
+- ``mesh``: serving over a ("data", "model") mesh of ``torch.distributed`` ranks
+  (``foley_tpu_torch/parallel/``) at XXL width, 9 + 18 blocks (the served mesh at the whole
+  XXL), 5 s T2A at ``SURFACE_STEPS``: the one-card
+  references first (the request, a control with the CFG pair run as two batch-1 forwards,
+  the fp32 forward at 2 + 2 blocks; their models freed before any rank starts), then
+  ``nccl_world1`` (one rank over NCCL: latents equal to one card's bit for bit),
+  ``gloo_model2`` (two ranks on ``cuda:0``, 6 heads each: the fp32 forward within 1e-5 of
+  one card's, the bf16 latents within 4x the control), ``gloo_data2`` (the CFG pair split
+  over two ranks, held the same way), each with the request's wall on every rank, K1's
+  launches by heads, the collectives a step (calls, bytes) and peak memory; then
+  ``server_model2``: ``python -m foley_tpu_torch.serving.server --random_init xxl --mesh
+  model=2 --device cuda:0 --port 0`` answering a 5 s and an 8 s long-form request over
+  HTTP, exiting 0 on SIGTERM, and refusing ``--blocks_to_swap`` with ``--mesh``;
 - ``{"kernels": [...]}``: every ported kernel with its launches on its path (K1 in
   ``main_path`` and, as ``launches_longform``, in the 75 s request and, as
   ``launches_serving``, over the ``serving`` requests, and per request of ``quant``,
   ``block_swap``, the ``cli`` memory-mode run, ``lora``'s requests, ``video_ingest``'s
   and ``configs``' forwards, the requests on the trained models and ``pil_preprocess``'s,
-  and none in a train step; K2 in ``v2a_path``, the 24 s V2A request, the served V2A
+  none in a train step, and as ``launches_mesh_per_rank`` on each rank of the ``mesh``
+  requests; K2 in ``v2a_path``, the 24 s V2A request, the served V2A
   requests and ``video_ingest``'s and ``pil_preprocess``'s (fp32 encoders in the fp32 row);
   K3 in one sweep of ``probe_gemm``;
   K3's times are the probe's graph-replayed device times), then the fp16 and fp32
@@ -169,9 +183,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 DURATION_S = 5.0
 STEPS = 50
-SURFACE_STEPS = 10  # Euler steps of every request after ``longform_path`` (the surfaces, the
-                    # memory modes, the CLI, ingest, LoRA, the trained models, the PIL route):
-                    # at 50 the whole script took 1,212.9 s of its 1,200 s limit (PERF.md §4)
+SURFACE_STEPS = 10  # Euler steps of every request after ``clap`` (long form, the surfaces,
+                    # the memory modes, the CLI, ingest, LoRA, the trained models, the PIL
+                    # route, the mesh): at 50 the whole script took 1,212.9 s of its 1,200 s
+                    # limit, with long form alone at 50 1,055 s (PERF.md §4)
 GUIDANCE = 4.5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 (and fp16) tensor-core peak
@@ -3551,6 +3566,334 @@ def pil_preprocess_phase(torch, dev, pipeline_cfg, frames_dir: str, card: str) -
     return launches
 
 
+# ---------------------------------------------------------------------------------
+# mesh: serving over a ("data", "model") mesh of torch.distributed ranks
+# ---------------------------------------------------------------------------------
+
+MESH_SEED = 7                # the mesh requests' seed
+MESH_DEPTH = (9, 18)         # the mesh requests' triple and single blocks, at XXL width: half
+                             # of XXL's, cut to keep the whole script within 1,000 s
+                             # (PERF.md §4); the served mesh runs the whole XXL
+MESH_FORWARD_DEPTH = (2, 2)  # the fp32 forward's triple and single blocks, at XXL width
+MESH_FORWARD_REL_TOL = 1e-5  # the fp32 forward on two model ranks against one card, relative
+                             # L2: the row-parallel sums add the same products in another
+                             # order (JAX's own test allows atol 2e-4 / rtol 1e-3)
+MESH_CONTROL_FACTOR = 4.0    # a bf16 request's latents on the mesh, relative L2 from one
+                             # card's, within this many times the control's (one card with
+                             # the CFG pair run as two batch-1 forwards), measured in the run
+MESH_LONG_S = 8.0            # the served long-form request: two 5 s windows
+MESH_LONG_STEPS = 4
+MESH_SERVER_TIMEOUT_S = 240
+MESH_SERVER_ARGS = ("--random_init", "xxl", "--mesh", "model=2", "--device", "cuda:0",
+                    "--port", "0", "--warmup_steps", "1")
+
+
+class _SplitCFG:
+    """The control of the mesh's bf16 requests: the one-card denoiser with the CFG pair run
+    as two batch-1 forwards, each half with its own text K/V and visual projections (what
+    two ``data`` ranks compute, on one card)."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def precompute_text_kv(self, cond):
+        return [self.model.precompute_text_kv(c) for c in cond.chunk(2)]
+
+    def __call__(self, x, t, cond, clip_feat, sync_feat, *, text_kv, visual_rows_shared, **kw):
+        import torch
+
+        halves = zip(*(a.chunk(2) for a in (x, t, cond, clip_feat, sync_feat)), text_kv)
+        return torch.cat([self.model(*h[:5], text_kv=h[5], **kw) for h in halves])
+
+
+def _mesh_forward_model(torch, dev):
+    """The fp32 denoiser of the mesh's forward check: XXL width, ``MESH_FORWARD_DEPTH``
+    blocks, seeded, its zero-initialized leaves perturbed."""
+    import dataclasses
+
+    from foley_tpu_torch.configs import XXL
+    from foley_tpu_torch.core.params import perturb_zero_leaves
+    from foley_tpu_torch.models import mmdit
+
+    cfg = dataclasses.replace(XXL.model, depth_triple_blocks=MESH_FORWARD_DEPTH[0],
+                              depth_single_blocks=MESH_FORWARD_DEPTH[1])
+    model = mmdit.init(cfg, torch.Generator(device=dev).manual_seed(3), device=dev,
+                       dtype=torch.float32)
+    return perturb_zero_leaves(model, torch.Generator(device=dev).manual_seed(4))
+
+
+def _mesh_bundle(torch, dev):
+    """The bf16 bundle of the mesh's requests: the denoiser at XXL width and
+    ``MESH_DEPTH``, drawn as ``HunyuanModelLoader.init_random(..., perturb=True)`` draws
+    XXL's (seeds 0 and 1), and the XXL DAC of seed 1."""
+    import dataclasses
+
+    from foley_tpu_torch.configs import XXL
+    from foley_tpu_torch.core.params import perturb_zero_leaves
+    from foley_tpu_torch.models import dac_vae, mmdit
+    from foley_tpu_torch.pipeline.generate import ModelBundle
+
+    cfg = dataclasses.replace(XXL.model, depth_triple_blocks=MESH_DEPTH[0],
+                              depth_single_blocks=MESH_DEPTH[1])
+    model = perturb_zero_leaves(
+        mmdit.init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                   dtype=torch.bfloat16), torch.Generator(device=dev).manual_seed(1))
+    dac = dac_vae.init(XXL.dac, torch.Generator(device=dev).manual_seed(1), device=dev)
+    return ModelBundle(model, dac, dataclasses.replace(XXL, model=cfg),
+                       compute_dtype=torch.bfloat16)
+
+
+def _mesh_text(np, cfg):
+    """Seeded text and negative-text features of a request (77 tokens)."""
+    rng = np.random.default_rng(MESH_SEED)
+    return tuple(rng.standard_normal((1, 77, cfg.condition_dim)).astype(np.float32)
+                 for _ in range(2))
+
+
+def mesh_rank_program(mesh, plan: dict) -> dict:
+    """One rank of a ``mesh`` check (``parallel/launch.py`` runs it in a process of its own):
+    ``plan["forward"]``, the fp32 forward of ``_mesh_forward_model`` on the 5 s CFG inputs;
+    ``plan["request"]``, a 1-step warm-up then the 5 s bf16 request of ``plan["steps"]``
+    steps through ``sharded_generate``. Returns rank 0's velocity and latents, and every
+    rank's K1 launches (by head count), collectives a step, peak memory and wall."""
+    import collections
+
+    import torch
+
+    from foley_tpu_torch.configs import XXL
+    from foley_tpu_torch.models import mmdit
+    from foley_tpu_torch.ops.kernels import fused_attention as FA
+    from foley_tpu_torch.ops.kernels.common import reset_launches
+    from foley_tpu_torch.parallel.inference import place_denoiser, shard_bundle, sharded_generate
+
+    dev = mesh.device
+    heads = collections.Counter()
+    k1 = mmdit.fused_qk_attention
+
+    def by_heads(q, *args, **kw):  # the heads of each call (each a launch on the card)
+        heads[q.shape[2]] += 1
+        return k1(q, *args, **kw)
+
+    mmdit.fused_qk_attention = by_heads
+    out, mine = {}, {}
+    if plan.get("forward"):
+        denoiser = place_denoiser(_mesh_forward_model(torch, dev), mesh)
+        with torch.no_grad():
+            out["forward"] = denoiser(*_forward_args(torch, dev, XXL, torch.float32)).cpu()
+        del denoiser
+        torch.cuda.empty_cache()
+    if plan.get("request"):
+        bundle = shard_bundle(_mesh_bundle(torch, dev), mesh)
+        text, uncond = plan["text"]
+        kw = dict(guidance_scale=GUIDANCE, seed=MESH_SEED, return_latents=True)
+        mesh.reset_counts()
+        sharded_generate(bundle, mesh, text, uncond, DURATION_S, num_inference_steps=1, **kw)
+        one_step = mesh.counts()
+        torch.cuda.synchronize(dev)
+        reset_launches(FA.fused_qk_attention)
+        heads.clear()
+        mesh.reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = sharded_generate(bundle, mesh, text, uncond, DURATION_S,
+                               num_inference_steps=plan["steps"], **kw)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        counts = mesh.counts()
+        steps = plan["steps"] - 1  # the 1-step warm-up's collectives, set-up included, off
+        mine = {"wall_s": wall, "k1_launches": FA.fused_qk_attention.launches,
+                "k1_heads": dict(heads),
+                "collectives_per_step": {
+                    op: {k: (c[k] - one_step.get(op, {}).get(k, 0)) / steps for k in c}
+                    for op, c in counts.items() if op != "broadcast"},
+                "collectives_per_request": counts,
+                "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+        out["latents"] = res.latents
+        out["audio_rms"] = float((res.audio_batch ** 2).mean() ** 0.5)
+    out["ranks"] = mesh.gather_object(mine)
+    return out
+
+
+def _mesh_references(torch, dev, text, uncond) -> dict:
+    """The one-card references of the ``mesh`` phase, in this process: the 5 s bf16
+    request's latents and wall, the control's latents (``_SplitCFG``) and the fp32
+    forward's velocity. Every model is freed before it returns."""
+    from foley_tpu_torch.configs import XXL
+    from foley_tpu_torch.pipeline.generate import generate_audio
+
+    bundle = _mesh_bundle(torch, dev)
+    kw = dict(guidance_scale=GUIDANCE, seed=MESH_SEED, return_latents=True)
+    generate_audio(bundle, text, uncond, DURATION_S, num_inference_steps=1, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = generate_audio(bundle, text, uncond, DURATION_S, num_inference_steps=STEPS, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    control = generate_audio(bundle._replace(mmdit=_SplitCFG(bundle.mmdit)), text, uncond,
+                             DURATION_S, num_inference_steps=STEPS, **kw)
+    del bundle
+    model = _mesh_forward_model(torch, dev)
+    with torch.no_grad():
+        forward = model(*_forward_args(torch, dev, XXL, torch.float32)).cpu()
+    del model
+    torch.cuda.empty_cache()
+    return {"latents": ref.latents, "wall_s": wall, "control": control.latents,
+            "forward": forward}
+
+
+def _latents_rel(np, got, ref) -> float:
+    return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+
+
+def _mesh_server(torch, card: str) -> dict:
+    """``python -m foley_tpu_torch.serving.server --random_init xxl --mesh model=2 --device
+    cuda:0 --port 0`` as a user starts it (warmed at 1 step): one 5 s T2A request and one
+    ``MESH_LONG_S`` long-form request over HTTP, each WAV's length and level, then SIGTERM
+    and its exit code 0; and ``--blocks_to_swap`` refused with ``--mesh`` (exit code 2)."""
+    import io
+    import os
+    import re
+    import signal
+    import threading
+    import urllib.request
+    import wave
+
+    import numpy as np
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable, "-m", "foley_tpu_torch.serving.server", *MESH_SERVER_ARGS]
+    device = MESH_SERVER_ARGS[MESH_SERVER_ARGS.index("--device") + 1]
+    t0 = time.perf_counter()
+    refused = subprocess.run(argv + ["--blocks_to_swap", "4"], cwd=root, capture_output=True,
+                             text=True, timeout=120)
+    check(refused.returncode == 2 and "drop --mesh" in refused.stderr,
+          f"--mesh with --blocks_to_swap: exit {refused.returncode}, {refused.stderr[-500:]}")
+    proc = subprocess.Popen(argv, cwd=root, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                            text=True)
+    lines, bound = [], threading.Event()
+    url = {}
+
+    def read():
+        for line in proc.stderr:
+            lines.append(line)
+            m = re.search(r"serving on (http://[\d.]+:\d+)", line)
+            if m:
+                url["base"] = m.group(1)
+                bound.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+
+    def post(body):
+        req = urllib.request.Request(url["base"] + "/generate", data=json.dumps(body).encode())
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=MESH_SERVER_TIMEOUT_S) as r:
+            raw = r.read()
+        with wave.open(io.BytesIO(raw)) as f:
+            pcm = np.frombuffer(f.readframes(f.getnframes()), "<i2")
+        return pcm, time.perf_counter() - t
+
+    try:
+        ok = bound.wait(MESH_SERVER_TIMEOUT_S)
+        check(ok, "the mesh server did not bind: " + "".join(lines)[-3000:])
+        start_s = time.perf_counter() - t0
+        t2a, t2a_s = post({"prompt": "x", "duration": DURATION_S, "steps": STEPS, "seed": 3})
+        long, long_s = post({"prompt": "x", "duration": MESH_LONG_S, "steps": MESH_LONG_STEPS,
+                             "seed": 4})
+        check(t2a.shape == (int(DURATION_S * 48000),) and np.abs(t2a).max() > 0,
+              f"served T2A: {t2a.shape}")
+        check(long.shape == (int(MESH_LONG_S * 48000),) and np.abs(long).max() > 0,
+              f"served long form: {long.shape}")
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(120)
+        check(code == 0, f"the mesh server exited {code} on SIGTERM: " + "".join(lines)[-3000:])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(10)
+    log = "".join(lines)
+    check(all(f"as rank {r} (gloo, {device})" in log for r in range(2)),
+          "the server's ranks did not both place their bundle: " + log[-3000:])
+    return {"phase": "mesh", "check": "server_model2", "backend": "gloo",
+            "start_s": start_s, "t2a_wall_s": t2a_s, "t2a_steps": STEPS,
+            "long_wall_s": long_s, "long_s": MESH_LONG_S, "long_steps": MESH_LONG_STEPS,
+            "sigterm_exit_code": code, "blocks_to_swap_refused": True,
+            "seconds": time.perf_counter() - t0, "card": card}
+
+
+def mesh_phase(torch, dev, pipeline_cfg, card: str) -> dict:
+    """Serving over a ("data", "model") mesh at XXL width and ``MESH_DEPTH``, ``STEPS`` steps
+    a request (``foley_tpu_torch/parallel/``): the one-card references first (their models freed
+    before any rank starts; the kernels are built), then ``nccl_world1`` (one rank on the
+    card over NCCL: the request's latents equal one card's bit for bit), ``gloo_model2`` (two
+    ranks on ``cuda:0``, the heads split: the fp32 forward within ``MESH_FORWARD_REL_TOL``,
+    the bf16 request within ``MESH_CONTROL_FACTOR`` x the control, 6 heads a K1 launch),
+    ``gloo_data2`` (the CFG pair split over two ranks) and ``server_model2`` (the HTTP server
+    over two model ranks). Returns K1's launches on each rank of each mesh."""
+    import numpy as np
+
+    from foley_tpu_torch.parallel.launch import launch
+    from foley_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    cfg = pipeline_cfg.model
+    text, uncond = _mesh_text(np, cfg)
+    refs = _mesh_references(torch, dev, text, uncond)
+    control = _latents_rel(np, refs["control"], refs["latents"])
+    emit({"phase": "mesh", "check": "references", "request_wall_s": refs["wall_s"],
+          "control_rel_l2": control, "seconds": time.perf_counter() - t_phase, "card": card})
+    per_request = STEPS * sum(MESH_DEPTH)
+    plan = {"request": True, "text": (text, uncond), "steps": STEPS}
+    launches = {}
+    for name, (data, model), forward in (("nccl_world1", (1, 1), False),
+                                         ("gloo_model2", (1, 2), True),
+                                         ("gloo_data2", (2, 1), False)):
+        t0 = time.perf_counter()
+        mesh = make_mesh(data, model, ["cuda:0"] * (data * model))
+        out = launch(mesh, mesh_rank_program, dict(plan, forward=forward), timeout=300)
+        ranks = out["ranks"]
+        launches[name] = [r["k1_launches"] for r in ranks]
+        heads = cfg.num_heads // model
+        check(all(r["k1_launches"] == per_request and r["k1_heads"] == {heads: per_request}
+                  for r in ranks),
+              f"{name}: K1 launches by heads {[r['k1_heads'] for r in ranks]}, expected "
+              f"{per_request} at {heads} heads on every rank")
+        rel = _latents_rel(np, out["latents"], refs["latents"])
+        line = {"phase": "mesh", "check": name, "backend": mesh.backend,
+                "devices": list(mesh.devices), "request_latents_rel_l2": rel,
+                "request_wall_s": [r["wall_s"] for r in ranks],
+                "one_card_wall_s": refs["wall_s"], "k1_launches": launches[name],
+                "k1_heads": heads, "collectives_per_step": [r["collectives_per_step"]
+                                                          for r in ranks],
+                "peak_gib": [r["peak_gib"] for r in ranks], "audio_rms": out["audio_rms"]}
+        if name == "nccl_world1":
+            check(mesh.backend == "nccl", f"one rank on its own card takes {mesh.backend}")
+            same = bool(np.array_equal(out["latents"], refs["latents"]))
+            check(same, f"nccl_world1: latents {rel} from one card's, expected bit for bit")
+            line["bit_for_bit"] = same
+        else:
+            bound = MESH_CONTROL_FACTOR * control
+            check(rel <= bound, f"{name}: latents {rel} from one card's, bound {bound} "
+                  f"({MESH_CONTROL_FACTOR} x the control's {control})")
+            line.update(control_rel_l2=control, bound=bound)
+        if forward:
+            f_rel = _rel_l2(out["forward"], refs["forward"])
+            check(f_rel <= MESH_FORWARD_REL_TOL, f"{name}: fp32 forward {f_rel} from one "
+                  f"card's, bound {MESH_FORWARD_REL_TOL}")
+            line.update(forward_fp32_rel_l2=f_rel, forward_bound=MESH_FORWARD_REL_TOL,
+                        forward_depth=list(MESH_FORWARD_DEPTH))
+        line.update(seconds=time.perf_counter() - t0, card=card)
+        emit(line)
+    emit(_mesh_server(torch, card))
+    emit({"phase": "mesh", "check": "done", "seconds": time.perf_counter() - t_phase,
+          "card": card})
+    return launches
+
+
 def card_line() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3604,9 +3947,9 @@ def main() -> int:
     profile_phase(torch, bundle)
     flash_launches = v2a_path_phase(torch, dev, bundle, XXL, t2a_latents)
     text, uncond, clap_encoder = clap_phase(torch, dev)
-    long_k1, long_k2 = longform_path_phase(torch, dev, bundle, XXL, text, uncond)
     global STEPS
     STEPS = SURFACE_STEPS  # the phases below read it at call time
+    long_k1, long_k2 = longform_path_phase(torch, dev, bundle, XXL, text, uncond)
     video_encoders = random_video_encoders(torch, dev, XXL)
     nodes_phase(torch, dev, bundle, XXL, clap_encoder, video_encoders)
     serving_k1, serving_k2 = serving_phase(torch, dev, bundle, XXL, clap_encoder,
@@ -3651,6 +3994,8 @@ def main() -> int:
     transforms_phase(torch, dev, slice_card)
     pil_launches = pil_preprocess_phase(torch, dev, XXL, frames_dir, slice_card)
     emit({"phase": "codec_training_transforms", "seconds": time.perf_counter() - t_slice})
+    torch.cuda.empty_cache()
+    mesh_k1 = mesh_phase(torch, dev, XXL, card_line())
 
     # per-launch figures weighted by the main path's mix: each step runs one joint call per
     # triple block and one single call per single block
@@ -3699,6 +4044,7 @@ def main() -> int:
         "launches_trained": {"lora_merged": lora_trained_k1, "full_export": full_trained_k1},
         "launches_in_train_steps": lora_step_k1 + full_step_k1 + data_step_k1,
         "launches_pil_preprocess": pil_launches["k1"],
+        "launches_mesh_per_rank": mesh_k1,
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
         "ms": avg("kernel_ms"), "plain_ms": avg("plain_ms"), "bound_ms": k1_bound["bound_ms"],
         "bound_by": k1_bound["bound_by"],

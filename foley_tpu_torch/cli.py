@@ -17,9 +17,11 @@ or a video file through ffmpeg; ``--merge_video`` muxes the result onto a video 
 ffmpeg), SDEdit (``--audio_input``), continuation (``--continue_audio``), the PCM stream
 (``--stream_pcm``: T2A, V2A and continuation, ``--first_window``), ``--csv_path`` batches,
 the AV desync score of a video's audio (``--desync_score``) and ``--gradio`` (the HTTP
-server, ``serving/server.py``). ``--lora DIR`` merges an adapter in the port's format
-(``models/lora.py``; ``tools/lora_to_safetensors.py`` converts the JAX package's orbax
-adapters) into the denoiser at load, before any ``--quantization``. ``--precision`` takes bf16, fp16 and
+server, ``serving/server.py``; ``--gradio --mesh data=D,model=M`` serves over a mesh of
+ranks, and ``--mesh`` without ``--gradio`` is ignored, as in the JAX package).
+``--lora DIR`` merges an adapter in the port's format (``models/lora.py``;
+``tools/lora_to_safetensors.py`` converts the JAX package's orbax adapters) into the
+denoiser at load, before any ``--quantization``. ``--precision`` takes bf16, fp16 and
 fp32 on the card (each has its K1 / K2 kernels); with ``--model_path``, bf16 means the
 checkpoint's own dtype (``auto``), as in the JAX package.
 
@@ -38,8 +40,8 @@ device; no PIL needed).
 
 Refused, exit code 2 and a message saying why: ``--prefetch_blocks`` without
 ``--blocks_to_swap``; ``--merge_video`` onto a frames directory (the JAX package writes an
-MJPEG AVI there, each frame a JPEG from PIL's encoder; the card's machine has no PIL);
-``--mesh`` (multi-card serving, ROADMAP item 13h). A video file needs ffmpeg on ``PATH``
+MJPEG AVI there, each frame a JPEG from PIL's encoder; the card's machine has no PIL). A
+video file needs ffmpeg on ``PATH``
 (the JAX package's PyAV route is not ported), and JPEG frames or an MJPEG AVI's frames need
 PIL's JPEG decoder: those raise when read.
 """
@@ -143,15 +145,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_batch", type=int, default=1,
                    help="--gradio only: >1 enables request coalescing in the server")
     p.add_argument("--mesh", type=str, default="",
-                   help="--gradio only: multi-card serving mesh: not ported yet (ROADMAP "
-                        "item 13h)")
+                   help='--gradio only: multi-card serving mesh, e.g. "data=2,model=2"')
     return p
 
 
 def _refusal(args) -> str:
     """The first flag the port refuses, as a message saying why."""
-    if args.mesh:
-        return "--mesh (multi-card serving): not ported yet (ROADMAP item 13h)"
     if args.merge_video and args.single_video and os.path.isdir(args.single_video):
         return (f"--merge_video onto the frames directory {args.single_video!r}: its MJPEG "
                 f"AVI (each frame a JPEG) {_NO_PIL}; mux onto a video file with ffmpeg")
@@ -196,6 +195,8 @@ def main(argv=None) -> int:
             serve_argv += ["--blocks_to_swap", str(args.blocks_to_swap)]
             if args.prefetch_blocks:
                 serve_argv += ["--prefetch_blocks", str(args.prefetch_blocks)]
+        if args.mesh:
+            serve_argv += ["--mesh", args.mesh]
         if args.lora:
             serve_argv += ["--lora", args.lora, "--lora_scale", str(args.lora_scale)]
         serve_argv += ["--device", args.device]

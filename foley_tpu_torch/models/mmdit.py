@@ -203,8 +203,10 @@ def _conv_mlp_hidden(hidden_dim: int, multiple_of: int) -> int:
     return multiple_of * ((hidden + multiple_of - 1) // multiple_of)
 
 
-def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
-    return x.unflatten(-1, (num_heads, -1))
+def _split_heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """[..., H * D] -> [..., H, D], the head count read from the width: a tensor-parallel
+    rank (``parallel/sharding.py``) holds whole heads, fewer than ``cfg.num_heads``."""
+    return x.unflatten(-1, (-1, head_dim))
 
 
 def _qk_norm(norm: Optional["RMSNorm"], x: torch.Tensor) -> torch.Tensor:
@@ -351,7 +353,7 @@ class TripleBlock(nn.Module):
     def text_kv(self, cond: torch.Tensor, ropes_text) -> Tuple[torch.Tensor, torch.Tensor]:
         """Text-side K/V of the cross-attention: projection, k-norm, RoPE (all
         timestep-invariant)."""
-        t_k, t_v = (_split_heads(u, self.cfg.num_heads)
+        t_k, t_v = (_split_heads(u, self.cfg.head_dim)
                     for u in self.text_cross_kv(cond).chunk(2, dim=-1))
         t_k = apply_rotary_emb(_qk_norm(self.text_cross_k_norm, t_k), *ropes_text)
         return t_k, t_v
@@ -398,7 +400,7 @@ class TripleBlock(nn.Module):
         the plain route (``plain_joint_attention``, with ``attn_mask``). ``text_kv``:
         precomputed (t_k, t_v) of this block (then ``cond`` is unused). ``mods``: precomputed
         (a_mod, v_mod) [1, 9H] adaLN vectors."""
-        nh, eps = self.cfg.num_heads, self.cfg.qk_norm_eps
+        hd, eps = self.cfg.head_dim, self.cfg.qk_norm_eps
         visual_len = v_cond.shape[1]
         if mods is not None:
             a_mod, v_mod = mods
@@ -413,10 +415,10 @@ class TripleBlock(nn.Module):
 
         # ---- 1. joint self-attention over [v_cond; audio], norm + RoPE fused ----
         a_in = modulate_ref(layer_norm(audio), a1_shift, a1_scale)
-        a_q, a_k, a_v = (_split_heads(u, nh)
+        a_q, a_k, a_v = (_split_heads(u, hd)
                          for u in self.audio_self_attn_qkv(a_in).chunk(3, dim=-1))
         v_in = modulate_ref(layer_norm(v_cond), v1_shift, v1_scale)
-        v_q, v_k, v_v = (_split_heads(u, nh)
+        v_q, v_k, v_v = (_split_heads(u, hd)
                          for u in self.v_cond_attn_qkv(v_in).chunk(3, dim=-1))
 
         if norms is None:
@@ -433,8 +435,8 @@ class TripleBlock(nn.Module):
         # ---- 2. cross-attention: [v_cond; audio] queries vs text k/v ----
         a_in = modulate_ref(layer_norm(audio), a2_shift, a2_scale)
         v_in = modulate_ref(layer_norm(v_cond), v2_shift, v2_scale)
-        a_q = _qk_norm(self.audio_cross_q_norm, _split_heads(self.audio_cross_q(a_in), nh))
-        v_q = _qk_norm(self.v_cond_cross_q_norm, _split_heads(self.v_cond_cross_q(v_in), nh))
+        a_q = _qk_norm(self.audio_cross_q_norm, _split_heads(self.audio_cross_q(a_in), hd))
+        v_q = _qk_norm(self.v_cond_cross_q_norm, _split_heads(self.v_cond_cross_q(v_in), hd))
         t_k, t_v = text_kv if text_kv is not None else self.text_kv(cond, ropes.text)
         a_q = apply_rotary_emb(a_q, *ropes.audio)
         v_q = apply_rotary_emb(v_q, *ropes.visual_cross)
@@ -483,7 +485,7 @@ class SingleBlock(nn.Module):
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
 
         x_n = modulate(layer_norm(x), shift_msa, scale_msa)
-        q, k, v = (_split_heads(u, self.cfg.num_heads)
+        q, k, v = (_split_heads(u, self.cfg.head_dim)
                    for u in self.linear_qkv(x_n).chunk(3, dim=-1))
         cos, sin = ropes.audio
         eps = self.cfg.qk_norm_eps

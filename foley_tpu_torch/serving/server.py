@@ -26,6 +26,20 @@ Requests the port cannot serve answer 400 with the reason: ``mux_video`` (with
 ``"response": "avi"``) writes an MJPEG AVI whose frames PIL encodes, and the card's machine
 has no PIL. Any other failure answers 500, as in the JAX package.
 
+Multi-card serving (``--mesh data=D,model=M``, the JAX server's flag and messages): the
+server process starts ``D x M`` ranks (``parallel/launch.py``), one a card with ``--device
+cuda`` (NCCL), or all on one device with ``--device cuda:N`` / ``cpu`` (gloo). Every rank
+loads the models and places its denoiser (``parallel/inference.py::shard_bundle``); rank 0
+alone loads the encoders and serves HTTP, and each pipeline call of a request (a generation,
+a coalesced batch, a long-form run or stream, the warm-up) runs on every rank with rank 0's
+arguments, where the JAX server enters ``with mesh``. A call that fails on any rank once the
+ranks have started it stops the server (exit code 1); what would fail inside one (an
+unknown sampler, a batch whose rows do not split over ``data``) is refused before.
+``--blocks_to_swap`` is refused with ``--mesh``, as in the JAX package, and so are int8,
+int8_dynamic and int4 storage with ``model > 1`` (``parallel/sharding.py::check_quantization``).
+
+SIGTERM or SIGINT shuts the server down (exit code 0), on one device or a mesh.
+
 Device work is serialized by a lock (one generation on the card at a time); a duration is
 snapped up to the smallest warmed bucket that holds it, and one past the largest bucket
 runs long-form in windows of the largest. ``BatchingFoleyService`` (``--max_batch > 1``)
@@ -46,6 +60,7 @@ import io
 import json
 import logging
 import queue
+import signal
 import threading
 import time
 import wave
@@ -58,6 +73,7 @@ import torch
 from foley_tpu_torch.io.native import float_to_pcm16, wav_image
 from foley_tpu_torch.models import clap as clap_mod
 from foley_tpu_torch.pipeline import features
+from foley_tpu_torch.parallel.inference import MeshCalls
 from foley_tpu_torch.pipeline.generate import ModelBundle, generate_audio, generate_audio_multi
 from foley_tpu_torch.pipeline.longform import (
     continue_audio,
@@ -68,6 +84,7 @@ from foley_tpu_torch.pipeline.longform import (
     generate_audio_long_stream,
     plan_v2a_long,
 )
+from foley_tpu_torch.sampling.flow_match import solver_init
 
 logger = logging.getLogger("foley_tpu_torch")
 
@@ -88,8 +105,11 @@ class FoleyService:
                  text_buckets: Sequence[int] = (77,), default_steps: int = 50,
                  video_encoders: Optional[Dict] = None,
                  v2a_warmup_hw: Optional[Tuple[int, int]] = None,
-                 frames_root: Optional[str] = "/"):
+                 frames_root: Optional[str] = "/", mesh=None):
         self.bundle = bundle
+        # multi-card serving: rank 0's ``RankMesh``, the bundle placed on it
+        # (``parallel/inference.py::shard_bundle``); each pipeline call runs on every rank
+        self.mesh_calls = MeshCalls(mesh, bundle) if mesh is not None else None
         # frames_path allowlist: requests read only under this directory (None: no
         # frames_path); main narrows it by the bind, the default serves in-process callers
         self.frames_root = frames_root
@@ -145,6 +165,12 @@ class FoleyService:
             self._in_flight -= 1
         self._record_request((time.monotonic() - t0) * 1e3, ok)
 
+    def _run(self, fn, *args, **kwargs):
+        """``fn(bundle, *args, **kwargs)``: a pipeline call, on every rank of a mesh."""
+        if self.mesh_calls is not None:
+            return self.mesh_calls.call(fn, *args, **kwargs)
+        return fn(self.bundle, *args, **kwargs)
+
     # -- warm-up ----------------------------------------------------------------
     def _zero_text(self, length: Optional[int] = None) -> torch.Tensor:
         cfgm = self.bundle.pipeline_cfg.model
@@ -160,9 +186,9 @@ class FoleyService:
                     logger.info(f"warmup: duration={d}s batch={b} text_bucket={tb}")
                     z = self._zero_text(tb)
                     with self._lock:
-                        generate_audio(self.bundle, z, z, d, guidance_scale=4.5,
-                                       num_inference_steps=steps, batch_size=b, seed=0,
-                                       text_bucket=tb)
+                        self._run(generate_audio, z, z, d, guidance_scale=4.5,
+                                  num_inference_steps=steps, batch_size=b, seed=0,
+                                  text_bucket=tb)
                     self.warm_buckets.append((d, b, tb))
         if self.video_encoders:
             h, w = self.v2a_warmup_hw or (32, 32)
@@ -262,11 +288,22 @@ class FoleyService:
         return duration, long_form, bucket_duration, cont_wav
 
     def _common(self, request: Dict) -> Dict:
-        return dict(guidance_scale=float(request.get("cfg_scale", 4.5)),
-                    num_inference_steps=int(request.get("steps", self.default_steps)),
-                    sampler=request.get("sampler", "euler"),
-                    batch_size=int(request.get("batch_size", 1)),
-                    seed=int(request.get("seed", 0)), text_bucket=self.text_buckets[0])
+        common = dict(guidance_scale=float(request.get("cfg_scale", 4.5)),
+                      num_inference_steps=int(request.get("steps", self.default_steps)),
+                      sampler=request.get("sampler", "euler"),
+                      batch_size=int(request.get("batch_size", 1)),
+                      seed=int(request.get("seed", 0)), text_bucket=self.text_buckets[0])
+        # what would fail inside a pipeline call is refused before any rank starts it
+        solver_init(common["sampler"])
+        self._check_rows(common["batch_size"], common["guidance_scale"])
+        return common
+
+    def _check_rows(self, batch: int, guidance_scale: float) -> None:
+        """On a mesh, the batch's rows (doubled for CFG) must split over ``data``."""
+        rows = batch * (2 if guidance_scale > 1.0 else 1)
+        if self.mesh_calls is not None and rows % self.mesh_calls.mesh.data:
+            raise ValueError(f"{rows} rows (the batch, doubled for CFG) do not split over "
+                             f"the mesh's data={self.mesh_calls.mesh.data}")
 
     # -- inference --------------------------------------------------------------
     def generate(self, request: Dict) -> Dict:
@@ -276,19 +313,19 @@ class FoleyService:
         common = self._common(request)
         with self._lock:
             if cont_wav is not None:
-                result = continue_audio(
-                    self.bundle, cont_wav, text, uncond, duration,
+                result = self._run(
+                    continue_audio, cont_wav, text, uncond, duration,
                     context_s=float(request.get("context_s", 4.0)),
                     window_s=default_window_s(self.bundle.pipeline_cfg), **common)
             elif long_form:
                 # arbitrary durations reuse a bounded set of window sizes
-                result = generate_audio_long(
-                    self.bundle, text, uncond, duration, clip_feat=clip_feat,
+                result = self._run(
+                    generate_audio_long, text, uncond, duration, clip_feat=clip_feat,
                     sync_feat=sync_feat, window_s=self.durations[-1],
                     snap_to_window_grid=True, **common)
             else:
-                result = generate_audio(self.bundle, text, uncond, bucket_duration,
-                                        clip_feat=clip_feat, sync_feat=sync_feat, **common)
+                result = self._run(generate_audio, text, uncond, bucket_duration,
+                                   clip_feat=clip_feat, sync_feat=sync_feat, **common)
         n = int(duration * result.sample_rate)
         return {"waveform": np.asarray(result.audio_first)[0, :, :n],  # [C, T]
                 "sample_rate": result.sample_rate, "timings": result.timings}
@@ -309,6 +346,7 @@ class FoleyService:
                     "first_window_s applies to windowed streams only (duration over the "
                     "largest bucket, or continuation); this request is single-shot")
             ramp["first_window_s"] = float(request["first_window_s"])
+        common = self._common(request)
         clip_feat, sync_feat = self._visual_features(request, bucket_duration)
         text, uncond = self._text(request)
         pcfg = self.bundle.pipeline_cfg
@@ -319,27 +357,31 @@ class FoleyService:
         else:
             n_total = emitted_samples(duration, sr)
         yield {"header": {"sample_rate": sr, "channels": 1, "total_samples": n_total}}
-        common = self._common(request)
         with self._lock:
             if cont_wav is not None:
-                chunks = continue_audio_stream(
-                    self.bundle, cont_wav, text, uncond, duration,
+                chunks = self._run(
+                    continue_audio_stream, cont_wav, text, uncond, duration,
                     context_s=float(request.get("context_s", 4.0)),
                     window_s=default_window_s(pcfg), **common, **ramp)
             elif long_form:
-                chunks = generate_audio_long_stream(
-                    self.bundle, text, uncond, duration, clip_feat=clip_feat,
+                chunks = self._run(
+                    generate_audio_long_stream, text, uncond, duration, clip_feat=clip_feat,
                     sync_feat=sync_feat, window_s=self.durations[-1],
                     snap_to_window_grid=True, **common, **ramp)
             else:
-                result = generate_audio(self.bundle, text, uncond, bucket_duration,
-                                        clip_feat=clip_feat, sync_feat=sync_feat, **common)
+                result = self._run(generate_audio, text, uncond, bucket_duration,
+                                   clip_feat=clip_feat, sync_feat=sync_feat, **common)
                 w = np.asarray(result.audio_first)[0, 0, :n_total]
                 yield {"pcm": float_to_pcm16(w).tobytes(), "start_sample": 0, "final": True}
                 return
-            for ch in chunks:
-                yield {"pcm": ch.pcm16[0].tobytes(), "start_sample": ch.start_sample,
-                       "final": ch.final}
+            try:
+                for ch in chunks:
+                    yield {"pcm": ch.pcm16[0].tobytes(), "start_sample": ch.start_sample,
+                           "final": ch.final}
+            finally:
+                # a client that left: closed under the lock (on a mesh, the stream's windows
+                # left run on rank 0 before another call may start)
+                chunks.close()
 
 
 class BatchingFoleyService(FoleyService):
@@ -376,6 +418,7 @@ class BatchingFoleyService(FoleyService):
         if (_has_video(request) or "continue_b64" in request or request.get("mux_video")
                 or float(request.get("duration", 5.0)) > self.durations[-1]):
             return FoleyService.generate(self, request)
+        solver_init(request.get("sampler", "euler"))  # refused before any rank starts
         pending = self._Pending(request)
         with self._queue_lock:
             self._queue.append(pending)
@@ -460,10 +503,11 @@ class BatchingFoleyService(FoleyService):
     def _dispatch_group(self, group, bucket, prepared):
         duration, steps, sampler, cfg_scale = bucket
         text_b, uncond_b, seeds = prepared
+        self._check_rows(len(seeds), cfg_scale)
         with self._lock:
-            result = generate_audio_multi(self.bundle, text_b, uncond_b, duration, seeds,
-                                          guidance_scale=cfg_scale, num_inference_steps=steps,
-                                          sampler=sampler, text_bucket=self.text_buckets[0])
+            result = self._run(generate_audio_multi, text_b, uncond_b, duration, seeds,
+                               guidance_scale=cfg_scale, num_inference_steps=steps,
+                               sampler=sampler, text_bucket=self.text_buckets[0])
         for i, p in enumerate(group):
             n = int(float(p.request.get("duration", duration)) * result.sample_rate)
             p.result = {"waveform": result.audio_batch[i][:, :n],
@@ -581,20 +625,13 @@ def create_server(service: FoleyService, host: str = "127.0.0.1",
                 return
             self._send(code, body, ctype=ctype)
 
-    return ThreadingHTTPServer((host, port), Handler)
+    server = ThreadingHTTPServer((host, port), Handler)
+    logger.info(f"serving on http://{host}:{server.server_address[1]}")  # port 0: the OS's
+    return server
 
 
-def main(argv=None) -> int:
-    """``python -m foley_tpu_torch.serving.server --random_init xxl [--enable_v2a]`` on the
-    card, or ``--device cpu --random_init tiny`` on the CPU."""
+def build_parser():
     import argparse
-
-    from foley_tpu_torch.api.nodes import (
-        HunyuanModelLoader,
-        adapt_random_model,
-        resolve_dtype,
-    )
-    from foley_tpu_torch.core.device import resolve_device
 
     p = argparse.ArgumentParser("foley-serve", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -603,7 +640,8 @@ def main(argv=None) -> int:
                         "synchformer_state_dict, clap/, siglip2/)")
     p.add_argument("--random_init", default=None, choices=["xxl", "xl", "tiny"])
     p.add_argument("--device", default="cuda",
-                   help="torch device the models run on (default cuda)")
+                   help="torch device the models run on (default cuda); with --mesh, cuda "
+                        "puts one rank on each visible card, cuda:N or cpu every rank there")
     p.add_argument("--precision", default="bf16", choices=["auto", "bf16", "fp16", "fp32"])
     p.add_argument("--quantization", default="none",
                    choices=["none", "auto", "fp8_e4m3fn", "fp8_e5m2", "int8", "int8_dynamic",
@@ -631,47 +669,36 @@ def main(argv=None) -> int:
                    help="directory allowlist for request frames_path reads; required to "
                         "enable frames_path on a non-loopback --host (loopback binds allow "
                         "any local path)")
-    p.add_argument("--mesh", default="", help="multi-card serving: not ported (ROADMAP "
-                                              "item 13h, torch.distributed DP/TP)")
+    p.add_argument("--mesh", default="",
+                   help='multi-card serving over a ("data","model") mesh, e.g. '
+                        '"data=2,model=2": the denoiser shards per the Megatron col/row '
+                        "rules, the DAC replicates, and every request runs on every rank "
+                        "(parallel/). Empty = one device.")
     p.add_argument("--blocks_to_swap", type=int, default=0,
                    help="keep the LAST N of the 54 blocks in page-locked host memory, "
-                        "streamed to the card each step; composes with --quantization")
+                        "streamed to the card each step; composes with --quantization; "
+                        "one device only (not with --mesh)")
     p.add_argument("--prefetch_blocks", type=int, default=0,
                    help="extra swapped-block copies in flight (device window = N+1)")
-    args = p.parse_args(argv)
-    if args.mesh:
-        p.error("--mesh: multi-card serving is not ported (ROADMAP item 13h)")
-    if args.prefetch_blocks and not args.blocks_to_swap:
-        p.error("--prefetch_blocks only applies with --blocks_to_swap > 0")
-    if bool(args.random_init) == bool(args.model_path):
-        p.error("pass exactly one of --random_init and --model_path")
-    warmup_hw = None
-    if args.v2a_warmup_hw:
-        parts = args.v2a_warmup_hw.lower().split("x")
-        if len(parts) != 2 or not all(x.isdigit() and int(x) > 0 for x in parts):
-            p.error(f'--v2a_warmup_hw: bad geometry {args.v2a_warmup_hw!r} '
-                    '(expected "HxW", positive integers)')
-        warmup_hw = (int(parts[0]), int(parts[1]))
-    if warmup_hw and args.v2a_preprocess != "device":
-        # the PIL resize outputs a fixed size: no work depends on the source geometry
-        logger.warning("--v2a_warmup_hw has no effect with --v2a_preprocess pil; ignoring")
-        warmup_hw = None
+    return p
 
-    dev = resolve_device(args.device)
+
+def load_models(args, dev: torch.device, encoders: bool = True):
+    """(bundle, text encoder, video encoders) of the server's flags on ``dev``; the encoders
+    are None unless ``encoders`` (a mesh's rank 0 alone runs them)."""
+    from foley_tpu_torch.api.nodes import HunyuanModelLoader, adapt_random_model, resolve_dtype
+
+    text_encoder = video_encoders = None
     if args.random_init:
         from foley_tpu_torch.configs import get_config
         from foley_tpu_torch.models import dac_vae, siglip2, synchformer
 
-        if args.precision == "auto":
-            p.error("--precision auto reads a checkpoint's dtype; name one with --random_init")
         fm = HunyuanModelLoader.init_random(args.random_init, args.precision, 0, device=dev)
         adapt_random_model(fm["params"], args.lora, args.lora_scale, args.quantization)
         cfg = get_config(args.random_init)
         dac = dac_vae.init(cfg.dac, torch.Generator(device=dev).manual_seed(1), device=dev)
         bundle = ModelBundle(fm["params"], dac, cfg, compute_dtype=fm["dtype"])
-        text_encoder = None
-        video_encoders = None
-        if args.enable_v2a:
+        if args.enable_v2a and encoders:
             dtype = resolve_dtype(args.precision)
             video_encoders = {
                 "siglip2": siglip2.init_random(2, cfg.model.clip_dim, device=dev, dtype=dtype),
@@ -686,19 +713,17 @@ def main(argv=None) -> int:
         bundle = ModelBundle(manager.foley["params"], manager.dac["params"],
                              manager.pipeline_cfg, compute_dtype=manager.foley["dtype"],
                              latent_stats=manager.foley.get("latent_stats"))
-        text_encoder = manager.clap
-        video_encoders = None
-        if args.enable_v2a:
-            video_encoders = {"siglip2": manager.siglip2, "synchformer": manager.synchformer}
+        if encoders:
+            text_encoder = manager.clap
+            if args.enable_v2a:
+                video_encoders = {"siglip2": manager.siglip2,
+                                  "synchformer": manager.synchformer}
     for enc in (video_encoders or {}).values():
         enc.preprocess = args.v2a_preprocess
+    return bundle, text_encoder, video_encoders
 
-    if args.blocks_to_swap > 0:
-        from foley_tpu_torch.parallel.offload import offload_block_suffix
 
-        offload_block_suffix(bundle.mmdit, args.blocks_to_swap)
-        bundle = bundle._replace(offload_prefetch=args.prefetch_blocks + 1)
-
+def _service(args, bundle, text_encoder, video_encoders, warmup_hw, mesh=None) -> FoleyService:
     if args.frames_root:
         frames_root = args.frames_root
     elif args.host in ("127.0.0.1", "localhost", "::1"):
@@ -707,14 +732,124 @@ def main(argv=None) -> int:
         frames_root = None  # a public bind: no frames_path unless allowlisted
     service_cls = FoleyService if args.max_batch <= 1 else BatchingFoleyService
     extra = {} if args.max_batch <= 1 else {"max_batch": args.max_batch}
-    service = service_cls(bundle, text_encoder,
-                          durations=tuple(float(x) for x in args.durations.split(",")),
-                          video_encoders=video_encoders, v2a_warmup_hw=warmup_hw,
-                          frames_root=frames_root, **extra)
-    service.warmup(steps=args.warmup_steps)
+    return service_cls(bundle, text_encoder,
+                       durations=tuple(float(x) for x in args.durations.split(",")),
+                       video_encoders=video_encoders, v2a_warmup_hw=warmup_hw,
+                       frames_root=frames_root, mesh=mesh, **extra)
+
+
+def _serve(service: FoleyService, args) -> None:
+    """Serve HTTP until SIGTERM or SIGINT (or a mesh fault) shuts the server down."""
     server = create_server(service, args.host, args.port)
-    logger.info(f"serving on http://{args.host}:{args.port}")
-    server.serve_forever()
+
+    def shut_down(*_):  # serve_forever runs on this thread: shut it down from another
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    restore = {}
+    if threading.current_thread() is threading.main_thread():
+        restore = {s: signal.signal(s, shut_down) for s in (signal.SIGTERM, signal.SIGINT)}
+    if service.mesh_calls is not None:
+        service.mesh_calls.on_fault = shut_down
+    try:
+        server.serve_forever()
+    finally:
+        for s, handler in restore.items():
+            signal.signal(s, handler)
+
+
+def serve_rank(mesh, args, warmup_hw) -> None:
+    """A rank of the served mesh (``parallel/launch.py`` runs it): its bundle placed; rank 0
+    serves HTTP, every other rank runs rank 0's pipeline calls until it stops them. SIGTERM
+    and SIGINT reach every rank: rank 0 shuts its server down, the others wait for it."""
+    from foley_tpu_torch.parallel.inference import follow, shard_bundle
+
+    leader = mesh.rank == 0
+    bundle, text_encoder, video_encoders = load_models(args, mesh.device, encoders=leader)
+    bundle = shard_bundle(bundle, mesh)
+    if not leader:
+        for s in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(s, signal.SIG_IGN)
+        n = follow(mesh, bundle)
+        logger.info(f"rank {mesh.rank}: ran {n} calls of rank 0")
+        return
+    service = _service(args, bundle, text_encoder, video_encoders, warmup_hw, mesh=mesh)
+    service.warmup(steps=args.warmup_steps)
+    _serve(service, args)
+    if service.mesh_calls.fault is not None:  # the other ranks may be mid-call: fail the launch
+        raise service.mesh_calls.fault
+    with service._lock:  # after the call in flight, if any
+        service.mesh_calls.stop()
+
+
+def main(argv=None) -> int:
+    """``python -m foley_tpu_torch.serving.server --random_init xxl [--enable_v2a]`` on the
+    card, or ``--device cpu --random_init tiny`` on the CPU; ``--mesh data=D,model=M`` over
+    ``D x M`` ranks."""
+    from foley_tpu_torch.core.device import resolve_device
+    from foley_tpu_torch.parallel.mesh import parse_mesh_spec
+
+    p = build_parser()
+    args = p.parse_args(argv)
+    if args.blocks_to_swap and args.mesh:
+        p.error("--blocks_to_swap is a single-chip memory mode; drop --mesh")
+    if args.prefetch_blocks and not args.blocks_to_swap:
+        p.error("--prefetch_blocks only applies with --blocks_to_swap > 0")
+    try:
+        mesh_spec = parse_mesh_spec(args.mesh)  # before any load
+    except ValueError as e:
+        p.error(str(e))
+    if bool(args.random_init) == bool(args.model_path):
+        p.error("pass exactly one of --random_init and --model_path")
+    if args.random_init and args.precision == "auto":
+        p.error("--precision auto reads a checkpoint's dtype; name one with --random_init")
+    warmup_hw = None
+    if args.v2a_warmup_hw:
+        parts = args.v2a_warmup_hw.lower().split("x")
+        if len(parts) != 2 or not all(x.isdigit() and int(x) > 0 for x in parts):
+            p.error(f'--v2a_warmup_hw: bad geometry {args.v2a_warmup_hw!r} '
+                    '(expected "HxW", positive integers)')
+        warmup_hw = (int(parts[0]), int(parts[1]))
+    if warmup_hw and args.v2a_preprocess != "device":
+        # the PIL resize outputs a fixed size: no work depends on the source geometry
+        logger.warning("--v2a_warmup_hw has no effect with --v2a_preprocess pil; ignoring")
+        warmup_hw = None
+
+    if mesh_spec:
+        return _main_mesh(p, args, mesh_spec, warmup_hw)
+
+    bundle, text_encoder, video_encoders = load_models(args, resolve_device(args.device))
+    if args.blocks_to_swap > 0:
+        from foley_tpu_torch.parallel.offload import offload_block_suffix
+
+        offload_block_suffix(bundle.mmdit, args.blocks_to_swap)
+        bundle = bundle._replace(offload_prefetch=args.prefetch_blocks + 1)
+    service = _service(args, bundle, text_encoder, video_encoders, warmup_hw)
+    service.warmup(steps=args.warmup_steps)
+    _serve(service, args)
+    return 0
+
+
+def _main_mesh(p, args, mesh_spec, warmup_hw) -> int:
+    """The served mesh: refused before any load where it cannot run, else its ranks
+    launched; returns when rank 0 stops them (a failed rank raises ``RankFailed``)."""
+    import os
+
+    from foley_tpu_torch.configs import get_config
+    from foley_tpu_torch.parallel.launch import launch
+    from foley_tpu_torch.parallel.mesh import make_mesh, rank_devices
+    from foley_tpu_torch.parallel.sharding import check_quantization, check_widths
+
+    data, model = mesh_spec.get("data"), mesh_spec.get("model")
+    try:
+        mesh = make_mesh(data, model, rank_devices(args.device, data, model))
+        check_quantization(args.quantization, mesh.model)
+        check_widths(get_config(args.random_init or args.config).model, mesh.model)
+    except ValueError as e:
+        p.error(str(e))
+    logger.info(f"mesh {mesh.data}x{mesh.model} over {mesh.backend}: ranks on {mesh.devices}")
+    on_cpu = all(d == "cpu" for d in mesh.devices)  # the ranks share the host's cores
+    launch(mesh, serve_rank, args, warmup_hw,
+           threads=max(1, (os.cpu_count() or 1) // mesh.world) if on_cpu else None)
     return 0
 
 

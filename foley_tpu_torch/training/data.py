@@ -370,7 +370,7 @@ class PrefetchLoader:
     makes the consumer's current stream wait on that event, and records the batch's tensors
     as used by that stream, so the caching allocator keeps them until the consumer is done.
     On the CPU a batch becomes tensors in place. Iteration ends with the source; an error of
-    the source is raised by ``__next__``; ``close()`` stops the thread early."""
+    the source is raised by ``__next__``; ``close()`` stops the thread and joins it."""
 
     def __init__(self, batches: Iterator[Dict], depth: int = 2, device: DeviceLike = None):
         self._src = batches
@@ -429,4 +429,8 @@ class PrefetchLoader:
         return batch
 
     def close(self) -> None:
+        """Stop the thread and wait for it: a daemon thread still inside a CUDA copy when the
+        interpreter exits aborts the process ("terminate called without an active
+        exception")."""
         self._stop.set()
+        self._thread.join()

@@ -172,17 +172,52 @@ def test_gradio_hands_the_server_the_jax_argv(monkeypatch, source):
     (["--merge_video", "--single_video", "tests"], "PIL"),
     (["--merge_video", "--single_video", "tests", "--gradio"], "PIL"),
     (["--desync_score"], "requires --single_video"),
-    (["--mesh", "data=4"], "item 13h"),
-    (["--merge_video", "--single_video", "tests", "--v2a_preprocess", "pil"], "PIL"),
-    (["--gradio", "--v2a_preprocess", "pil", "--mesh", "data=4"], "item 13h"),
-    (["--gradio", "--mesh", "data=4"], "item 13h")])
+    (["--merge_video", "--single_video", "tests", "--v2a_preprocess", "pil"], "PIL")])
 def test_refusals_name_their_roadmap_item(capsys, argv, item):
-    """What the port refuses exits 2 before any model work, saying why: multi-card serving
-    names its ROADMAP item, muxing onto a frames directory names PIL (it writes JPEG
-    frames; the PIL resize runs without PIL, ``tests/test_torch_pil_resize.py``), the desync
-    score needs a video."""
+    """What the port refuses exits 2 before any model work, saying why: muxing onto a
+    frames directory names PIL (it writes JPEG frames; the PIL resize runs without PIL,
+    ``tests/test_torch_pil_resize.py``), the desync score needs a video."""
     assert tcli.main(["--random_init", "tiny", "--device", "cpu"] + argv) == 2
     assert item in capsys.readouterr().err
+
+
+def test_mesh_without_gradio_is_ignored(model_dir, monkeypatch, tmp_path):
+    """``--mesh`` applies to ``--gradio`` alone: a one-shot run ignores it, as the JAX CLI
+    does, and writes the same audio."""
+    ref, got = _both(monkeypatch, tmp_path, ["--model_path", str(model_dir), "--duration", "1",
+                                             "--mesh", "data=4"] + RUN)
+    assert got.shape == ref.shape == (48000,)
+    assert np.abs(got - ref).max() <= PCM_TOL
+
+
+def test_gradio_passes_the_mesh_on(monkeypatch):
+    """``--gradio --mesh`` hands the server the JAX CLI's argv, ``--mesh`` included."""
+    from foley_tpu.serving import server as jserver
+    from foley_tpu_torch.serving import server as tserver
+
+    seen = {}
+    monkeypatch.setattr(jserver, "main", lambda argv: seen.setdefault("jax", argv) and 0)
+    monkeypatch.setattr(tserver, "main", lambda argv: seen.setdefault("port", argv) and 0)
+    argv = ["--gradio", "--random_init", "tiny", "--v2a_preprocess", "pil", "--mesh", "data=4"]
+    assert jcli.main(argv) == 0 and tcli.main(argv + ["--device", "cpu"]) == 0
+    port = seen["port"]
+    i = port.index("--device")
+    assert port[:i] + port[i + 2:] == seen["jax"]
+    assert port[port.index("--mesh") + 1] == "data=4"
+
+
+def test_gradio_mesh_with_block_swap_is_refused_as_jax(capsys):
+    """``--gradio --mesh`` with ``--blocks_to_swap``: the server refuses it before any load,
+    with the JAX server's message, through either CLI."""
+    argv = ["--gradio", "--random_init", "tiny", "--mesh", "data=4", "--blocks_to_swap", "4"]
+    with pytest.raises(SystemExit) as ref:
+        jcli.main(argv)
+    ref_err = capsys.readouterr().err
+    with pytest.raises(SystemExit) as got:
+        tcli.main(argv + ["--device", "cpu"])
+    assert got.value.code == ref.value.code == 2
+    assert "--blocks_to_swap is a single-chip memory mode; drop --mesh" in ref_err
+    assert "--blocks_to_swap is a single-chip memory mode; drop --mesh" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv", [

@@ -707,3 +707,33 @@ def test_tiny_dac_gan_step_on_the_card_matches_the_cpu(dev):
     worst = max(rel, key=rel.get)
     print(f"worst first-moment leaf {worst}: relative L2 {rel[worst]:.3e}")
     assert rel[worst] <= 2e-2, (worst, rel[worst])
+
+
+@pytest.mark.parametrize("data,model", [(1, 1), (1, 2), (2, 1)])
+def test_mesh_forward_on_the_card(dev, data, model):
+    """The denoiser (128-wide heads, fp32) placed on a mesh of ranks on this card: one rank
+    over NCCL equals one card bit for bit; two ranks sharing ``cuda:0`` over gloo (NCCL
+    refuses two ranks on one card) hold it within 1e-5 relative L2, each K1 launch on the
+    rank's heads."""
+    import torch_parallel_programs as programs
+    from foley_tpu_torch.parallel.launch import launch
+    from foley_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = dataclasses.replace(TINY.model, hidden_size=256, num_heads=2)
+    denoiser, inputs = programs.card_model_and_inputs(cfg, torch.float32,
+                                                      torch.device("cuda:0"))
+    with torch.no_grad():
+        ref = denoiser(*inputs).cpu()
+    del denoiser
+    torch.cuda.empty_cache()
+    mesh = make_mesh(data, model, ["cuda:0"] * (data * model))
+    assert mesh.backend == ("nccl" if data * model == 1 else "gloo")
+    out = launch(mesh, programs.card_forward, cfg, torch.float32, timeout=600)
+    if data * model == 1:
+        assert torch.equal(out["velocity"], ref)
+    else:
+        rel = float((out["velocity"] - ref).norm() / ref.norm())
+        assert rel <= FP32_REL_TOL, rel
+    calls = cfg.depth_triple_blocks + cfg.depth_single_blocks
+    for r in out["ranks"]:
+        assert r["launches"] == calls and r["heads"] == {cfg.num_heads // model: calls}

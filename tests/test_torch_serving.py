@@ -255,7 +255,7 @@ def test_batching_failure_does_not_wedge_and_buckets_split(services):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "data=2", "--random_init", "tiny"], "item 13h"),
+    (["--mesh", "data=2", "--blocks_to_swap", "2", "--random_init", "tiny"], "drop --mesh"),
     (["--random_init", "tiny", "--model_path", "ckpts"], "exactly one"),
     (["--prefetch_blocks", "1", "--random_init", "tiny"], "--blocks_to_swap"),
     (["--v2a_warmup_hw", "12x", "--random_init", "tiny"], "bad geometry"),

@@ -3894,6 +3894,465 @@ def mesh_phase(torch, dev, pipeline_cfg, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------------
+# mesh_train: denoiser training over a ("data", "model") mesh of torch.distributed ranks
+# ---------------------------------------------------------------------------------
+
+MESH_TRAIN_SEED = 61
+MESH_TRAIN_DEPTH = (1, 1)       # the steps', checkpoints' and export's triple and single
+                                # blocks at XXL width; cut from MESH_DEPTH (2.6 B parameters,
+                                # a full bf16 state of 21 GB) for time: on an H100 the phase
+                                # took 158.6 s at 2 + 4 blocks, 89.5-129.5 s at 1 + 2
+                                # (PERF.md §4)
+MESH_TRAIN_REL_TOL = 1e-5       # the fp32 step's gathered gradients against one card's,
+                                # relative L2 per leaf (the same products summed in another
+                                # order)
+MESH_TRAIN_ROWS = 2             # the global batch: two 5 s clips, one a rank at data=2
+MESH_TRAIN_CONFIG = "xxl_mesh_train"  # the export's config name, registered for the loader
+
+
+def _mesh_train_model(torch, dev, depth, dtype):
+    """The seeded denoiser of the ``mesh_train`` phase: XXL width, ``depth`` blocks, its
+    zero-initialized leaves perturbed (as JAX's LoRA mesh test does)."""
+    import dataclasses
+
+    from foley_tpu_torch.configs import XXL
+    from foley_tpu_torch.core.params import perturb_zero_leaves
+    from foley_tpu_torch.models import mmdit
+
+    cfg = dataclasses.replace(XXL.model, depth_triple_blocks=depth[0],
+                              depth_single_blocks=depth[1])
+    model = mmdit.init(cfg, torch.Generator(device=dev).manual_seed(MESH_TRAIN_SEED),
+                       device=dev, dtype=dtype)
+    return perturb_zero_leaves(model, torch.Generator(device=dev).manual_seed(
+        MESH_TRAIN_SEED + 1))
+
+
+def _mesh_train_batches(np, pipeline_cfg, n: int) -> list:
+    """``n`` seeded global batches of ``MESH_TRAIN_ROWS`` 5 s clips (latents, text, clip and
+    sync features), numpy."""
+    cfg = pipeline_cfg.model
+    clip_len, sync_len = pipeline_cfg.t2a_lengths(DURATION_S)
+    shapes = {"latents": (pipeline_cfg.latent_length(DURATION_S), cfg.audio_vae_latent_dim),
+              "cond": (cfg.text_length, cfg.condition_dim), "clip_feat": (clip_len, cfg.clip_dim),
+              "sync_feat": (sync_len, cfg.sync_feat_dim)}
+    rng = np.random.default_rng(MESH_TRAIN_SEED)
+    return [{k: rng.standard_normal((MESH_TRAIN_ROWS,) + s).astype(np.float32)
+             for k, s in shapes.items()} for _ in range(n)]
+
+
+def _mesh_train_draws(torch, batch, dev):
+    """The global batch's noise and sigma of step 0, as ``flow_match_loss`` draws them from
+    the step's generator."""
+    from foley_tpu_torch.training import loop
+
+    gen = loop.step_generator(MESH_TRAIN_SEED, 0, dev)
+    x1 = batch["latents"]
+    return torch.randn(x1.shape, generator=gen, device=dev), torch.rand(
+        (x1.shape[0],), generator=gen, device=dev)
+
+
+def _host(tensors: dict) -> dict:
+    return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items() if v is not None}
+
+
+def _timed(torch, dev, fn):
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _sha(torch, tensors: dict) -> dict:
+    """The SHA-256 of each tensor's bytes."""
+    import hashlib
+
+    return {k: hashlib.sha256(v.detach().cpu().contiguous().view(-1).view(
+        torch.uint8).numpy().tobytes()).hexdigest() for k, v in tensors.items()}
+
+
+def _held(torch, mesh, tensors: dict, ref: dict, lora: bool = False):
+    """Every leaf of ``tensors`` (this rank's slices; None: not reached) gathered whole,
+    leaf by leaf (every rank joins), and held on rank 0 against the one-card ``ref`` (the
+    leaves it reaches): the tree's relative L2, the worst leaf's, and whether every leaf
+    equals its reference bit for bit. None on the other ranks."""
+    from foley_tpu_torch.parallel import training as pt
+    from foley_tpu_torch.parallel.sharding import REPLICATED, partition_spec_for
+
+    reached = {k: v for k, v in tensors.items() if v is not None}
+    num = den = worst = 0.0
+    equal = set(reached) == set(ref)
+    for name, t in reached.items():
+        whole = pt.gather_leaf(t, REPLICATED if lora else partition_spec_for(name, t), mesh)
+        if mesh.rank:
+            continue
+        r = ref[name].to(whole.device)
+        equal = equal and torch.equal(whole, r)
+        d2 = float((whole.double() - r.double()).square().sum())
+        r2 = float(r.double().square().sum())
+        check(bool(torch.isfinite(whole).all()), f"{name}: not finite on the mesh")
+        check(r2 > 0 or d2 == 0, f"{name}: a gradient where one card has none")
+        num, den = num + d2, den + r2
+        worst = max(worst, math.sqrt(d2 / r2) if r2 else 0.0)
+    if mesh.rank:
+        return None
+    return {"rel_l2": math.sqrt(num / den), "worst_leaf_rel_l2": worst, "bit_for_bit": equal}
+
+
+def mesh_train_checks(mesh, plan: dict, refs: dict, fp32: bool, loops: bool):
+    """The checks of one mesh on its rank, every model at ``MESH_TRAIN_DEPTH``: with
+    ``fp32``, the fp32 gradients; the bf16 LoRA and full gradients (step 0's draws of the
+    global batch), then one LoRA and one full step, each timed and its
+    collectives counted; with ``loops``, ``_mesh_train_loops``. Each gradient and updated
+    leaf is gathered and held against the one-card ``refs`` (``_held``). Returns rank 0's
+    results (None elsewhere) and this rank's times, collectives, peak memory and digests of
+    the replicated leaves."""
+    import torch
+
+    from foley_tpu_torch.parallel import training as pt
+    from foley_tpu_torch.parallel.sharding import partition_spec_for, shard_params
+    from foley_tpu_torch.training import loop
+
+    dev = mesh.device
+    rows = {k: torch.from_numpy(v).to(dev) for k, v in next(pt.data_rows(
+        iter(plan["batches"][:1]), mesh)).items()}
+
+    def gen():
+        return loop.step_generator(MESH_TRAIN_SEED, 0, dev)
+
+    def grads_of(model, leaves, reductions, ref, **kw):
+        for t in leaves.values():
+            t.requires_grad_(True)
+        try:
+            (loss, grads), ms = _timed(torch, dev, lambda: pt.sharded_value_and_grad(
+                model, mesh, rows, leaves, reductions, gen(), **kw))
+        finally:
+            for t in leaves.values():
+                t.requires_grad_(False)
+        return {"loss": float(loss), "held": _held(torch, mesh, grads, ref, "lora" in kw),
+                "ms": ms}
+
+    out, mine = {}, {}
+    if fp32:
+        model = shard_params(_mesh_train_model(torch, dev, MESH_TRAIN_DEPTH,
+                                               torch.float32), mesh)
+        params = dict(model.named_parameters())
+        out["fp32"] = grads_of(model, params, {n: pt.param_reduction(n, p, mesh)
+                                               for n, p in params.items()}, refs["fp32"][1],
+                               compute_dtype=torch.float32)
+        del model, params
+        torch.cuda.empty_cache()
+    model = _mesh_train_model(torch, dev, MESH_TRAIN_DEPTH, torch.bfloat16)
+    adapter = {k: v.to(dev) for k, v in _lora_adapter(torch, model, LORA_RANK,
+                                                      MESH_TRAIN_SEED + 2).items()}
+    shard_params(model, mesh)  # the adapter is drawn from the whole model first
+    lora = {k: v.clone() for k, v in adapter.items()}
+    out["lora"] = grads_of(model, lora, {n: pt.lora_reduction(n, mesh) for n in lora},
+                           refs["lora"][1], lora=lora)
+    params = dict(model.named_parameters())
+    out["full"] = grads_of(model, params, {n: pt.param_reduction(n, p, mesh)
+                                           for n, p in params.items()}, refs["full"][1])
+    mine["grads_ms"] = {k: out[k]["ms"] for k in ("lora", "full")}
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    for kind in ("lora", "full"):
+        if kind == "lora":
+            init_state, step = pt.make_sharded_lora_train_step(model, mesh)
+            state = init_state(adapter)
+        else:
+            init_state, step = pt.make_sharded_train_step(model, mesh)
+            state = init_state(model)
+        mesh.reset_counts()
+        (state, loss), ms = _timed(torch, dev, lambda: step(state, rows, gen()))
+        mine[f"{kind}_step"] = {"ms": ms, "collectives": mesh.counts()}
+        leaves = state.lora if kind == "lora" else state.params
+        out[f"{kind}_step"] = {"loss": float(loss), "held": _held(
+            torch, mesh, leaves, refs[f"{kind}_step"][1], kind == "lora")}
+        if mesh.world > 1:  # the replicated leaves' bytes, to be compared across the ranks
+            mine[f"{kind}_digests"] = _sha(torch, {
+                k: v for k, v in leaves.items() if kind == "lora" or mesh.model == 1
+                or partition_spec_for(k, v).axis is None})
+    mine["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    mine["params"] = sum(p.numel() for p in model.parameters())
+    del model, state, leaves, adapter, lora, params
+    torch.cuda.empty_cache()
+    if loops:
+        mine.update(_mesh_train_loops(torch, mesh, plan))
+    return (out if mesh.rank == 0 else None), mine
+
+
+def mesh_train_rank_program(mesh, plan: dict) -> dict:
+    """One rank of the ``mesh_train`` checks (``parallel/launch.py`` runs it in a process of
+    its own): ``mesh_train_checks`` on each mesh of ``plan["meshes"]`` in turn, every mesh
+    over this launch's ranks (the launch's own, then the others joined in the same
+    processes). The one-card references are read from ``plan["refs"]``. Returns, by mesh,
+    rank 0's results and every rank's."""
+    import torch
+
+    from foley_tpu_torch.parallel.mesh import Mesh
+
+    refs = torch.load(plan["refs"], mmap=True)
+    results = {}
+    for name, (data, model), opts in plan["meshes"]:
+        t0 = time.perf_counter()
+        m = mesh if (data, model) == (mesh.data, mesh.model) else Mesh(
+            data, model, mesh.mesh.devices, mesh.mesh.backend).join(mesh.rank)
+        out, mine = mesh_train_checks(m, plan, refs, **opts)
+        mine["seconds"] = time.perf_counter() - t0
+        results[name] = {"out": out, "ranks": m.gather_object(mine), "backend": m.mesh.backend,
+                         "devices": list(m.mesh.devices)}
+    return results
+
+
+def _mesh_train_loops(torch, mesh, plan) -> dict:
+    """``train_sharded`` at bf16 on the rank's rows of ``plan["batches"]`` (staged by the
+    unchanged ``PrefetchLoader``): two steps straight; one step with a checkpoint, then a
+    resume to two in a fresh model, equal bit for bit on this rank; the resumed model
+    exported to ``plan["export_dir"]``."""
+    from foley_tpu_torch.parallel import training as pt
+    from foley_tpu_torch.training.data import PrefetchLoader
+
+    dev = mesh.device
+
+    def run(steps, skip=0, ckpt=None):
+        loader = PrefetchLoader(pt.data_rows(iter(plan["batches"][skip:]), mesh), device=dev)
+        try:
+            model = _mesh_train_model(torch, dev, MESH_TRAIN_DEPTH, torch.bfloat16)
+            return pt.train_sharded(model, mesh, loader, steps, ckpt_dir=ckpt, ckpt_every=10,
+                                    log_every=0, seed=MESH_TRAIN_SEED,
+                                    compute_dtype=torch.bfloat16)
+        finally:
+            loader.close()
+
+    straight = run(2)
+    (_, ckpt_ms) = _timed(torch, dev, lambda: run(1, ckpt=plan["ckpt_dir"]))
+    resumed = run(2, skip=1, ckpt=plan["ckpt_dir"])
+    same = all(torch.equal(a[k], b[k]) for a, b in (
+        (straight.params, resumed.params), (straight.opt_state.mu, resumed.opt_state.mu),
+        (straight.opt_state.nu, resumed.opt_state.nu)) for k in a)
+    same = same and (straight.step, straight.opt_state.count) == (
+        resumed.step, resumed.opt_state.count) == (2, 2)
+    del straight
+    (_, export_ms) = _timed(torch, dev, lambda: pt.export_for_inference_sharded(
+        resumed, plan["export_dir"], mesh))
+    return {"resume_bit_for_bit": same, "one_step_and_checkpoint_ms": ckpt_ms,
+            "export_ms": export_ms}
+
+
+def _tree_rel(torch, dev, got: dict, ref: dict) -> float:
+    """Relative L2 of a whole gradient tree (every leaf at once, on ``dev``); a leaf the loss
+    does not reach is zero."""
+    num = den = 0.0
+    for name, r in ref.items():
+        r = r.to(dev).double()
+        g = got.get(name)
+        g = torch.zeros_like(r) if g is None else g.to(dev).double()
+        num += float((g - r).square().sum())
+        den += float(r.square().sum())
+    return math.sqrt(num / den)
+
+
+def _mesh_train_references(torch, dev, batch_np) -> dict:
+    """The one-card references of the ``mesh_train`` phase, in this process: the fp32
+    gradients; the bf16 LoRA and full losses and gradients and, as the control, the same
+    model's in fp32; one card's LoRA and full steps (``nccl_world1`` must equal them bit for
+    bit), the full gradients computed twice (they must repeat bit for bit: the resize's
+    backward of the sync path once added with atomics, ``ops/interp.py``). Every model is
+    freed before it returns; the tensors are on the host."""
+    from foley_tpu_torch.training import loop, train
+
+    rows = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+    noise, sigma = _mesh_train_draws(torch, rows, dev)
+
+    def grads(model, leaves, lora=None, dtype=torch.bfloat16):
+        loss, g = _loss_grads(torch, model, rows, noise, sigma, leaves, lora=lora,
+                              compute_dtype=dtype)
+        return float(loss), _host(g)
+
+    refs = {}
+    model = _mesh_train_model(torch, dev, MESH_TRAIN_DEPTH, torch.float32)
+    refs["fp32"] = grads(model, dict(model.named_parameters()), dtype=torch.float32)
+    del model
+    model = _mesh_train_model(torch, dev, MESH_TRAIN_DEPTH, torch.bfloat16)
+    adapter = {k: v.to(dev) for k, v in _lora_adapter(torch, model, LORA_RANK,
+                                                      MESH_TRAIN_SEED + 2).items()}
+    lora = {k: v.clone() for k, v in adapter.items()}
+    refs["lora"] = grads(model, lora, lora=lora)
+    refs["full"] = grads(model, dict(model.named_parameters()))
+    again = grads(model, dict(model.named_parameters()))  # the sync path's atomics, fixed
+    check(again[0] == refs["full"][0] and all(torch.equal(again[1][k], v)
+                                              for k, v in refs["full"][1].items()),
+          "one card's full bf16 gradients do not repeat bit for bit")
+    control = _mesh_train_model(torch, dev, MESH_TRAIN_DEPTH, torch.bfloat16).float()
+    refs["lora_fp32"] = grads(control, lora, lora=lora, dtype=torch.float32)
+    refs["full_fp32"] = grads(control, dict(control.named_parameters()), dtype=torch.float32)
+    del control
+    torch.cuda.empty_cache()
+    init_state, step = train.make_lora_train_step(model)
+    state, loss = step(init_state(adapter), rows, loop.step_generator(MESH_TRAIN_SEED, 0, dev))
+    refs["lora_step"] = (float(loss), _host(state.lora))
+    init_state, step = train.make_train_step(model)
+    state, loss = step(init_state(model), rows, loop.step_generator(MESH_TRAIN_SEED, 0, dev))
+    refs["full_step"] = (float(loss), _host(state.params))
+    refs["params"] = sum(p.numel() for p in model.parameters())
+    del model, state, adapter, lora
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _mesh_train_line(name: str, result: dict, refs: dict, controls: dict, card: str) -> dict:
+    """The checks of one mesh's results against the references and the controls (the
+    module's bounds), as the phase's line for it."""
+    out, ranks = result["out"], result["ranks"]
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    line = {"phase": "mesh_train", "check": name, "backend": result["backend"],
+            "devices": result["devices"], "params_per_rank": [r["params"] for r in ranks],
+            "step_ms": {k: [r[f"{k}_step"]["ms"] for r in ranks] for k in ("lora", "full")},
+            "grads_ms": [r["grads_ms"] for r in ranks],
+            "collectives_per_step": {k: [r[f"{k}_step"]["collectives"] for r in ranks]
+                                     for k in ("lora", "full")},
+            "peak_gib": [r["peak_gib"] for r in ranks],
+            "grads_rel_l2": {k: out[k]["held"]["rel_l2"] for k in ("lora", "full")},
+            "loss_rel": {k: rel(out[k]["loss"], refs[k][0]) for k in ("lora", "full")},
+            "step_loss_rel": {k: rel(out[f"{k}_step"]["loss"], refs[f"{k}_step"][0])
+                              for k in ("lora", "full")},
+            "step_leaves_rel_l2": {k: out[f"{k}_step"]["held"]["rel_l2"]
+                                   for k in ("lora", "full")}}
+    if name == "nccl_world1":
+        check(result["backend"] == "nccl", f"one rank on its own card takes {result['backend']}")
+        for kind in ("lora", "full"):
+            same = out[kind]["loss"] == refs[kind][0] and out[kind]["held"]["bit_for_bit"] \
+                and out[f"{kind}_step"]["loss"] == refs[f"{kind}_step"][0] \
+                and out[f"{kind}_step"]["held"]["bit_for_bit"]
+            check(same, f"nccl_world1: the {kind} gradients, or its step's loss or updated "
+                  "leaves, differ from one card's")
+        line["bit_for_bit"] = True
+    else:
+        bounds = {k: MESH_CONTROL_FACTOR * v for k, v in controls["grads"].items()}
+        loss_bounds = {k: MESH_CONTROL_FACTOR * v for k, v in controls["loss"].items()}
+        for k in ("lora", "full"):
+            check(line["grads_rel_l2"][k] <= bounds[k], f"{name}: {k} gradients "
+                  f"{line['grads_rel_l2'][k]} from one card's, bound {bounds[k]} "
+                  f"({MESH_CONTROL_FACTOR} x the control's {controls['grads'][k]})")
+            check(line["loss_rel"][k] <= loss_bounds[k], f"{name}: {k} loss "
+                  f"{line['loss_rel'][k]} from one card's, bound {loss_bounds[k]} "
+                  f"({MESH_CONTROL_FACTOR} x the control's {controls['loss'][k]})")
+        worst = out["fp32"]["held"]["worst_leaf_rel_l2"]
+        check(worst <= MESH_TRAIN_REL_TOL, f"{name}: fp32 gradients {worst} from one card's "
+              f"(worst leaf), bound {MESH_TRAIN_REL_TOL}")
+        for kind in ("lora", "full"):
+            digests = [r[f"{kind}_digests"] for r in ranks]
+            check(digests[0] and all(d == digests[0] for d in digests),
+                  f"{name}: replicated {kind} leaves differ across the ranks after a step")
+        line.update(control_grads_rel_l2=controls["grads"], bound=bounds,
+                    control_loss_rel=controls["loss"], loss_bound=loss_bounds,
+                    fp32_worst_leaf_rel_l2=worst, fp32_bound=MESH_TRAIN_REL_TOL,
+                    fp32_loss_rel=rel(out["fp32"]["loss"], refs["fp32"][0]),
+                    replicated_bit_identical=True)
+    if "resume_bit_for_bit" in ranks[0]:
+        check(all(r["resume_bit_for_bit"] for r in ranks),
+              f"{name}: the resumed run differs from the straight one")
+        line.update(resume_bit_for_bit=True,
+                    one_step_and_checkpoint_ms=[r["one_step_and_checkpoint_ms"] for r in ranks],
+                    export_ms=[r["export_ms"] for r in ranks])
+    line.update(seconds=[r["seconds"] for r in ranks], card=card)
+    return line
+
+
+def mesh_train_phase(torch, dev, pipeline_cfg, card: str) -> int:
+    """Denoiser training over a ("data", "model") mesh at XXL width
+    (``foley_tpu_torch/parallel/training.py``): the one-card references first (their models
+    freed before any rank starts), then ``nccl_world1`` (one rank on the card over NCCL: the
+    LoRA and full bf16 gradients and steps' losses and updated leaves equal one card's bit
+    for bit), then ``gloo_model2`` and ``gloo_data2`` (two ranks on ``cuda:0``, both meshes
+    in one launch: the fp32 gradients within ``MESH_TRAIN_REL_TOL`` per leaf, the bf16
+    losses and gradients within ``MESH_CONTROL_FACTOR`` x the control, bf16 against fp32
+    on one card, measured in this run; the replicated leaves bit-identical across the
+    ranks after the steps; per rank ms a step, collectives a step and peak memory), on
+    ``gloo_model2`` the loop's checkpoint and resume bit for bit, the mesh checkpoint read
+    by the one-card ``restore_checkpoint``, and the mesh's export loaded by the one-card
+    loader and serving a 5 s request. Returns K1's launches in that request."""
+    import dataclasses
+    import os
+    import shutil
+
+    import numpy as np
+
+    from foley_tpu_torch.api import nodes
+    from foley_tpu_torch.configs import model_configs
+    from foley_tpu_torch.models import dac_vae
+    from foley_tpu_torch.parallel.launch import launch
+    from foley_tpu_torch.parallel.mesh import make_mesh
+    from foley_tpu_torch.pipeline.generate import ModelBundle
+    from foley_tpu_torch.training import loop, train
+
+    t_phase = time.perf_counter()
+    batches = _mesh_train_batches(np, pipeline_cfg, 2)
+    refs = _mesh_train_references(torch, dev, batches[0])
+    controls = {"grads": {k: _tree_rel(torch, dev, refs[k][1], refs[f"{k}_fp32"][1])
+                          for k in ("lora", "full")},
+                "loss": {k: abs(refs[k][0] - refs[f"{k}_fp32"][0]) / abs(refs[f"{k}_fp32"][0])
+                         for k in ("lora", "full")}}
+    work = os.path.join("build", "chip_smoke", "mesh_train")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    plan = {"batches": batches, "ckpt_dir": os.path.join(work, "ckpt"),
+            "export_dir": os.path.join(work, "export"), "refs": os.path.join(work, "refs.pt")}
+    torch.save({k: refs[k] for k in ("fp32", "lora", "full", "lora_step", "full_step")},
+               plan["refs"])
+    emit({"phase": "mesh_train", "check": "references", "params": refs["params"],
+          "depth": list(MESH_TRAIN_DEPTH),
+          "rows": MESH_TRAIN_ROWS, "control_grads_rel_l2": controls["grads"],
+          "control_loss_rel": controls["loss"], "full_grads_repeat_bit_for_bit": True,
+          "seconds": time.perf_counter() - t_phase,
+          "card": card})
+    for (data, model), meshes in (
+            ((1, 1), [("nccl_world1", (1, 1), dict(fp32=False, loops=False))]),
+            ((1, 2), [("gloo_model2", (1, 2), dict(fp32=True, loops=True)),
+                      ("gloo_data2", (2, 1), dict(fp32=True, loops=False))])):
+        t0 = time.perf_counter()
+        mesh = make_mesh(data, model, ["cuda:0"] * (data * model))
+        results = launch(mesh, mesh_train_rank_program, dict(plan, meshes=meshes),
+                         timeout=600)
+        for name, _, _ in meshes:
+            emit(_mesh_train_line(name, results[name], refs, controls, card))
+        emit({"phase": "mesh_train", "check": "launch", "meshes": [m[0] for m in meshes],
+              "seconds": time.perf_counter() - t0, "card": card})
+
+    # the mesh's checkpoint on one card, and its export through the one-card loader
+    t0 = time.perf_counter()
+    model = _mesh_train_model(torch, dev, MESH_TRAIN_DEPTH, torch.bfloat16)
+    cut = dataclasses.replace(pipeline_cfg, model=model.cfg)
+    init_state, _ = train.make_train_step(model)
+    restored = loop.restore_checkpoint(loop.latest_checkpoint(plan["ckpt_dir"]),
+                                       init_state(model))
+    check(restored.step == restored.opt_state.count == 2,
+          f"the mesh checkpoint restored at step {restored.step}")
+    model_configs._PRESETS[MESH_TRAIN_CONFIG] = cut
+    try:
+        (fm,) = nodes.HunyuanModelLoader().load_model(plan["export_dir"],
+                                                      config=MESH_TRAIN_CONFIG, device=dev)
+    finally:
+        del model_configs._PRESETS[MESH_TRAIN_CONFIG]
+    for k, v in fm["params"].state_dict().items():
+        check(torch.equal(v, restored.params[k]), f"the export's {k} differs from the mesh "
+              "checkpoint's")
+    del model, restored, init_state
+    torch.cuda.empty_cache()
+    dac = dac_vae.init(pipeline_cfg.dac, torch.Generator(device=dev).manual_seed(1), device=dev)
+    req, _ = _request(torch, dev, ModelBundle(fm["params"], dac, cut), cut)
+    shutil.rmtree(work, ignore_errors=True)
+    del fm, dac
+    torch.cuda.empty_cache()
+    emit({"phase": "mesh_train", "check": "one_card", "restored_step": 2,
+          "export_equals_checkpoint": True, "request": req,
+          "seconds": time.perf_counter() - t0, "card": card})
+    emit({"phase": "mesh_train", "check": "done", "seconds": time.perf_counter() - t_phase,
+          "card": card})
+    return req["k1_launches"]
+
+
 def card_line() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3996,6 +4455,8 @@ def main() -> int:
     emit({"phase": "codec_training_transforms", "seconds": time.perf_counter() - t_slice})
     torch.cuda.empty_cache()
     mesh_k1 = mesh_phase(torch, dev, XXL, card_line())
+    torch.cuda.empty_cache()
+    mesh_trained_k1 = mesh_train_phase(torch, dev, XXL, card_line())
 
     # per-launch figures weighted by the main path's mix: each step runs one joint call per
     # triple block and one single call per single block
@@ -4045,6 +4506,7 @@ def main() -> int:
         "launches_in_train_steps": lora_step_k1 + full_step_k1 + data_step_k1,
         "launches_pil_preprocess": pil_launches["k1"],
         "launches_mesh_per_rank": mesh_k1,
+        "launches_mesh_trained": mesh_trained_k1,
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
         "ms": avg("kernel_ms"), "plain_ms": avg("plain_ms"), "bound_ms": k1_bound["bound_ms"],
         "bound_by": k1_bound["bound_by"],

@@ -1,6 +1,12 @@
 """Nearest-exact 1-D resampling, torch ``F.interpolate(mode="nearest-exact")`` semantics,
 and the video frame-resampling indices (``foley_tpu/ops/interp.py`` counterpart).
 Nearest-exact index rule: out[i] = in[floor((i+0.5)*Lin/Lout)].
+
+The resize's gradient sums each input position's outputs in index order, one add at a
+time, on every device (``_NearestExact``): ``index_select``'s own backward adds them with
+atomics on a card, in an order that changes from run to run, so a train step through the
+denoiser's sync path would not repeat bit for bit there. On the CPU the sums are the ones
+``index_add_`` makes.
 """
 
 from __future__ import annotations
@@ -16,12 +22,35 @@ def nearest_exact_indices(in_len: int, out_len: int) -> np.ndarray:
 
 
 def nearest_exact_resize(x: torch.Tensor, out_len: int, dim: int) -> torch.Tensor:
-    """Resize ``x`` along ``dim`` to ``out_len`` with nearest-exact gathering."""
-    in_len = x.shape[dim]
-    if in_len == out_len:
+    """Resize ``x`` along ``dim`` to ``out_len`` with nearest-exact gathering (its gradient
+    deterministic: the module docstring)."""
+    if x.shape[dim] == out_len:
         return x
-    idx = torch.from_numpy(nearest_exact_indices(in_len, out_len)).to(x.device)
-    return torch.index_select(x, dim, idx)
+    return _NearestExact.apply(x, out_len, dim % x.ndim)
+
+
+class _NearestExact(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, out_len: int, dim: int):
+        idx = nearest_exact_indices(x.shape[dim], out_len)
+        ctx.idx, ctx.in_len, ctx.dim = idx, x.shape[dim], dim
+        return torch.index_select(x, dim, torch.from_numpy(idx).to(x.device))
+
+    @staticmethod
+    def backward(ctx, grad):
+        """Each input position's gradient: the sum of its outputs' (a run of consecutive
+        outputs: the indices never decrease), added in order from zero."""
+        idx, dim = ctx.idx, ctx.dim
+        counts = np.bincount(idx, minlength=ctx.in_len)
+        starts = np.searchsorted(idx, np.arange(ctx.in_len))
+        shape = [1] * grad.ndim
+        shape[dim] = ctx.in_len
+        out = grad.new_zeros(grad.shape[:dim] + (ctx.in_len,) + grad.shape[dim + 1:])
+        for t in range(int(counts.max())):
+            take = torch.from_numpy(np.minimum(starts + t, len(idx) - 1)).to(grad.device)
+            valid = torch.from_numpy(t < counts).to(grad.device).view(shape)
+            out = out + torch.where(valid, torch.index_select(grad, dim, take), 0)
+        return out, None, None
 
 
 def linspace_resample_indices(in_len: int, out_len: int) -> np.ndarray:

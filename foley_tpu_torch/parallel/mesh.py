@@ -25,6 +25,23 @@ device, a group per axis and a gloo ``control`` group over every rank, which car
 objects rank 0 hands the others (a served request's arguments, ``parallel/inference.py``).
 Every collective of the port goes through a ``RankMesh`` method, which counts its calls and
 bytes (``RankMesh.counts``).
+
+The parallel layers' collectives are ``torch.autograd.Function``s, so a train step
+(``parallel/training.py``) differentiates through them (Megatron's f and g):
+
+- ``sum_over``: the row-parallel output, summed over the axis out of place; its gradient
+  passes through unchanged (every rank already holds the whole gradient of the sum, so
+  ``torch.distributed.nn``'s all-reduce backward would multiply it by the axis size);
+- ``copy_to``: the column-parallel input, the identity; its gradient (this rank's share,
+  through its own output features) summed over the axis;
+- ``gather_parts``: the all-gather of the adaLN vectors; its gradient is this rank's slice
+  of the whole one, part by part (``sharding.take_slice``'s layout), with no collective.
+
+Without autograd they issue what the plain calls issue: ``sum_over`` one all-reduce, the
+others nothing more. A collective is counted under its op, and, while ``phase`` is not
+``"forward"``, under ``"<phase>.<op>"``: the train step sets ``"backward"`` when its backward
+starts, so the checkpointed blocks' recomputed sums and gathers and the column inputs'
+gradient sums (``all_reduce_dx``) are counted apart from the forward's.
 """
 
 from __future__ import annotations
@@ -40,6 +57,8 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+#: Every rank of the mesh, as an axis name of the collectives (the default process group).
+ALL_AXES = "all"
 
 #: The control group's timeout: a rank other than 0 of a served mesh waits in it for the
 #: next request, however long the server stays idle.
@@ -103,6 +122,7 @@ class RankMesh:
         self.device = torch.device(mesh.devices[rank])
         self._lock = threading.Lock()
         self._counts: Dict[str, List[int]] = {}
+        self.phase = "forward"  # the counts' prefix (module docstring)
 
     def __repr__(self) -> str:
         return f"RankMesh({self.mesh.data}x{self.mesh.model}, rank {self.rank}, {self.device})"
@@ -116,6 +136,10 @@ class RankMesh:
         return self.mesh.model
 
     @property
+    def world(self) -> int:
+        return self.mesh.world
+
+    @property
     def data_rank(self) -> int:
         return self.axes[DATA_AXIS].rank
 
@@ -125,8 +149,9 @@ class RankMesh:
 
     # -- counts -----------------------------------------------------------------------
     def _count(self, op: str, nbytes: int) -> None:
+        key = op if self.phase == "forward" else f"{self.phase}.{op}"
         with self._lock:
-            c = self._counts.setdefault(op, [0, 0])
+            c = self._counts.setdefault(key, [0, 0])
             c[0] += 1
             c[1] += nbytes
 
@@ -141,18 +166,37 @@ class RankMesh:
             self._counts.clear()
 
     # -- collectives ------------------------------------------------------------------
-    def all_reduce(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+    def size(self, axis: str) -> int:
+        """The ranks on ``axis`` (``ALL_AXES``: every rank)."""
+        return self.world if axis == ALL_AXES else self.axes[axis].size
+
+    def _group(self, axis: str):
+        return None if axis == ALL_AXES else self.axes[axis].group
+
+    def all_reduce(self, t: torch.Tensor, axis: str, op: str = "all_reduce") -> torch.Tensor:
         """The sum of ``t`` over ``axis``, in ``t``'s own dtype (as XLA's all-reduce sums);
-        ``t`` is summed in place when it is contiguous."""
+        ``t`` is summed in place when it is contiguous, so it may not be a tensor autograd
+        tracks (``sum_over`` is the differentiable sum). ``op``: the count's name."""
+        if t.requires_grad:
+            raise ValueError("all_reduce sums in place: use sum_over on a tensor that "
+                             "requires a gradient")
         t = t.contiguous()
-        dist.all_reduce(t, group=self.axes[axis].group)
-        self._count("all_reduce", t.numel() * t.element_size())
+        dist.all_reduce(t, group=self._group(axis))
+        self._count(op, t.numel() * t.element_size())
         return t
+
+    def sum_over(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum of ``t`` over ``axis``, out of place; its gradient passes unchanged."""
+        return _SumOver.apply(t, self, axis)
+
+    def copy_to(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """``t`` itself; its gradient summed over ``axis`` (op ``all_reduce_dx``)."""
+        return _CopyTo.apply(t, self, axis)
 
     def all_gather(self, t: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
         """The ranks' ``t`` along ``axis``, concatenated along ``dim`` in rank order."""
         a = self.axes[axis]
-        t = t.contiguous()
+        t = t.detach().contiguous()
         parts = [torch.empty_like(t) for _ in range(a.size)]
         dist.all_gather(parts, t, group=a.group)
         out = torch.cat(parts, dim=dim)
@@ -161,7 +205,11 @@ class RankMesh:
 
     def gather_parts(self, t: torch.Tensor, axis: str, parts: int) -> torch.Tensor:
         """The whole of a last axis made of ``parts`` equal parts, each split over ``axis``
-        (``sharding.take_slice``'s inverse): every rank's pieces, part by part."""
+        (``sharding.take_slice``'s inverse): every rank's pieces, part by part. Its gradient
+        is this rank's slice of the whole gradient."""
+        return _GatherParts.apply(t, self, axis, parts)
+
+    def _gather_parts(self, t: torch.Tensor, axis: str, parts: int) -> torch.Tensor:
         pieces = self.all_gather(t.unsqueeze(-2), axis, dim=-2)  # [..., size, parts * c]
         # [..., size, parts, c] -> [..., parts, size, c] -> [..., parts * size * c]
         return pieces.unflatten(-1, (parts, -1)).transpose(-3, -2).flatten(-3)
@@ -180,6 +228,11 @@ class RankMesh:
         self._count("broadcast", data.numel())
         return obj if self.rank == 0 else pickle.loads(data.numpy().tobytes())
 
+    def barrier(self) -> None:
+        """Every rank waits here for every other (the control group)."""
+        dist.barrier(group=self.control)
+        self._count("barrier", 0)
+
     def gather_object(self, obj) -> list:
         """Every rank's ``obj``, in rank order, on every rank (the control group)."""
         out = [None] * self.mesh.world
@@ -196,6 +249,46 @@ class RankMesh:
                              "the CFG pair (2B rows) must be divisible by the data axis")
         n = rows // self.data
         return self.data_rank * n, (self.data_rank + 1) * n
+
+
+class _SumOver(torch.autograd.Function):
+    """The row-parallel output (``RankMesh.sum_over``)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh: RankMesh, axis: str):
+        return mesh.all_reduce(t.detach().clone(memory_format=torch.contiguous_format), axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """The column-parallel input (``RankMesh.copy_to``)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh: RankMesh, axis: str):
+        ctx.mesh, ctx.axis = mesh, axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        return ctx.mesh.all_reduce(grad, ctx.axis, op="all_reduce_dx"), None, None
+
+
+class _GatherParts(torch.autograd.Function):
+    """The gathered adaLN vectors (``RankMesh.gather_parts``)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh: RankMesh, axis: str, parts: int):
+        ctx.size, ctx.rank, ctx.parts = mesh.axes[axis].size, mesh.axes[axis].rank, parts
+        return mesh._gather_parts(t, axis, parts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.unflatten(-1, (ctx.parts, ctx.size, -1)).select(-2, ctx.rank).flatten(-2)
+        return grad.contiguous(), None, None, None
 
 
 def rank_devices(device, data: Optional[int] = None,

@@ -25,6 +25,13 @@ nothing else of the model changes. The head count of a block is read from its wi
 (``models/mmdit.py::_split_heads``), so a rank with ``num_heads / model`` heads runs the
 unchanged blocks, K1 included. With ``model == 1`` no layer is replaced.
 
+Training (``parallel/training.py``) differentiates the same layers: a column layer's input
+goes through ``RankMesh.copy_to`` (its gradient summed over ``model``), a row layer's sum is
+``RankMesh.sum_over`` and the adaLN gather ``RankMesh.gather_parts``, all three
+differentiable. A replicated LoRA adapter is sliced as its layer is (``lora_slices``), and
+the replicated leaves that act on a rank's own heads (``RANK_LOCAL``) take a share of their
+gradient on each rank.
+
 Quantized storage: fp8 weights shard as any weight. int8, int8_dynamic and int4 keep scales
 whose input axis has size 1 (``[..., 1, out]`` in JAX's layout, int4 ``[..., n_groups, 1,
 out]``): the row rules shard that axis, which JAX's ``device_put`` refuses, and so does the
@@ -74,6 +81,11 @@ FUSED_PARTS: Tuple[Tuple[str, int], ...] = (
 #: Column-parallel outputs that every rank applies whole: all-gathered after the product.
 GATHERED = r"(audio_mod|v_cond_mod|modulation)\."
 
+#: Replicated leaves that act on a rank's own slice of the heads: the qk RMSNorm weights
+#: (``models/mmdit.py``'s ``*_q_norm`` / ``*_k_norm`` and the single blocks' ``q_norm`` /
+#: ``k_norm``). A rank's gradient of one is its heads' share of the whole.
+RANK_LOCAL = r"(q_norm|k_norm)\.weight$"
+
 class Spec(NamedTuple):
     """A leaf's placement: its ``kind`` (col, row, replicate), the torch ``axis`` sharded on
     ``model`` (None: replicated) and the equal ``parts`` that axis is fused from."""
@@ -116,7 +128,9 @@ def param_shardings(model: nn.Module, rules=MMDIT_PARAM_RULES) -> Dict[str, Spec
 
 def take_slice(t: torch.Tensor, dim: int, parts: int, size: int, rank: int) -> torch.Tensor:
     """Rank ``rank``'s slice of ``t`` along ``dim``, an axis of ``parts`` equal parts each
-    split in ``size`` contiguous pieces: piece ``rank`` of every part, a new tensor."""
+    split in ``size`` contiguous pieces: piece ``rank`` of every part, a new tensor
+    (differentiable)."""
+    dim %= t.ndim
     if t.shape[dim] % (parts * size):
         raise ValueError(f"an axis of {t.shape[dim]} does not split into {parts} part(s) x "
                          f"model={size}")
@@ -154,6 +168,42 @@ def shard_state_dict(state: Dict[str, torch.Tensor], mesh: RankMesh,
     return out
 
 
+def lora_placement(name: str, rules=MMDIT_PARAM_RULES) -> Tuple[str, int]:
+    """(kind, parts) of the layer an adapter factor ``<family>.<path>.a|b`` adapts."""
+    family, _, path = name.rpartition(".")[0].partition(".")
+    layer = f"{family}.0.{path}"
+    kind = _first(rules, layer + ".weight", "replicate")
+    return kind, (_first(FUSED_PARTS, layer, 1) if kind == "col" else 1)
+
+
+def lora_slices(adapter: Dict[str, torch.Tensor], model: nn.Module, mesh: RankMesh,
+                rules=MMDIT_PARAM_RULES) -> Dict[str, torch.Tensor]:
+    """This rank's part of a replicated adapter over the placed ``model``: a column layer's
+    ``b`` keeps its output columns (part by part, as the weight's rows), a row layer's ``a``
+    its input rows; the rest is whole. Differentiable, so the gradient of a slice lands in
+    the whole factor. The adapter must have been drawn for the whole model (before
+    ``shard_params``): ``init_lora`` reads the weights' shapes."""
+    if mesh.model == 1:
+        return adapter
+    out = {}
+    for name, t in adapter.items():
+        kind, parts = lora_placement(name, rules)
+        factor = name.rpartition(".")[2]
+        if (kind, factor) not in (("col", "b"), ("row", "a")):
+            out[name] = t
+            continue
+        family, _, path = name.rpartition(".")[0].partition(".")
+        w = getattr(model, family)[0].get_submodule(path).weight
+        # a: [L, (K,) in, r], b: [L, (K,) r, out]; the weight [out, in(, K)], sliced
+        dim, local = (t.ndim - 1, w.shape[0]) if factor == "b" else (t.ndim - 2, w.shape[1])
+        if t.shape[dim] != local * mesh.model:
+            raise ValueError(f"adapter {name}: {t.shape[dim]} features where the placed layer "
+                             f"holds {local} of {local * mesh.model}: draw the adapter from "
+                             "the whole model, before shard_params")
+        out[name] = take_slice(t, dim, parts, mesh.model, mesh.model_rank)
+    return out
+
+
 # ---------------------------------------------------------------------------------
 # The parallel layers
 # ---------------------------------------------------------------------------------
@@ -186,6 +236,10 @@ class _Parallel:
 
 
 class _Column(_Parallel):
+    def _in(self, x: torch.Tensor) -> torch.Tensor:
+        """The replicated input; its gradient summed over ``model``."""
+        return self.mesh.copy_to(x, MODEL_AXIS)
+
     def _out(self, y: torch.Tensor) -> torch.Tensor:
         return self.mesh.gather_parts(y, MODEL_AXIS, self.parts) if self.gather else y
 
@@ -193,7 +247,7 @@ class _Column(_Parallel):
 class _Row(_Parallel):
     def _out(self, y: torch.Tensor) -> torch.Tensor:
         """The partial products summed over ``model``, then the replicated bias."""
-        y = self.mesh.all_reduce(y, MODEL_AXIS)
+        y = self.mesh.sum_over(y, MODEL_AXIS)
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
@@ -201,7 +255,7 @@ class ColumnParallelDense(_Column, Dense):
     """A ``Dense`` with this rank's output features (all-gathered for the adaLN vectors)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._out(dense(x, self.stored_weight(), self.bias))
+        return self._out(dense(self._in(x), self.stored_weight(), self.bias))
 
 
 class RowParallelDense(_Row, Dense):
@@ -215,7 +269,7 @@ class ColumnParallelConv1d(_Column, Conv1d):
     """A ``Conv1d`` with this rank's output channels."""
 
     def forward(self, x: torch.Tensor, **kw) -> torch.Tensor:
-        return self._out(conv1d(x, self.stored_weight(), self.bias, **kw))
+        return self._out(conv1d(self._in(x), self.stored_weight(), self.bias, **kw))
 
 
 class RowParallelConv1d(_Row, Conv1d):

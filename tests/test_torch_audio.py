@@ -1,9 +1,10 @@
 """The port's host audio IO (``io/native.py``, ``io/audio.py``) against the JAX package's
 ``foley_tpu.io.native`` and ``foley_tpu.io.audio``, exactly.
 
-The JAX package takes its C++ route (``native/libaudioio.so``) when the library builds, its
-numpy route otherwise; the port has the numpy / ``wave`` route only, computed as the C++
-code computes it. PCM conversion and WAV bytes are the same in both JAX routes. The
+The JAX package takes its C++ route when the library builds (here built once for the module
+into a directory of its own, ``torch_helpers.jax_native_library``), its numpy route
+otherwise; the port has the numpy / ``wave`` route only, computed as the C++ code computes
+it. PCM conversion and WAV bytes are the same in both JAX routes. The
 resampler and the WAV decode are held bit for bit against the C++ route, and against the
 numpy fallback within 1e-6 absolute (it interpolates in float32) when the library is
 absent.
@@ -20,13 +21,11 @@ from foley_tpu.io import audio as jaudio
 from foley_tpu.io import native as jnative
 from foley_tpu_torch.io import audio as taudio
 from foley_tpu_torch.io import native as tnative
-from torch_helpers import one_torch_thread  # noqa: F401 (autouse)
-
-NATIVE = jnative.native_available()  # builds the library when g++ is there
+from torch_helpers import jax_native_library, one_torch_thread  # noqa: F401 (autouse)
 
 
 def _assert_same(got, ref):
-    if NATIVE:
+    if jnative.native_available():  # the C++ route (``jax_native_library``)
         np.testing.assert_array_equal(got, ref)
     else:
         np.testing.assert_allclose(got, ref, atol=1e-6, rtol=0)

@@ -19,7 +19,7 @@ from foley_tpu_torch.configs import ClapTextConfig
 from foley_tpu_torch.io.from_jax import clap_from_jax
 from foley_tpu_torch.models import clap as tclap
 from foley_tpu_torch.pipeline import features as tfeat
-from torch_helpers import one_torch_thread  # noqa: F401 (autouse)
+from torch_helpers import jax_native_library, one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=2e-5, rtol=1e-4)
 J_CFG, CFG = jclap.ClapTextConfig.tiny(), ClapTextConfig.tiny()

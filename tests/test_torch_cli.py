@@ -25,6 +25,7 @@ from foley_tpu_torch.pipeline import edit as tedit
 from foley_tpu_torch.pipeline import generate as tgen
 from foley_tpu_torch.pipeline import longform as tlong
 from torch_helpers import jax_latents, one_torch_thread, save_checkpoint_dir  # noqa: F401
+from torch_helpers import jax_native_library  # noqa: F401 (autouse)
 
 PCM_TOL = 5  # int16 steps
 RUN = ["--config", "tiny", "--single_prompt", "glass shattering", "--neg_prompt", "noisy harsh",

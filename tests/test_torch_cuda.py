@@ -737,3 +737,39 @@ def test_mesh_forward_on_the_card(dev, data, model):
     calls = cfg.depth_triple_blocks + cfg.depth_single_blocks
     for r in out["ranks"]:
         assert r["launches"] == calls and r["heads"] == {cfg.num_heads // model: calls}
+
+
+@pytest.mark.parametrize("data,model", [(1, 1), (1, 2), (2, 1)])
+def test_mesh_train_gradients_on_the_card(dev, data, model):
+    """The fp32 flow-matching gradients of the denoiser (128-wide heads) over a mesh of
+    ranks on this card (``parallel/training.py``), gathered, against one card's on the same
+    global batch and draws: one rank over NCCL bit for bit, two ranks over gloo within 1e-5
+    relative L2 per leaf."""
+    import torch_parallel_programs as programs
+    from foley_tpu_torch.parallel.launch import launch
+    from foley_tpu_torch.parallel.mesh import make_mesh
+    from foley_tpu_torch.training import train
+    from foley_tpu_torch.training.loop import step_generator
+
+    cfg = dataclasses.replace(TINY.model, hidden_size=256, num_heads=2)
+    denoiser, _ = programs.card_model_and_inputs(cfg, torch.float32, torch.device("cuda:0"))
+    batch = programs.card_train_batch(cfg, torch.device("cuda:0"))
+    params = dict(denoiser.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    loss, ref = train.value_and_grad(lambda: train.flow_match_loss(
+        denoiser, batch, step_generator(3, 0, "cuda:0"), compute_dtype=torch.float32), params)
+    ref = {k: v.cpu() for k, v in ref.items() if v is not None}
+    del denoiser, params
+    torch.cuda.empty_cache()
+    mesh = make_mesh(data, model, ["cuda:0"] * (data * model))
+    out = launch(mesh, programs.card_train_grads, cfg, timeout=600)
+    assert out["grads"].keys() == ref.keys()
+    if data * model == 1:
+        assert out["loss"] == float(loss)
+        assert all(torch.equal(out["grads"][k], r) for k, r in ref.items())
+        return
+    assert abs(out["loss"] - float(loss)) <= FP32_REL_TOL * abs(float(loss))
+    for k, r in ref.items():
+        if r.any():
+            assert float((out["grads"][k] - r).norm() / r.norm()) <= FP32_REL_TOL, k

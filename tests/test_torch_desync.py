@@ -43,7 +43,7 @@ from foley_tpu_torch.models import sync_scorer as tsc
 from foley_tpu_torch.ops import audio_dsp as tdsp
 from foley_tpu_torch.pipeline import video as tvideo
 from test_torch_video import encode_png
-from torch_helpers import one_torch_thread  # noqa: F401 (autouse)
+from torch_helpers import jax_native_library, one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 D = 32

@@ -39,6 +39,7 @@ from torch_helpers import (  # noqa: F401 (autouse)
     one_torch_thread,
     save_checkpoint_dir,
 )
+from torch_helpers import jax_native_library  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG, J_CFG = TINY.model, J_TINY.model

@@ -37,6 +37,7 @@ from helpers import save_dac_checkpoint, save_tiny_clap_checkpoint, save_tiny_si
 from test_io import _synthetic_mmdit_sd
 from test_torch_convert import _synchformer_sd
 from torch_helpers import one_torch_thread, save_bpe_tokenizer  # noqa: F401 (autouse)
+from torch_helpers import jax_native_library  # noqa: F401 (autouse)
 
 AUDIO_TOL = dict(atol=1e-4, rtol=0)
 STEPS = 2

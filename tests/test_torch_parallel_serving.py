@@ -43,6 +43,7 @@ from foley_tpu_torch.parallel.inference import MeshCalls, MeshFault
 from foley_tpu_torch.pipeline.generate import generate_audio_multi
 from foley_tpu_torch.serving import server as tserver
 from torch_helpers import one_torch_thread, save_checkpoint_dir  # noqa: F401 (autouse)
+from torch_helpers import jax_native_library  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 PCM_STEP = 1.5 / 32767

@@ -27,6 +27,7 @@ from test_torch_siglip2 import J_CFG as SIG_J_CFG, towers  # noqa: F401 (fixture
 from test_torch_synchformer import J_CFG as SYNC_J_CFG, nets  # noqa: F401 (fixture)
 from test_torch_video import FEAT_TOL, PCM_TOL, v2a_dir  # noqa: F401 (fixture)
 from torch_helpers import one_torch_thread  # noqa: F401 (autouse)
+from torch_helpers import jax_native_library  # noqa: F401 (autouse)
 
 FILTERS = {pil_resize.BICUBIC: Image.BICUBIC, pil_resize.BILINEAR: Image.BILINEAR}
 

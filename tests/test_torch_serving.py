@@ -37,6 +37,7 @@ from foley_tpu_torch.pipeline import longform as tlong
 from foley_tpu_torch.serving import server as tserver
 from test_torch_nodes import SYNC_FIELDS, _inject_noise, ckpts, graphs  # noqa: F401 (fixtures)
 from torch_helpers import one_torch_thread  # noqa: F401 (autouse)
+from torch_helpers import jax_native_library  # noqa: F401 (autouse)
 
 AUDIO_TOL = dict(atol=1e-4, rtol=0)
 STREAM_TOL = 1.5 / 32767

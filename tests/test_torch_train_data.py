@@ -30,6 +30,7 @@ from test_torch_dac import TOL as DAC_TOL
 from test_torch_dac import models as dac_models  # noqa: F401 (a fixture)
 from test_torch_mmdit import seeded_tree
 from torch_helpers import jax_tree_from_port, one_torch_thread  # noqa: F401 (autouse)
+from torch_helpers import jax_native_library  # noqa: F401 (autouse)
 
 
 def _write_corpus(root, n=3, seconds=0.2, sr=48000, seed=1):

@@ -44,6 +44,7 @@ from test_torch_convert import _synchformer_sd
 from test_torch_nodes import SYNC_FIELDS, _inject_noise, ckpts, graphs  # noqa: F401 (fixtures)
 from test_torch_serving import services  # noqa: F401 (fixture)
 from torch_helpers import jax_latents, one_torch_thread, save_checkpoint_dir  # noqa: F401
+from torch_helpers import jax_native_library  # noqa: F401 (autouse)
 
 AUDIO_TOL = dict(atol=1e-4, rtol=0)
 FEAT_TOL = dict(atol=1e-4, rtol=1e-4)  # features of magnitude ~50: fp32 sums, other order

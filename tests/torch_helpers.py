@@ -6,6 +6,18 @@ thread pools, each as wide as the machine, then spin against each other: six con
 runs of the long-form generation tests took 614 s with the default pools and 120 s on one
 thread each.
 
+``jax_native_library``: an autouse fixture a test module imports when it reaches the JAX
+package's native audio library (``foley_tpu.io.native``, under its WAV reader and writer, the
+CLI and the server): the library is built once for the module into a directory of its own,
+and the JAX module pointed at it. The library in
+``native/`` is git-ignored, so a fresh tree has none, and ``foley_tpu.io.native`` builds it
+there with ``make`` on first use and remembers a failed load for the process. Built from six
+pytest workers at once (``-n 6``, every worker collecting every module), one worker's
+``ctypes`` load can read another's half-written file ("file too short"); that worker then
+keeps the numpy route, and ``tests/test_native.py``, run there later, fails all six of its
+tests. A port test that reaches the JAX library goes through this fixture instead, and
+builds nothing in ``native/``.
+
 ``jax_tree_from_port``: JAX parameter trees holding the port's own random initialisation, for
 the tests that hold the port against the JAX package on the same weights.
 
@@ -16,6 +28,9 @@ structure and shapes come from ``jax.eval_shape`` of the JAX ``init``, which tra
 compiles nothing. ``jax_tree_from_port`` inverts ``io/from_jax.py::state_dict_from_jax``,
 leaf by leaf: the tests still build the port's side from the tree through the bridge.
 """
+
+import os
+import subprocess
 
 import jax
 import numpy as np
@@ -31,6 +46,30 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_library(tmp_path_factory):
+    """``foley_tpu.io.native`` on a library built for the module with ``native/Makefile``'s
+    flags (the numpy route when ``g++`` fails), restored after it; yields whether the C++
+    route is taken."""
+    from foley_tpu.io import native as jnative
+
+    lib = str(tmp_path_factory.mktemp("jax_native") / "libaudioio.so")
+    src = os.path.join(os.path.dirname(jnative._LIB_PATH), "audioio.cpp")
+    try:
+        subprocess.run(["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-Wall", "-o", lib, src],
+                       check=True, capture_output=True)
+        built = True
+    except (OSError, subprocess.CalledProcessError):
+        built = False
+    saved = jnative._LIB_PATH, jnative._lib, jnative._lib_checked
+    # without a build, the numpy route: no make in native/
+    jnative._LIB_PATH, jnative._lib, jnative._lib_checked = lib, None, not built
+    try:
+        yield jnative.native_available()
+    finally:
+        jnative._LIB_PATH, jnative._lib, jnative._lib_checked = saved
 
 
 def _key(entry) -> str:

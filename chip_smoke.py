@@ -7,8 +7,9 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
 
 - ``device``: the card (``nvidia-smi`` name and power limit, also printed raw on a line of
   its own), torch and CUDA versions;
-- ``build``: the four kernel libraries (K1 and K2 in bf16 / fp16, their fp32 kernels, K3),
-  built in parallel: seconds per library and what ptxas reported;
+- ``build``: the four kernel libraries (K1 and K2 in bf16 / fp16, their fp32 kernels, K3)
+  and the host JPEG entropy coder (``csrc/jpeg_entropy.cpp``), built in parallel: seconds
+  per library and what ptxas reported;
 - ``kernel``: one line per kernel and shape: the fused qk-norm + RoPE attention kernel (K1,
   at every shape a path below gives it: the 5 s request's, the 30 s long-form window's, the
   14 s continuation window's and the 16 s V2A window's, and ragged lengths), the
@@ -106,6 +107,15 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
 - ``desync``: the real-width desync scorer (random reference-layout checkpoint) through
   ``cli.main --desync_score`` on the ``video_ingest`` frames and the ``lora`` request's WAV:
   the offset on the class grid, finite logits, the whole clip's logits against the CPU;
+- ``image_codecs``: the codecs without PIL on the ``video_ingest`` clip: its 125 frames
+  encoded to JPEG at quality 95 on the card (the first three equal to the CPU's bytes; ms a
+  frame, the card's transform and the host's Huffman pass apart), read back as a frames
+  directory (equal to the CPU's decode; seconds on the host and the card, peak memory, the
+  error against the clip); ``cli.main --single_video DIR --merge_video`` (the ``.avi``'s
+  frames equal to its own JPEGs' decode, its PCM to the WAV) and one served request with
+  ``mux_video`` and ``"response": "avi"`` (equal to ``build_avi_bytes``), 540 K1 and 12 K2
+  launches each; the AST's content mask at its real width against the CPU; a 720p 16-bit
+  Adam7 PNG and a 5-6-5 BMP, card against CPU;
 - ``train_grad``: the train step at the XXL width cut to 1 + 1 blocks in fp32, the loss and
   every parameter's and a rank-16 adapter's factors' gradients on the card against the CPU
   (also under ``"high"`` precision), and a control with ``true_fp32`` bypassed;
@@ -158,10 +168,12 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   ``main_path`` and, as ``launches_longform``, in the 75 s request and, as
   ``launches_serving``, over the ``serving`` requests, and per request of ``quant``,
   ``block_swap``, the ``cli`` memory-mode run, ``lora``'s requests, ``video_ingest``'s
-  and ``configs``' forwards, the requests on the trained models and ``pil_preprocess``'s,
+  and ``configs``' forwards, the requests on the trained models, ``pil_preprocess``'s and
+  ``image_codecs``' (the CLI's ``--merge_video`` and the served ``mux_video``),
   none in a train step, and as ``launches_mesh_per_rank`` on each rank of the ``mesh``
   requests; K2 in ``v2a_path``, the 24 s V2A request, the served V2A
-  requests and ``video_ingest``'s and ``pil_preprocess``'s (fp32 encoders in the fp32 row);
+  requests and ``video_ingest``'s, ``pil_preprocess``'s and ``image_codecs``' (fp32
+  encoders in the fp32 row);
   K3 in one sweep of ``probe_gemm``;
   K3's times are the probe's graph-replayed device times), then the fp16 and fp32
   kernels of K1 (launches in the ``cli`` request of their type) and K2 (launches in the
@@ -2053,34 +2065,48 @@ def _counts(torch):
     return FA.fused_qk_attention, FL.flash_attention
 
 
-def _write_png(path: str, rgb, zlib_level: int = 1) -> None:
-    """An 8-bit RGB PNG with the standard library: scanline r filtered with type r % 5 (None,
-    Sub, Up, Average, Paeth), so every filter the reader undoes is in every frame."""
+def _write_png(path: str, rgb, zlib_level: int = 1, depth: int = 8,
+               interlace: bool = False) -> None:
+    """An RGB PNG of 8- or 16-bit samples (``rgb`` uint8 or uint16), plain or Adam7
+    interlaced, with the standard library: scanline r of each pass filtered with type r % 5
+    (None, Sub, Up, Average, Paeth), so every filter the reader undoes is in every frame."""
     import struct
     import zlib
 
     import numpy as np
 
-    h, w, _ = rgb.shape
-    img = rgb.astype(np.int16)
-    left, up, upleft = (np.zeros_like(img) for _ in range(3))
-    left[:, 1:], up[1:], upleft[1:, 1:] = img[:, :-1], img[:-1], img[:-1, :-1]
-    pa, pb = np.abs(up - upleft), np.abs(left - upleft)
-    pc = np.abs(left + up - 2 * upleft)
-    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
-    preds = (np.zeros_like(img), left, up, (left + up) >> 1, paeth)
-    body = np.empty((h, 1 + 3 * w), np.uint8)
-    for r in range(h):
-        body[r, 0] = r % 5
-        body[r, 1:] = ((img[r] - preds[r % 5][r]) & 0xFF).astype(np.uint8).reshape(-1)
+    from foley_tpu_torch.io.png import ADAM7
+
+    bpp = 3 * depth // 8
+    body = []
+    for x0, y0, dx, dy in ADAM7 if interlace else ((0, 0, 1, 1),):
+        sub = rgb[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        img = np.frombuffer(sub.astype(">u2" if depth == 16 else np.uint8).tobytes(),
+                            np.uint8).reshape(len(sub), -1).astype(np.int16)
+        left, up, upleft = (np.zeros_like(img) for _ in range(3))
+        left[:, bpp:], up[1:], upleft[1:, bpp:] = img[:, :-bpp], img[:-1], img[:-1, :-bpp]
+        pa, pb = np.abs(up - upleft), np.abs(left - upleft)
+        pc = np.abs(left + up - 2 * upleft)
+        paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+        preds = (np.zeros_like(img), left, up, (left + up) >> 1, paeth)
+        rows = np.empty((len(img), 1 + img.shape[1]), np.uint8)
+        for r in range(len(img)):
+            rows[r, 0] = r % 5
+            rows[r, 1:] = ((img[r] - preds[r % 5][r]) & 0xFF).astype(np.uint8)
+        body.append(rows.tobytes())
 
     def chunk(kind, payload):
         return (struct.pack(">I", len(payload)) + kind + payload
                 + struct.pack(">I", zlib.crc32(kind + payload) & 0xFFFFFFFF))
 
+    h, w, _ = rgb.shape
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(body.tobytes(), zlib_level)) + chunk(b"IEND", b""))
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 2, 0, 0, int(interlace)))
+                + chunk(b"IDAT", zlib.compress(b"".join(body), zlib_level))
+                + chunk(b"IEND", b""))
 
 
 def _random_xxl(torch, dev, config, perturb):
@@ -2532,6 +2558,288 @@ def desync_phase(torch, dev, frames_dir: str, wav_path: str):
           "checkpoint_write_s": ckpt_s, "logits": logits[0].tolist(),
           "rel_l2_vs_cpu": rel, "rel_tol": DESYNC_REL_TOL, "cpu_load_and_score_s": cpu_s,
           "phase_seconds": time.perf_counter() - t_phase})
+
+
+IMAGE_QUALITY = 95          # the MJPEG writer's "high": the clip's JPEGs
+IMAGE_CPU_FRAMES = 3        # frames also encoded and decoded on the CPU (equal bit for bit)
+AST_MASK_REL_TOL = 1e-5     # the masked AST features on the card against the CPU, relative L2
+                            # in true fp32 (the desync tests' real-width bound)
+
+
+def _write_bmp565(path: str, rgb) -> None:
+    """A bottom-up 16-bit BI_BITFIELDS (5-6-5) BMP with a V5 header."""
+    import struct
+
+    import numpy as np
+
+    h, w, _ = rgb.shape
+    px = ((rgb[..., 0].astype(np.uint16) >> 3) << 11 | (rgb[..., 1].astype(np.uint16) >> 2) << 5
+          | rgb[..., 2].astype(np.uint16) >> 3).astype("<u2")
+    stride = (w * 2 + 3) & ~3
+    data = b"".join(r.tobytes().ljust(stride, b"\0") for r in px[::-1])
+    info = struct.pack("<IiiHHIIiiII", 124, w, h, 1, 16, 3, len(data), 2835, 2835, 0, 0)
+    info = (info + struct.pack("<4I", 0xF800, 0x7E0, 0x1F, 0)).ljust(124, b"\0")
+    with open(path, "wb") as f:
+        f.write(b"BM" + struct.pack("<IHHI", 14 + 124 + len(data), 0, 0, 14 + 124) + info + data)
+
+
+def _ast_mask_check(torch, dev) -> dict:
+    """The AST's content mask at the real width (768, 12 layers, 12 heads) in true fp32:
+    ``extract_features`` with a ``cont_mask`` (scattered cells and one whole time step) on
+    the card against the CPU, on seeded weights."""
+    import copy
+
+    import numpy as np
+
+    from foley_tpu_torch.models import ast as ast_mod
+    from foley_tpu_torch.models.synchformer import SpatialAgg
+    from foley_tpu_torch.ops.nn import true_fp32
+
+    cfg = ast_mod.ASTConfig()
+    gen = torch.Generator().manual_seed(17)
+    ast, agg = ast_mod.AST(cfg, device="cpu"), SpatialAgg(cfg.hidden_size, 3072, torch.float32,
+                                                          torch.device("cpu"))
+    with torch.no_grad():
+        for name, p in list(ast.named_parameters()) + list(agg.named_parameters()):
+            p.normal_(0.0, 0.02, generator=gen)
+            if name.endswith("weight") and p.ndim == 1:  # LayerNorm scales
+                p.add_(1.0)
+    rng = np.random.default_rng(18)
+    spec = torch.from_numpy(rng.normal(size=(4, 66, 128)).astype(np.float32))
+    mask = np.ones((4, 66, 128), np.float32)
+    mask[rng.random(mask.shape) < 2e-3] = 0.0
+    mask[1, 20:30] = 0.0
+    mask = torch.from_numpy(mask)
+    kept = float(ast_mod.token_mask_from_cont_mask(mask, cfg).float().mean())
+    with torch.no_grad(), true_fp32():
+        ref = ast_mod.extract_features(ast, agg, spec, cont_mask=mask)
+        plain = ast_mod.extract_features(ast, agg, spec)
+        card_ast, card_agg = copy.deepcopy(ast).to(dev), copy.deepcopy(agg).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ast_mod.extract_features(card_ast, card_agg, spec.to(dev), cont_mask=mask.to(dev))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    rel = _rel_l2(got.cpu(), ref)
+    check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (4, 6, 768),
+          f"masked AST features {tuple(got.shape)}")
+    check(rel <= AST_MASK_REL_TOL, f"masked AST {rel} from the CPU's, limit {AST_MASK_REL_TOL}")
+    moved = _rel_l2(ref, plain)
+    check(moved > 1e-3, f"the mask moved the features by only {moved}")
+    return {"rel_l2_vs_cpu": rel, "rel_tol": AST_MASK_REL_TOL, "tokens_kept": kept,
+            "mask_moves_features_rel": moved, "card_s": card_s}
+
+
+def image_codecs_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> dict:
+    """The image codecs without PIL on the card, on the ``video_ingest`` clip (125 frames of
+    25 fps 1280x720, seed 1): the clip encoded to JPEG at quality 95 (``io/jpeg.py``: the
+    transform on the card, the Huffman pass on the host; the bytes of the first
+    ``IMAGE_CPU_FRAMES`` equal to the CPU's), written as a frames directory and read back
+    through ``read_frames_dir`` (equal to the CPU's decode; seconds split into host and
+    device, peak memory, the error against the source); ``cli.main --single_video DIR
+    --merge_video`` at XXL (its ``.avi`` read back through ``read_video_frames``, the first
+    frames equal to the CPU's decode of its own JPEG payloads, its PCM the WAV as the muxer
+    reads it; 540 K1 and 12 K2 launches);
+    one HTTP request with ``mux_video`` and ``"response": "avi"`` (its bytes equal to
+    ``build_avi_bytes`` of the same frames and audio); the AST's content mask at the real
+    width against the CPU; a 720p 16-bit Adam7 PNG and a 720p 5-6-5 BMP decoded on the card
+    equal to the CPU's. Returns the K1 and K2 launches of the CLI and served requests."""
+    import json
+    import os
+    import shutil
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from foley_tpu_torch import cli
+    from foley_tpu_torch.io import avi, bmp, jpeg, png
+    from foley_tpu_torch.io.audio import read_wav
+    from foley_tpu_torch.models import dac_vae
+    from foley_tpu_torch.pipeline import video
+    from foley_tpu_torch.pipeline.generate import ModelBundle
+    from foley_tpu_torch.serving import server as srv_mod
+
+    t_phase = time.perf_counter()
+    work = "build/chip_smoke/image_codecs"
+    shutil.rmtree(work, ignore_errors=True)
+    frames_dir = os.path.join(work, "frames")
+    os.makedirs(frames_dir)
+    clip = make_clip(np, 1, DURATION_S, CLIP_HW)
+    n = len(clip)
+    out = {"phase": "image_codecs", "frames": n, "hw": list(CLIP_HW), "quality": IMAGE_QUALITY,
+           "clip_s": time.perf_counter() - t_phase}
+
+    # encode: the clip to JPEG on the card; three frames again on the CPU
+    jpeg.encode_jpegs(clip[:1], IMAGE_QUALITY, dev)  # first launches of the ops
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    jpegs = jpeg.encode_jpegs(clip, IMAGE_QUALITY, dev)
+    enc_s = time.perf_counter() - t0
+    check(jpeg.encode_jpegs(clip[:IMAGE_CPU_FRAMES], IMAGE_QUALITY, "cpu")
+          == jpegs[:IMAGE_CPU_FRAMES], "the card's JPEG bytes differ from the CPU's")
+    # encode_jpegs' two parts again, timed apart over its groups of frames: the card's
+    # (encode_blocks, the copies included) and the host's Huffman pass
+    h, w = CLIP_HW
+    per = max(1, jpeg.CHUNK_BLOCKS // (6 * -(-w // 16) * -(-h // 16)))
+    header, staged = jpeg.jpeg_header(w, h, IMAGE_QUALITY), []
+    enc_dev_s = enc_host_s = 0.0
+    for i0 in range(0, n, per):
+        t0 = time.perf_counter()
+        blocks = jpeg.encode_blocks(torch.from_numpy(clip[i0:i0 + per]).to(dev),
+                                    IMAGE_QUALITY).cpu().numpy()
+        t1 = time.perf_counter()
+        staged.extend(header + jpeg.entropy_encode(b) + b"\xff\xd9" for b in blocks)
+        enc_dev_s += t1 - t0
+        enc_host_s += time.perf_counter() - t1
+    check(staged == jpegs, "encode_blocks + entropy_encode differ from encode_jpegs")
+    out.update(encode_ms_per_frame=enc_s / n * 1e3,
+               encode_device_ms_per_frame=enc_dev_s / n * 1e3,
+               encode_host_entropy_ms_per_frame=enc_host_s / n * 1e3,
+               jpeg_bytes_per_frame=sum(map(len, jpegs)) / n)
+
+    # decode: the frames directory through read_frames_dir
+    paths = [os.path.join(frames_dir, f"frame_{i + 1}.jpg") for i in range(n)]
+    for path, data in zip(paths, jpegs):
+        with open(path, "wb") as f:
+            f.write(data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    frames, fps = video.read_frames_dir(frames_dir, fps=float(CLIP_FPS), device=dev)
+    dec_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - resident
+    decoded = np.round(frames * 255.0).astype(np.uint8)  # exact: the frames are k / 255
+    check(fps == CLIP_FPS, f"read_frames_dir gave {fps} fps")
+    check(np.array_equal(jpeg.decode_jpegs(jpegs[:IMAGE_CPU_FRAMES], "cpu"),
+                         decoded[:IMAGE_CPU_FRAMES]),
+          "the card's JPEG decode differs from the CPU's")
+    # the JPEG reader's two parts again, timed apart over its groups of frames: the host's
+    # (the files read, the markers parsed, the Huffman decode) and the card's (reconstruct,
+    # the copies included)
+    t0 = time.perf_counter()
+    parsed = []
+    for path in paths:
+        with open(path, "rb") as f:
+            parsed.append(jpeg.parse_jpeg(f.read(), path))
+    dec_host_s = time.perf_counter() - t0
+    per = max(1, jpeg.CHUNK_BLOCKS // sum(c.shape[0] * c.shape[1] for c in parsed[0]["coefs"]))
+    parts = []
+    t0 = time.perf_counter()
+    for i0 in range(0, n, per):
+        group = parsed[i0:i0 + per]
+        coefs = [torch.from_numpy(np.stack([p["coefs"][c] for p in group])).to(dev)
+                 for c in range(len(group[0]["sampling"]))]
+        quant = torch.from_numpy(np.stack([p["quant"] for p in group])).to(dev)
+        parts.append(jpeg.reconstruct(coefs, quant, w, h, group[0]["sampling"]).cpu().numpy())
+    dec_dev_s = time.perf_counter() - t0
+    check(np.array_equal(np.concatenate(parts), decoded),
+          "parse_jpeg + reconstruct differ from read_frames_dir")
+    del parsed, parts, coefs, quant
+    mae = float(np.abs(decoded.astype(np.int16) - clip).mean())
+    check(mae < 3.0, f"the JPEG round trip is {mae} levels from the clip")
+    out.update(decode_s=dec_s, decode_host_s=dec_host_s, decode_device_s=dec_dev_s,
+               decode_peak_bytes=peak, mean_abs_err_vs_clip=mae)
+
+    # the command line: V2A from the JPEG directory, muxed into an AVI
+    per_k1 = STEPS * (pipeline_cfg.model.depth_triple_blocks
+                      + pipeline_cfg.model.depth_single_blocks)
+    wav_path = os.path.join(work, "v2a.wav")
+    k1, k2 = _counts(torch)
+    t0 = time.perf_counter()
+    rc = cli.main(["--random_init", config, "--random_init_perturb", "--single_video",
+                   frames_dir, "--frames_fps", str(CLIP_FPS), "--duration", str(DURATION_S),
+                   "--num_inference_steps", str(STEPS), "--guidance_scale", str(GUIDANCE),
+                   "--merge_video", "--device", dev.type, "--output", wav_path])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = {"cli": (k1.launches, k2.launches)}
+    avi_path = os.path.join(work, "v2a.avi")
+    check(rc == 0 and os.path.exists(avi_path), f"cli --merge_video exited {rc}")
+    info = avi.read_avi_info(avi_path)
+    back, back_fps = video.read_video_frames(avi_path, device=dev)
+    own = jpeg.decode_jpegs(info["jpegs"][:IMAGE_CPU_FRAMES], "cpu").astype(np.float32) / 255.0
+    check(back_fps == CLIP_FPS and back.shape == (n, *CLIP_HW, 3)
+          and np.array_equal(back[:IMAGE_CPU_FRAMES], own),
+          "the AVI's frames differ from the CPU's decode of its JPEG payloads")
+    # the muxer reads the WAV as floats (int16 / 32768) and writes them back at 32767
+    pcm = np.frombuffer(info["pcm"], "<i2").reshape(-1, 2)
+    wav = avi._audio_to_stereo_i16(read_wav(wav_path)[0]).reshape(-1, 2)
+    check(np.array_equal(pcm, wav) and int(np.abs(pcm[:, 0].astype(np.int32)
+                                                  - _wav_samples(wav_path)).max()) <= 1,
+          "the AVI's PCM differs from the WAV")
+    out.update(cli_wall_s=cli_s, avi_bytes=os.path.getsize(avi_path))
+
+    # the server: one V2A request muxed and answered as the AVI
+    t0 = time.perf_counter()
+    foley = _random_xxl(torch, dev, config, perturb=True)
+    dac = dac_vae.init(pipeline_cfg.dac, torch.Generator(device=dev).manual_seed(1), device=dev)
+    service = srv_mod.FoleyService(ModelBundle(foley["params"], dac, pipeline_cfg),
+                                   durations=(DURATION_S,), default_steps=STEPS,
+                                   video_encoders=random_video_encoders(torch, dev,
+                                                                        pipeline_cfg))
+    server_init_s = time.perf_counter() - t0
+    httpd = srv_mod.create_server(service, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    body = {"frames_path": os.path.abspath(frames_dir), "frames_fps": float(CLIP_FPS),
+            "duration": DURATION_S, "steps": STEPS, "cfg_scale": GUIDANCE, "seed": 0,
+            "mux_video": True, "response": "avi"}
+    k1, k2 = _counts(torch)
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{httpd.server_address[1]}/generate",
+            data=json.dumps(body).encode()), timeout=600) as r:
+        served, ctype = r.read(), r.headers["Content-Type"]
+    serve_s = time.perf_counter() - t0
+    launches["server"] = (k1.launches, k2.launches)
+    httpd.shutdown()
+    httpd.server_close()
+    served_path = os.path.join(work, "served.avi")
+    with open(served_path, "wb") as f:
+        f.write(served)
+    served_pcm = np.frombuffer(avi.read_avi_info(served_path)["pcm"], "<i2")[0::2]
+    check(ctype == "video/x-msvideo" and np.abs(served_pcm).max() > 0,
+          f"served {ctype}, peak {np.abs(served_pcm).max()}")
+    t0 = time.perf_counter()
+    expect = avi.build_avi_bytes(decoded, float(CLIP_FPS), served_pcm, 48000, device=dev)
+    mux_s = time.perf_counter() - t0
+    check(served == expect, "the served AVI differs from build_avi_bytes of its frames and audio")
+    for name, (n1, n2) in launches.items():
+        check(n1 == per_k1 and n2 == service.video_encoders["siglip2"].cfg.num_hidden_layers,
+              f"image_codecs {name}: K1 {n1}, K2 {n2}")
+    del service, foley, dac
+    torch.cuda.empty_cache()
+    out.update(server_init_s=server_init_s, server_request_s=serve_s,
+               server_avi_bytes=len(served), build_avi_s=mux_s, launches_k1_k2=launches)
+
+    # the AST's content mask at the real width
+    t0 = time.perf_counter()
+    out["ast_mask"] = dict(_ast_mask_check(torch, dev), seconds=time.perf_counter() - t0)
+
+    # a 16-bit Adam7 PNG and a 5-6-5 BMP at 720p, card against CPU
+    png_path, bmp_path = os.path.join(work, "adam7.png"), os.path.join(work, "f.bmp")
+    t0 = time.perf_counter()
+    # the high bytes frame 0 (what convert("RGB") keeps), the low bytes frame 2
+    _write_png(png_path, clip[0].astype(np.uint16) << 8 | clip[2].astype(np.uint16), depth=16,
+               interlace=True)
+    _write_bmp565(bmp_path, clip[1])
+    out["png_bmp_write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got_png = png.read_pngs([png_path], dev)
+    png_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got_bmp = bmp.read_bmps([bmp_path], dev)
+    bmp_s = time.perf_counter() - t0
+    check(np.array_equal(got_png, png.read_pngs([png_path], "cpu"))
+          and np.array_equal(got_png[0], clip[0]), "the Adam7 16-bit PNG differs")
+    check(np.array_equal(got_bmp, bmp.read_bmps([bmp_path], "cpu")),
+          "the BMP differs from the CPU's")
+    shutil.rmtree(work, ignore_errors=True)
+    out.update(png_adam7_16bit_s=png_s, bmp_565_s=bmp_s, card=card,
+               phase_seconds=time.perf_counter() - t_phase)
+    emit(out)
+    return launches
 
 
 # ---------------------------------------------------------------------------------
@@ -4381,8 +4689,10 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_LIBS)) as pool:  # one nvcc per source, all at once
+    with ThreadPoolExecutor(len(KERNEL_LIBS) + 1) as pool:  # one compiler per source, at once
+        host = pool.submit(build.host_library, "jpeg_entropy")  # the JPEG entropy coder
         list(pool.map(build.library, KERNEL_LIBS))
+        host.result()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": build.build_info})
 
     cfg = XXL.model
@@ -4432,6 +4742,7 @@ def main() -> int:
     del foley_model, dac
     torch.cuda.empty_cache()
     desync_phase(torch, dev, frames_dir, lora_wav)
+    codec_launches = image_codecs_phase(torch, dev, XXL, card_line())
     emit({"phase": "rest_of_inference", "seconds": time.perf_counter() - t_new})
 
     t_train = time.perf_counter()
@@ -4505,6 +4816,7 @@ def main() -> int:
         "launches_trained": {"lora_merged": lora_trained_k1, "full_export": full_trained_k1},
         "launches_in_train_steps": lora_step_k1 + full_step_k1 + data_step_k1,
         "launches_pil_preprocess": pil_launches["k1"],
+        "launches_image_codecs": {k: v[0] for k, v in codec_launches.items()},
         "launches_mesh_per_rank": mesh_k1,
         "launches_mesh_trained": mesh_trained_k1,
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
@@ -4518,6 +4830,7 @@ def main() -> int:
         "launches": flash_launches, "launches_longform": long_k2,
         "launches_serving": serving_k2,
         "launches_video_ingest_server": video_launches["server"][1],
+        "launches_image_codecs_server": codec_launches["server"][1],
         "max_abs_err": max(r["max_abs_err"] for r in flash.values()),
         "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
@@ -4548,7 +4861,8 @@ def main() -> int:
              # package
              launches_video_ingest={k: v[1] for k, v in video_launches.items()
                                     if k != "server"},
-             launches_pil_preprocess=pil_launches["k2_fp32"]),
+             launches_pil_preprocess=pil_launches["k2_fp32"],
+             launches_image_codecs_cli=codec_launches["cli"][1]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

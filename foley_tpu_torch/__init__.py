@@ -20,8 +20,8 @@ The public surface mirrors the JAX package's lazy exports (the reference's re-ex
 ``denoise_process`` (``pipeline/standalone.py``), ``AttributeDict``
 (``utils/config_utils.py``) and the nodes' ``NODE_CLASS_MAPPINGS`` /
 ``NODE_DISPLAY_NAME_MAPPINGS``. ``merge_audio_video`` (``io/audio.py``) muxes onto a video
-file with ffmpeg (a frames directory's AVI needs PIL, which the card's machine has not, and
-raises). The command line is ``python -m foley_tpu_torch.cli``; the ComfyUI
+file with ffmpeg, and onto a frames directory as an MJPEG + PCM AVI with no external tool
+(``io/avi.py``, its JPEGs from ``io/jpeg.py``). The command line is ``python -m foley_tpu_torch.cli``; the ComfyUI
 node pack is ``foley_tpu_torch/comfyui``.
 """
 

@@ -12,9 +12,10 @@ Examples:
         --duration 1 --num_inference_steps 10 --precision fp32 --output /tmp/t2a.wav
 
 Routes: text-to-audio through the sampler node (``--duration`` past the config's cap runs in
-windows), video-to-audio (``--single_video``: a directory of PNG frames, read without PIL,
-or a video file through ffmpeg; ``--merge_video`` muxes the result onto a video file with
-ffmpeg), SDEdit (``--audio_input``), continuation (``--continue_audio``), the PCM stream
+windows), video-to-audio (``--single_video``: a directory of PNG, JPEG or BMP frames, read
+without PIL, an MJPEG AVI, or a video file through ffmpeg; ``--merge_video`` muxes the
+result onto a video file with ffmpeg, or onto a frames directory as an MJPEG AVI with no
+external tool), SDEdit (``--audio_input``), continuation (``--continue_audio``), the PCM stream
 (``--stream_pcm``: T2A, V2A and continuation, ``--first_window``), ``--csv_path`` batches,
 the AV desync score of a video's audio (``--desync_score``) and ``--gradio`` (the HTTP
 server, ``serving/server.py``; ``--gradio --mesh data=D,model=M`` serves over a mesh of
@@ -39,11 +40,8 @@ host memory, streamed through ``--prefetch_blocks + 1`` device slots a block fam
 device; no PIL needed).
 
 Refused, exit code 2 and a message saying why: ``--prefetch_blocks`` without
-``--blocks_to_swap``; ``--merge_video`` onto a frames directory (the JAX package writes an
-MJPEG AVI there, each frame a JPEG from PIL's encoder; the card's machine has no PIL). A
-video file needs ffmpeg on ``PATH``
-(the JAX package's PyAV route is not ported), and JPEG frames or an MJPEG AVI's frames need
-PIL's JPEG decoder: those raise when read.
+``--blocks_to_swap``. A video file other than an MJPEG AVI needs ffmpeg on ``PATH`` (the JAX
+package's PyAV route is not ported), and WebP or TIFF frames raise when read.
 """
 
 from __future__ import annotations
@@ -56,8 +54,6 @@ import time
 from typing import Optional
 
 logger = logging.getLogger("foley_tpu_torch")
-
-_NO_PIL = "needs PIL, which the card's machine has not"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -108,7 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multiplier on the adapter's own recommended scale; 0 disables")
     p.add_argument("--output", type=str, default="output.wav")
     p.add_argument("--merge_video", action="store_true",
-                   help="Mux generated audio onto --single_video (a video file) with ffmpeg")
+                   help="Mux generated audio onto --single_video with ffmpeg (a frames "
+                        "directory: an MJPEG AVI, no ffmpeg needed)")
     p.add_argument("--desync_score", action="store_true",
                    help="Score AV sync of --single_video's own audio (Synchformer offset head)")
     p.add_argument("--audio_input", type=str, default=None,
@@ -149,14 +146,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refusal(args) -> str:
-    """The first flag the port refuses, as a message saying why."""
-    if args.merge_video and args.single_video and os.path.isdir(args.single_video):
-        return (f"--merge_video onto the frames directory {args.single_video!r}: its MJPEG "
-                f"AVI (each frame a JPEG) {_NO_PIL}; mux onto a video file with ffmpeg")
-    return ""
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, stream=sys.stderr, format="%(asctime)s %(message)s")
@@ -173,10 +162,6 @@ def main(argv=None) -> int:
     if args.stream_pcm and args.single_video and args.continue_audio:
         print("error: audio continuation is text-conditioned only; drop --single_video",
               file=sys.stderr)
-        return 2
-    refused = _refusal(args)
-    if refused:
-        print(f"error: {refused}", file=sys.stderr)
         return 2
 
     if args.gradio:
@@ -317,9 +302,10 @@ def main(argv=None) -> int:
         if args.merge_video and args.single_video:
             from foley_tpu_torch.io.audio import merge_audio_video
 
+            # a frames directory muxes to an .avi without ffmpeg: the callee returns its path
             out_video = merge_audio_video(args.single_video, args.output,
                                           os.path.splitext(args.output)[0] + ".mp4",
-                                          frames_fps=args.frames_fps)
+                                          frames_fps=args.frames_fps, device=args.device)
             logger.info(f"muxed {out_video}")
         return 0
     except ImportError as e:

@@ -1,9 +1,9 @@
 """Audio IO: WAV writing and reading (``foley_tpu/io/audio.py`` counterpart).
 
 Waveforms are 48 kHz AUDIO dicts, written as 16-bit PCM WAV through ``io/native.py``.
-``merge_audio_video`` muxes audio onto a video file with the JAX package's ffmpeg command;
-its no-ffmpeg route for a frames directory (an MJPEG AVI, each frame a JPEG encoded by PIL)
-is refused: the card's machine has no PIL.
+``merge_audio_video`` muxes audio onto a video file with the JAX package's ffmpeg command,
+and onto a frames directory without ffmpeg: an MJPEG + PCM AVI (``io/avi.py``, its JPEGs
+encoded on the device).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Optional
 
 import numpy as np
 
+from foley_tpu_torch.core.device import DeviceLike
 from foley_tpu_torch.io.native import MediaProcessingError, load_wav_mono, wav_image
 
 __all__ = ["MediaProcessingError", "merge_audio_video", "read_wav", "write_wav"]
@@ -42,15 +43,17 @@ def read_wav(path: str, target_sr: Optional[int] = None) -> "tuple[np.ndarray, i
 
 def merge_audio_video(video_path: str, audio_path: str, output_path: str,
                       quality: str = "high", ffmpeg_bin: Optional[str] = None,
-                      frames_fps: float = 16.0) -> str:
+                      frames_fps: float = 16.0, device: DeviceLike = None) -> str:
     """Mux audio onto a video file with ffmpeg: the video stream copied, the mono audio
     panned to AAC stereo (the JAX package's command). Returns ``output_path``. A frames
-    directory raises: its AVI needs PIL's JPEG encoder."""
+    directory needs no ffmpeg: its frames (at ``frames_fps``, the rate they were conditioned
+    at) and the audio are muxed into an MJPEG + PCM AVI, its JPEGs encoded on ``device``
+    (``cuda`` unless given), and the ``.avi`` path written is returned."""
     if os.path.isdir(video_path):
-        raise MediaProcessingError(
-            f"{video_path} is a frames directory: muxing it writes an MJPEG AVI whose frames "
-            "are JPEG-encoded by PIL, which the card's machine has not; mux onto a video "
-            "file with ffmpeg")
+        from foley_tpu_torch.io.avi import merge_frames_dir_audio
+
+        return merge_frames_dir_audio(video_path, audio_path, output_path, fps=frames_fps,
+                                      quality=quality, device=device)
     ffmpeg = ffmpeg_bin or shutil.which("ffmpeg")
     if ffmpeg is None:
         raise MediaProcessingError(

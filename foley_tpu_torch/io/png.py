@@ -1,11 +1,13 @@
 """PNG frames without PIL: stdlib ``zlib``, numpy and torch (what the JAX package's
 ``pipeline/video.py::read_frames_dir`` reads through PIL's ``Image.open(...).convert("RGB")``).
 
-Supported: bit depth 8, colour types 0 (grey), 2 (RGB), 3 (palette), 4 (grey + alpha) and 6
-(RGBA), not interlaced, every scanline filter (None, Sub, Up, Average, Paeth). The result is
-PIL's ``convert("RGB")``: grey replicated to three channels, a palette looked up, an alpha
-channel dropped (not composited). Anything else (16-bit samples, palettes or grey under 8
-bits, Adam7 interlacing) raises, naming PIL.
+Supported: every colour type at every bit depth PNG allows (grey at 1, 2, 4, 8 and 16 bits,
+palettes at 1, 2, 4 and 8, RGB, grey + alpha and RGBA at 8 and 16), plain or Adam7
+interlaced, every scanline filter (None, Sub, Up, Average, Paeth). The result is PIL's
+``convert("RGB")`` on Pillow 12: grey replicated to three channels (1, 2 and 4 bits scaled
+by 255, 85 and 17; 16 bits clipped to 255, not scaled), a palette looked up (an index past
+the palette's end reads black), 16-bit RGB, RGBA and grey + alpha cut to their high bytes,
+alpha dropped (not composited).
 
 The chunks are parsed and inflated on the host (stdlib ``zlib``); unfiltering is vectorised
 in torch on the device the caller names (the card's, unless the caller asks for the CPU).
@@ -14,8 +16,11 @@ one step; instead every frame of one geometry is reconstructed at once along ant
 (row + column = d): a pixel needs only its left, upper and upper-left neighbours, which lie
 on diagonals d - 1 and d - 2. That is ``height + width - 1`` steps (about 2,000 at
 1280x720) whatever the frame count, each a few elementwise ops over every frame and row the
-diagonal crosses. A long clip is unfiltered ``CHUNK_FRAMES`` frames at a time, which bounds
-the device memory the skewed buffers take.
+diagonal crosses. The filters work on bytes, so a pixel of 16-bit samples is its bytes and
+samples under 8 bits are unpacked after. An interlaced image is its seven Adam7 passes,
+each a sub-image with scanlines of its own, unfiltered and then scattered into place. A
+long clip is unfiltered ``CHUNK_FRAMES`` frames at a time, which bounds the device memory
+the skewed buffers take.
 """
 
 from __future__ import annotations
@@ -34,6 +39,23 @@ SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # so 128 frames of 1280x720 RGB hold about 1.6 GB of device memory, 1920x1080 about 3.7 GB
 CHUNK_FRAMES = 128
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7: each pass's first column and row and its steps
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+# Pillow's decompression-bomb limit: ``Image.open``, which the JAX package's readers call,
+# refuses an image of more than twice ``Image.MAX_IMAGE_PIXELS``
+MAX_IMAGE_PIXELS = 1024 * 1024 * 1024 // 4 // 3
+
+
+def check_image_size(width: int, height: int, name: str) -> None:
+    """Refuse, with Pillow's message, an image larger than Pillow opens, before any of its
+    pixels is allocated (the PNG, JPEG and BMP readers)."""
+    pixels = max(1, width) * max(1, height)
+    if pixels > 2 * MAX_IMAGE_PIXELS:
+        raise ValueError(f"{name}: Image size ({pixels} pixels) exceeds limit of "
+                         f"{2 * MAX_IMAGE_PIXELS} pixels, could be decompression bomb DOS "
+                         "attack.")
 
 
 class PNGUnsupported(ValueError):
@@ -51,10 +73,12 @@ def _chunks(data: bytes):
 
 
 def parse_png(data: bytes, name: str = "PNG") -> Dict:
-    """The header fields, the palette and the filtered scanlines ``[H, 1 + W * channels]``
-    (uint8) of one PNG file's bytes."""
+    """The header fields, the palette, the bytes a pixel (``bpp``, at least 1) and the
+    filtered scanlines of each pass (``passes``: (x0, y0, dx, dy, rows ``[h, 1 + row
+    bytes]`` uint8); one pass covering the image unless it is Adam7 interlaced) of one PNG
+    file's bytes."""
     if data[:8] != SIGNATURE:
-        raise PNGUnsupported(f"{name}: not a PNG file (needs PIL)")
+        raise PNGUnsupported(f"{name}: not a PNG file")
     info: Dict = {"palette": None}
     idat: List[bytes] = []
     for kind, payload in _chunks(data):
@@ -67,28 +91,40 @@ def parse_png(data: bytes, name: str = "PNG") -> Dict:
             idat.append(payload)
     if "width" not in info:
         raise PNGUnsupported(f"{name}: no IHDR chunk")
-    if info["ctype"] not in _CHANNELS or info["depth"] != 8:
-        raise PNGUnsupported(
-            f"{name}: colour type {info['ctype']} at bit depth {info['depth']} is not read "
-            "without PIL (8-bit grey, RGB, palette, grey + alpha and RGBA are)")
-    if info["interlace"]:
-        raise PNGUnsupported(f"{name}: an interlaced PNG is not read without PIL")
+    if info["depth"] not in _DEPTHS.get(info["ctype"], ()):
+        raise PNGUnsupported(f"{name}: colour type {info['ctype']} at bit depth "
+                             f"{info['depth']} is not a valid PNG")
+    if info["interlace"] not in (0, 1):
+        raise PNGUnsupported(f"{name}: interlace method {info['interlace']} is not PNG's")
     if info["ctype"] == 3 and info["palette"] is None:
         raise PNGUnsupported(f"{name}: a palette image without a PLTE chunk")
-    ch = _CHANNELS[info["ctype"]]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    stride = 1 + info["width"] * ch
-    if raw.size < info["height"] * stride:
+    check_image_size(info["width"], info["height"], name)
+    ch, depth = _CHANNELS[info["ctype"]], info["depth"]
+    grid = ADAM7 if info["interlace"] else ((0, 0, 1, 1),)
+    shapes = []
+    for x0, y0, dx, dy in grid:
+        pw = -(-max(info["width"] - x0, 0) // dx)
+        ph = -(-max(info["height"] - y0, 0) // dy)
+        if pw and ph:  # an empty pass has no scanlines, not even their filter bytes
+            shapes.append((x0, y0, dx, dy, ph, 1 + -(-pw * ch * depth // 8)))
+    size = sum(ph * stride for *_, ph, stride in shapes)
+    # inflate no more than the image holds
+    raw = np.frombuffer(zlib.decompressobj().decompress(b"".join(idat), size), np.uint8)
+    if raw.size < size:
         raise PNGUnsupported(f"{name}: truncated image data")
-    info["channels"] = ch
-    info["rows"] = raw[:info["height"] * stride].reshape(info["height"], stride)
+    passes, pos = [], 0
+    for x0, y0, dx, dy, ph, stride in shapes:
+        passes.append((x0, y0, dx, dy, raw[pos:pos + ph * stride].reshape(ph, stride)))
+        pos += ph * stride
+    info.update(channels=ch, bpp=max(1, ch * depth // 8), passes=passes)
     return info
 
 
 def unfilter(rows: torch.Tensor, channels: int) -> torch.Tensor:
     """Filtered scanlines ``[F, H, 1 + W * channels]`` (uint8) of F images of one geometry ->
     their pixels ``[F, H, W, channels]`` uint8, by anti-diagonal wavefront, on
-    ``rows.device``."""
+    ``rows.device``. ``channels`` is the filters' bytes a pixel (16-bit samples take two,
+    and a row of samples under 8 bits is a row of one-byte pixels)."""
     f, h, stride = rows.shape
     w = (stride - 1) // channels
     kinds = rows[:, :, 0].to(torch.int16)
@@ -122,27 +158,62 @@ def unfilter(rows: torch.Tensor, channels: int) -> torch.Tensor:
     return pixels
 
 
-def to_rgb(pixels: torch.Tensor, ctype: int, palette=None) -> torch.Tensor:
-    """``[..., channels]`` samples of a colour type -> ``[..., 3]`` RGB, as PIL's
-    ``convert("RGB")`` gives it (alpha dropped, grey replicated, the palette looked up; an
-    index past the palette's end reads black)."""
+def samples(pixels: torch.Tensor, width: int, channels: int, depth: int) -> torch.Tensor:
+    """Unfiltered bytes ``[..., n, bpp]`` of scanlines ``width`` pixels wide -> the samples
+    ``[..., width, channels]``: under 8 bits unpacked, most significant first (int16); 8 bits
+    as they are; 16 bits big-endian (int32)."""
+    if depth == 8:
+        return pixels
+    if depth == 16:
+        wide = pixels.int().unflatten(-1, (channels, 2))
+        return wide[..., 0] * 256 + wide[..., 1]
+    shifts = torch.arange(8 - depth, -1, -depth, device=pixels.device, dtype=torch.int16)
+    packed = (pixels[..., 0].to(torch.int16)[..., None] >> shifts) & ((1 << depth) - 1)
+    return packed.flatten(-2)[..., :width, None]  # the row's bytes unpacked, cut to its width
+
+
+def to_rgb(pixels: torch.Tensor, ctype: int, palette, depth: int) -> torch.Tensor:
+    """``[..., channels]`` samples of a colour type at a bit depth -> ``[..., 3]`` uint8 RGB,
+    as PIL's ``convert("RGB")`` gives it (alpha dropped, grey replicated, the palette looked
+    up; an index past the palette's end reads black)."""
+    if ctype == 3:
+        table = np.zeros((256, 3), np.uint8)
+        table[:len(palette)] = palette[:256]
+        return torch.from_numpy(table).to(pixels.device)[pixels[..., 0].long()]
+    if depth == 16:
+        # RGB, RGBA and grey + alpha keep the high byte; grey alone clips to 255
+        pixels = pixels.clamp(max=255) if ctype == 0 else pixels >> 8
+    elif depth < 8:
+        pixels = pixels * (255 // ((1 << depth) - 1))
+    pixels = pixels.to(torch.uint8)
     if ctype == 2:
         return pixels
     if ctype == 6:
         return pixels[..., :3]
-    if ctype in (0, 4):
-        return pixels[..., :1].expand(*pixels.shape[:-1], 3)
-    table = np.zeros((256, 3), np.uint8)
-    table[:len(palette)] = palette[:256]
-    return torch.from_numpy(table).to(pixels.device)[pixels[..., 0].long()]
+    return pixels[..., :1].expand(*pixels.shape[:-1], 3)
+
+
+def decode(infos: Sequence[Dict], device) -> torch.Tensor:
+    """Parsed PNGs of one size, colour type, bit depth and interlacing -> RGB ``[F, H, W, 3]``
+    uint8 on ``device``: each pass unfiltered for every frame at once, then scattered."""
+    first = infos[0]
+    h, w, ch, depth = first["height"], first["width"], first["channels"], first["depth"]
+    out = torch.empty((len(infos), h, w, 3), dtype=torch.uint8, device=device)
+    for k, (x0, y0, dx, dy, _) in enumerate(first["passes"]):
+        rows = torch.from_numpy(np.stack([i["passes"][k][4] for i in infos])).to(device)
+        pw = -(-(w - x0) // dx)
+        px = samples(unfilter(rows, first["bpp"]), pw, ch, depth)
+        for n, info in enumerate(infos):
+            out[n, y0::dy, x0::dx] = to_rgb(px[n], info["ctype"], info["palette"], depth)
+    return out
 
 
 def read_pngs(paths: Sequence[str], device: DeviceLike = None) -> np.ndarray:
     """PNG files of one size -> ``[T, H, W, 3]`` uint8 RGB on the host, equal to PIL's
     ``np.asarray(Image.open(p).convert("RGB"))`` for each. The files are inflated on the host
     and unfiltered on ``device`` (``cuda`` unless given) ``CHUNK_FRAMES`` at a time, one
-    wavefront for each channel count a chunk holds, so the device memory is bounded whatever
-    the clip's length."""
+    wavefront for each pass of each (colour type, bit depth, interlacing) a chunk holds, so
+    the device memory is bounded whatever the clip's length."""
     dev = resolve_device(device)
     out = None
     for start in range(0, len(paths), CHUNK_FRAMES):
@@ -158,15 +229,14 @@ def read_pngs(paths: Sequence[str], device: DeviceLike = None) -> np.ndarray:
         if out is None:
             (h, w), = sizes
             out = np.empty((len(paths), h, w, 3), np.uint8)
-        groups: Dict[int, List[int]] = {}
+        groups: Dict[tuple, List[int]] = {}
         for j, info in enumerate(infos):
-            groups.setdefault(info["channels"], []).append(j)
-        for ch, idx in groups.items():
-            rows = torch.from_numpy(np.stack([infos[j]["rows"] for j in idx])).to(dev)
-            pixels = unfilter(rows, ch)
+            key = (info["ctype"], info["depth"], info["interlace"])
+            groups.setdefault(key, []).append(j)
+        for idx in groups.values():
+            rgb = decode([infos[j] for j in idx], dev).cpu().numpy()
             for n, j in enumerate(idx):
-                out[start + j] = to_rgb(pixels[n], infos[j]["ctype"],
-                                        infos[j]["palette"]).cpu().numpy()
+                out[start + j] = rgb[n]
     if out is None:
         raise ValueError("no PNG files given")
     return out

@@ -7,7 +7,13 @@ embeddings cut to ``f * t + 2`` (74), pre-LN ViT layers and a final LayerNorm; t
 frequency pooling (a CLS-probe encoder layer over the 12 frequency patches of each time
 step, ``synchformer.SpatialAgg``) -> ``[B, t = 6, 768]``. Every attention is the port's
 plain ``ops/attention.py::sdpa`` (the JAX package runs it outside any Pallas kernel); fp32
-models run in true fp32. The token masks of the training path are not ported.
+models run in true fp32.
+
+The training path's content mask (``cont_mask``, 0 = masked spectrogram cell) drops every
+patch token whose 16x16 receptive field holds a masked cell, from the encoder's attention
+(as keys: ``sdpa``'s mask sets their logits to the float32 minimum, where the JAX package
+adds that minimum; both give exact zeros after the softmax, since every query keeps CLS)
+and from the frequency pooling (``key_mask``).
 """
 
 from __future__ import annotations
@@ -93,9 +99,22 @@ def _patchify_spec(spec_tf: torch.Tensor, cfg: ASTConfig) -> torch.Tensor:
     return patches.reshape(x.shape[0], -1, p * p)
 
 
-def apply(model: AST, spec_tf: torch.Tensor) -> torch.Tensor:
-    """``[B, T = max_length, F = num_mel_bins]`` -> last hidden state ``[B, 2 + f * t, D]``."""
+def token_mask_from_cont_mask(cont_mask: torch.Tensor, cfg: ASTConfig) -> torch.Tensor:
+    """Spectrogram mask ``[B, T, F]`` (0 = masked) -> token keep-mask ``[B, 2 + f * t]``
+    (True = keep): a patch token is kept only if every cell of its patch is unmasked; CLS
+    and distillation are always kept."""
+    keep = (_patchify_spec(cont_mask.float(), cfg) > 0).all(-1)
+    aux = torch.ones(keep.shape[0], 2, dtype=torch.bool, device=keep.device)
+    return torch.cat([aux, keep], dim=1)
+
+
+def apply(model: AST, spec_tf: torch.Tensor,
+          token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``[B, T = max_length, F = num_mel_bins]`` -> last hidden state ``[B, 2 + f * t, D]``.
+    ``token_mask``: an optional ``[B, 2 + f * t]`` keep-mask (``token_mask_from_cont_mask``);
+    no token attends to a masked one."""
     cfg = model.cfg
+    mask = None if token_mask is None else token_mask[:, None, None, :]
     x = model.patch_proj(_patchify_spec(spec_tf, cfg))
     b, d = x.shape[0], x.shape[-1]
     x = torch.cat([model.cls_token.to(x.dtype).expand(b, 1, d),
@@ -105,20 +124,45 @@ def apply(model: AST, spec_tf: torch.Tensor) -> torch.Tensor:
     for layer in model.layers:
         xn = layer.ln_before(x)
         q, k, v = (u.unflatten(-1, (nh, -1)) for u in (layer.q(xn), layer.k(xn), layer.v(xn)))
-        x = x + layer.attn_out(sdpa(q, k, v).flatten(2))
+        x = x + layer.attn_out(sdpa(q, k, v, mask).flatten(2))
         x = x + layer.out(gelu(layer.inter(layer.ln_after(x))))
     return model.layernorm(x)
 
 
+def extract_features_segments(model: AST, freq_agg: SpatialAgg, specs: torch.Tensor,
+                              for_loop: bool = False,
+                              cont_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Segmented features ``[B, S, T, F]`` -> ``[B, S, t, D]``: one segment at a time
+    (``for_loop``, the reference's memory-lean mode, which takes no ``cont_mask``) or every
+    segment in one batch. ``cont_mask``: ``[B, S, T, F]``, 0 = masked."""
+    b, s = specs.shape[:2]
+    if for_loop:
+        if cont_mask is not None:
+            raise ValueError("cont_mask is not supported with for_loop (ast_model.py:162)")
+        return torch.stack([extract_features(model, freq_agg, specs[:, i])
+                            for i in range(s)], dim=1)
+    flat_mask = None if cont_mask is None else cont_mask.flatten(0, 1)
+    out = extract_features(model, freq_agg, specs.flatten(0, 1), cont_mask=flat_mask)
+    return out.unflatten(0, (b, s))
+
+
 def extract_features(model: AST, freq_agg: SpatialAgg, spec_tf: torch.Tensor,
-                     num_heads_agg: Optional[int] = None) -> torch.Tensor:
+                     num_heads_agg: Optional[int] = None,
+                     cont_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Factorised frequency / time features ``[BS, T, F]`` -> ``[BS, t, D]`` (reference
-    ``ast_model.forward_segments`` + ``FrequencyTransformerEncoderLayer``)."""
+    ``ast_model.forward_segments`` + ``FrequencyTransformerEncoderLayer``). ``cont_mask``
+    ``[BS, T, F]`` (0 = masked) drops the masked tokens from the encoder's attention and
+    from the frequency pooling."""
     cfg = model.cfg
-    tokens = apply(model, spec_tf)[:, 2:]  # CLS and distillation dropped
+    token_mask = None if cont_mask is None else token_mask_from_cont_mask(cont_mask, cfg)
+    tokens = apply(model, spec_tf, token_mask)[:, 2:]  # CLS and distillation dropped
     bs, f_n, t_n, d = tokens.shape[0], cfg.freq_patches, cfg.time_patches, cfg.hidden_size
     x = tokens.reshape(bs, f_n, t_n, d).transpose(1, 2).reshape(bs * t_n, f_n, d)
-    pooled = _spatial_agg(freq_agg, x, num_heads_agg or cfg.num_attention_heads)
+    key_mask = None
+    if token_mask is not None:
+        key_mask = token_mask[:, 2:].reshape(bs, f_n, t_n).transpose(1, 2).reshape(bs * t_n, f_n)
+    pooled = _spatial_agg(freq_agg, x, num_heads_agg or cfg.num_attention_heads,
+                          key_mask=key_mask)
     return pooled.reshape(bs, t_n, d)
 
 

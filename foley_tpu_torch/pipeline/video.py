@@ -5,16 +5,18 @@ Two routes, as in the JAX package:
 - a directory of image frames, natural-sorted by name, declared to play at ``fps``
   (``read_frames_dir``): the frames are selected by name (``target_fps`` through the port's
   ``ops/interp.py::linspace_resample_indices``, then ``max_frames``) before any is decoded,
-  and PNG frames are decoded without PIL (``io/png.py``, equal to PIL's
-  ``convert("RGB")``), unfiltered on ``device`` (the card unless the caller asks for the
-  CPU); JPEG and the other image types raise, naming PIL;
-- a video file through an ffmpeg rawvideo pipe (``read_video_frames``), with ``ffprobe`` for
-  the geometry and rate: the same subprocess argv as the JAX package. Without ffmpeg on
-  ``PATH`` it raises the JAX package's message.
+  and PNG, JPEG and BMP frames are decoded without PIL (``io/png.py``, ``io/jpeg.py``,
+  ``io/bmp.py``, each equal to PIL's ``convert("RGB")``), on ``device`` (the card unless
+  the caller asks for the CPU); WebP and TIFF frames raise, naming the format;
+- a video file (``read_video_frames``): an MJPEG AVI (the JAX package's own container,
+  ``io/avi.py``) is decoded in-process, its frames resampled to ``target_fps`` by nearest
+  index, as in the JAX package; any other file, or an AVI that is not MJPEG or does not
+  decode, goes through an ffmpeg rawvideo pipe with ``ffprobe`` for the geometry and rate:
+  the same subprocess argv as the JAX package. Without ffmpeg on ``PATH`` it raises the JAX
+  package's message.
 
-Still refused, each naming what is missing on the card's machine: the JAX package's PyAV
-route (no ``av`` package there) and the frames of an MJPEG AVI (JPEG needs PIL; the AVI's
-PCM audio is read by ``io/avi.py`` without it).
+Still refused, naming what is missing on the card's machine: the JAX package's PyAV route
+(no ``av`` package there).
 """
 
 from __future__ import annotations
@@ -28,13 +30,18 @@ import subprocess
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from foley_tpu_torch.core.device import DeviceLike
-from foley_tpu_torch.io.avi import is_mjpeg_avi, read_avi_info
+from foley_tpu_torch.io.avi import is_mjpeg_avi, read_avi
+from foley_tpu_torch.io.bmp import read_bmps
+from foley_tpu_torch.io.jpeg import read_jpegs
 from foley_tpu_torch.io.png import read_pngs
 from foley_tpu_torch.ops.interp import linspace_resample_indices
 
 _IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp", ".tif", ".tiff")
+# the frame readers by extension (WebP and TIFF would each need a decoder of their own)
+_READERS = {".png": read_pngs, ".jpg": read_jpegs, ".jpeg": read_jpegs, ".bmp": read_bmps}
 
 NO_DECODER = ("no video decoder: install ffmpeg or the 'av' (PyAV) package, or pass a "
               "directory of image frames")
@@ -79,37 +86,55 @@ def frame_names(path: str, fps: float = 16.0, target_fps: Optional[float] = None
 def read_frames_dir(path: str, fps: float = 16.0, target_fps: Optional[float] = None,
                     max_frames: Optional[int] = None,
                     device: DeviceLike = None) -> Tuple[np.ndarray, float]:
-    """A directory of PNG frames -> ([T, H, W, 3] float32 in [0, 1] on the host, effective
-    fps), unfiltered on ``device`` (``cuda`` unless given). Every frame must share one size;
-    a frame of another image type raises, naming PIL."""
+    """A directory of PNG, JPEG or BMP frames -> ([T, H, W, 3] float32 in [0, 1] on the
+    host, effective fps), decoded on ``device`` (``cuda`` unless given). Every frame must
+    share one size; a WebP or TIFF frame raises, naming its format."""
     names, fps = frame_names(path, fps, target_fps, max_frames)
-    other = [n for n in names if not n.lower().endswith(".png")]
-    if other:
-        raise RuntimeError(
-            f"{path}: {other[0]} is not a PNG; the port decodes PNG frames without PIL, and "
-            "JPEG and the other image types need PIL, which the card's machine has not")
-    frames = read_pngs([os.path.join(path, n) for n in names], device)
-    return frames.astype(np.float32) / 255.0, fps
+    groups = {}
+    for i, n in enumerate(names):
+        ext = os.path.splitext(n)[1].lower()
+        if ext not in _READERS:
+            raise RuntimeError(f"{path}: {n} is a {ext[1:].upper()} frame; the port decodes "
+                               "PNG, JPEG and BMP frames (WebP and TIFF are not ported)")
+        groups.setdefault(_READERS[ext], []).append(i)
+    frames = None
+    for reader, idx in groups.items():
+        got = reader([os.path.join(path, names[i]) for i in idx], device)
+        if frames is None:
+            frames = np.empty((len(names), *got.shape[1:]), np.uint8)
+        elif frames.shape[1:] != got.shape[1:]:
+            sizes = sorted({frames.shape[1:3], got.shape[1:3]})
+            raise ValueError(f"frames differ in size: {sizes}")
+        frames[idx] = got
+    # / 255 in float32 on torch's host threads: numpy's correctly rounded quotients, faster
+    return torch.from_numpy(frames).float().div_(255.0).numpy(), fps
 
 
 def read_video_frames(path: str, target_fps: Optional[float] = None,
                       max_frames: Optional[int] = None, dir_fps: float = 16.0,
                       device: DeviceLike = None) -> Tuple[np.ndarray, float]:
-    """A video file (through ffmpeg) or a directory of PNG frames (declared to play at
-    ``dir_fps``, unfiltered on ``device``, ``cuda`` unless given) -> ([T, H, W, 3] float32
-    in [0, 1], effective fps)."""
+    """A video file (an MJPEG AVI in-process, anything else through ffmpeg) or a directory of
+    image frames (declared to play at ``dir_fps``), decoded on ``device`` (``cuda`` unless
+    given) -> ([T, H, W, 3] float32 in [0, 1], effective fps)."""
     if os.path.isdir(path):
         return read_frames_dir(path, fps=dir_fps, target_fps=target_fps,
                                max_frames=max_frames, device=device)
     if is_mjpeg_avi(path):
+        # the JAX package's own container decodes in-process; an AVI that is not MJPEG, or
+        # does not decode, falls through to ffmpeg
         try:
-            info = read_avi_info(path)
+            frames, src_fps, _, _ = read_avi(path, device)
         except ValueError:
-            info = {}
-        if info.get("video_compression", info.get("video_handler")) in (b"MJPG", b"mjpg"):
-            raise RuntimeError(
-                f"{path}: the frames of an MJPEG AVI are JPEG, which needs PIL; the card's "
-                "machine has no PIL (its PCM audio reads without it)")
+            pass
+        else:
+            if target_fps and abs(target_fps - src_fps) > 1e-6:
+                n_out = max(1, int(round(len(frames) * target_fps / src_fps)))
+                idx = np.clip(np.round(np.arange(n_out) * src_fps / target_fps).astype(int),
+                              0, len(frames) - 1)
+                frames, src_fps = frames[idx], target_fps
+            if max_frames:
+                frames = frames[:max_frames]
+            return frames, float(src_fps)
     ffmpeg = shutil.which("ffmpeg")
     if ffmpeg is None:
         if importlib.util.find_spec("av") is not None:

@@ -11,7 +11,10 @@ counterpart): a thread-safe ``FoleyService`` around a ``ModelBundle``, warmed ov
   "batch_size", "seed", "response": "wav"|"json"|"pcm16_stream"}. V2A (a server with video
   encoders): add {"frames_b64": base64 of an .npz holding "frames" [T, H, W, 3] uint8 or
   float [0, 1], "frames_fps": float} or {"frames_path": a server-local video file or
-  directory of PNG frames, read by ``pipeline/video.py``, "frames_fps": float}; a
+  directory of PNG, JPEG or BMP frames, read by ``pipeline/video.py``, "frames_fps":
+  float}; add {"mux_video": true} to get the request's frames muxed with the audio as an
+  MJPEG + PCM AVI (``io/avi.py``): ``"response": "avi"`` returns it, ``"json"`` adds it as
+  ``video_base64``; a
   ``frames_path`` must lie under the server's ``frames_root`` (``--frames_root``; the whole
   file system on a loopback bind, nothing on another bind unless given). Continuation:
   {"continue_b64": base64 of a 16-bit WAV at the DAC's rate, "context_s": float}.
@@ -22,9 +25,9 @@ memory, streamed through ``--prefetch_blocks + 1`` device slots a family
 (``parallel/offload.py``). ``--lora DIR`` merges an adapter (``models/lora.py``) into the
 denoiser at load, before any quantization or block swap.
 
-Requests the port cannot serve answer 400 with the reason: ``mux_video`` (with
-``"response": "avi"``) writes an MJPEG AVI whose frames PIL encodes, and the card's machine
-has no PIL. Any other failure answers 500, as in the JAX package.
+A request the port refuses answers 400 with the reason: ``mux_video`` with
+``"response": "pcm16_stream"`` (the JAX package's message). Any other failure answers 500,
+as in the JAX package.
 
 Multi-card serving (``--mesh data=D,model=M``, the JAX server's flag and messages): the
 server process starts ``D x M`` ranks (``parallel/launch.py``), one a card with ``--device
@@ -70,6 +73,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from foley_tpu_torch.io.avi import build_avi_bytes
 from foley_tpu_torch.io.native import float_to_pcm16, wav_image
 from foley_tpu_torch.models import clap as clap_mod
 from foley_tpu_torch.pipeline import features
@@ -87,8 +91,6 @@ from foley_tpu_torch.pipeline.longform import (
 from foley_tpu_torch.sampling.flow_match import solver_init
 
 logger = logging.getLogger("foley_tpu_torch")
-
-_NO_PIL = "needs PIL's JPEG encoder, which the card's machine has not"
 
 
 class UnsupportedRequest(ValueError):
@@ -249,14 +251,16 @@ class FoleyService:
             frames = frames.astype(np.float32) / 255.0
         return np.clip(frames.astype(np.float32), 0.0, 1.0), fps
 
-    def _visual_features(self, request: Dict, bucket_duration: float):
-        """(clip_feat, sync_feat) of a request's video, (None, None) for T2A."""
+    def _visual_features(self, request: Dict, bucket_duration: float,
+                         frames_fps: Optional[Tuple[np.ndarray, float]] = None):
+        """(clip_feat, sync_feat) of a request's video, (None, None) for T2A; ``frames_fps``:
+        its (frames, fps) when the caller has read them."""
         if not _has_video(request):
             return None, None
         if not self.video_encoders:
             raise ValueError("V2A request (frames_b64/frames_path) but the server has no "
                              "video encoders; start it with --enable_v2a")
-        frames, fps = self._frames_from_request(request)
+        frames, fps = frames_fps or self._frames_from_request(request)
         return features.encode_video(self.video_encoders, frames, fps, bucket_duration,
                                      self.bundle.pipeline_cfg)
 
@@ -272,9 +276,6 @@ class FoleyService:
         """(duration, long_form, bucket_duration, continuation wav) of a request, after its
         refusals: a duration past the largest bucket runs long-form in windows of the
         largest; long-form V2A encodes at ``plan_v2a_long``'s snapped duration."""
-        if request.get("mux_video") or request.get("response") == "avi":
-            raise UnsupportedRequest(f"mux_video (an MJPEG AVI of the frames and the audio) "
-                                     f"{_NO_PIL}")
         cont_wav = self._continuation_wav(request)
         if cont_wav is not None and _has_video(request):
             raise ValueError("continuation (continue_b64) is text-conditioned only; "
@@ -308,7 +309,10 @@ class FoleyService:
     # -- inference --------------------------------------------------------------
     def generate(self, request: Dict) -> Dict:
         duration, long_form, bucket_duration, cont_wav = self._plan(request)
-        clip_feat, sync_feat = self._visual_features(request, bucket_duration)
+        frames_fps = None
+        if request.get("mux_video") and _has_video(request) and self.video_encoders:
+            frames_fps = self._frames_from_request(request)  # read once: encoded and muxed
+        clip_feat, sync_feat = self._visual_features(request, bucket_duration, frames_fps)
         text, uncond = self._text(request)
         common = self._common(request)
         with self._lock:
@@ -327,8 +331,15 @@ class FoleyService:
                 result = self._run(generate_audio, text, uncond, bucket_duration,
                                    clip_feat=clip_feat, sync_feat=sync_feat, **common)
         n = int(duration * result.sample_rate)
-        return {"waveform": np.asarray(result.audio_first)[0, :, :n],  # [C, T]
-                "sample_rate": result.sample_rate, "timings": result.timings}
+        out = {"waveform": np.asarray(result.audio_first)[0, :, :n],  # [C, T]
+               "sample_rate": result.sample_rate, "timings": result.timings}
+        if frames_fps is not None:
+            # the request's own frames muxed with the audio: no ffmpeg on the server
+            frames, fps = frames_fps
+            out["video_avi"] = build_avi_bytes(frames, fps, out["waveform"], result.sample_rate,
+                                               quality=str(request.get("quality", "high")),
+                                               device=self.bundle.mmdit.device)
+        return out
 
     def generate_stream(self, request: Dict):
         """Streaming ``generate``: yields a header dict, then one dict per finished chunk,
@@ -336,7 +347,7 @@ class FoleyService:
         Long-form and continuation requests emit one chunk per window as it is denoised;
         in-bucket requests one chunk. Streams the first batch row and bypasses batching."""
         if request.get("mux_video"):
-            raise UnsupportedRequest(f"mux_video {_NO_PIL}")
+            raise UnsupportedRequest("mux_video is not supported with response=pcm16_stream")
         duration, long_form, bucket_duration, cont_wav = self._plan(request)
         # the latency ramp applies to windowed runs; checked before the header is sent
         ramp = {}
@@ -603,10 +614,19 @@ def create_server(service: FoleyService, host: str = "127.0.0.1",
                     return
                 out = service.generate(request)
                 wav = wav_image(out["waveform"], out["sample_rate"])
-                if request.get("response", "wav") == "json":
-                    body = json.dumps({"audio_base64": base64.b64encode(wav).decode(),
-                                       "sample_rate": out["sample_rate"],
-                                       "timings": out["timings"]}).encode()
+                mode = request.get("response", "wav")
+                if mode == "json":
+                    payload = {"audio_base64": base64.b64encode(wav).decode(),
+                               "sample_rate": out["sample_rate"], "timings": out["timings"]}
+                    if "video_avi" in out:
+                        payload["video_base64"] = base64.b64encode(out["video_avi"]).decode()
+                    body = json.dumps(payload).encode()
+                elif mode == "avi":
+                    if "video_avi" not in out:
+                        raise ValueError(
+                            'response="avi" requires a V2A request with "mux_video": true '
+                            "(no video was produced to return)")
+                    body, ctype = out["video_avi"], "video/x-msvideo"
                 else:
                     body, ctype = wav, "audio/wav"
                 ok, code = True, 200

@@ -124,5 +124,9 @@ def test_read_wav_refusals(tmp_path):
     alaw.write_bytes(_wav_bytes(6, 8, 1, 8000, b"\0" * 16))
     with pytest.raises(taudio.MediaProcessingError, match="unsupported"):
         taudio.read_wav(str(alaw))
-    with pytest.raises(taudio.MediaProcessingError, match="PIL"):
-        taudio.merge_audio_video(str(tmp_path), "a.wav", "out.mp4")  # a frames directory
+    # a frames directory with no frames: the JAX package's message from its AVI route
+    with pytest.raises(RuntimeError) as ref:
+        jaudio.merge_audio_video(str(tmp_path), "a.wav", "out.mp4")
+    with pytest.raises(RuntimeError) as got:
+        taudio.merge_audio_video(str(tmp_path), "a.wav", "out.mp4", device="cpu")
+    assert str(got.value) == str(ref.value) and "no image frames" in str(got.value)

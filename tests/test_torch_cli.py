@@ -170,16 +170,41 @@ def test_gradio_hands_the_server_the_jax_argv(monkeypatch, source):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--merge_video", "--single_video", "tests"], "PIL"),
-    (["--merge_video", "--single_video", "tests", "--gradio"], "PIL"),
+    (["--merge_video", "--single_video", "FRAMES"], "avi"),
+    (["--merge_video", "--single_video", "FRAMES", "--gradio"], "server"),
     (["--desync_score"], "requires --single_video"),
-    (["--merge_video", "--single_video", "tests", "--v2a_preprocess", "pil"], "PIL")])
-def test_refusals_name_their_roadmap_item(capsys, argv, item):
-    """What the port refuses exits 2 before any model work, saying why: muxing onto a
-    frames directory names PIL (it writes JPEG frames; the PIL resize runs without PIL,
-    ``tests/test_torch_pil_resize.py``), the desync score needs a video."""
-    assert tcli.main(["--random_init", "tiny", "--device", "cpu"] + argv) == 2
-    assert item in capsys.readouterr().err
+    (["--merge_video", "--single_video", "FRAMES", "--v2a_preprocess", "pil"], "avi")])
+def test_refusals_name_their_roadmap_item(capsys, monkeypatch, tmp_path, argv, item):
+    """Of what the port refused with exit 2 before any model work, the desync score without
+    a video still is. ``--merge_video`` onto a frames directory now writes an MJPEG AVI beside
+    the WAV, equal to the JAX package's muxer on the same frames and WAV; with ``--gradio``
+    the server starts, as the JAX CLI's does (it muxes nothing there)."""
+    from foley_tpu.io import avi as javi
+    from foley_tpu_torch.serving import server as tserver
+    from PIL import Image
+
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    rng = np.random.default_rng(8)
+    for i in range(8):
+        Image.fromarray(rng.integers(0, 256, (16, 20, 3), dtype=np.uint8)).save(
+            frames / f"{i}.jpg", quality=90)
+    argv = ["--random_init", "tiny", "--device", "cpu"] + [
+        str(frames) if a == "FRAMES" else a for a in argv]
+    if item == "server":
+        seen = []
+        monkeypatch.setattr(tserver, "main", lambda a: seen.append(a) or 0)
+        assert tcli.main(argv) == 0 and len(seen) == 1
+    elif item == "avi":
+        out = tmp_path / "v2a.wav"
+        assert tcli.main(argv + ["--frames_fps", "8", "--duration", "1",
+                                 "--num_inference_steps", "2", "--output", str(out)]) == 0
+        ref = javi.merge_frames_dir_audio(str(frames), str(out), str(tmp_path / "ref.mp4"),
+                                          fps=8.0)
+        assert (tmp_path / "v2a.avi").read_bytes() == open(ref, "rb").read()
+    else:
+        assert tcli.main(argv) == 2
+        assert item in capsys.readouterr().err
 
 
 def test_mesh_without_gradio_is_ignored(model_dir, monkeypatch, tmp_path):

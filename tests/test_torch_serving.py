@@ -172,16 +172,57 @@ def test_v2a_frames_b64_matches_jax(services, server, monkeypatch):
 
 
 @pytest.mark.parametrize("body,match", [
-    ({"frames_path": "/tmp/clip.mp4", "mux_video": True}, "mux_video.*PIL"),
-    ({"frames_b64": "", "mux_video": True}, "mux_video.*PIL"),
-    ({"response": "avi"}, "mux_video.*PIL"),
-    ({"mux_video": True, "response": "pcm16_stream"}, "mux_video.*PIL"),
+    ({"frames_path": "FRAMES", "mux_video": True, "response": "avi"}, "avi"),
+    ({"frames_b64": "FRAMES", "mux_video": True, "response": "json"}, "json"),
+    ({"response": "avi"}, 'response="avi" requires a V2A request'),
+    ({"mux_video": True, "response": "pcm16_stream"},
+     "mux_video is not supported with response=pcm16_stream"),
 ])
-def test_media_requests_answer_400(server, body, match):
+def test_media_requests_answer_400(server, tmp_path, body, match):
+    """``mux_video`` is served: ``"response": "avi"`` returns the MJPEG AVI and ``"json"``
+    adds it as ``video_base64``, equal to the JAX package's ``build_avi_bytes`` of the
+    request's frames and the served audio. ``"avi"`` without a video answers the JAX
+    package's message (500); ``mux_video`` on a PCM stream answers 400 with the JAX
+    package's message."""
+    from foley_tpu.io import avi as javi
+    from PIL import Image
+
+    rng = np.random.default_rng(11)
+    clip = rng.integers(0, 256, (13, 40, 56, 3), dtype=np.uint8)
+    body = dict(BASE, **body, frames_fps=12.0)
+    if body.get("frames_path") == "FRAMES":
+        d = tmp_path / "frames"
+        d.mkdir()
+        for i, fr in enumerate(clip):
+            Image.fromarray(fr).save(d / f"{i:02d}.jpg")
+        body["frames_path"] = str(d)
+        clip = np.stack([np.asarray(Image.open(d / f"{i:02d}.jpg").convert("RGB"))
+                         for i in range(len(clip))])
+    elif body.get("frames_b64") == "FRAMES":
+        buf = io.BytesIO()
+        np.savez(buf, frames=clip)
+        body["frames_b64"] = base64.b64encode(buf.getvalue()).decode()
+    if match in ("avi", "json"):
+        data, headers = _post(server, body)
+        if match == "avi":
+            assert headers["Content-Type"] == "video/x-msvideo"
+            avi = data
+        else:
+            payload = json.loads(data)
+            avi = base64.b64decode(payload["video_base64"])
+            wav = _pcm(base64.b64decode(payload["audio_base64"]))
+        info_path = tmp_path / "got.avi"
+        info_path.write_bytes(avi)
+        pcm = np.frombuffer(javi.read_avi_info(str(info_path))["pcm"], "<i2")[0::2]
+        assert pcm.size == 48000 and np.abs(pcm).max() > 0
+        if match == "json":
+            np.testing.assert_array_equal(pcm, wav)  # the AVI carries the served audio
+        assert avi == javi.build_avi_bytes(clip, 12.0, pcm, 48000)
+        return
     with pytest.raises(urllib.error.HTTPError) as e:
-        _post(server, dict(BASE, **body))
-    assert e.value.code == 400
-    assert re.search(match, json.loads(e.value.read())["error"])
+        _post(server, body)
+    assert e.value.code == (400 if "pcm16" in match else 500)
+    assert match in json.loads(e.value.read())["error"]
 
 
 def test_metrics_count_requests_and_failures(services, server):

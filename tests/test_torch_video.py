@@ -1,9 +1,9 @@
 """Video ingest on the port (``foley_tpu_torch/pipeline/video.py``, ``io/png.py``,
 ``io/avi.py``, ``io/audio.py::merge_audio_video``) against the JAX package's, on the CPU.
 
-- PNG frames: written by PIL here in every colour type the reader takes, odd widths, and by
-  the port's own writer with every scanline filter; the port's reader must equal PIL's
-  ``convert("RGB")`` bit for bit, and what it refuses must name PIL.
+- PNG frames: written by PIL here in every colour type, odd widths, and by the port's own
+  writer with every scanline filter; the port's reader must equal PIL's ``convert("RGB")``
+  bit for bit (the other bit depths and Adam7: ``tests/test_torch_image_codecs.py``).
 - Frame selection: the frames the JAX ``read_frames_dir`` returns, exactly, with and without
   ``target_fps`` and ``max_frames``.
 - ffmpeg: stand-in ``ffmpeg`` / ``ffprobe`` scripts on ``PATH`` record their argv (as
@@ -157,16 +157,12 @@ def test_png_frames_longer_than_one_chunk(tmp_path, monkeypatch, chunk_frames):
         tpng.read_pngs(paths[:chunk_frames] + [str(tmp_path / "odd.png")], "cpu")
 
 
-def _patch_ihdr(data: bytes, **fields) -> bytes:
-    w, h, depth, ctype, comp, filt, interlace = struct.unpack(">IIBBBBB", data[16:29])
-    vals = dict(depth=depth, ctype=ctype, interlace=interlace)
-    vals.update(fields)
-    body = struct.pack(">IIBBBBB", w, h, vals["depth"], vals["ctype"], comp, filt,
-                       vals["interlace"])
-    return data[:16] + body + struct.pack(">I", zlib.crc32(b"IHDR" + body)) + data[33:]
-
-
 def test_png_refusals_name_pil(tmp_path):
+    """What the port once refused naming PIL now reads as PIL does: 16-bit grey, a 2-bit
+    palette, 1-bit grey and an Adam7-interlaced PNG, and a directory mixing PNG and JPEG
+    frames."""
+    from test_torch_image_codecs import encode_png_any
+
     rng = np.random.default_rng(2)
     img = rng.integers(0, 256, (5, 6, 3), dtype=np.uint8)
     cases = {}
@@ -180,18 +176,19 @@ def test_png_refusals_name_pil(tmp_path):
     Image.fromarray(rng.integers(0, 2, (5, 6), dtype=np.uint8) * 255).convert("1").save(
         tmp_path / "one.png")
     cases["one_bit"] = (tmp_path / "one.png").read_bytes()
-    cases["interlaced"] = _patch_ihdr(encode_png(img), interlace=1)
+    cases["interlaced"] = encode_png_any(img, 2, 8, interlace=1)
     for name, data in cases.items():
         p = tmp_path / f"{name}_case.png"
         p.write_bytes(data)
-        with pytest.raises(tpng.PNGUnsupported, match="PIL"):
-            tpng.read_pngs([str(p)], "cpu")
+        np.testing.assert_array_equal(tpng.read_pngs([str(p)], "cpu")[0],
+                                      np.asarray(Image.open(p).convert("RGB")))
     frames = tmp_path / "jpeg_dir"
     frames.mkdir()
     Image.fromarray(img).save(frames / "0001.png")
     Image.fromarray(img).save(frames / "0002.jpg")
-    with pytest.raises(RuntimeError, match="PIL"):
-        tvideo.read_frames_dir(str(frames), device="cpu")
+    ref, _ = jvideo.read_frames_dir(str(frames))
+    got, _ = tvideo.read_frames_dir(str(frames), device="cpu")
+    np.testing.assert_array_equal(got, ref)
 
 
 @pytest.fixture(scope="module")
@@ -293,8 +290,24 @@ def test_merge_audio_video_matches_jax(fake_ffmpeg, tmp_path):
         ref = calls()
         out_t = taudio.merge_audio_video(video, "a.wav", str(tmp_path / "j.mp4"), quality)
         assert calls() == ref and out_t == out_j
-    with pytest.raises(taudio.MediaProcessingError, match="PIL"):
-        taudio.merge_audio_video(str(tmp_path), "a.wav", str(tmp_path / "x.mp4"))
+    # a frames directory muxes to the JAX package's MJPEG AVI, with no ffmpeg call
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    rng = np.random.default_rng(3)
+    for i in range(3):
+        Image.fromarray(rng.integers(0, 256, (10, 14, 3), dtype=np.uint8)).save(
+            frames / f"{i}.jpg")
+    from foley_tpu_torch.io.native import wav_image
+
+    wav = tmp_path / "a.wav"
+    wav.write_bytes(wav_image(rng.uniform(-0.5, 0.5, (1, 4800)).astype(np.float32), 48000))
+    out_j = jaudio.merge_audio_video(str(frames), str(wav), str(tmp_path / "j.mp4"), "low",
+                                     frames_fps=6.0)
+    data_j = open(out_j, "rb").read()
+    out_t = taudio.merge_audio_video(str(frames), str(wav), str(tmp_path / "j.mp4"), "low",
+                                     frames_fps=6.0, device="cpu")
+    assert out_t == out_j == str(tmp_path / "j.avi") and calls() == []
+    assert open(out_t, "rb").read() == data_j
 
 
 def test_without_ffmpeg_both_raise_the_same(tmp_path, monkeypatch):
@@ -317,7 +330,8 @@ def test_without_ffmpeg_both_raise_the_same(tmp_path, monkeypatch):
 
 def test_mjpeg_avi_audio_reads_and_frames_name_pil(tmp_path):
     """The JAX package's muxer writes an MJPEG + PCM AVI (PIL, here): the port reads its
-    audio track as the JAX ``read_avi`` does, and refuses its JPEG frames naming PIL."""
+    audio track as the JAX ``read_avi`` does, and its JPEG frames (without PIL) as the JAX
+    ``read_video_frames`` does."""
     rng = np.random.default_rng(6)
     frames = rng.random((3, 8, 8, 3)).astype(np.float32)
     audio = (0.3 * np.sin(np.arange(4800) / 9.0)).astype(np.float32)
@@ -327,8 +341,10 @@ def test_mjpeg_avi_audio_reads_and_frames_name_pil(tmp_path):
     assert got_sr == ref_sr == 16000
     np.testing.assert_array_equal(got_audio, ref_audio)
     assert tavi.is_mjpeg_avi(path) and not tavi.is_mjpeg_avi(str(tmp_path / "none.avi"))
-    with pytest.raises(RuntimeError, match="PIL"):
-        tvideo.read_video_frames(path)
+    ref, ref_fps = jvideo.read_video_frames(path)
+    got, fps = tvideo.read_video_frames(path, device="cpu")
+    assert fps == ref_fps == 12.0
+    np.testing.assert_array_equal(got, ref)
 
 
 # ---------------------------------------------------------------------------------

@@ -7,9 +7,10 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
 
 - ``device``: the card (``nvidia-smi`` name and power limit, also printed raw on a line of
   its own), torch and CUDA versions;
-- ``build``: the four kernel libraries (K1 and K2 in bf16 / fp16, their fp32 kernels, K3)
-  and the host JPEG entropy coder (``csrc/jpeg_entropy.cpp``), built in parallel: seconds
-  per library and what ptxas reported;
+- ``build``: the five kernel libraries (K1 and K2 in bf16 / fp16, their fp32 kernels, K1's
+  narrow kernel, K3)
+  and the frame codecs' host C++ (``csrc/jpeg_entropy.cpp``, ``tiff_lzw.cpp``,
+  ``webp_lossless.cpp``), built in parallel: seconds per library and what ptxas reported;
 - ``kernel``: one line per kernel and shape: the fused qk-norm + RoPE attention kernel (K1,
   at every shape a path below gives it: the 5 s request's, the 30 s long-form window's, the
   14 s continuation window's and the 16 s V2A window's, and ragged lengths), the
@@ -22,7 +23,8 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   and fp32 (the 3xTF32 kernels, within 1e-5 relative L2 of the plain version in true fp32,
   with the control, the plain version under TF32, outside that bound), each with its times
   and bound (fp32 with two: three TF32 tensor-core products a product, and the CUDA cores'
-  fp32 rate);
+  fp32 rate); then K1's narrow kernel (heads of 32 and 64) in bf16, fp16 and fp32 at TINY's
+  shapes and ragged lengths, held and timed the same way;
 - ``probe_gemm``: K3's path, the GEMM sweep probe (``foley_tpu_torch.tools.probe_gemm``) at
   its full shape, 36 blocks of x [784, 1536] @ W_b[:, :1536] of [1536, 4608]: its record
   (each variant's time a sweep, eager and replayed from a CUDA graph, and rates, the
@@ -116,6 +118,18 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   ``mux_video`` and ``"response": "avi"`` (equal to ``build_avi_bytes``), 540 K1 and 12 K2
   launches each; the AST's content mask at its real width against the CPU; a 720p 16-bit
   Adam7 PNG and a 5-6-5 BMP, card against CPU;
+- ``frame_formats``: the formats the JAX package reads through PIL, without it: the
+  committed fixtures of ``tests/data/torch_frame_formats/`` (progressive JPEG in 4:2:0,
+  4:4:4 and grey, optimised and with restarts, CMYK; TIFF in LZW with predictor 2, Deflate,
+  PackBits, a palette and 16-bit grey; lossless WebP with colour indexing and with the
+  other three transforms) decoded on the card and on the CPU, equal to each other and to
+  the SHA-256 of Pillow's RGB bytes recorded beside them; 125 frames of each format on the
+  card (the host's and the card's seconds apart, equal to the CPU's) and 125 copies of one
+  720p frame of the clip as TIFF, uncompressed, PackBits and LZW after predictor 2 (written
+  here; the reader's two parts timed, their frames equal to the one written); one XXL V2A
+  request
+  through ``cli.main --single_video`` from a directory mixing every fixture (540 K1 and 12
+  K2 launches);
 - ``train_grad``: the train step at the XXL width cut to 1 + 1 blocks in fp32, the loss and
   every parameter's and a rank-16 adapter's factors' gradients on the card against the CPU
   (also under ``"high"`` precision), and a control with ``true_fp32`` bypassed;
@@ -164,20 +178,26 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   ``server_model2``: ``python -m foley_tpu_torch.serving.server --random_init xxl --mesh
   model=2 --device cuda:0 --port 0`` answering a 5 s and an 8 s long-form request over
   HTTP, exiting 0 on SIGTERM, and refusing ``--blocks_to_swap`` with ``--mesh``;
+- ``train_longrun``, last and alone: the tool ``foley_tpu_torch.tools.train_longrun`` (TINY,
+  batch 4, ``LONGRUN_STEPS`` steps): it returns 0, everything finite, the export deployed on
+  the card with 48 launches of K1's narrow fp32 kernel; its wall, ``loss_drop_ratio`` and
+  ``ok`` as measured;
 - ``{"kernels": [...]}``: every ported kernel with its launches on its path (K1 in
   ``main_path`` and, as ``launches_longform``, in the 75 s request and, as
   ``launches_serving``, over the ``serving`` requests, and per request of ``quant``,
   ``block_swap``, the ``cli`` memory-mode run, ``lora``'s requests, ``video_ingest``'s
   and ``configs``' forwards, the requests on the trained models, ``pil_preprocess``'s and
-  ``image_codecs``' (the CLI's ``--merge_video`` and the served ``mux_video``),
+  ``image_codecs``' (the CLI's ``--merge_video`` and the served ``mux_video``) and
+  ``frame_formats``' (the mixed directory's request),
   none in a train step, and as ``launches_mesh_per_rank`` on each rank of the ``mesh``
   requests; K2 in ``v2a_path``, the 24 s V2A request, the served V2A
-  requests and ``video_ingest``'s, ``pil_preprocess``'s and ``image_codecs``' (fp32
-  encoders in the fp32 row);
+  requests and ``video_ingest``'s, ``pil_preprocess``'s, ``image_codecs``' and
+  ``frame_formats``' (fp32 encoders in the fp32 row);
   K3 in one sweep of ``probe_gemm``;
   K3's times are the probe's graph-replayed device times), then the fp16 and fp32
   kernels of K1 (launches in the ``cli`` request of their type) and K2 (launches in the
-  ``precision`` encode of their type);
+  ``precision`` encode of their type), and K1's narrow kernel (launches in
+  ``train_longrun``'s deployed request);
 - last, ``{"ok": true, "device": {...}}`` (the card's name and power limit are printed
   again just before the ``kernels`` line).
 
@@ -218,7 +238,9 @@ CHAIN_DRIFT = 2.0          # K3's chain may drift from the plain one at most thi
 FORWARD_REL_TOL = 5e-2     # relative L2 error of the XXL velocity, bf16 through 54 blocks
 LATENT_STD = (0.1, 100.0)  # plausible std of the final latents (the initial noise has 1)
 MOVED_REL = 0.1            # least relative L2 distance of the final latents from the noise
-KERNEL_LIBS = ("fused_qk_attention", "flash_attention", "gemm_sweep", "attention_f32")
+KERNEL_LIBS = ("fused_qk_attention", "flash_attention", "gemm_sweep", "attention_f32",
+               "fused_qk_attention_narrow")
+HOST_LIBS = ("jpeg_entropy", "tiff_lzw", "webp_lossless")  # the frame codecs' host C++
 CLIP_FPS, CLIP_HW = 25, (720, 1280)  # the V2A source clip: 5 s of 25 fps 1280x720 RGB
 CLAP_REL_TOL = 1e-5        # CLAP fp32 on the card against the CPU, relative L2 (fp32 reads
                            # ~7e-7; the phase's control, TF32 let in, ~4e-4 and must break it)
@@ -292,10 +314,17 @@ def with_shares(res: dict) -> dict:
     return res
 
 
-def k1_cases(torch, dev, cfg, gen) -> dict:
-    """K1's cases at every shape a path gives it: {name: (length, streams, [wq, wk, cq, sq,
-    ck, sk])}, the fp32 tables as the denoiser builds them (``streams``: the norm weights'
-    [D] rows a call is made of)."""
+K1_SHAPES = {  # K1's cases: (audio, visual) lengths of a joint call, (length,) of a single one
+    "joint_5s": (250, 40), "single_5s": (250,), "ragged_1": (1,), "ragged_63": (63,),
+    "ragged_64": (64,), "ragged_65": (65,), "ragged_128": (128,), "joint_30s": (1500, 240),
+    "single_30s": (1500,), "joint_cont": (700, 112), "single_cont": (700,),
+    "joint_v2a16": (800, 128), "single_v2a16": (800,)}
+
+
+def k1_cases(torch, dev, cfg, gen, shapes=None) -> dict:
+    """K1's cases at every shape a path gives it (``shapes``, ``K1_SHAPES`` unless given):
+    {name: (length, streams, [wq, wk, cq, sq, ck, sk])}, the fp32 tables as the denoiser
+    builds them (``streams``: the norm weights' [D] rows a call is made of)."""
     from foley_tpu_torch.models.mmdit import build_rope_tables
     from foley_tpu_torch.ops.rope import rope_table
 
@@ -319,13 +348,8 @@ def k1_cases(torch, dev, cfg, gen) -> dict:
         return length, 1, [norm_weight().expand(length, d).contiguous() for _ in range(2)] + [
             cos, sin, cos, sin]
 
-    return {"joint_5s": joint_case(250, 40), "single_5s": single_case(250),
-            "ragged_1": single_case(1), "ragged_63": single_case(63),
-            "ragged_64": single_case(64), "ragged_65": single_case(65),
-            "ragged_128": single_case(128), "joint_30s": joint_case(1500, 240),
-            "single_30s": single_case(1500), "joint_cont": joint_case(700, 112),
-            "single_cont": single_case(700), "joint_v2a16": joint_case(800, 128),
-            "single_v2a16": single_case(800)}
+    return {name: joint_case(*lengths) if len(lengths) == 2 else single_case(*lengths)
+            for name, lengths in (shapes or K1_SHAPES).items()}
 
 
 def kernel_phase(torch, dev, cfg):
@@ -1641,6 +1665,79 @@ def precision_kernel_phase(torch, dev, cfg):
     return results
 
 
+NARROW_K1_SHAPES = {  # TINY's calls in a 1 s request (train_longrun's deploy), and ragged
+    "joint_1s": (50, 8), "single_1s": (50,), "ragged_1": (1,), "ragged_33": (33,),
+    "ragged_129": (129,)}
+NARROW_K1_SHAPES_D64 = {"single_1s": (50,), "ragged_129": (129,)}  # 2 heads of 64
+
+
+def narrow_kernel_phase(torch, dev, cfg):
+    """K1's narrow kernel (``csrc/fused_qk_attention_narrow.cu``, head_dim 32 and 64) against
+    its plain version in bf16, fp16 and fp32 (fp32 inside ``true_fp32``): at TINY's shapes
+    (``cfg``, heads of 32), a 1 s request's joint (audio 50 + visual 8) and single (50) calls
+    with the CFG pair as the batch, as ``train_longrun``'s deployed request gives them, and
+    ragged lengths on both sides of its 32-key tiles and 128-row blocks; at head_dim 64 (2
+    heads) twice. Each case with its device time, the plain version's, the library call's
+    (plain norm and RoPE then SDPA, in the same type) and its bound (fp32: at three TF32
+    products a product, and at the CUDA cores' rate beside it). Returns {dtype name: {case:
+    result}}."""
+    import dataclasses
+
+    from foley_tpu_torch.ops.kernels import fused_attention as FA
+    from foley_tpu_torch.ops.nn import exact_fp32
+
+    results = {}
+    b = 2
+    cfg64 = dataclasses.replace(cfg, hidden_size=2 * 64, num_heads=2)
+    for dtype, tname in ((torch.bfloat16, "bf16"), (torch.float16, "fp16"),
+                         (torch.float32, "fp32")):
+        gen = torch.Generator(device=dev).manual_seed(13)
+        out = results[tname] = {}
+        for c, shapes, suffix in ((cfg, NARROW_K1_SHAPES, ""),
+                                  (cfg64, NARROW_K1_SHAPES_D64, "_d64")):
+            h, d = c.num_heads, c.head_dim
+            for name, (length, streams, tabs) in k1_cases(torch, dev, c, gen, shapes).items():
+                wq, wk, cq, sq, ck, sk = tabs
+                q, k, v = (torch.randn(b, length, h, d, device=dev, generator=gen).to(dtype)
+                           for _ in range(3))
+                full = lambda w, length=length, d=d: w.expand(length, d)  # noqa: E731
+                args = (q, k, v, wq, wk, cq, sq, ck, sk)
+
+                def plain():
+                    with exact_fp32(dtype):
+                        return FA.fused_qk_attention_plain(q, k, v, full(wq), full(wk), cq, sq,
+                                                           ck, sk)
+
+                def library_call():
+                    with exact_fp32(dtype):
+                        qn = FA._norm_rope(q, full(wq), cq, sq, 1e-6).transpose(1, 2)
+                        kn = FA._norm_rope(k, full(wk), ck, sk, 1e-6).transpose(1, 2)
+                        return torch.nn.functional.scaled_dot_product_attention(
+                            qn, kn, v.transpose(1, 2)).transpose(1, 2)
+
+                with exact_fp32(dtype):
+                    got = FA.fused_qk_attention(*args)
+                ref = plain()
+                torch.cuda.synchronize()
+                case = name + suffix
+                res = {"phase": "kernel", "kernel": "fused_qk_attention_narrow", "dtype": tname,
+                       "case": case, "b": b, "l": length, "h": h, "d": d,
+                       **_check_variant(torch, f"K1 narrow {tname} {case}", got, ref, dtype)}
+                tables = {t.data_ptr(): t.numel() * 4 for t in (cq, sq, ck, sk)}
+                n_bytes = (4 * q.numel() * q.element_size() + sum(tables.values())
+                           + 2 * streams * d * 4)
+                res["kernel_ms"], res["host_ms"] = timed_ms(
+                    torch, lambda: FA.fused_qk_attention(*args), 200)
+                res["plain_ms"] = gpu_ms(torch, plain, 20)
+                res["library_ms"] = gpu_ms(torch, library_call, 20)
+                flops = 4 * b * h * length * length * d
+                res.update(fp32_bound(n_bytes, flops) if dtype == torch.float32
+                           else kernel_bound(n_bytes, flops))
+                emit(with_shares(res))
+                out[case] = res
+    return results
+
+
 def precision_phase(torch, dev, pipeline_cfg, config="xxl"):
     """The denoiser and the visual encoders at full XXL width in fp16 and fp32, one precision
     at a time (fp32 holds 19.1 GiB of weights), freed before the next:
@@ -2732,7 +2829,8 @@ def image_codecs_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> dic
         coefs = [torch.from_numpy(np.stack([p["coefs"][c] for p in group])).to(dev)
                  for c in range(len(group[0]["sampling"]))]
         quant = torch.from_numpy(np.stack([p["quant"] for p in group])).to(dev)
-        parts.append(jpeg.reconstruct(coefs, quant, w, h, group[0]["sampling"]).cpu().numpy())
+        parts.append(jpeg.reconstruct(coefs, quant, w, h, group[0]["sampling"],
+                                      group[0]["color"]).cpu().numpy())
     dec_dev_s = time.perf_counter() - t0
     check(np.array_equal(np.concatenate(parts), decoded),
           "parse_jpeg + reconstruct differ from read_frames_dir")
@@ -2840,6 +2938,332 @@ def image_codecs_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> dic
                phase_seconds=time.perf_counter() - t_phase)
     emit(out)
     return launches
+
+
+FRAME_FIXTURES = "tests/data/torch_frame_formats"  # small files Pillow wrote, and digests
+FRAME_TIMED = {"jpeg": "prog_420.jpg", "tiff": "lzw_predictor.tif",
+               "webp": "all_transforms.webp"}  # the fixture of each format timed 125 times
+
+
+def _frame_parts(fmt: str, paths, dev):
+    """The reader of ``fmt`` over ``paths`` in its two parts, each timed: the host's (the
+    files read, parsed and entropy-decoded or decompressed) and the device's (the rest,
+    the copies to and from the device included; none for WebP, read on the host alone) ->
+    (RGB [T, H, W, 3] uint8, host s, device s)."""
+    import numpy as np
+    import torch
+
+    from foley_tpu_torch.io import jpeg, tiff, webp
+
+    t0 = time.perf_counter()
+    datas = []
+    for path in paths:
+        with open(path, "rb") as f:
+            datas.append(f.read())
+    if fmt == "jpeg":
+        parsed = [jpeg.parse_jpeg(d) for d in datas]
+    elif fmt == "tiff":
+        parsed = [tiff.parse_tiff(d) for d in datas]
+    else:
+        parsed = [webp.decode_argb(webp.parse_webp(d)) for d in datas]
+    if fmt == "webp":  # every stage on the host
+        rgb = np.stack(parsed)[..., 2::-1]
+        return rgb, time.perf_counter() - t0, 0.0
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if fmt == "jpeg":
+        first = parsed[0]
+        coefs = [torch.from_numpy(np.stack([p["coefs"][c] for p in parsed])).to(dev)
+                 for c in range(len(first["sampling"]))]
+        quant = torch.from_numpy(np.stack([p["quant"] for p in parsed])).to(dev)
+        rgb = jpeg.reconstruct(coefs, quant, first["width"], first["height"],
+                               first["sampling"], first["color"]).cpu().numpy()
+    else:
+        rgb = tiff.decode(parsed, dev).cpu().numpy()
+    return rgb, host_s, time.perf_counter() - t0
+
+
+TIFF_720P = ("none", "packbits", "lzw_predictor")  # the 720p TIFFs timed 125 frames each
+
+
+def _lzw_encode(data: bytes) -> bytes:
+    """TIFF 6.0 LZW: 9- to 12-bit codes, MSB first, a clear first and when the table fills,
+    the code width growing one code early, as libtiff's encoder writes it."""
+    out, acc, nacc = bytearray(), 0, 0
+
+    def put(code, n):
+        nonlocal acc, nacc
+        acc, nacc = (acc << n) | code, nacc + n
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 255)
+        acc &= (1 << nacc) - 1
+
+    def fresh():
+        return {bytes([i]): i for i in range(256)}, 258, 9
+
+    table, nxt, nbits = fresh()
+    put(256, 9)
+    w = b""
+    for c in data:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w], nbits)
+        table[wc], nxt = nxt, nxt + 1
+        if nxt == 4094:
+            put(256, nbits)
+            table, nxt, nbits = fresh()
+        elif nxt == 1 << nbits:
+            nbits += 1
+        w = bytes([c])
+    if w:
+        put(table[w], nbits)
+        nxt += 1
+        if nxt == 1 << nbits:
+            nbits += 1
+    put(257, nbits)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 255)
+    return bytes(out)
+
+
+def _packbits_encode(data: bytes) -> bytes:
+    """PackBits: runs of 2-128 equal bytes as (257 - n, byte), the rest as literals of up to
+    128 bytes."""
+    out, i = bytearray(), 0
+    while i < len(data):
+        run = 1
+        while i + run < len(data) and run < 128 and data[i + run] == data[i]:
+            run += 1
+        if run > 1:
+            out += bytes([257 - run, data[i]])
+            i += run
+            continue
+        j = i + 1
+        while j < len(data) and j - i < 128 and not (j + 1 < len(data) and data[j] == data[j + 1]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _tiff_bytes(np, rgb, codec: str, rows: int = 16) -> bytes:
+    """An RGB uint8 frame [H, W, 3] as a little-endian TIFF of ``rows``-row strips,
+    uncompressed (``none``), ``packbits``, or ``lzw_predictor`` (each row differenced,
+    predictor 2, then LZW), with numpy and the standard library (the card's machine has no
+    PIL)."""
+    import struct
+
+    h, w, _ = rgb.shape
+    strips = []
+    for y in range(0, h, rows):
+        part = rgb[y:y + rows]
+        if codec == "lzw_predictor":
+            diff = np.diff(part.astype(np.int16), axis=1, prepend=np.int16(0)) % 256
+            strips.append(_lzw_encode(diff.astype(np.uint8).tobytes()))
+        elif codec == "packbits":
+            strips.append(_packbits_encode(part.tobytes()))
+        else:
+            strips.append(part.tobytes())
+    offsets, at = [], 8
+    for strip in strips:
+        offsets.append(at)
+        at += len(strip) + (len(strip) & 1)
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]),
+               (259, 3, [{"none": 1, "packbits": 32773, "lzw_predictor": 5}[codec]]),
+               (262, 3, [2]), (273, 4, offsets), (277, 3, [3]), (278, 4, [rows]),
+               (279, 4, [len(strip) for strip in strips]), (284, 3, [1])]
+    if codec == "lzw_predictor":
+        entries.append((317, 3, [2]))
+    blob_at = at + 2 + 12 * len(entries) + 4
+    ifd, blobs = bytearray(struct.pack("<H", len(entries))), bytearray()
+    for tag, typ, vals in entries:
+        raw = struct.pack("<" + ("H" if typ == 3 else "I") * len(vals), *vals)
+        if len(raw) <= 4:
+            value = raw.ljust(4, b"\0")
+        else:
+            value = struct.pack("<I", blob_at + len(blobs))
+            blobs += raw
+        ifd += struct.pack("<HHI", tag, typ, len(vals)) + value
+    ifd += b"\0" * 4
+    return (b"II*\0" + struct.pack("<I", at)
+            + b"".join(strip + b"\0" * (len(strip) & 1) for strip in strips)
+            + bytes(ifd) + bytes(blobs))
+
+
+def frame_formats_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> dict:
+    """The frame formats the JAX package reads through PIL, read without it on the card
+    (``io/jpeg.py``'s progressive and CMYK, ``io/tiff.py``, ``io/webp.py``): each committed
+    fixture of ``FRAME_FIXTURES`` (Pillow wrote them; this machine has no PIL) decoded on
+    the card and on the CPU, equal in every byte and to the SHA-256 of Pillow's RGB bytes
+    recorded beside them; 125 frames of each format decoded on the card, the host's and the
+    card's seconds apart, equal to the CPU's decode; 125 copies of one 720p frame of the clip
+    (``CLIP_HW``, the size the main path ingests) as TIFF in each of ``TIFF_720P``, the
+    reader's two parts timed, equal to the frame written; one ``SURFACE_STEPS`` XXL V2A request
+    through ``cli.main --single_video`` from a directory mixing every fixture (540 K1 and
+    12 K2 launches). Returns the request's (K1, K2) launches."""
+    import hashlib
+    import os
+    import shutil
+
+    import numpy as np
+
+    from foley_tpu_torch import cli
+    from foley_tpu_torch.pipeline import video
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(FRAME_FIXTURES, "digests.json")) as f:
+        record = json.load(f)
+    digests, hw = record["sha256_of_pil_rgb"], tuple(record["hw"])
+    work = "build/chip_smoke/frame_formats"
+    shutil.rmtree(work, ignore_errors=True)
+    out = {"phase": "frame_formats", "fixtures": len(digests), "hw": list(hw), "card": card}
+
+    # every fixture: card == CPU == Pillow's digest
+    video.read_frames_dir(FRAME_FIXTURES, device=dev, max_frames=1)  # first launches
+    fixture_s = {}
+    for name, digest in sorted(digests.items()):
+        one = os.path.join(work, "one", name)
+        os.makedirs(one)
+        shutil.copy(os.path.join(FRAME_FIXTURES, name), one)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = video.read_frames_dir(one, device=dev)[0]
+        fixture_s[name] = time.perf_counter() - t0
+        cpu = video.read_frames_dir(one, device="cpu")[0]
+        rgb = np.round(got[0] * 255.0).astype(np.uint8)
+        check(got.shape == (1, *hw, 3) and np.array_equal(got, cpu),
+              f"{name}: the card's decode differs from the CPU's")
+        check(hashlib.sha256(rgb.tobytes()).hexdigest() == digest,
+              f"{name}: the decode differs from Pillow's (its recorded digest)")
+    out["fixture_decode_s"] = fixture_s
+
+    # 125 frames of each format on the card, the host's and the card's parts apart
+    n = int(DURATION_S * CLIP_FPS)
+    timed = {}
+    for fmt, name in FRAME_TIMED.items():
+        d = os.path.join(work, fmt)
+        os.makedirs(d)
+        paths = [os.path.join(d, f"frame_{i + 1}{os.path.splitext(name)[1]}") for i in range(n)]
+        for path in paths:
+            shutil.copy(os.path.join(FRAME_FIXTURES, name), path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = video.read_frames_dir(d, fps=float(CLIP_FPS), device=dev)[0]
+        wall = time.perf_counter() - t0
+        rgb, host_s, dev_s = _frame_parts(fmt, paths, dev)
+        check(np.array_equal(np.round(frames * 255.0).astype(np.uint8), rgb),
+              f"{fmt}: the reader's two parts differ from read_frames_dir")
+        t0 = time.perf_counter()
+        cpu = video.read_frames_dir(d, fps=float(CLIP_FPS), device="cpu")[0]
+        cpu_s = time.perf_counter() - t0
+        check(np.array_equal(frames, cpu), f"{fmt}: 125 frames on the card differ from the CPU's")
+        timed[fmt] = {"fixture": name, "frames": n, "read_frames_dir_s": wall,
+                      "host_s": host_s, "device_s": dev_s, "cpu_read_frames_dir_s": cpu_s,
+                      "host_ms_per_frame": host_s / n * 1e3}
+    out["decode_125"] = timed
+
+    # 125 frames of 720p TIFF, the size the main path ingests: one frame of the clip written
+    # uncompressed, in PackBits and in LZW after predictor 2, 125 copies of each
+    frame = make_clip(np, 1, 1.0 / CLIP_FPS, CLIP_HW)[0]
+    timed_720p = {}
+    for codec in TIFF_720P:
+        t0 = time.perf_counter()
+        data = _tiff_bytes(np, frame, codec)
+        encode_s = time.perf_counter() - t0
+        d = os.path.join(work, f"tiff_720p_{codec}")
+        os.makedirs(d)
+        paths = [os.path.join(d, f"frame_{i + 1}.tif") for i in range(n)]
+        for path in paths:
+            with open(path, "wb") as f:
+                f.write(data)
+        torch.cuda.synchronize()
+        rgb, host_s, dev_s = _frame_parts("tiff", paths, dev)
+        check(rgb.shape == (n, *CLIP_HW, 3) and bool((rgb == frame).all()),
+              f"720p TIFF ({codec}): the decode differs from the frame written")
+        del rgb
+        shutil.rmtree(d)
+        timed_720p[codec] = {"frames": n, "hw": list(CLIP_HW), "file_bytes": len(data),
+                             "encode_s": encode_s, "host_s": host_s, "device_s": dev_s,
+                             "host_ms_per_frame": host_s / n * 1e3}
+    out["decode_125_tiff_720p"] = timed_720p
+
+    # V2A through the command line from a directory mixing every fixture
+    mixed = os.path.join(work, "mixed")
+    os.makedirs(mixed)
+    names = sorted(digests)
+    for i in range(n):
+        name = names[i % len(names)]
+        shutil.copy(os.path.join(FRAME_FIXTURES, name),
+                    os.path.join(mixed, f"frame_{i + 1}{os.path.splitext(name)[1]}"))
+    mixed_frames = video.read_frames_dir(mixed, fps=float(CLIP_FPS), device=dev)[0]
+    check(np.array_equal(mixed_frames,
+                         video.read_frames_dir(mixed, fps=float(CLIP_FPS), device="cpu")[0]),
+          "the mixed directory on the card differs from the CPU's")
+    per_k1 = STEPS * (pipeline_cfg.model.depth_triple_blocks
+                      + pipeline_cfg.model.depth_single_blocks)
+    wav_path = os.path.join(work, "v2a.wav")
+    k1, k2 = _counts(torch)
+    t0 = time.perf_counter()
+    rc = cli.main(["--random_init", config, "--random_init_perturb", "--single_video", mixed,
+                   "--frames_fps", str(CLIP_FPS), "--duration", str(DURATION_S),
+                   "--num_inference_steps", str(STEPS), "--guidance_scale", str(GUIDANCE),
+                   "--device", dev.type, "--output", wav_path])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = (k1.launches, k2.launches)
+    pcm = _wav_samples(wav_path) if rc == 0 else np.zeros(1)
+    check(rc == 0 and len(pcm) == int(DURATION_S * 48000) and np.abs(pcm).max() > 0,
+          f"cli --single_video on the mixed directory exited {rc}")
+    check(launches == (per_k1, 12), f"frame_formats cli: K1 {launches[0]}, K2 {launches[1]}")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out.update(mixed_frames=n, mixed_kinds=names, cli_wall_s=cli_s, launches_k1_k2=launches,
+               phase_seconds=time.perf_counter() - t_phase)
+    emit(out)
+    return launches
+
+
+LONGRUN_STEPS = 100  # train_longrun's steps here (the tool's default is 600: see below)
+
+
+def train_longrun_phase(torch, dev, card: str) -> dict:
+    """``foley_tpu_torch.tools.train_longrun`` as a user runs it (``main``, TINY, batch 4, 1 s
+    clips, ``LONGRUN_STEPS`` steps), alone, after every other phase: it returns 0, its
+    trajectory and final parameters finite, its export deployed on the card: the loader's
+    model in fp32 generates finite audio in 8 steps, each through K1's narrow kernel in
+    every block (TINY's heads are 32 wide; 8 x 6 fp32 launches, none in a train step, no
+    K2). The tool's ``ok`` (the tail's loss under 0.7 of the head's) and ``loss_drop_ratio``
+    are reported as measured, not checked: at its 600 steps the JAX tool itself reads ``ok``
+    false on the CPU (a ratio of 1.133; the port 1.12 on the card), and the 600 steps take
+    two minutes of host-bound TINY steps on an H100. Returns (the record, K1's launches)."""
+    import contextlib
+    import io
+
+    from foley_tpu_torch.configs import TINY
+    from foley_tpu_torch.tools import train_longrun
+
+    k1, k2 = _counts(torch)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train_longrun.main(["--num_steps", str(LONGRUN_STEPS), "--device", dev.type])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (k1.launches, k1.launches_by_dtype.get(torch.float32, 0), k2.launches)
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(rc == 0 and res["finite"] and res["deploy_ok"] and res["num_steps"] == LONGRUN_STEPS,
+          f"train_longrun: {res}")
+    per_request = 8 * (TINY.model.depth_triple_blocks + TINY.model.depth_single_blocks)
+    check(launches == (per_request, per_request, 0),
+          f"train_longrun: K1 {launches[0]} (fp32 {launches[1]}), K2 {launches[2]}; "
+          f"{per_request} fp32 K1 expected")
+    emit(dict({k: v for k, v in res.items() if k != "trajectory"}, phase="train_longrun",
+              trajectory=res["trajectory"], wall_s=wall, launches_k1_k2=launches[::2],
+              card=card))
+    return res, launches[0]
 
 
 # ---------------------------------------------------------------------------------
@@ -4675,7 +5099,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script checks the port on a card",
               file=sys.stderr)
         return 2
-    from foley_tpu_torch.configs import XXL
+    from foley_tpu_torch.configs import TINY, XXL
     from foley_tpu_torch.core.params import param_count, perturb_zero_leaves
     from foley_tpu_torch.models import dac_vae, mmdit
     from foley_tpu_torch.ops.kernels import build
@@ -4689,16 +5113,18 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_LIBS) + 1) as pool:  # one compiler per source, at once
-        host = pool.submit(build.host_library, "jpeg_entropy")  # the JPEG entropy coder
+    with ThreadPoolExecutor(len(KERNEL_LIBS) + len(HOST_LIBS)) as pool:  # one compiler a source
+        host = [pool.submit(build.host_library, name) for name in HOST_LIBS]
         list(pool.map(build.library, KERNEL_LIBS))
-        host.result()
+        for h in host:
+            h.result()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": build.build_info})
 
     cfg = XXL.model
     kernel = kernel_phase(torch, dev, cfg)
     flash = flash_kernel_phase(torch, dev)
     variants = precision_kernel_phase(torch, dev, cfg)
+    narrow = narrow_kernel_phase(torch, dev, TINY.model)
     gemm = gemm_kernel_phase(torch, dev)
     probe = probe_gemm_phase(torch, dev)
 
@@ -4743,6 +5169,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     desync_phase(torch, dev, frames_dir, lora_wav)
     codec_launches = image_codecs_phase(torch, dev, XXL, card_line())
+    format_launches = frame_formats_phase(torch, dev, XXL, card_line())
     emit({"phase": "rest_of_inference", "seconds": time.perf_counter() - t_new})
 
     t_train = time.perf_counter()
@@ -4768,6 +5195,8 @@ def main() -> int:
     mesh_k1 = mesh_phase(torch, dev, XXL, card_line())
     torch.cuda.empty_cache()
     mesh_trained_k1 = mesh_train_phase(torch, dev, XXL, card_line())
+    torch.cuda.empty_cache()
+    _, longrun_k1 = train_longrun_phase(torch, dev, card_line())
 
     # per-launch figures weighted by the main path's mix: each step runs one joint call per
     # triple block and one single call per single block
@@ -4800,6 +5229,30 @@ def main() -> int:
                 "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
                 "library_ms": mean("library_ms"), **extra}
 
+    # K1's narrow kernel: fp32 (train_longrun's deploy) weighted as a TINY step mixes its
+    # shapes
+    narrow_mix = {"joint_1s": TINY.model.depth_triple_blocks,
+                  "single_1s": TINY.model.depth_single_blocks}
+
+    def narrow_mean(key):
+        return (sum(narrow["fp32"][c][key] * n for c, n in narrow_mix.items())
+                / sum(narrow_mix.values()))
+
+    narrow_bound = fp32_bound(narrow_mean("bytes"), narrow_mean("flops"))
+    narrow_row = {
+        "name": "fused_qk_attention_narrow", "route": "cuda",
+        "source": "foley_tpu_torch/csrc/fused_qk_attention_narrow.cu",
+        "replaces": "foley_tpu/ops/pallas/fused_attention.py:82", "dtype": "fp32",
+        "launches": longrun_k1,
+        "max_abs_err": max(r["max_abs_err"] for r in narrow["fp32"].values()),
+        "max_abs_err_16bit": max(r["max_abs_err"] for t in ("bf16", "fp16")
+                                 for r in narrow[t].values()),
+        "ms": narrow_mean("kernel_ms"), "plain_ms": narrow_mean("plain_ms"),
+        "bound_ms": narrow_bound["bound_ms"], "bound_by": narrow_bound["bound_by"],
+        "bound_cuda_core_ms": narrow_bound["bound_cuda_core_ms"],
+        "library_ms": narrow_mean("library_ms"),
+    }
+
     print(card_line(), flush=True)  # again near the end, where a cut log still shows it
     k2 = flash["siglip2_5s"]  # the main V2A path's shape (the 24 s run's is siglip2_24s)
     k3_bound = gemm["probe_full"]  # the probe's shape: one sweep of the probe
@@ -4817,6 +5270,7 @@ def main() -> int:
         "launches_in_train_steps": lora_step_k1 + full_step_k1 + data_step_k1,
         "launches_pil_preprocess": pil_launches["k1"],
         "launches_image_codecs": {k: v[0] for k, v in codec_launches.items()},
+        "launches_frame_formats": format_launches[0],
         "launches_mesh_per_rank": mesh_k1,
         "launches_mesh_trained": mesh_trained_k1,
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
@@ -4862,7 +5316,9 @@ def main() -> int:
              launches_video_ingest={k: v[1] for k, v in video_launches.items()
                                     if k != "server"},
              launches_pil_preprocess=pil_launches["k2_fp32"],
-             launches_image_codecs_cli=codec_launches["cli"][1]),
+             launches_image_codecs_cli=codec_launches["cli"][1],
+             launches_frame_formats_cli=format_launches[1]),
+        narrow_row,
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,4 @@
-// Baseline JPEG Huffman decoding and encoding on the host, behind a plain C interface
+// JPEG Huffman decoding (sequential and progressive) and baseline encoding on the host, behind a plain C interface
 // (loaded through ctypes by foley_tpu_torch/io/jpeg.py; built by ops/kernels/build.py's
 // host route). Everything else of the codec runs in torch on the caller's device: the
 // marker parse, the (de)quantisation, the islow DCTs, the sampling and the colour
@@ -8,8 +8,8 @@
 // l, index 0 unused) and vals[8][256], tables 0-3 DC and 4-7 AC. Blocks are int16[64] in
 // natural (row-major) order; the zig-zag order is applied here.
 //
-// Decoding follows jdhuff.c: DC differences accumulate per component and reset at every
-// RSTn, whose number must follow the sequence. Data that ends early, a bad code, a
+// Decoding follows jdhuff.c and jdphuff.c: DC differences accumulate per component and reset
+// at every RSTn, whose number must follow the sequence, as does a progressive scan's EOB run. Data that ends early, a bad code, a
 // coefficient index past 63 or a missing restart marker is an error (non-zero return and a
 // message), which the Python side raises as ValueError. Encoding follows jchuff.c with
 // optimize_coding off: the DC difference's category and bits, AC run/size symbols with ZRL
@@ -21,11 +21,14 @@
 
 namespace {
 
-const int kZigzag[64] = {  // zig-zag index -> natural index (jpeg_natural_order)
+// zig-zag index -> natural index (jpeg_natural_order), with libjpeg's 16 extra entries of 63:
+// a corrupt run that steps past the band writes there, not past the block
+const int kNatural[80] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
 struct DecTable {
   int32_t maxcode[18];   // largest code of each length, -1 if none; [17] sentinel
@@ -205,13 +208,26 @@ extern "C" {
 // scan's n_comp components (1-4) each take comp_h x comp_v blocks of an MCU (1 x 1 in a
 // non-interleaved scan); mcus_x x mcus_y MCUs. Block (row, col) of component c lands in
 // out[c] + (row * blocks_w[c] + col) * 64, natural order.
+//
+// A sequential scan (progressive 0) writes whole blocks. A progressive one (jdphuff.c) adds
+// to the blocks earlier scans left, each coefficient kept shifted by its scan's Al: spectral
+// selection ss..se and successive approximation ah / al give its kind, DC first (ss 0, ah
+// 0), DC refinement (ss 0, ah > 0: one bit a block), AC first (ss > 0, ah 0: EOBn runs
+// across blocks) and AC refinement (correction bits for the coefficients already nonzero,
+// new ones of magnitude 1 << al placed among the zeros). Restart markers reset the DC
+// predictors and the EOB run.
 int fj_decode_scan(const uint8_t* data, int64_t size, int32_t n_comp, const int32_t* comp_h,
                    const int32_t* comp_v, const int32_t* dc_tbl, const int32_t* ac_tbl,
                    const uint8_t* bits, const uint8_t* vals, int32_t mcus_x, int32_t mcus_y,
                    const int32_t* blocks_w, int16_t* const* out, int32_t restart_interval,
+                   int32_t progressive, int32_t ss, int32_t se, int32_t ah, int32_t al,
                    int64_t* consumed, char* err, int32_t err_len) {
   if (n_comp < 1 || n_comp > 4) {
     set_err(err, err_len, "a scan of %lld components", n_comp);
+    return 1;
+  }
+  if (ss < 0 || se > 63 || ss > se || ah < 0 || ah > 13 || al < 0 || al > 13) {
+    set_err(err, err_len, "a scan of spectral selection %lld-%lld", ss, se);
     return 1;
   }
   DecTable tables[8];
@@ -221,80 +237,189 @@ int fj_decode_scan(const uint8_t* data, int64_t size, int32_t n_comp, const int3
       return 1;
     }
   }
+  // the tables a scan reads: both when sequential; DC first the DC table, AC scans the AC
+  // table, DC refinement none
+  const bool need_dc = !progressive || (ss == 0 && ah == 0);
+  const bool need_ac = !progressive || ss > 0;
   for (int c = 0; c < n_comp; ++c) {
     if (dc_tbl[c] < 0 || dc_tbl[c] > 3 || ac_tbl[c] < 0 || ac_tbl[c] > 3) {
       set_err(err, err_len, "component %lld names Huffman table %lld (0-3 exist)", c,
               dc_tbl[c] < 0 || dc_tbl[c] > 3 ? dc_tbl[c] : ac_tbl[c]);
       return 1;
     }
-    if (!tables[dc_tbl[c]].present || !tables[4 + ac_tbl[c]].present) {
+    if ((need_dc && !tables[dc_tbl[c]].present) || (need_ac && !tables[4 + ac_tbl[c]].present)) {
       set_err(err, err_len, "component %lld names an undefined Huffman table", c);
       return 1;
     }
   }
   BitReader br{data, size, 0};
   int32_t pred[4] = {0, 0, 0, 0};
-  int64_t n_mcus = (int64_t)mcus_x * mcus_y;
-  int64_t until_restart = restart_interval;
-  int next_rst = 0;
-  for (int64_t m = 0; m < n_mcus; ++m) {
-    if (restart_interval > 0 && until_restart == 0) {
-      br.to_marker();
-      if (br.pos + 1 >= size || data[br.pos] != 0xFF || data[br.pos + 1] != 0xD0 + next_rst) {
-        set_err(err, err_len, "restart marker %lld missing before MCU %lld", next_rst, m);
-        return 2;
+  int32_t eobrun = 0;
+  const int32_t p1 = 1 << al, m1 = -(1 << al);
+  // one block; 0, or 1 on bad DC data, 2 on bad AC data
+  auto sequential = [&](int c, int16_t* blk) -> int {
+    const DecTable* act = &tables[4 + ac_tbl[c]];
+    std::memset(blk, 0, 64 * sizeof(int16_t));
+    int s = decode_symbol(&br, &tables[dc_tbl[c]]);
+    int32_t diff;
+    if (s < 0 || s > 15 || !receive_extend(&br, s, &diff)) return 1;
+    pred[c] += diff;
+    blk[0] = (int16_t)pred[c];
+    for (int k = 1; k < 64;) {
+      int rs = decode_symbol(&br, act);
+      if (rs < 0) return 2;
+      int r = rs >> 4, sz = rs & 15;
+      if (sz) {
+        k += r;
+        int32_t v;
+        if (k > 63 || !receive_extend(&br, sz, &v)) return 2;
+        blk[kNatural[k]] = (int16_t)v;
+        ++k;
+      } else if (r == 15) {
+        k += 16;
+      } else {
+        break;
       }
-      br.pos += 2;
-      next_rst = (next_rst + 1) & 7;
-      for (int c = 0; c < 4; ++c) pred[c] = 0;
-      until_restart = restart_interval;
     }
-    int64_t my = m / mcus_x, mx = m % mcus_x;
-    for (int c = 0; c < n_comp; ++c) {
-      const DecTable* dct = &tables[dc_tbl[c]];
-      const DecTable* act = &tables[4 + ac_tbl[c]];
-      for (int by = 0; by < comp_v[c]; ++by) {
-        for (int bx = 0; bx < comp_h[c]; ++bx) {
-          int64_t row = my * comp_v[c] + by, col = mx * comp_h[c] + bx;
-          int16_t* blk = out[c] + (row * blocks_w[c] + col) * 64;
-          std::memset(blk, 0, 64 * sizeof(int16_t));
-          int s = decode_symbol(&br, dct);
-          int32_t diff;
-          if (s < 0 || s > 15 || !receive_extend(&br, s, &diff)) {
-            set_err(err, err_len, "corrupt or truncated data at MCU %lld (DC, component %lld)",
-                    m, c);
-            return 3;
+    return 0;
+  };
+  auto dc_first = [&](int c, int16_t* blk) -> int {
+    int s = decode_symbol(&br, &tables[dc_tbl[c]]);
+    int32_t diff;
+    if (s < 0 || s > 15 || !receive_extend(&br, s, &diff)) return 1;
+    pred[c] += diff;
+    blk[0] = (int16_t)(int32_t)((uint32_t)pred[c] << al);
+    return 0;
+  };
+  auto dc_refine = [&](int, int16_t* blk) -> int {
+    uint32_t bit = br.peek(1);
+    if (!br.skip(1)) return 1;
+    if (bit) blk[0] = (int16_t)(blk[0] | p1);
+    return 0;
+  };
+  auto ac_first = [&](int c, int16_t* blk) -> int {
+    if (eobrun > 0) {
+      --eobrun;
+      return 0;
+    }
+    const DecTable* act = &tables[4 + ac_tbl[c]];
+    for (int k = ss; k <= se; ++k) {
+      int rs = decode_symbol(&br, act);
+      if (rs < 0) return 2;
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        int32_t v;
+        if (!receive_extend(&br, s, &v)) return 2;
+        blk[kNatural[k]] = (int16_t)(int32_t)((uint32_t)v << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) {
+          eobrun += (int32_t)br.peek(r);
+          if (!br.skip(r)) return 2;
+        }
+        --eobrun;
+        break;
+      }
+    }
+    return 0;
+  };
+  // a correction bit for a coefficient already nonzero: 1 raises its magnitude by 1 << al
+  auto correct = [&](int16_t* coef) -> bool {
+    uint32_t bit = br.peek(1);
+    if (!br.skip(1)) return false;
+    if (bit && (*coef & p1) == 0) *coef = (int16_t)(*coef + (*coef >= 0 ? p1 : m1));
+    return true;
+  };
+  auto ac_refine = [&](int c, int16_t* blk) -> int {
+    const DecTable* act = &tables[4 + ac_tbl[c]];
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        int rs = decode_symbol(&br, act);
+        if (rs < 0) return 2;
+        int r = rs >> 4, s = rs & 15;
+        if (s) {  // a new coefficient: its magnitude is 1 << al, a bit gives its sign
+          uint32_t bit = br.peek(1);
+          if (!br.skip(1)) return 2;
+          s = bit ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) {
+            eobrun += (int32_t)br.peek(r);
+            if (!br.skip(r)) return 2;
           }
-          pred[c] += diff;
-          blk[0] = (int16_t)pred[c];
-          for (int k = 1; k < 64;) {
-            int rs = decode_symbol(&br, act);
-            if (rs < 0) {
-              set_err(err, err_len, "corrupt or truncated data at MCU %lld (AC, component %lld)",
+          break;
+        }
+        // pass the nonzero coefficients (a correction bit each) and r zeros
+        do {
+          int16_t* coef = blk + kNatural[k];
+          if (*coef != 0) {
+            if (!correct(coef)) return 2;
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = (int16_t)s;
+      }
+    }
+    if (eobrun > 0) {  // the rest of the band: correction bits only
+      for (; k <= se; ++k) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef != 0 && !correct(coef)) return 2;
+      }
+      --eobrun;
+    }
+    return 0;
+  };
+  auto run = [&](auto block) -> int {
+    int64_t n_mcus = (int64_t)mcus_x * mcus_y;
+    int64_t until_restart = restart_interval;
+    int next_rst = 0;
+    for (int64_t m = 0; m < n_mcus; ++m) {
+      if (restart_interval > 0 && until_restart == 0) {
+        br.to_marker();
+        if (br.pos + 1 >= size || data[br.pos] != 0xFF || data[br.pos + 1] != 0xD0 + next_rst) {
+          set_err(err, err_len, "restart marker %lld missing before MCU %lld", next_rst, m);
+          return 2;
+        }
+        br.pos += 2;
+        next_rst = (next_rst + 1) & 7;
+        for (int c = 0; c < 4; ++c) pred[c] = 0;
+        eobrun = 0;
+        until_restart = restart_interval;
+      }
+      int64_t my = m / mcus_x, mx = m % mcus_x;
+      for (int c = 0; c < n_comp; ++c) {
+        for (int by = 0; by < comp_v[c]; ++by) {
+          for (int bx = 0; bx < comp_h[c]; ++bx) {
+            int64_t row = my * comp_v[c] + by, col = mx * comp_h[c] + bx;
+            int rc = block(c, out[c] + (row * blocks_w[c] + col) * 64);
+            if (rc) {
+              set_err(err, err_len,
+                      rc == 1 ? "corrupt or truncated data at MCU %lld (DC, component %lld)"
+                              : "corrupt or truncated data at MCU %lld (AC, component %lld)",
                       m, c);
               return 3;
-            }
-            int r = rs >> 4, sz = rs & 15;
-            if (sz) {
-              k += r;
-              int32_t v;
-              if (k > 63 || !receive_extend(&br, sz, &v)) {
-                set_err(err, err_len, "corrupt data at MCU %lld (AC, component %lld)", m, c);
-                return 3;
-              }
-              blk[kZigzag[k]] = (int16_t)v;
-              ++k;
-            } else if (r == 15) {
-              k += 16;
-            } else {
-              break;
             }
           }
         }
       }
+      --until_restart;
     }
-    --until_restart;
-  }
+    return 0;
+  };
+  int rc;
+  if (!progressive)
+    rc = run(sequential);
+  else if (ss == 0)
+    rc = ah == 0 ? run(dc_first) : run(dc_refine);
+  else
+    rc = ah == 0 ? run(ac_first) : run(ac_refine);
+  if (rc) return rc;
   br.to_marker();
   *consumed = br.pos;
   return 0;
@@ -341,7 +466,7 @@ int64_t fj_encode_scan(const int16_t* blocks, int64_t n_blocks, int32_t blocks_p
     if (nbits) bw.emit((uint32_t)temp2, nbits);
     int r = 0;
     for (int k = 1; k < 64; ++k) {
-      int32_t v = blk[kZigzag[k]];
+      int32_t v = blk[kNatural[k]];
       if (v == 0) {
         r++;
         continue;

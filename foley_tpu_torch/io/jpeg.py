@@ -1,19 +1,28 @@
-"""Baseline JPEG without PIL: decode as Pillow's ``Image.open(f).convert("RGB")`` and encode
-as ``Image.fromarray(rgb).save(f, format="JPEG", quality=q)``, byte for byte, over
+"""JPEG without PIL: decode as Pillow's ``Image.open(f).convert("RGB")`` and encode as
+``Image.fromarray(rgb).save(f, format="JPEG", quality=q)``, byte for byte, over
 libjpeg-turbo (what the JAX package's ``pipeline/video.py::read_frames_dir`` and
 ``io/avi.py`` call).
 
-Decoding: the markers are parsed on the host (SOI, APPn, COM, DQT in 8 or 16 bits, SOF0 and
-SOF1 at 8 bits, DHT, DRI, SOS, RSTn, EOI), and the Huffman data is decoded into coefficient
-blocks by ``csrc/jpeg_entropy.cpp`` (host C++, built at first use by
-``ops/kernels/build.py::host_library``). The rest runs in integer torch ops on the device
-the caller names (the card, unless the caller asks for the CPU), over every frame of one
-geometry at once, ``CHUNK_BLOCKS`` blocks at a time: dequantisation, libjpeg's islow inverse
-DCT (``jidctint.c``: 13-bit constants, 2 bits kept between the passes, 64-bit products, the
-range limit a clamp as in its SIMD build), libjpeg-turbo's fancy upsampling
-(``jdsample.c``: h2v1, h2v2 while the chroma is wider than 2 samples, else a box; h1v2;
-edges replicated) and its fixed-point YCbCr -> RGB tables (``jdcolor.c``). One component is grey, replicated to RGB as PIL's
-``L -> RGB``; three are YCbCr with the luma sampled 1 or 2 each way and the chroma 1 x 1
+Decoding: the markers are parsed on the host (SOI, APPn, COM, DQT in 8 or 16 bits, SOF0,
+SOF1 and SOF2 at 8 bits, DHT, DRI, SOS, RSTn, EOI), and the Huffman data is decoded into
+coefficient blocks by ``csrc/jpeg_entropy.cpp`` (host C++, built at first use by
+``ops/kernels/build.py::host_library``): sequential scans, and the four progressive scan
+kinds of ``jdphuff.c`` (DC first and refinement, AC first with EOB runs, AC refinement),
+the coefficients kept across scans shifted by their Al, restart markers resetting the DC
+predictors and the EOB run, an AC scan covering its component's own block grid. The rest
+runs in integer torch ops on the device the caller names (the card, unless the caller asks
+for the CPU), over every frame of one geometry at once, ``CHUNK_BLOCKS`` blocks at a time:
+dequantisation, libjpeg's islow inverse DCT (``jidctint.c``: 13-bit constants, 2 bits kept
+between the passes, 64-bit products, the range limit a clamp as in its SIMD build),
+libjpeg-turbo's fancy upsampling (``jdsample.c``: h2v1, h2v2 while the chroma is wider than
+2 samples, else a box; h1v2; edges replicated) and the colour conversion. The markers decide
+the colour space as ``jdapimin.c`` does: one component is grey, replicated to RGB as PIL's
+``L -> RGB``; three are YCbCr (``jdcolor.c``'s fixed-point tables) unless an Adobe marker's
+transform 0, or the ids R, G, B without a JFIF marker, make them RGB (no transform); four
+are CMYK, or YCCK under an Adobe transform other than 0 (``ycck_cmyk_convert``: the YCbCr
+tables, C, M, Y the complements, K kept), then inverted as Pillow's ``CMYK;I`` raw mode
+reads every CMYK JPEG and converted as its ``convert("RGB")`` (``cmyk_to_rgb``). The first
+component (and a fourth alike) is sampled 1 or 2 each way, the second and third 1 x 1
 (4:4:4, 4:2:2, 4:2:0, 4:4:0).
 
 Encoding (RGB, 4:2:0, the standard tables scaled by ``jpeg_quality_scaling`` and clamped to
@@ -23,11 +32,10 @@ the device: ``jccolor.c``'s RGB -> YCbCr, edge replication to the MCU grid, ``jc
 ``jcdctmgr.c``'s reciprocal quantiser, and ``jccoefct.c``'s dummy blocks at the right and
 bottom MCU edges (AC zero, DC that of the block before); the Huffman pass runs on the host.
 
-Refused, each with ``JPEGUnsupported`` naming what it is: progressive, lossless,
-hierarchical and arithmetic-coded files, 12-bit samples, two or four components (CMYK,
-YCCK) and three-component files that are not YCbCr (an Adobe marker's RGB transform, or
-the component ids R, G, B without a JFIF marker), other sampling factors. Corrupt or
-truncated data raises ``ValueError``.
+Refused, each with ``JPEGUnsupported`` naming what it is: lossless, hierarchical and
+arithmetic-coded files, 12-bit samples, two components, other sampling factors, and a
+progressive file whose scans leave a first coefficient incomplete (libjpeg smooths its
+blocks). Corrupt or truncated data raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -89,13 +97,15 @@ F0_899, F1_175, F1_501, F1_847 = 7373, 9633, 12299, 15137
 F1_961, F2_053, F2_562, F3_072 = 16069, 16819, 20995, 25172
 
 _SOF_REFUSED = {
-    0xC2: "a progressive JPEG", 0xC3: "a lossless JPEG",
+    0xC3: "a lossless JPEG",
     0xC5: "a hierarchical (differential) JPEG", 0xC6: "a hierarchical (differential) JPEG",
     0xC7: "a hierarchical (differential) JPEG", 0xC9: "an arithmetic-coded JPEG",
     0xCA: "a progressive arithmetic-coded JPEG", 0xCB: "a lossless arithmetic-coded JPEG",
     0xCD: "a hierarchical arithmetic-coded JPEG", 0xCE: "a hierarchical arithmetic-coded JPEG",
     0xCF: "a hierarchical arithmetic-coded JPEG", 0xCC: "an arithmetic-coded JPEG (DAC)",
     0xDE: "a hierarchical JPEG (DHP)", 0xDC: "a JPEG with a DNL marker"}
+# the zig-zag positions libjpeg-turbo's block smoothing reads (jdcoefct.c, SAVED_COEFS)
+SMOOTHING_COEFS = 10
 
 
 class JPEGUnsupported(ValueError):
@@ -118,8 +128,8 @@ def entropy_library() -> ctypes.CDLL:
 
         lib = host_library("jpeg_entropy")
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-        lib.fj_decode_scan.argtypes = [p, i64, i32, p, p, p, p, p, p, i32, i32, p, p, i32, p,
-                                       p, i32]
+        lib.fj_decode_scan.argtypes = [p, i64, i32, p, p, p, p, p, p, i32, i32, p, p, i32, i32,
+                                       i32, i32, i32, i32, p, p, i32]
         lib.fj_decode_scan.restype = ctypes.c_int
         lib.fj_encode_scan.argtypes = [p, i64, i32, p, p, p, p, p, p, i64]
         lib.fj_encode_scan.restype = i64
@@ -151,10 +161,11 @@ def _ceil(a: int, b: int) -> int:
 
 
 def parse_jpeg(data: bytes, name: str = "JPEG") -> Dict:
-    """One baseline JPEG's bytes -> its geometry (``width``, ``height``, ``sampling``: the
-    (h, v) of each component), ``quant`` (int32 ``[C, 64]``, natural order, each
-    component's table) and ``coefs`` (each component's int16 blocks ``[rows, cols, 64]``,
-    natural order, on the MCU grid)."""
+    """One JPEG's bytes -> its geometry (``width``, ``height``, ``sampling``: the (h, v) of
+    each component), its colour space (``color``: ``grey``, ``ycc``, ``rgb``, ``cmyk`` or
+    ``ycck``), ``quant`` (int32 ``[C, 64]``, natural order, each component's table) and
+    ``coefs`` (each component's int16 blocks ``[rows, cols, 64]``, natural order, on the MCU
+    grid), sequential or progressive."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{name}: not a JPEG file (no SOI marker)")
     buf = np.frombuffer(data, np.uint8)
@@ -163,7 +174,6 @@ def parse_jpeg(data: bytes, name: str = "JPEG") -> Dict:
     frame: Optional[Dict] = None
     restart = 0
     jfif, adobe = False, None
-    scanned = set()
     pos = 2
     while True:
         while pos < len(data) and data[pos] == 0xFF and pos + 1 < len(data) \
@@ -186,8 +196,8 @@ def parse_jpeg(data: bytes, name: str = "JPEG") -> Dict:
         if len(seg) != length - 2:
             raise ValueError(f"{name}: truncated JPEG (marker 0x{marker:02X})")
         if marker in _SOF_REFUSED:
-            raise JPEGUnsupported(f"{name}: {_SOF_REFUSED[marker]} is not decoded (baseline "
-                                  "and extended sequential Huffman JPEG are)")
+            raise JPEGUnsupported(f"{name}: {_SOF_REFUSED[marker]} is not decoded (baseline, "
+                                  "extended sequential and progressive Huffman JPEG are)")
         if marker == 0xE0 and seg[:5] == b"JFIF\x00":
             jfif = True
         elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
@@ -204,7 +214,7 @@ def parse_jpeg(data: bytes, name: str = "JPEG") -> Dict:
                 table[ZIGZAG] = raw
                 qt[tq] = table
                 p += 1 + n
-        elif marker in (0xC0, 0xC1):
+        elif marker in (0xC0, 0xC1, 0xC2):
             if frame is not None:
                 raise JPEGUnsupported(f"{name}: a JPEG with more than one frame")
             precision, h, w, nc = struct.unpack(">BHHB", seg[:6])
@@ -218,7 +228,10 @@ def parse_jpeg(data: bytes, name: str = "JPEG") -> Dict:
             for i in range(nc):
                 cid, hv, tq = seg[6 + 3 * i:9 + 3 * i]
                 comps.append({"id": cid, "h": hv >> 4, "v": hv & 15, "tq": tq})
-            frame = {"width": w, "height": h, "comps": comps}
+            frame = {"width": w, "height": h, "comps": comps, "progressive": marker == 0xC2,
+                     # per component and zig-zag position, the Al of the last scan that
+                     # reached it (-1: none yet), as libjpeg's coef_bits
+                     "coef_bits": np.full((nc, 64), -1, np.int32)}
         elif marker == 0xC4:
             p = 0
             while p < len(seg):
@@ -236,41 +249,72 @@ def parse_jpeg(data: bytes, name: str = "JPEG") -> Dict:
                 raise ValueError(f"{name}: a scan before the frame header")
             if not frame.get("checked"):
                 _check_frame(frame, jfif, adobe, name)
-            pos = _decode_scan(buf, pos + 2 + length, seg, frame, huff, restart, scanned,
-                               name)
+            pos = _decode_scan(buf, pos + 2 + length, seg, frame, huff, restart, name)
             continue
         pos += 2 + length
-    if frame is None or len(scanned) < len(frame["comps"]):
+    if frame is None or not frame.get("checked") or (frame["coef_bits"][:, 0] < 0).any():
         raise ValueError(f"{name}: truncated JPEG (a component without image data)")
     comps = frame["comps"]
     missing = [c["tq"] for c in comps if c["tq"] not in qt]
     if missing:
         raise ValueError(f"{name}: quantisation table {missing[0]} is not defined")
-    return {"width": frame["width"], "height": frame["height"],
-            "sampling": tuple((c["h"], c["v"]) for c in comps),
-            "quant": np.stack([qt[c["tq"]] for c in comps]),
+    quant = np.stack([qt[c["tq"]] for c in comps])
+    if frame["progressive"]:
+        _refuse_block_smoothing(frame["coef_bits"], quant, name)
+    return {"width": frame["width"], "height": frame["height"], "color": frame["color"],
+            "sampling": tuple((c["h"], c["v"]) for c in comps), "quant": quant,
             "coefs": frame["coefs"]}
 
 
+def _refuse_block_smoothing(coef_bits: np.ndarray, quant: np.ndarray, name: str) -> None:
+    """libjpeg-turbo smooths the blocks of a progressive file (``jdcoefct.c``'s
+    ``smoothing_ok``) when, after its last scan, one of a component's first
+    ``SMOOTHING_COEFS`` coefficients is still incomplete (never sent, or not refined down to
+    Al 0) and every component's DC and the tables at those positions are nonzero. The port
+    does not smooth, so it refuses such a file; a complete one decodes."""
+    first = ZIGZAG[:SMOOTHING_COEFS]
+    if (quant[:, first] == 0).any():
+        return
+    incomplete = (coef_bits[:, 1:SMOOTHING_COEFS] != 0).any(axis=1)
+    if incomplete.any():
+        c = int(np.argmax(incomplete))
+        raise JPEGUnsupported(
+            f"{name}: a progressive JPEG whose scans leave component {c}'s first coefficients "
+            "incomplete is decoded by libjpeg with block smoothing, which the port does not "
+            "do (a complete progressive file decodes)")
+
+
+# libjpeg's colour spaces (jdapimin.c::default_decompress_parms) and Pillow's raw modes
+_COLORS = {1: "grey", 3: "ycc", 4: "cmyk"}
+
+
 def _check_frame(frame: Dict, jfif: bool, adobe: Optional[int], name: str) -> None:
+    """The frame's colour space and sampling, as libjpeg reads its markers; allocates its
+    blocks."""
     comps = frame["comps"]
-    if len(comps) not in (1, 3):
-        kind = "CMYK or YCCK" if len(comps) == 4 else f"{len(comps)}-component"
-        raise JPEGUnsupported(f"{name}: a {kind} JPEG is not decoded (grey and YCbCr are)")
+    if len(comps) not in _COLORS:
+        raise JPEGUnsupported(f"{name}: a {len(comps)}-component JPEG is not decoded (grey, "
+                              "YCbCr, RGB, CMYK and YCCK are)")
+    color = _COLORS[len(comps)]
     if len(comps) == 3 and not jfif:
         ids = tuple(c["id"] for c in comps)
         if adobe == 0 or (adobe is None and ids == (82, 71, 66)):
-            raise JPEGUnsupported(f"{name}: an RGB JPEG (Adobe transform 0 or components "
-                                  "R, G, B) is not decoded (YCbCr is)")
+            color = "rgb"  # an Adobe marker's transform 0, or the ids R, G, B
+    elif len(comps) == 4 and adobe is not None and adobe != 0:
+        color = "ycck"  # Adobe transform 2; libjpeg takes any other but 0 as YCCK too
+    frame["color"] = color
     if len(comps) == 1:
         comps[0]["h"] = comps[0]["v"] = 1  # one component: one block an MCU
     else:
-        y, cb, cr = comps
-        if (cb["h"], cb["v"], cr["h"], cr["v"]) != (1, 1, 1, 1) \
-                or y["h"] not in (1, 2) or y["v"] not in (1, 2):
+        # luma-like components (Y, and K of four) 1 or 2 each way, the two others 1 x 1
+        lead = [comps[0]] + ([comps[3]] if len(comps) == 4 else [])
+        if any((c["h"], c["v"]) != (1, 1) for c in comps[1:3]) \
+                or any(c["h"] not in (1, 2) or c["v"] not in (1, 2) for c in lead) \
+                or any((c["h"], c["v"]) != (lead[0]["h"], lead[0]["v"]) for c in lead):
             raise JPEGUnsupported(
-                f"{name}: sampling {[(c['h'], c['v']) for c in comps]} is not decoded (luma "
-                "1 or 2 each way, chroma 1 x 1: 4:4:4, 4:2:2, 4:2:0, 4:4:0)")
+                f"{name}: sampling {[(c['h'], c['v']) for c in comps]} is not decoded (the "
+                "first component, and the fourth of four alike, 1 or 2 each way, the second "
+                "and third 1 x 1: 4:4:4, 4:2:2, 4:2:0, 4:4:0)")
     hmax = max(c["h"] for c in comps)
     vmax = max(c["v"] for c in comps)
     mx, my = _ceil(frame["width"], 8 * hmax), _ceil(frame["height"], 8 * vmax)
@@ -279,9 +323,9 @@ def _check_frame(frame: Dict, jfif: bool, adobe: Optional[int], name: str) -> No
 
 
 def _decode_scan(buf: np.ndarray, start: int, seg: bytes, frame: Dict, huff, restart: int,
-                 scanned: set, name: str) -> int:
-    """Entropy-decode one scan starting at ``start`` into ``frame["coefs"]``; returns the
-    position of the marker after it."""
+                 name: str) -> int:
+    """Entropy-decode one scan starting at ``start`` into ``frame["coefs"]`` (a progressive
+    scan adds to what the earlier ones left); returns the position of the marker after it."""
     ns = seg[0] if seg else 0
     if not 1 <= ns <= 4 or len(seg) != 4 + 2 * ns:
         raise ValueError(f"{name}: corrupt JPEG (an SOS segment of {len(seg)} bytes for "
@@ -300,9 +344,16 @@ def _decode_scan(buf: np.ndarray, start: int, seg: bytes, frame: Dict, huff, res
         dc.append(tables >> 4)
         ac.append(tables & 15)
     ss, se, ahal = seg[1 + 2 * ns:4 + 2 * ns]
-    if (ss, se, ahal) != (0, 63, 0):
-        raise JPEGUnsupported(f"{name}: a scan of spectral selection {ss}-{se} (a "
-                              "progressive JPEG) is not decoded")
+    ah, al = ahal >> 4, ahal & 15
+    progressive = frame["progressive"]
+    if not progressive and (ss, se, ahal) != (0, 63, 0):
+        raise JPEGUnsupported(f"{name}: a sequential frame's scan of spectral selection "
+                              f"{ss}-{se}, approximation {ah}/{al} is not decoded")
+    # jdphuff.c::start_pass_phuff_decoder's checks (JERR_BAD_PROGRESSION)
+    if progressive and ((ss == 0 and se != 0) or (ss > 0 and (se < ss or se > 63 or ns != 1))
+                        or (ah != 0 and al != ah - 1) or al > 13):
+        raise ValueError(f"{name}: corrupt progressive JPEG (a scan of spectral selection "
+                         f"{ss}-{se}, approximation {ah}/{al}, {ns} components)")
     if ns == 1:
         c = comps[members[0]]
         # a non-interleaved scan covers the component's own blocks, one an MCU
@@ -323,10 +374,12 @@ def _decode_scan(buf: np.ndarray, start: int, seg: bytes, frame: Dict, huff, res
     rest = buf[start:]
     rc = entropy_library().fj_decode_scan(
         _ptr(rest), rest.size, ns, _ptr(hs), _ptr(vs), _ptr(dc), _ptr(ac), _ptr(bits),
-        _ptr(vals), mx, my, _ptr(bw), ptrs, restart, ctypes.byref(consumed), err, len(err))
+        _ptr(vals), mx, my, _ptr(bw), ptrs, restart, int(progressive), ss, se, ah, al,
+        ctypes.byref(consumed), err, len(err))
     if rc != 0:
         raise ValueError(f"{name}: {err.value.decode(errors='replace')}")
-    scanned.update(members)
+    for m in members:
+        frame["coef_bits"][m, ss:se + 1] = al
     return start + consumed.value
 
 
@@ -431,20 +484,47 @@ def _ycc_tables(device) -> Tuple[torch.Tensor, ...]:
     return cr_r, cb_b, cr_g, cb_g
 
 
-def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor) -> torch.Tensor:
-    """``jdcolor.c::ycc_rgb_convert`` -> ``[..., 3]`` uint8."""
+def _ycc_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor) -> List[torch.Tensor]:
+    """R, G and B (int64, before the range limit) by ``jdcolor.c``'s tables."""
     cr_r, cb_b, cr_g, cb_g = _ycc_tables(y.device)
     y, cb, cr = y.long(), cb.long(), cr.long()
-    r = y + cr_r[cr]
-    g = y + ((cb_g[cb] + cr_g[cr]) >> 16)
-    b = y + cb_b[cb]
-    return torch.stack([r, g, b], dim=-1).clamp_(0, 255).to(torch.uint8)
+    return [y + cr_r[cr], y + ((cb_g[cb] + cr_g[cr]) >> 16), y + cb_b[cb]]
+
+
+def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor) -> torch.Tensor:
+    """``jdcolor.c::ycc_rgb_convert`` -> ``[..., 3]`` uint8."""
+    return torch.stack(_ycc_rgb(y, cb, cr), dim=-1).clamp_(0, 255).to(torch.uint8)
+
+
+def _muldiv255(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pillow's ``MULDIV255``: a * b / 255, rounded, in integers."""
+    t = a * b + 128
+    return ((t >> 8) + t) >> 8
+
+
+def cmyk_to_rgb(cmyk: torch.Tensor) -> torch.Tensor:
+    """A CMYK JPEG's decoded samples ``[..., 4]`` (int64) -> ``[..., 3]`` uint8, as Pillow
+    gives them: its ``CMYK;I`` raw mode inverts every sample (Adobe's polarity, whatever
+    the markers say), then ``convert("RGB")`` (``Convert.c::cmyk2rgb``) takes
+    ``255 - k - MULDIV255(x, 255 - k)`` of each of the three inverted inks ``x``. Held
+    against Pillow over every pair of ink and black in the tests."""
+    nk = cmyk[..., 3:]  # 255 - (255 - K)
+    return (nk - _muldiv255(255 - cmyk[..., :3], nk)).clamp_(0, 255).to(torch.uint8)
+
+
+def ycck_to_cmyk(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+                 k: torch.Tensor) -> torch.Tensor:
+    """``jdcolor.c::ycck_cmyk_convert`` -> ``[..., 4]`` int64: C, M and Y the range-limited
+    complements of ``ycc_to_rgb``'s R, G and B, K passed through."""
+    inks = [(255 - c).clamp_(0, 255) for c in _ycc_rgb(y, cb, cr)]
+    return torch.stack([*inks, k.long()], dim=-1)
 
 
 def reconstruct(coefs: Sequence[torch.Tensor], quant: torch.Tensor, width: int, height: int,
-                sampling: Sequence[Tuple[int, int]]) -> torch.Tensor:
-    """F frames of one geometry: each component's blocks ``[F, rows, cols, 64]`` (int16) and
-    the tables ``[F, C, 64]``, on one device -> RGB ``[F, height, width, 3]`` uint8 there."""
+                sampling: Sequence[Tuple[int, int]], color: str) -> torch.Tensor:
+    """F frames of one geometry and colour space (``parse_jpeg``'s ``color``): each
+    component's blocks ``[F, rows, cols, 64]`` (int16) and the tables ``[F, C, 64]``, on one
+    device -> RGB ``[F, height, width, 3]`` uint8 there."""
     hmax = max(h for h, _ in sampling)
     vmax = max(v for _, v in sampling)
     planes = []
@@ -453,8 +533,14 @@ def reconstruct(coefs: Sequence[torch.Tensor], quant: torch.Tensor, width: int, 
         cw, ch = _ceil(width * h, hmax), _ceil(height * v, vmax)
         plane = upsample(plane[:, :ch, :cw].int(), hmax // h, vmax // v)
         planes.append(plane[:, :height, :width])
-    if len(planes) == 1:
+    if color == "grey":
         return planes[0].to(torch.uint8)[..., None].expand(-1, -1, -1, 3)
+    if color == "rgb":  # no colour transform
+        return torch.stack(planes, dim=-1).to(torch.uint8)
+    if color == "cmyk":
+        return cmyk_to_rgb(torch.stack(planes, dim=-1).long())
+    if color == "ycck":
+        return cmyk_to_rgb(ycck_to_cmyk(*planes))
     return ycc_to_rgb(*planes)
 
 
@@ -484,12 +570,13 @@ def decode_jpegs(datas: Sequence[bytes], device: DeviceLike = None,
             out = np.empty((len(datas), h, w, 3), np.uint8)
         groups: Dict[Tuple, List[Tuple[int, Dict]]] = {}
         for j, fr in frames:
-            groups.setdefault(fr["sampling"], []).append((j, fr))
-        for sampling, members in groups.items():
+            groups.setdefault((fr["sampling"], fr["color"]), []).append((j, fr))
+        for (sampling, color), members in groups.items():
             coefs = [torch.from_numpy(np.stack([fr["coefs"][c] for _, fr in members])).to(dev)
                      for c in range(len(sampling))]
             quant = torch.from_numpy(np.stack([fr["quant"] for _, fr in members])).to(dev)
-            rgb = reconstruct(coefs, quant, out.shape[2], out.shape[1], sampling).cpu().numpy()
+            rgb = reconstruct(coefs, quant, out.shape[2], out.shape[1], sampling,
+                              color).cpu().numpy()
             for n, (j, _) in enumerate(members):
                 out[j] = rgb[n]
     if out is None:

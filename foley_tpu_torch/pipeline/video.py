@@ -5,9 +5,11 @@ Two routes, as in the JAX package:
 - a directory of image frames, natural-sorted by name, declared to play at ``fps``
   (``read_frames_dir``): the frames are selected by name (``target_fps`` through the port's
   ``ops/interp.py::linspace_resample_indices``, then ``max_frames``) before any is decoded,
-  and PNG, JPEG and BMP frames are decoded without PIL (``io/png.py``, ``io/jpeg.py``,
-  ``io/bmp.py``, each equal to PIL's ``convert("RGB")``), on ``device`` (the card unless
-  the caller asks for the CPU); WebP and TIFF frames raise, naming the format;
+  and PNG, JPEG (baseline and progressive; grey, YCbCr, RGB, CMYK, YCCK), BMP, TIFF and
+  lossless WebP frames are decoded without PIL (``io/png.py``, ``io/jpeg.py``,
+  ``io/bmp.py``, ``io/tiff.py``, ``io/webp.py``, each equal to PIL's ``convert("RGB")``),
+  on ``device`` (the card unless the caller asks for the CPU); a lossy WebP frame raises,
+  naming VP8, and so does each kind a reader refuses (its module says which);
 - a video file (``read_video_frames``): an MJPEG AVI (the JAX package's own container,
   ``io/avi.py``) is decoded in-process, its frames resampled to ``target_fps`` by nearest
   index, as in the JAX package; any other file, or an AVI that is not MJPEG or does not
@@ -37,11 +39,14 @@ from foley_tpu_torch.io.avi import is_mjpeg_avi, read_avi
 from foley_tpu_torch.io.bmp import read_bmps
 from foley_tpu_torch.io.jpeg import read_jpegs
 from foley_tpu_torch.io.png import read_pngs
+from foley_tpu_torch.io.tiff import read_tiffs
+from foley_tpu_torch.io.webp import read_webps
 from foley_tpu_torch.ops.interp import linspace_resample_indices
 
-_IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp", ".tif", ".tiff")
-# the frame readers by extension (WebP and TIFF would each need a decoder of their own)
-_READERS = {".png": read_pngs, ".jpg": read_jpegs, ".jpeg": read_jpegs, ".bmp": read_bmps}
+# the frame readers by extension: the JAX package's extensions, in its order
+_READERS = {".png": read_pngs, ".jpg": read_jpegs, ".jpeg": read_jpegs, ".bmp": read_bmps,
+            ".webp": read_webps, ".tif": read_tiffs, ".tiff": read_tiffs}
+_IMAGE_EXTS = tuple(_READERS)
 
 NO_DECODER = ("no video decoder: install ffmpeg or the 'av' (PyAV) package, or pass a "
               "directory of image frames")
@@ -86,16 +91,14 @@ def frame_names(path: str, fps: float = 16.0, target_fps: Optional[float] = None
 def read_frames_dir(path: str, fps: float = 16.0, target_fps: Optional[float] = None,
                     max_frames: Optional[int] = None,
                     device: DeviceLike = None) -> Tuple[np.ndarray, float]:
-    """A directory of PNG, JPEG or BMP frames -> ([T, H, W, 3] float32 in [0, 1] on the
-    host, effective fps), decoded on ``device`` (``cuda`` unless given). Every frame must
-    share one size; a WebP or TIFF frame raises, naming its format."""
+    """A directory of PNG, JPEG, BMP, TIFF or WebP frames -> ([T, H, W, 3] float32 in
+    [0, 1] on the host, effective fps), decoded on ``device`` (``cuda`` unless given). Every
+    frame must share one size; a frame of a kind its reader refuses (a lossy WebP, an
+    arithmetic-coded JPEG, a CCITT TIFF, ...) raises, naming it."""
     names, fps = frame_names(path, fps, target_fps, max_frames)
     groups = {}
     for i, n in enumerate(names):
         ext = os.path.splitext(n)[1].lower()
-        if ext not in _READERS:
-            raise RuntimeError(f"{path}: {n} is a {ext[1:].upper()} frame; the port decodes "
-                               "PNG, JPEG and BMP frames (WebP and TIFF are not ported)")
         groups.setdefault(_READERS[ext], []).append(i)
     frames = None
     for reader, idx in groups.items():

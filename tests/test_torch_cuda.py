@@ -158,9 +158,9 @@ def test_cuda_tensor_never_reaches_plain(dev, monkeypatch):
         FA.fused_qk_attention(q.double(), k.double(), v.double(), *tabs)
     with pytest.raises(TypeError):  # nor do mixed types
         FA.fused_qk_attention(q, k.half(), v, *tabs)
-    with pytest.raises(ValueError):  # so does a head_dim other than 128
-        FA.fused_qk_attention(q[..., :64], k[..., :64], v[..., :64],
-                              *(t[:, :64] for t in tabs))
+    with pytest.raises(ValueError):  # so does a head_dim no kernel is built for (32, 64, 128)
+        FA.fused_qk_attention(q[..., :48], k[..., :48], v[..., :48],
+                              *(t[:, :48] for t in tabs))
     for bad in (_misaligned, _odd_rows):  # and what a TMA tensor map cannot describe
         with pytest.raises(ValueError):
             FA.fused_qk_attention(bad(q), k, v, *tabs)
@@ -186,6 +186,48 @@ def test_generate_audio_on_card_launches_the_kernel(dev):
     b = generate_audio(bundle, text, text, 1.0, num_inference_steps=3, seed=1)
     assert a.audio_batch.shape == (1, 1, cfg.dac.sample_rate)
     assert a.audio_batch.tobytes() == b.audio_batch.tobytes()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("b,lq,lk,h,split", [
+    (2, 66, 66, 2, 16), (2, 50, 50, 2, None), (1, 1, 1, 2, None), (1, 33, 31, 3, None),
+    (1, 31, 65, 2, None), (1, 129, 129, 2, None), (1, 300, 300, 2, 40)])
+def test_narrow_kernel_matches_plain(dev, dtype, d, b, lq, lk, h, split):
+    """K1's narrow kernel (``fused_qk_attention_narrow.cu``): lengths on both sides of its
+    32-key tiles and 128-row blocks, the joint blocks' two-stream weights; fp32 against the
+    plain version in true fp32."""
+    args = _operands(dev, b, lq, lk, h, d=d, split=split, dtype=dtype)
+    before = FA.fused_qk_attention.launches_by_dtype.get(dtype, 0)
+    with true_fp32():
+        got = FA.fused_qk_attention(*args)
+        ref = FA.fused_qk_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert FA.fused_qk_attention.launches_by_dtype[dtype] == before + 1
+    _assert_kernel_close(got, ref)
+
+
+def test_narrow_heads_launch_the_narrow_kernel_on_card(dev):
+    """TINY's 32-wide heads on the card: K1's narrow kernel in every block, one launch a
+    block, and the CPU's velocity in fp32."""
+    cfg = TINY.model
+    model = mmdit.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    perturb_zero_leaves(model, torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(2)
+    clip_len, sync_len = TINY.t2a_lengths(1.0)
+    args = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.normal(size=(1, TINY.latent_length(1.0), cfg.audio_vae_latent_dim)),
+        np.asarray([500.0]), rng.normal(size=(1, cfg.text_length, cfg.condition_dim)),
+        rng.normal(size=(1, clip_len, cfg.clip_dim)),
+        rng.normal(size=(1, sync_len, cfg.sync_feat_dim)))]
+    with torch.no_grad(), true_fp32():
+        ref = model(*args)
+        model.to(dev)
+        before = FA.fused_qk_attention.launches
+        got = model(*(a.to(dev) for a in args))
+    assert FA.fused_qk_attention.launches - before == (cfg.depth_triple_blocks
+                                                       + cfg.depth_single_blocks)
+    assert float((got.cpu() - ref).norm() / ref.norm()) <= FP32_REL_TOL
 
 
 def test_long_stream_equals_batch_on_card(dev):

@@ -232,11 +232,11 @@ def test_rle_bmp_and_other_formats_raise(tmp_path):
                     masks=struct.pack("<4I", 0xF00, 0xF0, 0xF, 0))
     with pytest.raises(tbmp.BMPUnsupported, match="bitfield"):
         tbmp.parse_bmp(odd)
-    for ext, fmt in ((".webp", "WEBP"), (".tif", "TIF")):
+    for ext, fmt in ((".webp", "WebP"), (".tif", "TIFF")):  # read now: not one of them
         d = tmp_path / ext[1:]
         d.mkdir()
         (d / f"0{ext}").write_bytes(b"\0" * 16)
-        with pytest.raises(RuntimeError, match=fmt):
+        with pytest.raises(ValueError, match=f"not a {fmt} file"):
             tvideo.read_frames_dir(str(d), device="cpu")
 
 

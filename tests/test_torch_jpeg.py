@@ -2,7 +2,8 @@
 coder ``csrc/jpeg_entropy.cpp`` and the host route of ``ops/kernels/build.py``) against
 Pillow 12.1 over libjpeg-turbo, on the CPU.
 
-Decoding is held bit for bit against the JAX package's ``pipeline/video.py::read_frames_dir``
+Decoding (baseline here; progressive, RGB, CMYK and YCCK in
+``tests/test_torch_jpeg_progressive.py``) is held bit for bit against the JAX package's ``pipeline/video.py::read_frames_dir``
 (PIL's ``convert("RGB")``) over sizes from 1 x 1 to 37 x 29, qualities 1 to 100, 4:4:4,
 4:2:2, 4:2:0 and grey, Pillow's restart intervals (``restart_marker_blocks``,
 ``restart_marker_rows``), and files this test assembles from seeded coefficient blocks:
@@ -157,23 +158,29 @@ def test_encode_a_batch_in_chunks(monkeypatch):
 
 
 def test_refusals_name_the_format(tmp_path):
+    """What stays refused, each by name: lossless, hierarchical and arithmetic-coded frames,
+    12-bit samples, two components, sampling outside the decoded layouts. (Progressive,
+    CMYK, YCCK and RGB files decode: ``tests/test_torch_jpeg_progressive.py``.)"""
     img = frame(16, 16, seed=1)
-    with pytest.raises(tjpeg.JPEGUnsupported, match="progressive"):
-        tjpeg.decode_jpegs([pil_jpeg(img, progressive=True)], "cpu")
-    with pytest.raises(tjpeg.JPEGUnsupported, match="CMYK"):
-        tjpeg.decode_jpegs([pil_jpeg(img, mode="CMYK")], "cpu")
     base = pil_jpeg(img, quality=90)
-    arithmetic = base.replace(b"\xff\xc0", b"\xff\xc9", 1)
-    with pytest.raises(tjpeg.JPEGUnsupported, match="arithmetic"):
-        tjpeg.decode_jpegs([arithmetic], "cpu")
     sof = base.index(b"\xff\xc0")
+    for marker, name in ((b"\xff\xc3", "lossless"), (b"\xff\xc5", "hierarchical"),
+                         (b"\xff\xc9", "arithmetic"), (b"\xff\xca", "arithmetic")):
+        with pytest.raises(tjpeg.JPEGUnsupported, match=name):
+            tjpeg.decode_jpegs([base.replace(b"\xff\xc0", marker, 1)], "cpu")
     twelve = base[:sof + 4] + bytes([12]) + base[sof + 5:]
     with pytest.raises(tjpeg.JPEGUnsupported, match="12-bit"):
         tjpeg.decode_jpegs([twelve], "cpu")
+    two = base[:sof + 9] + bytes([2]) + base[sof + 10:]  # the component count
+    with pytest.raises(tjpeg.JPEGUnsupported, match="2-component"):
+        tjpeg.decode_jpegs([two], "cpu")
+    wide = base.replace(bytes([2, 0x11, 1]), bytes([2, 0x21, 1]), 1)  # Cb sampled 2 x 1
+    with pytest.raises(tjpeg.JPEGUnsupported, match="sampling"):
+        tjpeg.decode_jpegs([wide], "cpu")
     d = tmp_path / "frames"
     d.mkdir()
-    (d / "0.jpg").write_bytes(pil_jpeg(img, progressive=True))
-    with pytest.raises(tjpeg.JPEGUnsupported, match="progressive"):
+    (d / "0.jpg").write_bytes(base.replace(b"\xff\xc0", b"\xff\xc9", 1))
+    with pytest.raises(tjpeg.JPEGUnsupported, match="arithmetic"):
         tvideo.read_frames_dir(str(d), device="cpu")
 
 
@@ -216,7 +223,7 @@ def test_entropy_decoder_refuses_table_selectors_past_3():
         err = ctypes.create_string_buffer(256)
         rc = lib.fj_decode_scan(data.ctypes.data, data.size, 1, one.ctypes.data,
                                 one.ctypes.data, dc.ctypes.data, ac.ctypes.data, bits.ctypes.data,
-                                vals.ctypes.data, 1, 1, one.ctypes.data, ptrs, 0,
+                                vals.ctypes.data, 1, 1, one.ctypes.data, ptrs, 0, 0, 0, 63, 0, 0,
                                 ctypes.byref(ctypes.c_int64()), err, len(err))
         assert rc != 0 and b"Huffman table" in err.value
 

@@ -10,7 +10,8 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
 - ``build``: the five kernel libraries (K1 and K2 in bf16 / fp16, their fp32 kernels, K1's
   narrow kernel, K3)
   and the frame codecs' host C++ (``csrc/jpeg_entropy.cpp``, ``tiff_lzw.cpp``,
-  ``webp_lossless.cpp``), built in parallel: seconds per library and what ptxas reported;
+  ``webp_lossless.cpp``, ``webp_vp8.cpp``), built in parallel: seconds per library and what
+  ptxas reported;
 - ``kernel``: one line per kernel and shape: the fused qk-norm + RoPE attention kernel (K1,
   at every shape a path below gives it: the 5 s request's, the 30 s long-form window's, the
   14 s continuation window's and the 16 s V2A window's, and ragged lengths), the
@@ -122,12 +123,16 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   committed fixtures of ``tests/data/torch_frame_formats/`` (progressive JPEG in 4:2:0,
   4:4:4 and grey, optimised and with restarts, CMYK; TIFF in LZW with predictor 2, Deflate,
   PackBits, a palette and 16-bit grey; lossless WebP with colour indexing and with the
-  other three transforms) decoded on the card and on the CPU, equal to each other and to
+  other three transforms; lossy WebP at quality 80, at quality 5 and method 6, with alpha,
+  with the simple loop filter and 8 token partitions; two animations, one whose first frame
+  lies inside the canvas) decoded on the card and on the CPU, equal to each other and to
   the SHA-256 of Pillow's RGB bytes recorded beside them; 125 frames of each format on the
-  card (the host's and the card's seconds apart, equal to the CPU's) and 125 copies of one
+  card (the host's and the card's seconds apart, equal to the CPU's); 125 copies of one
   720p frame of the clip as TIFF, uncompressed, PackBits and LZW after predictor 2 (written
-  here; the reader's two parts timed, their frames equal to the one written); one XXL V2A
-  request
+  here; the reader's two parts timed, their frames equal to the one written), and 125
+  copies of the same frame as a lossy WebP (``tests/data/torch_frame_formats_720p/``,
+  Pillow's quality 80; the two parts timed, every frame against Pillow's digest); one XXL
+  V2A request
   through ``cli.main --single_video`` from a directory mixing every fixture (540 K1 and 12
   K2 launches);
 - ``train_grad``: the train step at the XXL width cut to 1 + 1 blocks in fp32, the loss and
@@ -240,7 +245,7 @@ LATENT_STD = (0.1, 100.0)  # plausible std of the final latents (the initial noi
 MOVED_REL = 0.1            # least relative L2 distance of the final latents from the noise
 KERNEL_LIBS = ("fused_qk_attention", "flash_attention", "gemm_sweep", "attention_f32",
                "fused_qk_attention_narrow")
-HOST_LIBS = ("jpeg_entropy", "tiff_lzw", "webp_lossless")  # the frame codecs' host C++
+HOST_LIBS = ("jpeg_entropy", "tiff_lzw", "webp_lossless", "webp_vp8")  # frame codecs' C++
 CLIP_FPS, CLIP_HW = 25, (720, 1280)  # the V2A source clip: 5 s of 25 fps 1280x720 RGB
 CLAP_REL_TOL = 1e-5        # CLAP fp32 on the card against the CPU, relative L2 (fp32 reads
                            # ~7e-7; the phase's control, TF32 let in, ~4e-4 and must break it)
@@ -262,7 +267,12 @@ FP32_MODEL_REL_TOL = 1e-5   # the fp32 XXL velocity and SigLIP2 features, kernel
                             # 1e-5 holds the 3xTF32 kernels to fp32's accuracy
 
 
+T_START = time.perf_counter()  # a phase line's ``t_s``: seconds since the script started
+
+
 def emit(obj) -> None:
+    if "phase" in obj:  # the contract's lines (``kernels``, ``ok``) keep their own keys
+        obj = {**obj, "t_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -706,7 +716,11 @@ def profiled(torch, request) -> dict:
     """Where a request's time goes: ``request`` (which ends in a synchronize) once
     unprofiled, then once under the profiler tracing the card alone (no host-side op
     recording, so the host runs close to its unprofiled pace). Busy time is the summed
-    kernel time of that run, and the idle share is taken against the same run's wall."""
+    kernel time of that run, and the idle share is taken against the same run's wall. The
+    card's events are summed by name from the profiler's raw results: the figures
+    ``key_averages`` gives (a kernel's self time is its duration), without the Python
+    objects it builds for each of a request's hundreds of thousands of events, which took
+    most of the phase's time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -717,8 +731,13 @@ def profiled(torch, request) -> dict:
         t0 = time.perf_counter()
         request()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    by_name = {}  # kernel name -> [ms, launches]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            acc = by_name.setdefault(e.name(), [0.0, 0])
+            acc[0] += e.duration_ns() / 1e6
+            acc[1] += 1
+    busy_s = sum(ms for ms, _ in by_name.values()) / 1e3
     check(busy_s > 0, "the profiler saw no kernel time on the card")
 
     def group(name):
@@ -726,16 +745,16 @@ def profiled(torch, request) -> dict:
         return next((g for g, keys in PROFILE_GROUPS if any(k in low for k in keys)), "other")
 
     groups = {}
-    for e in kernels:
-        g = groups.setdefault(group(e.key), {"ms": 0.0, "launches": 0})
-        g["ms"] += e.self_device_time_total / 1e3
-        g["launches"] += e.count
-    heaviest = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    for name, (ms, count) in by_name.items():
+        g = groups.setdefault(group(name), {"ms": 0.0, "launches": 0})
+        g["ms"] += ms
+        g["launches"] += count
+    heaviest = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     return {"unprofiled_wall_s": plain_wall, "wall_s": wall, "device_busy_s": busy_s,
-            "idle_share": 1.0 - busy_s / wall, "launches": sum(e.count for e in kernels),
-            "groups": groups,
-            "top": [{"name": e.key[:120], "ms": e.self_device_time_total / 1e3,
-                     "count": e.count} for e in heaviest]}
+            "idle_share": 1.0 - busy_s / wall,
+            "launches": sum(count for _, count in by_name.values()), "groups": groups,
+            "top": [{"name": name[:120], "ms": ms, "count": count}
+                    for name, (ms, count) in heaviest]}
 
 
 def profile_phase(torch, bundle) -> None:
@@ -752,10 +771,21 @@ def profile_phase(torch, bundle) -> None:
     emit({"phase": "profile", **profiled(torch, request)})
 
 
+_CLIPS = {}  # make_clip's frames by its arguments: several phases take the same clip
+HOST_THREADS = 8  # threads drawing a clip's frames or writing its PNGs (the card's host has 8)
+
+
 def make_clip(np, seed: int, duration_s=DURATION_S, hw=CLIP_HW):
     """``duration_s`` of 25 fps RGB uint8 frames of ``hw`` (height, width) with smooth
     moving content: per-channel drifting sinusoidal gratings and a bright disc crossing the
-    frame, drawn from ``seed``."""
+    frame, drawn from ``seed``. Drawn once for each argument set; each call gets a copy."""
+    key = (seed, duration_s, tuple(hw))
+    if key not in _CLIPS:
+        _CLIPS[key] = _draw_clip(np, seed, duration_s, hw)
+    return _CLIPS[key].copy()
+
+
+def _draw_clip(np, seed: int, duration_s, hw):
     rng = np.random.default_rng(seed)
     h, w = hw
     n = int(duration_s * CLIP_FPS)
@@ -766,7 +796,8 @@ def make_clip(np, seed: int, duration_s=DURATION_S, hw=CLIP_HW):
     phase = rng.uniform(0, 2 * np.pi, 3).astype(np.float32)
     x0, y0, vx, vy = rng.uniform(0.1, 0.9, 4)
     frames = np.empty((n, h, w, 3), np.uint8)
-    for t in range(n):
+
+    def draw(t):
         s = t / CLIP_FPS
         cx, cy = (x0 + vx * s / duration_s) % 1.0, (y0 + vy * s / duration_s) % 1.0
         disc = np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / 0.01)
@@ -774,6 +805,9 @@ def make_clip(np, seed: int, duration_s=DURATION_S, hw=CLIP_HW):
             grating = np.sin(2 * np.pi * (freq[c, 0] * xx + freq[c, 1] * yy + speed[c] * s)
                              + phase[c])
             frames[t, :, :, c] = np.clip(127.5 + 90.0 * grating + 120.0 * disc, 0, 255)
+
+    with ThreadPoolExecutor(HOST_THREADS) as pool:  # numpy's ufuncs release the GIL
+        list(pool.map(draw, range(n)))
     return frames
 
 
@@ -2325,8 +2359,9 @@ def video_ingest_phase(torch, dev, foley_model, dac, pipeline_cfg, config="xxl")
     os.makedirs(frames_dir)
     clip_u8 = make_clip(np, 1, DURATION_S, CLIP_HW)
     t0 = time.perf_counter()
-    for i, frame in enumerate(clip_u8):
-        _write_png(os.path.join(frames_dir, f"frame_{i + 1}.png"), frame)
+    with ThreadPoolExecutor(HOST_THREADS) as pool:  # numpy and zlib release the GIL
+        list(pool.map(lambda i: _write_png(os.path.join(frames_dir, f"frame_{i + 1}.png"),
+                                           clip_u8[i]), range(len(clip_u8))))
     write_s = time.perf_counter() - t0
     clip = clip_u8.astype(np.float32) / 255.0
     torch.cuda.synchronize()
@@ -2941,15 +2976,17 @@ def image_codecs_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> dic
 
 
 FRAME_FIXTURES = "tests/data/torch_frame_formats"  # small files Pillow wrote, and digests
+FRAME_720P = "tests/data/torch_frame_formats_720p"  # the clip's first frame as a lossy WebP
+# the fixture of each format timed 125 times
 FRAME_TIMED = {"jpeg": "prog_420.jpg", "tiff": "lzw_predictor.tif",
-               "webp": "all_transforms.webp"}  # the fixture of each format timed 125 times
+               "webp": "all_transforms.webp", "webp_lossy": "lossy_q80.webp"}
 
 
 def _frame_parts(fmt: str, paths, dev):
     """The reader of ``fmt`` over ``paths`` in its two parts, each timed: the host's (the
-    files read, parsed and entropy-decoded or decompressed) and the device's (the rest,
-    the copies to and from the device included; none for WebP, read on the host alone) ->
-    (RGB [T, H, W, 3] uint8, host s, device s)."""
+    files read, parsed and entropy-decoded, decompressed, or VP8-decoded into Y, U and V)
+    and the device's (the rest, the copies to and from the device included; none for
+    lossless WebP, read on the host alone) -> (RGB [T, H, W, 3] uint8, host s, device s)."""
     import numpy as np
     import torch
 
@@ -2964,6 +3001,9 @@ def _frame_parts(fmt: str, paths, dev):
         parsed = [jpeg.parse_jpeg(d) for d in datas]
     elif fmt == "tiff":
         parsed = [tiff.parse_tiff(d) for d in datas]
+    elif fmt == "webp_lossy":  # stills: the picture is the canvas
+        infos = [webp.parse_webp(d) for d in datas]
+        parsed = [webp.decode_yuv(info) for info in infos]
     else:
         parsed = [webp.decode_argb(webp.parse_webp(d)) for d in datas]
     if fmt == "webp":  # every stage on the host
@@ -2978,6 +3018,8 @@ def _frame_parts(fmt: str, paths, dev):
         quant = torch.from_numpy(np.stack([p["quant"] for p in parsed])).to(dev)
         rgb = jpeg.reconstruct(coefs, quant, first["width"], first["height"],
                                first["sampling"], first["color"]).cpu().numpy()
+    elif fmt == "webp_lossy":
+        rgb = webp.decode_lossy(parsed, infos[0]["width"], infos[0]["height"], dev)
     else:
         rgb = tiff.decode(parsed, dev).cpu().numpy()
     return rgb, host_s, time.perf_counter() - t0
@@ -3101,7 +3143,9 @@ def frame_formats_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> di
     recorded beside them; 125 frames of each format decoded on the card, the host's and the
     card's seconds apart, equal to the CPU's decode; 125 copies of one 720p frame of the clip
     (``CLIP_HW``, the size the main path ingests) as TIFF in each of ``TIFF_720P``, the
-    reader's two parts timed, equal to the frame written; one ``SURFACE_STEPS`` XXL V2A request
+    reader's two parts timed, equal to the frame written, and as the lossy WebP of
+    ``FRAME_720P``, the two parts timed, each frame equal to Pillow's recorded digest; one
+    ``SURFACE_STEPS`` XXL V2A request
     through ``cli.main --single_video`` from a directory mixing every fixture (540 K1 and
     12 K2 launches). Returns the request's (K1, K2) launches."""
     import hashlib
@@ -3189,6 +3233,27 @@ def frame_formats_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> di
                              "encode_s": encode_s, "host_s": host_s, "device_s": dev_s,
                              "host_ms_per_frame": host_s / n * 1e3}
     out["decode_125_tiff_720p"] = timed_720p
+
+    # 125 copies of the same frame as a lossy WebP (Pillow wrote it at quality 80, this
+    # machine has no PIL): the reader's two parts timed, every frame Pillow's (its digest)
+    with open(os.path.join(FRAME_720P, "digests.json")) as f:
+        (name_720p, digest_720p), = json.load(f)["sha256_of_pil_rgb"].items()
+    d = os.path.join(work, "webp_lossy_720p")
+    os.makedirs(d)
+    paths = [os.path.join(d, f"frame_{i + 1}.webp") for i in range(n)]
+    for path in paths:
+        shutil.copy(os.path.join(FRAME_720P, name_720p), path)
+    torch.cuda.synchronize()
+    rgb, host_s, dev_s = _frame_parts("webp_lossy", paths, dev)
+    check(rgb.shape == (n, *CLIP_HW, 3) and bool((rgb == rgb[0]).all())
+          and hashlib.sha256(rgb[0].tobytes()).hexdigest() == digest_720p,
+          "720p lossy WebP: a frame differs from Pillow's (its recorded digest)")
+    del rgb
+    shutil.rmtree(d)
+    out["decode_125_webp_lossy_720p"] = {
+        "frames": n, "hw": list(CLIP_HW), "file_bytes": os.path.getsize(
+            os.path.join(FRAME_720P, name_720p)), "host_s": host_s, "device_s": dev_s,
+        "host_ms_per_frame": host_s / n * 1e3, "device_ms_per_frame": dev_s / n * 1e3}
 
     # V2A through the command line from a directory mixing every fixture
     mixed = os.path.join(work, "mixed")
@@ -4499,10 +4564,6 @@ def _mesh_server(torch, card: str) -> dict:
     argv = [sys.executable, "-m", "foley_tpu_torch.serving.server", *MESH_SERVER_ARGS]
     device = MESH_SERVER_ARGS[MESH_SERVER_ARGS.index("--device") + 1]
     t0 = time.perf_counter()
-    refused = subprocess.run(argv + ["--blocks_to_swap", "4"], cwd=root, capture_output=True,
-                             text=True, timeout=120)
-    check(refused.returncode == 2 and "drop --mesh" in refused.stderr,
-          f"--mesh with --blocks_to_swap: exit {refused.returncode}, {refused.stderr[-500:]}")
     proc = subprocess.Popen(argv, cwd=root, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
                             text=True)
     lines, bound = [], threading.Event()
@@ -4529,6 +4590,12 @@ def _mesh_server(torch, card: str) -> dict:
         return pcm, time.perf_counter() - t
 
     try:
+        # the refusal runs while the server starts: it exits before it touches the card
+        refused = subprocess.run(argv + ["--blocks_to_swap", "4"], cwd=root,
+                                 capture_output=True, text=True, timeout=120)
+        check(refused.returncode == 2 and "drop --mesh" in refused.stderr,
+              f"--mesh with --blocks_to_swap: exit {refused.returncode}, "
+              f"{refused.stderr[-500:]}")
         ok = bound.wait(MESH_SERVER_TIMEOUT_S)
         check(ok, "the mesh server did not bind: " + "".join(lines)[-3000:])
         start_s = time.perf_counter() - t0

@@ -41,8 +41,8 @@ device; no PIL needed).
 
 Refused, exit code 2 and a message saying why: ``--prefetch_blocks`` without
 ``--blocks_to_swap``. A video file other than an MJPEG AVI needs ffmpeg on ``PATH`` (the JAX
-package's PyAV route is not ported), and a lossy WebP frame raises when read (PNG, JPEG,
-BMP, TIFF and lossless WebP frames are read without PIL; ``pipeline/video.py``).
+package's PyAV route is not ported); PNG, JPEG, BMP, TIFF and WebP frames (lossless, lossy,
+an animation's first frame) are read without PIL (``pipeline/video.py``).
 """
 
 from __future__ import annotations

@@ -6,10 +6,11 @@ Two routes, as in the JAX package:
   (``read_frames_dir``): the frames are selected by name (``target_fps`` through the port's
   ``ops/interp.py::linspace_resample_indices``, then ``max_frames``) before any is decoded,
   and PNG, JPEG (baseline and progressive; grey, YCbCr, RGB, CMYK, YCCK), BMP, TIFF and
-  lossless WebP frames are decoded without PIL (``io/png.py``, ``io/jpeg.py``,
-  ``io/bmp.py``, ``io/tiff.py``, ``io/webp.py``, each equal to PIL's ``convert("RGB")``),
-  on ``device`` (the card unless the caller asks for the CPU); a lossy WebP frame raises,
-  naming VP8, and so does each kind a reader refuses (its module says which);
+  WebP (lossless, lossy with or without alpha, and an animation's first frame) frames are
+  decoded without PIL (``io/png.py``, ``io/jpeg.py``, ``io/bmp.py``, ``io/tiff.py``,
+  ``io/webp.py``, each equal to PIL's ``convert("RGB")``), on ``device`` (the card unless
+  the caller asks for the CPU); each kind a reader refuses raises, naming it (its module
+  says which);
 - a video file (``read_video_frames``): an MJPEG AVI (the JAX package's own container,
   ``io/avi.py``) is decoded in-process, its frames resampled to ``target_fps`` by nearest
   index, as in the JAX package; any other file, or an AVI that is not MJPEG or does not
@@ -93,8 +94,8 @@ def read_frames_dir(path: str, fps: float = 16.0, target_fps: Optional[float] = 
                     device: DeviceLike = None) -> Tuple[np.ndarray, float]:
     """A directory of PNG, JPEG, BMP, TIFF or WebP frames -> ([T, H, W, 3] float32 in
     [0, 1] on the host, effective fps), decoded on ``device`` (``cuda`` unless given). Every
-    frame must share one size; a frame of a kind its reader refuses (a lossy WebP, an
-    arithmetic-coded JPEG, a CCITT TIFF, ...) raises, naming it."""
+    frame must share one size; a frame of a kind its reader refuses (an arithmetic-coded
+    JPEG, a CCITT TIFF, ...) raises, naming it."""
     names, fps = frame_names(path, fps, target_fps, max_frames)
     groups = {}
     for i, n in enumerate(names):

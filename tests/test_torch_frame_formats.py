@@ -2,9 +2,10 @@
 against the JAX package's ``pipeline/video.py`` (PIL), on the CPU: the committed fixtures of
 ``tests/data/torch_frame_formats/`` (``tests/torch_frame_fixtures.py``) against the digests
 recorded beside them, which ``chip_smoke.py``'s ``frame_formats`` phase holds the card to,
-and directories mixing progressive JPEG, TIFF, lossless WebP, PNG and BMP frames of one size
-read through ``read_frames_dir`` and ``read_video_frames``. No tolerance: every comparison is
-exact.
+and directories mixing progressive JPEG, TIFF, lossless, lossy and animated WebP, PNG and BMP
+frames of one size read through ``read_frames_dir`` and ``read_video_frames``; the 720p lossy
+WebP of ``tests/data/torch_frame_formats_720p/`` against its digest. No tolerance: every
+comparison is exact.
 """
 
 import hashlib
@@ -37,9 +38,22 @@ def _data(name: str) -> bytes:
 
 def test_fixtures_are_small_and_listed():
     names = sorted(n for n in os.listdir(fx.DIR) if n != "digests.json")
-    assert names == sorted(DIGESTS) and len(names) == 12
+    assert names == sorted(DIGESTS) and len(names) == 18
     assert sum(os.path.getsize(os.path.join(fx.DIR, n)) for n in names) < 1 << 20
     assert tuple(RECORD["hw"]) == fx.HW
+
+
+def test_720p_lossy_webp_is_pillows_and_the_ports(tmp_path):
+    with open(os.path.join(fx.DIR_720P, "digests.json")) as f:
+        record = json.load(f)
+    (name, digest), = record["sha256_of_pil_rgb"].items()
+    with open(os.path.join(fx.DIR_720P, name), "rb") as f:
+        data = f.read()
+    assert data[12:16] == b"VP8 " and tuple(record["hw"]) == (720, 1280)
+    assert os.path.getsize(os.path.join(fx.DIR_720P, name)) < 1 << 17
+    assert fx.pil_digest(data) == digest
+    rgb = twebp.read_webps([os.path.join(fx.DIR_720P, name)], "cpu")[0]
+    assert hashlib.sha256(rgb.tobytes()).hexdigest() == digest
 
 
 @pytest.mark.parametrize("name", sorted(DIGESTS))
@@ -71,6 +85,13 @@ def test_fixtures_hold_the_kinds_they_are_named_for():
         info = twebp.parse_webp(_data(name))
         twebp.decode_argb(info)
         assert info["transforms"] == want
+    lossy = {n: twebp.parse_webp(_data(n)) for n in DIGESTS if n.startswith(("lossy", "anim"))}
+    assert all(info["kind"] == "lossy" for info in lossy.values())
+    assert lossy["lossy_alpha.webp"]["alpha"] and lossy["animated_offset.webp"]["alpha"]
+    assert lossy["animated.webp"]["frames"] == 3
+    assert lossy["animated_offset.webp"]["offset"] == (48, 32)
+    twebp.decode_yuv(lossy["lossy_simple_8parts.webp"])
+    assert {"filter_simple", "partitions_8"} <= set(lossy["lossy_simple_8parts.webp"]["features"])
 
 
 def _mixed_dir(tmp_path, n=14):

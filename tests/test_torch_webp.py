@@ -7,8 +7,9 @@ Pillow's lossless files at every method (0-6) and several qualities, with and wi
 alpha, of smooth, noisy and few-coloured frames (so every transform, colour indexing with
 its pixel bundling at 2, 4 and 16 colours, the colour cache and backward references occur;
 the test checks that each transform was met), sizes 1 x 1 to 64 x 80, in the simple and
-the extended (``VP8X``, with an ICC profile and EXIF) container. Lossy and animated files
-are refused by name. No tolerance: every comparison is exact.
+the extended (``VP8X``, with an ICC profile and EXIF) container. Lossy and animated files,
+once refused by name, are read too (``tests/test_torch_webp_lossy.py`` holds them in full).
+No tolerance: every comparison is exact.
 """
 
 import io
@@ -56,8 +57,9 @@ def _against_jax(tmp_path, data: bytes, name="f.webp"):
     assert got.shape == ref.shape
     np.testing.assert_array_equal(got, ref)
     info = twebp.parse_webp(data)
-    twebp.decode_argb(info)
-    SEEN.update(info["transforms"])
+    if info["kind"] == "lossless":
+        twebp.decode_argb(info)
+        SEEN.update(info["transforms"])
 
 
 @pytest.mark.parametrize("method", range(7))
@@ -93,21 +95,27 @@ def test_every_transform_was_met():
 
 
 def test_lossy_and_animated_webp_are_refused_by_name(tmp_path):
+    """The files this test once saw refused by name (``WebPUnsupported``: a lossy ``VP8 ``
+    bitstream, with and without ``ALPH``, and an animation) are read now, equal to the JAX
+    package's reading, alone and in one directory."""
     img = frame(16, 16, "smooth", seed=2)
-    with pytest.raises(twebp.WebPUnsupported, match=r"lossy WebP \(VP8\) is not decoded yet"):
-        twebp.parse_webp(webp(img, quality=80))
     rgba = frame(16, 16, "alpha", seed=3)
-    with pytest.raises(twebp.WebPUnsupported, match="lossy WebP"):
-        twebp.parse_webp(webp(rgba, quality=80))  # VP8X, ALPH, VP8
+    lossy, with_alpha = webp(img, quality=80), webp(rgba, quality=80)  # VP8; VP8X, ALPH, VP8
     anim = webp(img, lossless=True, save_all=True,
                 append_images=[frame(16, 16, "noisy", seed=4)], duration=40)
-    with pytest.raises(twebp.WebPUnsupported, match="animated"):
-        twebp.parse_webp(anim)
+    for name, data in (("lossy", lossy), ("alpha", with_alpha), ("anim", anim)):
+        (tmp_path / name).mkdir()
+        _against_jax(tmp_path / name, data)
+    assert twebp.parse_webp(lossy)["kind"] == "lossy"
+    assert twebp.parse_webp(with_alpha)["alpha"]
+    assert twebp.parse_webp(anim)["frames"] == 2
     d = tmp_path / "frames"
     d.mkdir()
-    (d / "0.webp").write_bytes(webp(img, quality=80))
-    with pytest.raises(twebp.WebPUnsupported, match="VP8"):
-        tvideo.read_frames_dir(str(d), device="cpu")
+    for i, data in enumerate((lossy, with_alpha, anim)):
+        (d / f"{i}.webp").write_bytes(data)
+    ref, _ = jvideo.read_frames_dir(str(d))
+    got, _ = tvideo.read_frames_dir(str(d), device="cpu")
+    np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.parametrize("cut", [20, 60, 400])

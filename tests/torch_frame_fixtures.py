@@ -1,8 +1,10 @@
 """The frame-format fixtures of ``tests/data/torch_frame_formats/``: small files written by
 Pillow 12.1 (libjpeg-turbo 3.1, libtiff 4.7, libwebp 1.6) in the formats the port reads
 without PIL, all of one size, with the SHA-256 of Pillow's ``convert("RGB")`` bytes of each
-in ``digests.json``. ``chip_smoke.py``'s ``frame_formats`` phase decodes them on the card
-(which has no PIL to make them) and holds each against its digest;
+in ``digests.json``; and in ``tests/data/torch_frame_formats_720p/`` one lossy WebP of the
+720p frame the main path ingests (``chip_smoke.make_clip``'s first frame, Pillow's default
+quality 80) with its digest. ``chip_smoke.py``'s ``frame_formats`` phase decodes them on the
+card (which has no PIL to make them) and holds each against its digest;
 ``tests/test_torch_frame_formats.py`` holds the digests against Pillow and the port.
 
 Rewrite them with ``python tests/torch_frame_fixtures.py`` (the files change only when
@@ -13,11 +15,16 @@ import hashlib
 import io
 import json
 import os
+import sys
 
 import numpy as np
 from PIL import Image
 
-DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "torch_frame_formats")
+import torch_webp_encoder
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+DIR = os.path.join(TESTS, "data", "torch_frame_formats")
+DIR_720P = os.path.join(TESTS, "data", "torch_frame_formats_720p")
 HW = (144, 256)
 
 
@@ -33,6 +40,33 @@ def _save(img: Image.Image, fmt: str, **kw) -> bytes:
     buf = io.BytesIO()
     img.save(buf, format=fmt, **kw)
     return buf.getvalue()
+
+
+def _rgba() -> np.ndarray:
+    """The base frame with an alpha plane that is 0 over a band and a disc (the colour under
+    it kept: ``exact``), graded elsewhere."""
+    y, x = np.mgrid[0:HW[0], 0:HW[1]]
+    alpha = np.clip(x * 255 // HW[1], 1, 255).astype(np.uint8)
+    alpha[(y // 12) % 4 == 1] = 0
+    alpha[(x - 180) ** 2 + (y - 70) ** 2 < 40 ** 2] = 0
+    return np.dstack([base_frame(), alpha])
+
+
+def _animated() -> bytes:
+    """Three frames through Pillow's ``save_all`` (libwebp's animation encoder, lossy)."""
+    frames = [Image.fromarray(np.roll(base_frame(), 24 * i, axis=1)) for i in range(3)]
+    return _save(frames[0], "WEBP", save_all=True, append_images=frames[1:], duration=40,
+                 quality=80)
+
+
+def _animated_offset() -> bytes:
+    """An animation whose first frame (lossy with alpha, 96 x 160) lies at (48, 32) on the
+    canvas, the rest of which reads as 0; a lossless second frame covers the canvas."""
+    first = torch_webp_encoder.encode(_rgba()[16:112, 40:200], 80, exact=1)
+    second = _save(Image.fromarray(base_frame()), "WEBP", lossless=True)
+    return torch_webp_encoder.animation((HW[1], HW[0]), [(48, 32, 160, 96, first),
+                                                         (0, 0, HW[1], HW[0], second)],
+                                        alpha=True)
 
 
 def fixtures() -> dict:
@@ -56,7 +90,29 @@ def fixtures() -> dict:
         "color_indexing.webp": _save(rgb.quantize(16).convert("RGB"), "WEBP", lossless=True,
                                      method=4),
         "all_transforms.webp": _save(rgb, "WEBP", lossless=True, method=1, quality=0),
+        "lossy_q80.webp": _save(rgb, "WEBP", quality=80),
+        "lossy_q5_m6.webp": _save(rgb, "WEBP", quality=5, method=6),
+        "lossy_alpha.webp": _save(Image.fromarray(_rgba(), "RGBA"), "WEBP", quality=80,
+                                  exact=True),
+        "lossy_simple_8parts.webp": torch_webp_encoder.encode(base_frame(), 80, filter_type=0,
+                                                              partitions=3, method=0),
+        "animated.webp": _animated(),
+        "animated_offset.webp": _animated_offset(),
     }
+
+
+def clip_frame_720p() -> np.ndarray:
+    """``chip_smoke.make_clip``'s first frame at ``CLIP_HW`` (720 x 1280), as its
+    ``frame_formats`` phase draws it."""
+    sys.path.insert(0, os.path.dirname(TESTS))
+    import chip_smoke
+
+    return chip_smoke.make_clip(np, 1, 1.0 / chip_smoke.CLIP_FPS, chip_smoke.CLIP_HW)[0]
+
+
+def fixtures_720p() -> dict:
+    """name -> file bytes: the 720p frame as a lossy WebP at Pillow's default quality."""
+    return {"clip_q80.webp": _save(Image.fromarray(clip_frame_720p()), "WEBP", quality=80)}
 
 
 def pil_digest(data: bytes) -> str:
@@ -65,15 +121,18 @@ def pil_digest(data: bytes) -> str:
 
 
 def write() -> None:
-    os.makedirs(DIR, exist_ok=True)
-    digests = {}
-    for name, data in fixtures().items():
-        with open(os.path.join(DIR, name), "wb") as f:
-            f.write(data)
-        digests[name] = pil_digest(data)
-    with open(os.path.join(DIR, "digests.json"), "w") as f:
-        json.dump({"hw": list(HW), "sha256_of_pil_rgb": digests}, f, indent=1, sort_keys=True)
-        f.write("\n")
+    for directory, files, hw in ((DIR, fixtures(), HW),
+                                 (DIR_720P, fixtures_720p(), clip_frame_720p().shape[:2])):
+        os.makedirs(directory, exist_ok=True)
+        digests = {}
+        for name, data in files.items():
+            with open(os.path.join(directory, name), "wb") as f:
+                f.write(data)
+            digests[name] = pil_digest(data)
+        with open(os.path.join(directory, "digests.json"), "w") as f:
+            json.dump({"hw": list(hw), "sha256_of_pil_rgb": digests}, f, indent=1,
+                      sort_keys=True)
+            f.write("\n")
 
 
 if __name__ == "__main__":

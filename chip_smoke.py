@@ -7,8 +7,8 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
 
 - ``device``: the card (``nvidia-smi`` name and power limit, also printed raw on a line of
   its own), torch and CUDA versions;
-- ``build``: the five kernel libraries (K1 and K2 in bf16 / fp16, their fp32 kernels, K1's
-  narrow kernel, K3)
+- ``build``: the five kernel libraries (K1 and K2 in bf16 / fp16, their fp32 kernels, K1 at
+  the other head widths, K3)
   and the frame codecs' host C++ (``csrc/jpeg_entropy.cpp``, ``tiff_lzw.cpp``,
   ``webp_lossless.cpp``, ``webp_vp8.cpp``), built in parallel: seconds per library and what
   ptxas reported;
@@ -24,8 +24,10 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   and fp32 (the 3xTF32 kernels, within 1e-5 relative L2 of the plain version in true fp32,
   with the control, the plain version under TF32, outside that bound), each with its times
   and bound (fp32 with two: three TF32 tensor-core products a product, and the CUDA cores'
-  fp32 rate); then K1's narrow kernel (heads of 32 and 64) in bf16, fp16 and fp32 at TINY's
-  shapes and ragged lengths, held and timed the same way;
+  fp32 rate); then K1 at head widths other than 128 (``fused_qk_attention_mma.cu``) in
+  bf16, fp16 and fp32, timed at TINY's calls (heads of 32) and at a 1536-wide denoiser's 5 s
+  and 30 s calls with 24 heads of 64 and 16 of 96, and held at widths 18 to 256 at ragged
+  lengths;
 - ``probe_gemm``: K3's path, the GEMM sweep probe (``foley_tpu_torch.tools.probe_gemm``) at
   its full shape, 36 blocks of x [784, 1536] @ W_b[:, :1536] of [1536, 4608]: its record
   (each variant's time a sweep, eager and replayed from a CUDA graph, and rates, the
@@ -35,8 +37,8 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
 - ``main_path``: XXL text-to-audio, 5 s, 50 Euler steps, CFG 4.5, batch 1, bf16 denoiser,
   fp32 DAC, int16 PCM: a warm-up, three ``generate_audio`` requests and one
   ``generate_audio_multi`` request with two rows, with the kernel's launch count per request;
-- ``profile``: one more request timed unprofiled, then one under ``torch.profiler``
-  tracing the card alone: its wall, the card's busy time and idle share within that run,
+- ``profile``: one more request, at ``SURFACE_STEPS`` (10) steps, timed unprofiled, then one
+  under ``torch.profiler`` tracing the card alone: its wall, the card's busy time and idle share within that run,
   and kernel time by group (the port's kernels, GEMMs, cuDNN convolutions, the rest) and
   for the heaviest kernels;
 - ``v2a_path``: XXL video-to-audio, 5 s of a 25 fps 1280x720 clip made from a seed, with
@@ -95,6 +97,9 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
 - ``configs``: the joint attention off K1's precondition at XXL bf16 (the exact interleave /
   decouple path; a ``use_attention_mask`` config with an all-true mask), through the plain
   attention, against the K1 forward on the same weights (relative L2);
+- ``heads_path``: XXL's YAML with 24 heads of 64, read by ``configs.config_from_yaml``, on
+  the same weights but the qk-norm vectors: one 5 s T2A request, 540 bf16 launches of
+  ``fused_qk_attention_mma.cu``;
 - ``video_ingest``: 125 PNG frames of the 1280x720 clip written with the standard library
   (every scanline filter) and read back equal (the decode's seconds and peak device
   memory); V2A from the directory
@@ -103,13 +108,14 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   ``standalone.feature_process`` (the features equal to the clip's), 540 K1 and 12 K2
   launches a request; a ``.mp4`` raises, naming ffmpeg and PyAV;
 - ``lora``: a rank-16 XXL adapter written by the port's writer, merged through the loader's
-  code in-process (scale 0: the base latents; the card's merge of a triple and a single
-  block equal to the CPU's bit for bit), through ``cli.main --lora`` and the server's
+  code in-process (scale 0: the base latents; the card's merge of the first single block
+  equal to the CPU's bit for bit), through ``cli.main --lora`` and the server's
   ``--lora`` (their weights equal to the in-process merge's), and an int8 request of the
   merged model: 540 K1 launches a request, the merge's seconds and the adapter's bytes;
 - ``desync``: the real-width desync scorer (random reference-layout checkpoint) through
   ``cli.main --desync_score`` on the ``video_ingest`` frames and the ``lora`` request's WAV:
-  the offset on the class grid, finite logits, the whole clip's logits against the CPU;
+  the offset on the class grid, finite logits, the logits of the clip's first 2 s against
+  the CPU;
 - ``image_codecs``: the codecs without PIL on the ``video_ingest`` clip: its 125 frames
   encoded to JPEG at quality 95 on the card (the first three equal to the CPU's bytes; ms a
   frame, the card's transform and the host's Huffman pass apart), read back as a frames
@@ -185,7 +191,7 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   HTTP, exiting 0 on SIGTERM, and refusing ``--blocks_to_swap`` with ``--mesh``;
 - ``train_longrun``, last and alone: the tool ``foley_tpu_torch.tools.train_longrun`` (TINY,
   batch 4, ``LONGRUN_STEPS`` steps): it returns 0, everything finite, the export deployed on
-  the card with 48 launches of K1's narrow fp32 kernel; its wall, ``loss_drop_ratio`` and
+  the card with 48 fp32 launches of ``fused_qk_attention_mma.cu``; its wall, ``loss_drop_ratio`` and
   ``ok`` as measured;
 - ``{"kernels": [...]}``: every ported kernel with its launches on its path (K1 in
   ``main_path`` and, as ``launches_longform``, in the 75 s request and, as
@@ -201,8 +207,8 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   K3 in one sweep of ``probe_gemm``;
   K3's times are the probe's graph-replayed device times), then the fp16 and fp32
   kernels of K1 (launches in the ``cli`` request of their type) and K2 (launches in the
-  ``precision`` encode of their type), and K1's narrow kernel (launches in
-  ``train_longrun``'s deployed request);
+  ``precision`` encode of their type), and K1 at other head widths (launches in
+  ``heads_path``'s request, and in ``train_longrun``'s deployed request beside them);
 - last, ``{"ok": true, "device": {...}}`` (the card's name and power limit are printed
   again just before the ``kernels`` line).
 
@@ -243,8 +249,10 @@ CHAIN_DRIFT = 2.0          # K3's chain may drift from the plain one at most thi
 FORWARD_REL_TOL = 5e-2     # relative L2 error of the XXL velocity, bf16 through 54 blocks
 LATENT_STD = (0.1, 100.0)  # plausible std of the final latents (the initial noise has 1)
 MOVED_REL = 0.1            # least relative L2 distance of the final latents from the noise
-KERNEL_LIBS = ("fused_qk_attention", "flash_attention", "gemm_sweep", "attention_f32",
-               "fused_qk_attention_narrow")
+KERNEL_LIBS = (("fused_qk_attention", ""), ("flash_attention", ""), ("gemm_sweep", ""),
+               ("attention_f32", ""), ("fused_qk_attention_mma", "K1_MMA_BF16"),
+               ("fused_qk_attention_mma", "K1_MMA_F16"),
+               ("fused_qk_attention_mma", "K1_MMA_F32"))  # (source, macro): build.library's
 HOST_LIBS = ("jpeg_entropy", "tiff_lzw", "webp_lossless", "webp_vp8")  # frame codecs' C++
 CLIP_FPS, CLIP_HW = 25, (720, 1280)  # the V2A source clip: 5 s of 25 fps 1280x720 RGB
 CLAP_REL_TOL = 1e-5        # CLAP fp32 on the card against the CPU, relative L2 (fp32 reads
@@ -533,11 +541,15 @@ def gemm_kernel_phase(torch, dev):
 
 def repeat_sweeps(torch, dev) -> dict:
     """Ten eager sweeps back to back and twenty replays of a captured one, at the probe's
-    shape, each compared with the first eager sweep bit for bit."""
+    shape, each compared with the first eager sweep bit for bit. The inputs are drawn on the
+    card, scaled as ``probe_gemm.make_inputs`` scales them (its numpy draws took 6 s)."""
     from foley_tpu_torch.ops.kernels import gemm_sweep as GS
     from foley_tpu_torch.tools import probe_gemm as PG
 
-    x, w = PG.make_inputs(dev, seed=1)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(PG.M, PG.K, device=dev, generator=gen).to(torch.bfloat16)
+    w = (torch.randn(PG.BLOCKS, PG.K, PG.N, device=dev, generator=gen)
+         / PG.K ** 0.5).to(torch.bfloat16)
     first = GS.gemm_sweep(x, w)
     eager = [torch.equal(GS.gemm_sweep(x, w), first) for _ in range(10)]
     check(all(eager), f"K3: repeated sweeps differ from the first ({eager})")
@@ -758,17 +770,19 @@ def profiled(torch, request) -> dict:
 
 
 def profile_phase(torch, bundle) -> None:
-    """One main-path request, profiled (``profiled``)."""
+    """One main-path request at ``SURFACE_STEPS`` Euler steps, profiled (``profiled``): at
+    the main path's 50 the profiler's processing of the request's 254,000 kernel events took
+    about 23 s of the phase's 33-38 (a cut: PERF.md §4)."""
     from foley_tpu_torch.pipeline.generate import generate_audio
 
     text = torch.zeros(1, 77, bundle.pipeline_cfg.model.condition_dim)
 
     def request():
         generate_audio(bundle, text, text, DURATION_S, guidance_scale=GUIDANCE,
-                       num_inference_steps=STEPS, sampler="euler", seed=1)
+                       num_inference_steps=SURFACE_STEPS, sampler="euler", seed=1)
         torch.cuda.synchronize()
 
-    emit({"phase": "profile", **profiled(torch, request)})
+    emit({"phase": "profile", "steps": SURFACE_STEPS, **profiled(torch, request)})
 
 
 _CLIPS = {}  # make_clip's frames by its arguments: several phases take the same clip
@@ -1699,43 +1713,52 @@ def precision_kernel_phase(torch, dev, cfg):
     return results
 
 
-NARROW_K1_SHAPES = {  # TINY's calls in a 1 s request (train_longrun's deploy), and ragged
-    "joint_1s": (50, 8), "single_1s": (50,), "ragged_1": (1,), "ragged_33": (33,),
-    "ragged_129": (129,)}
-NARROW_K1_SHAPES_D64 = {"single_1s": (50,), "ragged_129": (129,)}  # 2 heads of 64
+ANY_K1_TINY = {"joint_1s": (50, 8), "single_1s": (50,)}  # TINY's calls in a 1 s request
+ANY_K1_WIDE = {"joint_5s": (250, 40), "single_5s": (250,), "joint_30s": (1500, 240),
+               "single_30s": (1500,)}  # a 1536-wide denoiser's calls at 5 s and in a 30 s window
+ANY_K1_HEADS = (24, 16)  # 1536 wide: 24 heads of 64, 16 of 96
+ANY_K1_WIDTHS = (18, 32, 48, 64, 80, 96, 160, 256)  # held at ragged lengths, 2 heads
+ANY_K1_RAGGED = {"ragged_1": (1,), "ragged_33": (33,), "ragged_65": (65,), "ragged_129": (129,)}
 
 
-def narrow_kernel_phase(torch, dev, cfg):
-    """K1's narrow kernel (``csrc/fused_qk_attention_narrow.cu``, head_dim 32 and 64) against
-    its plain version in bf16, fp16 and fp32 (fp32 inside ``true_fp32``): at TINY's shapes
-    (``cfg``, heads of 32), a 1 s request's joint (audio 50 + visual 8) and single (50) calls
-    with the CFG pair as the batch, as ``train_longrun``'s deployed request gives them, and
-    ragged lengths on both sides of its 32-key tiles and 128-row blocks; at head_dim 64 (2
-    heads) twice. Each case with its device time, the plain version's, the library call's
-    (plain norm and RoPE then SDPA, in the same type) and its bound (fp32: at three TF32
-    products a product, and at the CUDA cores' rate beside it). Returns {dtype name: {case:
-    result}}."""
+def any_width_kernel_phase(torch, dev, tiny_cfg, wide_cfg):
+    """K1 at head widths other than 128 (``csrc/fused_qk_attention_mma.cu``) against its
+    plain version in bf16, fp16 and fp32 (fp32 inside ``true_fp32``): timed at TINY's calls
+    (``tiny_cfg``, 2 heads of 32: a 1 s request's joint, audio 50 + visual 8, and single
+    calls, with the CFG pair as the batch, as ``train_longrun``'s deployed request gives them)
+    and at ``wide_cfg``'s width (1536) with 24 heads of 64 and 16 heads of 96, at the 5 s
+    request's and the 30 s window's joint and single calls; held at every width of
+    ``ANY_K1_WIDTHS`` at ragged lengths on both sides of its 64-key tiles and 128-row blocks.
+    Each timed case with its device time, the plain version's, the library call's (plain norm
+    and RoPE then SDPA, in the same type) and its bound (fp32: at three TF32 products a
+    product, and at the CUDA cores' rate beside it). Returns {dtype name: {case: result}}."""
     import dataclasses
 
     from foley_tpu_torch.ops.kernels import fused_attention as FA
     from foley_tpu_torch.ops.nn import exact_fp32
 
+    cases = [(tiny_cfg, ANY_K1_TINY, "", True)]
+    cases += [(dataclasses.replace(wide_cfg, num_heads=h), ANY_K1_WIDE,
+               f"_h{h}", True) for h in ANY_K1_HEADS]
+    cases += [(dataclasses.replace(tiny_cfg, hidden_size=2 * d, num_heads=2), ANY_K1_RAGGED,
+               f"_d{d}", False) for d in ANY_K1_WIDTHS]
     results = {}
     b = 2
-    cfg64 = dataclasses.replace(cfg, hidden_size=2 * 64, num_heads=2)
     for dtype, tname in ((torch.bfloat16, "bf16"), (torch.float16, "fp16"),
                          (torch.float32, "fp32")):
         gen = torch.Generator(device=dev).manual_seed(13)
         out = results[tname] = {}
-        for c, shapes, suffix in ((cfg, NARROW_K1_SHAPES, ""),
-                                  (cfg64, NARROW_K1_SHAPES_D64, "_d64")):
+        for c, shapes, suffix, timed_case in cases:
             h, d = c.num_heads, c.head_dim
+            check(d != FA.HEAD_DIM, f"K1 any width: head_dim {d} is the wgmma kernels'")
             for name, (length, streams, tabs) in k1_cases(torch, dev, c, gen, shapes).items():
                 wq, wk, cq, sq, ck, sk = tabs
                 q, k, v = (torch.randn(b, length, h, d, device=dev, generator=gen).to(dtype)
                            for _ in range(3))
                 full = lambda w, length=length, d=d: w.expand(length, d)  # noqa: E731
                 args = (q, k, v, wq, wk, cq, sq, ck, sk)
+                check(FA.kernel_route(q, k, v)[0], f"K1 any width: {tuple(q.shape)} does not "
+                      f"take fused_qk_attention_mma.cu")
 
                 def plain():
                     with exact_fp32(dtype):
@@ -1754,22 +1777,89 @@ def narrow_kernel_phase(torch, dev, cfg):
                 ref = plain()
                 torch.cuda.synchronize()
                 case = name + suffix
-                res = {"phase": "kernel", "kernel": "fused_qk_attention_narrow", "dtype": tname,
+                res = {"phase": "kernel", "kernel": "fused_qk_attention_mma", "dtype": tname,
                        "case": case, "b": b, "l": length, "h": h, "d": d,
-                       **_check_variant(torch, f"K1 narrow {tname} {case}", got, ref, dtype)}
-                tables = {t.data_ptr(): t.numel() * 4 for t in (cq, sq, ck, sk)}
-                n_bytes = (4 * q.numel() * q.element_size() + sum(tables.values())
-                           + 2 * streams * d * 4)
-                res["kernel_ms"], res["host_ms"] = timed_ms(
-                    torch, lambda: FA.fused_qk_attention(*args), 200)
-                res["plain_ms"] = gpu_ms(torch, plain, 20)
-                res["library_ms"] = gpu_ms(torch, library_call, 20)
-                flops = 4 * b * h * length * length * d
-                res.update(fp32_bound(n_bytes, flops) if dtype == torch.float32
-                           else kernel_bound(n_bytes, flops))
-                emit(with_shares(res))
+                       **_check_variant(torch, f"K1 any width {tname} {case}", got, ref,
+                                        dtype)}
+                if timed_case:
+                    tables = {t.data_ptr(): t.numel() * 4 for t in (cq, sq, ck, sk)}
+                    n_bytes = (4 * q.numel() * q.element_size() + sum(tables.values())
+                               + 2 * streams * d * 4)
+                    long = length > 1000
+                    res["kernel_ms"], res["host_ms"] = timed_ms(
+                        torch, lambda: FA.fused_qk_attention(*args), 50 if long else 200)
+                    res["plain_ms"] = gpu_ms(torch, plain, 5 if long else 20)
+                    res["library_ms"] = gpu_ms(torch, library_call, 10 if long else 20)
+                    flops = 4 * b * h * length * length * d
+                    res.update(fp32_bound(n_bytes, flops) if dtype == torch.float32
+                               else kernel_bound(n_bytes, flops))
+                    with_shares(res)
+                emit(res)
                 out[case] = res
     return results
+
+
+HEADS_PATH = (24, 64)  # heads_path's denoiser: XXL's width and depth, 24 heads of 64
+
+
+def heads_path_phase(torch, dev, model, dac, card: str) -> int:
+    """A denoiser whose heads are not 128 wide, through the normal entry points: XXL's YAML
+    (``configs/yaml/hunyuanvideo-foley-xxl.yaml``) with ``num_heads`` 24, written under
+    ``build/chip_smoke/`` and read by ``configs.config_from_yaml`` (hidden 1536, 18 + 36
+    blocks, heads of 64), and one 5 s T2A request of ``STEPS`` Euler steps through
+    ``generate_audio``: every joint and single attention is a launch of
+    ``fused_qk_attention_mma.cu``, 540 in bf16. Its weights' shapes are XXL's but for the
+    qk-norm vectors ([64], not [128]), so the model shares ``model``'s bf16 tensors (the CLI's
+    random XXL; sharing saves a second 9.6 GiB denoiser and its init) and draws only those
+    vectors, seeded, in [0.5, 1.5]. Returns the request's K1 launches."""
+    import os
+
+    from foley_tpu_torch.configs import config_from_yaml
+    from foley_tpu_torch.configs.model_configs import YAML_DIR
+    from foley_tpu_torch.models.mmdit import MMDiT
+    from foley_tpu_torch.ops.kernels import fused_attention as FA
+    from foley_tpu_torch.pipeline.generate import ModelBundle
+
+    t_phase = time.perf_counter()
+    heads, head_dim = HEADS_PATH
+    text = (YAML_DIR / "hunyuanvideo-foley-xxl.yaml").read_text()
+    check(text.count("num_heads: 12\n") == 1, "heads_path: the XXL YAML's num_heads")
+    os.makedirs("build/chip_smoke", exist_ok=True)
+    path = f"build/chip_smoke/hunyuanvideo-foley-xxl-{heads}-heads.yaml"
+    with open(path, "w") as f:
+        f.write(text.replace("num_heads: 12\n", f"num_heads: {heads}\n"))
+    pipeline_cfg = config_from_yaml(path)
+    cfg = pipeline_cfg.model
+    check((cfg.hidden_size, cfg.head_dim, cfg.depth_triple_blocks, cfg.depth_single_blocks)
+          == (model.cfg.hidden_size, head_dim, model.cfg.depth_triple_blocks,
+              model.cfg.depth_single_blocks), f"heads_path: config {cfg}")
+    denoiser = MMDiT(cfg, dtype=torch.bfloat16, device="meta")
+    shared = model.state_dict()
+    gen = torch.Generator(device=dev).manual_seed(24)
+    state, drawn = {}, []
+    for name, t in denoiser.state_dict().items():
+        if t.shape == shared[name].shape:
+            state[name] = shared[name]
+        else:
+            drawn.append(name)
+            state[name] = torch.empty(t.shape, device=dev).uniform_(
+                0.5, 1.5, generator=gen).to(shared[name].dtype)
+    norms = sum(type(m).__name__ == "RMSNorm" for m in denoiser.modules())
+    check(all(n.endswith("norm.weight") and state[n].shape == (head_dim,) for n in drawn)
+          and len(drawn) == norms, f"heads_path: {len(drawn)} tensors differ from XXL's, "
+          f"{norms} qk-norm weights")
+    denoiser.load_state_dict(state, assign=True)
+    bundle = ModelBundle(denoiser, dac, pipeline_cfg, compute_dtype=torch.bfloat16)
+    q = torch.empty(1, 1, heads, head_dim, dtype=torch.bfloat16, device=dev)
+    check(FA.kernel_route(q, q, q)[0], "heads_path: heads of 64 do not take the mma kernel")
+    k1, _ = _counts(torch)
+    res, _ = _request(torch, dev, bundle, pipeline_cfg, seed=24)
+    check(k1.launches_by_dtype == {torch.bfloat16: res["k1_launches"]},
+          f"heads_path: K1 launches by dtype {k1.launches_by_dtype}")
+    emit({"phase": "heads_path", "yaml": path, "heads": heads, "head_dim": head_dim,
+          "tensors_drawn": len(drawn), "steps": STEPS, **res, "card": card,
+          "seconds": time.perf_counter() - t_phase})
+    return res["k1_launches"]
 
 
 def precision_phase(torch, dev, pipeline_cfg, config="xxl"):
@@ -2183,6 +2273,7 @@ AV_RMS_RATIO = 0.1         # a coalesced client's WAV: RMS distance to its own s
                            # this share of that to the other client's solo run
 DESYNC_REL_TOL = 1e-4      # the scorer's logits on the card against the CPU, relative L2, both
                            # in true fp32 (sums in another order read ~1e-6)
+DESYNC_CPU_S = 2.0         # the clip's first seconds the CPU scorer is held on (a cut)
 
 
 def _counts(torch):
@@ -2335,8 +2426,8 @@ def video_ingest_phase(torch, dev, foley_model, dac, pipeline_cfg, config="xxl")
     (``--random_init xxl --enable_v2a``; its visual features equal to the same encoders' on
     the clip) and ``standalone.feature_process(DIR)`` (the features equal, then one
     ``denoise_process``): 2,700 K1 and 12 K2 launches a request. A ``.mp4`` raises, naming
-    ffmpeg and PyAV (the card's machine has neither). Returns {surface: (K1, K2)} and the
-    frames directory."""
+    ffmpeg and PyAV (the card's machine has neither). Returns {surface: (K1, K2)}, the
+    frames directory and its frames as read back."""
     import os
     import shutil
 
@@ -2465,7 +2556,7 @@ def video_ingest_phase(torch, dev, foley_model, dac, pipeline_cfg, config="xxl")
           "server_request_s": server_s,
           "feature_process_request_s": fp_s, "launches_k1_k2": launches,
           "mp4_error": mp4_error, "phase_seconds": time.perf_counter() - t_phase})
-    return launches, frames_dir
+    return launches, frames_dir, frames
 
 
 def _lora_adapter(torch, model, rank: int, seed: int) -> dict:
@@ -2531,8 +2622,9 @@ def lora_phase(torch, dev, foley_model, dac, pipeline_cfg, config="xxl"):
     k1_by_request = {}
     base, res_base = _request(torch, dev, bundle, pipeline_cfg)
     k1_by_request["base"] = base["k1_launches"]
+    # the card's merge held against the CPU's on the first single block (a cut: the first
+    # triple block's CPU merge took about 11 s more; PERF.md §4)
     cpu_blocks = torch.nn.Module()
-    cpu_blocks.triple_blocks = torch.nn.ModuleList([copy.deepcopy(model.triple_blocks[0]).cpu()])
     cpu_blocks.single_blocks = torch.nn.ModuleList([copy.deepcopy(model.single_blocks[0]).cpu()])
     cpu_blocks.block_swap = None
     lora.merge_lora(model, adapter, 0.0)
@@ -2545,11 +2637,11 @@ def lora_phase(torch, dev, foley_model, dac, pipeline_cfg, config="xxl"):
     n_merged = lora.merge_lora(model, adapter, meta_scale)
     torch.cuda.synchronize()
     merge_s = time.perf_counter() - t0
-    lora.merge_lora(cpu_blocks, {k: v[:1] for k, v in adapter.items()}, meta_scale)
-    for fam in lora.FAMILIES:
-        card = getattr(model, fam)[0].state_dict()
-        for k, v in getattr(cpu_blocks, fam)[0].state_dict().items():
-            check(torch.equal(card[k].cpu(), v), f"{fam}[0].{k}: card merge != CPU merge")
+    lora.merge_lora(cpu_blocks, {k: v[:1] for k, v in adapter.items()
+                                 if k.startswith("single_blocks.")}, meta_scale)
+    card = model.single_blocks[0].state_dict()
+    for k, v in cpu_blocks.single_blocks[0].state_dict().items():
+        check(torch.equal(card[k].cpu(), v), f"single_blocks[0].{k}: card merge != CPU merge")
     merged, res_merged = _request(torch, dev, bundle, pipeline_cfg)
     k1_by_request["merged"] = merged["k1_launches"]
     check(_rel_l2(torch.as_tensor(res_merged.latents), torch.as_tensor(res_base.latents))
@@ -2627,13 +2719,14 @@ def lora_phase(torch, dev, foley_model, dac, pipeline_cfg, config="xxl"):
     return k1_by_request, wav_path
 
 
-def desync_phase(torch, dev, frames_dir: str, wav_path: str):
+def desync_phase(torch, dev, frames_dir: str, frames, wav_path: str):
     """The AV desync scorer at its real widths (Synchformer ``divided_224_16x4``, AST base,
     the 3-layer head), random weights written as a reference-layout checkpoint
     (``sync_scorer.random_checkpoint``): ``cli.main --desync_score --single_video DIR
     --audio_input WAV`` on the ``video_ingest`` frames and the ``lora`` request's WAV (the
-    offset on the 21-class grid, the seconds); the logits on the card finite, and within
-    ``DESYNC_REL_TOL`` of the same scorer on the CPU on the whole clip (every segment)."""
+    offset on the 21-class grid, the seconds); the logits on the card of ``frames`` (the
+    directory as ``video_ingest`` read it back) finite, and on the
+    clip's first ``DESYNC_CPU_S`` within ``DESYNC_REL_TOL`` of the same scorer on the CPU."""
     import contextlib
     import io
     import os
@@ -2644,7 +2737,6 @@ def desync_phase(torch, dev, frames_dir: str, wav_path: str):
     from foley_tpu_torch.io.audio import read_wav
     from foley_tpu_torch.io.convert import save_safetensors
     from foley_tpu_torch.models import sync_scorer
-    from foley_tpu_torch.pipeline import video
 
     t_phase = time.perf_counter()
     ckpt_dir = "build/chip_smoke/desync"
@@ -2667,8 +2759,6 @@ def desync_phase(torch, dev, frames_dir: str, wav_path: str):
     check(bool(np.isclose(sync_scorer.make_class_grid(), offset, atol=5e-3).any()),
           f"offset {offset} is not on the class grid")
     scorer = sync_scorer.load_desync_scorer(ckpt, dev)
-    frames, _ = video.read_video_frames(frames_dir, target_fps=25, dir_fps=float(CLIP_FPS),
-                                        device=dev)
     wav, _ = read_wav(wav_path, target_sr=16000)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2679,16 +2769,22 @@ def desync_phase(torch, dev, frames_dir: str, wav_path: str):
           f"logits {tuple(logits.shape)}")
     check(abs(float(sync_scorer.predicted_offset_seconds(logits)[0]) - offset) < 5e-3,
           "the CLI's offset differs from the scorer's")
+    # the CPU reference on the clip's first DESYNC_CPU_S (a cut: the whole clip's CPU scorer
+    # took 28 s; PERF.md §4), against the card's on the same prefix
+    frames_cut = frames[:int(DESYNC_CPU_S * CLIP_FPS)]
+    wav_cut = wav[..., :int(DESYNC_CPU_S * 16000)]
+    card_cut = scorer.logits(frames_cut, wav_cut).cpu()
     del scorer
     t0 = time.perf_counter()
-    cpu = sync_scorer.load_desync_scorer(ckpt, "cpu").logits(frames, wav)
+    cpu = sync_scorer.load_desync_scorer(ckpt, "cpu").logits(frames_cut, wav_cut)
     cpu_s = time.perf_counter() - t0
-    rel = _rel_l2(logits.cpu(), cpu)
+    rel = _rel_l2(card_cut, cpu)
     check(rel <= DESYNC_REL_TOL, f"desync logits {rel} from the CPU's, limit {DESYNC_REL_TOL}")
     os.remove(ckpt)
     emit({"phase": "desync", "offset_s": offset, "cli_wall_s": cli_s, "score_s": score_s,
           "checkpoint_write_s": ckpt_s, "logits": logits[0].tolist(),
-          "rel_l2_vs_cpu": rel, "rel_tol": DESYNC_REL_TOL, "cpu_load_and_score_s": cpu_s,
+          "rel_l2_vs_cpu": rel, "rel_tol": DESYNC_REL_TOL, "cpu_clip_s": DESYNC_CPU_S,
+          "cpu_load_and_score_s": cpu_s,
           "phase_seconds": time.perf_counter() - t_phase})
 
 
@@ -3146,8 +3242,10 @@ def frame_formats_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> di
     reader's two parts timed, equal to the frame written, and as the lossy WebP of
     ``FRAME_720P``, the two parts timed, each frame equal to Pillow's recorded digest; one
     ``SURFACE_STEPS`` XXL V2A request
-    through ``cli.main --single_video`` from a directory mixing every fixture (540 K1 and
-    12 K2 launches). Returns the request's (K1, K2) launches."""
+    through ``cli.main --single_video`` from a directory mixing every fixture, every fifth
+    under another format's name and PNGs named ``.jpg`` (read by their bytes: 540 K1 and
+    12 K2 launches); a GIF named ``.png`` refused, naming GIF. Returns the request's (K1,
+    K2) launches."""
     import hashlib
     import os
     import shutil
@@ -3155,6 +3253,7 @@ def frame_formats_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> di
     import numpy as np
 
     from foley_tpu_torch import cli
+    from foley_tpu_torch.io import webp
     from foley_tpu_torch.pipeline import video
 
     t_phase = time.perf_counter()
@@ -3255,18 +3354,38 @@ def frame_formats_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> di
             os.path.join(FRAME_720P, name_720p)), "host_s": host_s, "device_s": dev_s,
         "host_ms_per_frame": host_s / n * 1e3, "device_ms_per_frame": dev_s / n * 1e3}
 
-    # V2A through the command line from a directory mixing every fixture
+    # V2A through the command line from a directory mixing every fixture, every fifth under
+    # another format's name (read by its bytes, as PIL reads it), and PNGs named .jpg
     mixed = os.path.join(work, "mixed")
     os.makedirs(mixed)
     names = sorted(digests)
+    png_rgb = webp.read_webps([os.path.join(FRAME_FIXTURES, "lossy_q80.webp")], "cpu")[0]
+    misnamed = {".jpg": ".png", ".webp": ".jpg", ".tif": ".bmp"}
     for i in range(n):
         name = names[i % len(names)]
-        shutil.copy(os.path.join(FRAME_FIXTURES, name),
-                    os.path.join(mixed, f"frame_{i + 1}{os.path.splitext(name)[1]}"))
+        ext = os.path.splitext(name)[1]
+        if i % 25 == 24:
+            _write_png(os.path.join(mixed, f"frame_{i + 1}.jpg"), png_rgb)
+            continue
+        shutil.copy(os.path.join(FRAME_FIXTURES, name), os.path.join(
+            mixed, f"frame_{i + 1}{misnamed[ext] if i % 5 == 4 else ext}"))
     mixed_frames = video.read_frames_dir(mixed, fps=float(CLIP_FPS), device=dev)[0]
     check(np.array_equal(mixed_frames,
                          video.read_frames_dir(mixed, fps=float(CLIP_FPS), device="cpu")[0]),
           "the mixed directory on the card differs from the CPU's")
+    check(np.array_equal(np.round(mixed_frames[24] * 255.0).astype(np.uint8), png_rgb),
+          "a PNG named .jpg in the mixed directory")
+    gif = os.path.join(work, "gif")
+    os.makedirs(gif)
+    with open(os.path.join(gif, "frame_1.png"), "wb") as f:  # a GIF's header, named .png
+        f.write(b"GIF89a" + bytes(7))
+    try:
+        video.read_frames_dir(gif, device=dev)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "a GIF file" in refused, f"a GIF named .png: {refused}")
+    out["gif_refused"] = refused
     per_k1 = STEPS * (pipeline_cfg.model.depth_triple_blocks
                       + pipeline_cfg.model.depth_single_blocks)
     wav_path = os.path.join(work, "v2a.wav")
@@ -3298,9 +3417,9 @@ def train_longrun_phase(torch, dev, card: str) -> dict:
     """``foley_tpu_torch.tools.train_longrun`` as a user runs it (``main``, TINY, batch 4, 1 s
     clips, ``LONGRUN_STEPS`` steps), alone, after every other phase: it returns 0, its
     trajectory and final parameters finite, its export deployed on the card: the loader's
-    model in fp32 generates finite audio in 8 steps, each through K1's narrow kernel in
-    every block (TINY's heads are 32 wide; 8 x 6 fp32 launches, none in a train step, no
-    K2). The tool's ``ok`` (the tail's loss under 0.7 of the head's) and ``loss_drop_ratio``
+    model in fp32 generates finite audio in 8 steps, each through K1's kernel for widths
+    other than 128 (``fused_qk_attention_mma.cu``) in every block (TINY's heads are 32 wide;
+    8 x 6 fp32 launches, none in a train step, no K2). The tool's ``ok`` (the tail's loss under 0.7 of the head's) and ``loss_drop_ratio``
     are reported as measured, not checked: at its 600 steps the JAX tool itself reads ``ok``
     false on the CPU (a ratio of 1.133; the port 1.12 on the card), and the 600 steps take
     two minutes of host-bound TINY steps on an H100. Returns (the record, K1's launches)."""
@@ -5182,7 +5301,7 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_LIBS) + len(HOST_LIBS)) as pool:  # one compiler a source
         host = [pool.submit(build.host_library, name) for name in HOST_LIBS]
-        list(pool.map(build.library, KERNEL_LIBS))
+        list(pool.map(lambda lib: build.library(*lib), KERNEL_LIBS))
         for h in host:
             h.result()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": build.build_info})
@@ -5191,7 +5310,7 @@ def main() -> int:
     kernel = kernel_phase(torch, dev, cfg)
     flash = flash_kernel_phase(torch, dev)
     variants = precision_kernel_phase(torch, dev, cfg)
-    narrow = narrow_kernel_phase(torch, dev, TINY.model)
+    any_width = any_width_kernel_phase(torch, dev, TINY.model, cfg)
     gemm = gemm_kernel_phase(torch, dev)
     probe = probe_gemm_phase(torch, dev)
 
@@ -5230,11 +5349,13 @@ def main() -> int:
     foley_model = _random_xxl(torch, dev, "xxl", perturb=True)  # the CLI's model, seed 0
     dac = dac_vae.init(XXL.dac, torch.Generator(device=dev).manual_seed(1), device=dev)
     configs_k1 = configs_phase(torch, dev, foley_model["params"], XXL)
-    video_launches, frames_dir = video_ingest_phase(torch, dev, foley_model, dac, XXL)
+    heads_k1 = heads_path_phase(torch, dev, foley_model["params"], dac, card_line())
+    video_launches, frames_dir, frames = video_ingest_phase(torch, dev, foley_model, dac, XXL)
     lora_k1, lora_wav = lora_phase(torch, dev, foley_model, dac, XXL)
     del foley_model, dac
     torch.cuda.empty_cache()
-    desync_phase(torch, dev, frames_dir, lora_wav)
+    desync_phase(torch, dev, frames_dir, frames, lora_wav)
+    del frames
     codec_launches = image_codecs_phase(torch, dev, XXL, card_line())
     format_launches = frame_formats_phase(torch, dev, XXL, card_line())
     emit({"phase": "rest_of_inference", "seconds": time.perf_counter() - t_new})
@@ -5296,28 +5417,28 @@ def main() -> int:
                 "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
                 "library_ms": mean("library_ms"), **extra}
 
-    # K1's narrow kernel: fp32 (train_longrun's deploy) weighted as a TINY step mixes its
-    # shapes
-    narrow_mix = {"joint_1s": TINY.model.depth_triple_blocks,
-                  "single_1s": TINY.model.depth_single_blocks}
+    # K1 at other head widths: bf16 at the heads_path request's width (24 heads of 64),
+    # weighted as its 5 s step mixes the shapes; its launches are that request's (every one
+    # at head_dim 64), and train_longrun's deploy (TINY, fp32) beside them
+    mma_mix = {f"joint_5s_h{HEADS_PATH[0]}": cfg.depth_triple_blocks,
+               f"single_5s_h{HEADS_PATH[0]}": cfg.depth_single_blocks}
 
-    def narrow_mean(key):
-        return (sum(narrow["fp32"][c][key] * n for c, n in narrow_mix.items())
-                / sum(narrow_mix.values()))
+    def mma_mean(key, tname="bf16"):
+        return (sum(any_width[tname][c][key] * n for c, n in mma_mix.items())
+                / sum(mma_mix.values()))
 
-    narrow_bound = fp32_bound(narrow_mean("bytes"), narrow_mean("flops"))
-    narrow_row = {
-        "name": "fused_qk_attention_narrow", "route": "cuda",
-        "source": "foley_tpu_torch/csrc/fused_qk_attention_narrow.cu",
-        "replaces": "foley_tpu/ops/pallas/fused_attention.py:82", "dtype": "fp32",
-        "launches": longrun_k1,
-        "max_abs_err": max(r["max_abs_err"] for r in narrow["fp32"].values()),
-        "max_abs_err_16bit": max(r["max_abs_err"] for t in ("bf16", "fp16")
-                                 for r in narrow[t].values()),
-        "ms": narrow_mean("kernel_ms"), "plain_ms": narrow_mean("plain_ms"),
-        "bound_ms": narrow_bound["bound_ms"], "bound_by": narrow_bound["bound_by"],
-        "bound_cuda_core_ms": narrow_bound["bound_cuda_core_ms"],
-        "library_ms": narrow_mean("library_ms"),
+    mma_bound = kernel_bound(mma_mean("bytes"), mma_mean("flops"))
+    mma_row = {
+        "name": "fused_qk_attention_mma", "route": "cuda",
+        "source": "foley_tpu_torch/csrc/fused_qk_attention_mma.cu",
+        "replaces": "foley_tpu/ops/pallas/fused_attention.py:82", "dtype": "bf16",
+        "launches": heads_k1, "launches_train_longrun_fp32": longrun_k1,
+        "max_abs_err": max(r["max_abs_err"] for r in any_width["bf16"].values()),
+        "max_abs_err_fp16": max(r["max_abs_err"] for r in any_width["fp16"].values()),
+        "max_rel_l2_err_fp32": max(r["rel_l2_err"] for r in any_width["fp32"].values()),
+        "ms": mma_mean("kernel_ms"), "plain_ms": mma_mean("plain_ms"),
+        "bound_ms": mma_bound["bound_ms"], "bound_by": mma_bound["bound_by"],
+        "library_ms": mma_mean("library_ms"),
     }
 
     print(card_line(), flush=True)  # again near the end, where a cut log still shows it
@@ -5385,7 +5506,7 @@ def main() -> int:
              launches_pil_preprocess=pil_launches["k2_fp32"],
              launches_image_codecs_cli=codec_launches["cli"][1],
              launches_frame_formats_cli=format_launches[1]),
-        narrow_row,
+        mma_row,
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

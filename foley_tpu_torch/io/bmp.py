@@ -17,13 +17,13 @@ JPEG or PNG inside a BMP, other bit depths and bitfield layouts.
 from __future__ import annotations
 
 import struct
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from foley_tpu_torch.core.device import DeviceLike, resolve_device
-from foley_tpu_torch.io.png import check_image_size
+from foley_tpu_torch.io.png import check_image_size, file_bytes
 
 _HEADERS = (12, 40, 52, 56, 64, 108, 124)
 # Pillow's bitfield layouts: bits -> (r, g, b[, a]) masks
@@ -133,15 +133,15 @@ def decode(info: Dict, device) -> torch.Tensor:
     return torch.stack([_field(pixel, m) for m in info["masks"][:3]], dim=-1).to(torch.uint8)
 
 
-def read_bmps(paths: Sequence[str], device: DeviceLike = None) -> np.ndarray:
+def read_bmps(paths: Sequence[str], device: DeviceLike = None,
+              datas: Optional[Sequence[bytes]] = None) -> np.ndarray:
     """BMP files of one size -> ``[T, H, W, 3]`` uint8 RGB on the host, equal to PIL's
     ``np.asarray(Image.open(p).convert("RGB"))`` for each, unpacked on ``device`` (``cuda``
-    unless given)."""
+    unless given). ``datas``, where given, holds each file's bytes, already read."""
     dev = resolve_device(device)
     out = None
     for i, p in enumerate(paths):
-        with open(p, "rb") as fh:
-            info = parse_bmp(fh.read(), p)
+        info = parse_bmp(file_bytes(paths, datas, i), p)
         if out is None:
             out = np.empty((len(paths), info["height"], info["width"], 3), np.uint8)
         elif out.shape[1:3] != (info["height"], info["width"]):

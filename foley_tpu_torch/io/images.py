@@ -1,18 +1,23 @@
 """Host-side frame byte utilities shared by the vision encoders (``foley_tpu/io/images.py``
-counterpart, copied bit for bit: both run in numpy on the host)."""
+counterpart, equal bit for bit: both run on the host, ``frames_to_u8`` on torch's host
+threads)."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def frames_to_u8(frames: np.ndarray) -> np.ndarray:
     """[0, 1] float -> uint8 (clip, *255, truncate), the PIL preprocessing route's
     quantization; uint8 input passes through. Shipping uint8 quarters the host->device
-    bytes."""
+    bytes. The JAX package's numpy expression, computed by torch on the host's threads in
+    the input's own float type: the same clip, product and truncation, bit for bit, about
+    three times faster on 8 cores (a 5 s 720p clip is 346 M values)."""
     if frames.dtype == np.uint8:
         return frames
-    return (np.clip(frames, 0.0, 1.0) * 255).astype(np.uint8)
+    x = torch.from_numpy(np.ascontiguousarray(frames))
+    return x.clamp(0.0, 1.0).mul_(255).to(torch.uint8).numpy()
 
 
 def box_downsample_u8(frames: np.ndarray, target_short_side: int) -> np.ndarray:

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from foley_tpu_torch.core.device import DeviceLike, resolve_device
-from foley_tpu_torch.io.png import check_image_size
+from foley_tpu_torch.io.png import check_image_size, file_bytes
 
 # coefficient blocks reconstructed in one pass: the inverse DCT's int64 temporaries take
 # about 0.5 KiB a block each, so 2**18 blocks (12 frames of 1280x720 in 4:2:0) hold a few GiB
@@ -584,12 +584,11 @@ def decode_jpegs(datas: Sequence[bytes], device: DeviceLike = None,
     return out
 
 
-def read_jpegs(paths: Sequence[str], device: DeviceLike = None) -> np.ndarray:
-    """JPEG files of one size -> ``[T, H, W, 3]`` uint8 RGB (``decode_jpegs``)."""
-    datas = []
-    for p in paths:
-        with open(p, "rb") as fh:
-            datas.append(fh.read())
+def read_jpegs(paths: Sequence[str], device: DeviceLike = None,
+               datas: Optional[Sequence[bytes]] = None) -> np.ndarray:
+    """JPEG files of one size -> ``[T, H, W, 3]`` uint8 RGB (``decode_jpegs``); ``datas``,
+    where given, holds each file's bytes, already read."""
+    datas = [file_bytes(paths, datas, i) for i in range(len(paths))]
     return decode_jpegs(datas, device, names=paths)
 
 

@@ -25,9 +25,11 @@ the skewed buffers take.
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
-from typing import Dict, List, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,6 +40,7 @@ SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # frames unfiltered in one wavefront: its two skewed buffers take about 4.7 bytes a sample,
 # so 128 frames of 1280x720 RGB hold about 1.6 GB of device memory, 1920x1080 about 3.7 GB
 CHUNK_FRAMES = 128
+HOST_THREADS = min(8, os.cpu_count() or 1)  # files inflated at once on the host
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 # Adam7: each pass's first column and row and its steps
@@ -46,6 +49,16 @@ ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (
 # Pillow's decompression-bomb limit: ``Image.open``, which the JAX package's readers call,
 # refuses an image of more than twice ``Image.MAX_IMAGE_PIXELS``
 MAX_IMAGE_PIXELS = 1024 * 1024 * 1024 // 4 // 3
+
+
+def file_bytes(paths: Sequence[str], datas: Optional[Sequence[bytes]], i: int) -> bytes:
+    """The bytes of frame ``i`` of a reader's call: ``datas[i]`` where the caller has read them
+    (``pipeline/video.py`` reads each file once, to tell its format by its first bytes), else
+    the file ``paths[i]``."""
+    if datas is not None:
+        return datas[i]
+    with open(paths[i], "rb") as fh:
+        return fh.read()
 
 
 def check_image_size(width: int, height: int, name: str) -> None:
@@ -208,19 +221,20 @@ def decode(infos: Sequence[Dict], device) -> torch.Tensor:
     return out
 
 
-def read_pngs(paths: Sequence[str], device: DeviceLike = None) -> np.ndarray:
+def read_pngs(paths: Sequence[str], device: DeviceLike = None,
+              datas: Optional[Sequence[bytes]] = None) -> np.ndarray:
     """PNG files of one size -> ``[T, H, W, 3]`` uint8 RGB on the host, equal to PIL's
-    ``np.asarray(Image.open(p).convert("RGB"))`` for each. The files are inflated on the host
-    and unfiltered on ``device`` (``cuda`` unless given) ``CHUNK_FRAMES`` at a time, one
-    wavefront for each pass of each (colour type, bit depth, interlacing) a chunk holds, so
-    the device memory is bounded whatever the clip's length."""
+    ``np.asarray(Image.open(p).convert("RGB"))`` for each. The files are inflated on the host,
+    ``HOST_THREADS`` at once, and unfiltered on ``device`` (``cuda`` unless given)
+    ``CHUNK_FRAMES`` at a time, one wavefront for each pass of each (colour type, bit depth,
+    interlacing) a chunk holds, so the device memory is bounded whatever the clip's length.
+    ``datas``, where given, holds each file's bytes, already read."""
     dev = resolve_device(device)
     out = None
     for start in range(0, len(paths), CHUNK_FRAMES):
-        infos = []
-        for p in paths[start:start + CHUNK_FRAMES]:
-            with open(p, "rb") as fh:
-                infos.append(parse_png(fh.read(), p))
+        with ThreadPoolExecutor(HOST_THREADS) as pool:  # zlib releases the GIL
+            infos = list(pool.map(lambda i: parse_png(file_bytes(paths, datas, i), paths[i]),
+                                  range(start, min(start + CHUNK_FRAMES, len(paths)))))
         sizes = {(i["height"], i["width"]) for i in infos}
         if out is not None:
             sizes.add(out.shape[1:3])

@@ -41,13 +41,13 @@ from __future__ import annotations
 import ctypes
 import struct
 import zlib
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from foley_tpu_torch.core.device import DeviceLike, resolve_device
-from foley_tpu_torch.io.png import MAX_IMAGE_PIXELS, check_image_size
+from foley_tpu_torch.io.png import MAX_IMAGE_PIXELS, check_image_size, file_bytes
 
 # frames put together in one device pass, which bounds the device memory of a long clip
 CHUNK_FRAMES = 128
@@ -351,18 +351,19 @@ def decode(infos: Sequence[Dict], device) -> torch.Tensor:
     return grey.to(torch.uint8)[..., None].expand(-1, -1, -1, 3)
 
 
-def read_tiffs(paths: Sequence[str], device: DeviceLike = None) -> np.ndarray:
+def read_tiffs(paths: Sequence[str], device: DeviceLike = None,
+               datas: Optional[Sequence[bytes]] = None) -> np.ndarray:
     """TIFF files of one size -> ``[T, H, W, 3]`` uint8 RGB on the host, equal to PIL's
     ``np.asarray(Image.open(p).convert("RGB"))`` for each: decompressed on the host, the
     rest on ``device`` (``cuda`` unless given), ``CHUNK_FRAMES`` frames a pass, one pass for
-    each layout a group holds."""
+    each layout a group holds. ``datas``, where given, holds each file's bytes, already
+    read."""
     dev = resolve_device(device)
     out = None
     for start in range(0, len(paths), CHUNK_FRAMES):
         infos = []
-        for p in paths[start:start + CHUNK_FRAMES]:
-            with open(p, "rb") as fh:
-                infos.append(parse_tiff(fh.read(), p))
+        for i in range(start, min(start + CHUNK_FRAMES, len(paths))):
+            infos.append(parse_tiff(file_bytes(paths, datas, i), paths[i]))
         sizes = {(i["height"], i["width"]) for i in infos}
         if out is not None:
             sizes.add(out.shape[1:3])

@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from foley_tpu_torch.core.device import DeviceLike, resolve_device
-from foley_tpu_torch.io.png import check_image_size
+from foley_tpu_torch.io.png import check_image_size, file_bytes
 
 
 class WebPUnsupported(ValueError):
@@ -381,17 +381,16 @@ def yuv_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, width: int,
 # reading
 # ---------------------------------------------------------------------------------
 
-def read_webps(paths: Sequence[str], device: DeviceLike = None) -> np.ndarray:
+def read_webps(paths: Sequence[str], device: DeviceLike = None,
+               datas: Optional[Sequence[bytes]] = None) -> np.ndarray:
     """WebP files (lossy, lossless or animated, mixed) whose images share one size ->
     ``[T, H, W, 3]`` uint8 RGB on the host, equal to PIL's
     ``np.asarray(Image.open(p).convert("RGB"))`` for each: VP8L and VP8 bitstreams decoded on
     the host, the lossy pictures' upsampling and colour conversion on ``device`` (``cuda``
-    unless given), ``CHUNK_PIXELS`` at a time."""
+    unless given), ``CHUNK_PIXELS`` at a time. ``datas``, where given, holds each file's
+    bytes, already read."""
     dev = resolve_device(device)
-    infos = []
-    for p in paths:
-        with open(p, "rb") as fh:
-            infos.append(parse_webp(fh.read(), p))
+    infos = [parse_webp(file_bytes(paths, datas, i), p) for i, p in enumerate(paths)]
     sizes = {(info["canvas"][1], info["canvas"][0]) for info in infos}
     if len(sizes) > 1:
         raise ValueError(f"frames differ in size: {sorted(sizes)}")

@@ -52,12 +52,17 @@ def _cxx() -> str:
                        "built at first use with the system's C++ compiler")
 
 
-def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _define_args(define: str) -> list:
+    return ["-D", define] if define else []
+
+
+def library_path(name: str, define: str = "") -> Path:
+    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *_define_args(define)]).encode())
     for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}.so"
+    part = f"_{define.lower()}" if define else ""
+    return BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}{part}.so"
 
 
 def host_library_path(name: str) -> Path:
@@ -87,10 +92,15 @@ def _load(name: str, out: Path, command) -> ctypes.CDLL:
     return _libs[name]
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, compiled first if it is not built yet."""
-    return _load(name, library_path(name),
-                 lambda: [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), str(CSRC / f"{name}.cu")])
+def library(name: str, define: str = "") -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, compiled first if it is not built yet. With
+    ``define``, the source built with that macro defined, into a library of its own: a part
+    of a source that takes long to compile, built beside its other parts in parallel
+    (``fused_qk_attention_mma.cu``'s element types)."""
+    key = f"{name}:{define}" if define else name
+    return _load(key, library_path(name, define),
+                 lambda: [_nvcc(), *NVCC_FLAGS, *_define_args(define), "-I", str(CSRC),
+                          str(CSRC / f"{name}.cu")])
 
 
 def host_library(name: str) -> ctypes.CDLL:

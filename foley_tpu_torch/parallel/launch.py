@@ -4,8 +4,11 @@
 fork: the caller may hold a CUDA context, which a forked child cannot use). Rank ``r`` sets
 its device, joins the default process group through a ``file://`` store in a fresh temporary
 directory (no port to collide with another run), builds its ``RankMesh`` (``Mesh.join``) and
-calls ``fn(rank_mesh, *args)``. ``fn`` and ``args`` are pickled: ``fn`` must be importable
-by name.
+calls ``fn(rank_mesh, *args)``. ``fn`` and ``args`` are pickled into a file of that
+directory, which each rank reads once it has started: ``fn`` must be importable by name.
+Through the spawn pipe a call's arguments past the pipe's 64 KiB would hold each rank's start
+until the rank before it had imported its modules, so the ranks would start one after
+another; through the file they start together.
 
 - Rank 0's result comes back through a file of that directory (pickled by the rank, read
   here), so return host objects, not CUDA tensors.
@@ -38,6 +41,7 @@ import torch.multiprocessing as mp
 from foley_tpu_torch.parallel.mesh import Mesh
 
 RESULT_FILE = "result.pkl"
+CALL_FILE = "call.pkl"  # (fn, args), pickled by the launcher, read by every rank
 
 
 class RankFailed(RuntimeError):
@@ -48,9 +52,11 @@ def _error_file(tmp: str, rank: int) -> str:
     return os.path.join(tmp, f"rank{rank}.err")
 
 
-def _rank_main(rank: int, mesh: Mesh, tmp: str, fn: Callable, args: tuple,
-               threads: Optional[int], log_level: Optional[int]) -> None:
+def _rank_main(rank: int, mesh: Mesh, tmp: str, threads: Optional[int],
+               log_level: Optional[int]) -> None:
     try:
+        with open(os.path.join(tmp, CALL_FILE), "rb") as f:
+            fn, args = pickle.load(f)
         if log_level is not None:
             logging.basicConfig(level=log_level,
                                 format=f"%(asctime)s rank {rank} %(message)s")
@@ -127,8 +133,14 @@ def launch(mesh: Mesh, fn: Callable, *args, threads: Optional[int] = None,
     tmp = tempfile.mkdtemp(prefix="foley_mesh_")
     root = logging.getLogger()
     log_level = root.getEffectiveLevel() if root.handlers else None
+    try:
+        with open(os.path.join(tmp, CALL_FILE), "wb") as f:
+            pickle.dump((fn, args), f, protocol=pickle.HIGHEST_PROTOCOL)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
     procs = [ctx.Process(target=_rank_main, name=f"rank{r}",
-                         args=(r, mesh, tmp, fn, args, threads, log_level))
+                         args=(r, mesh, tmp, threads, log_level))
              for r in range(mesh.world)]
     restore = _forward_stops(procs)
     deadline = None if timeout is None else time.monotonic() + timeout

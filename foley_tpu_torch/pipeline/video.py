@@ -5,7 +5,9 @@ Two routes, as in the JAX package:
 - a directory of image frames, natural-sorted by name, declared to play at ``fps``
   (``read_frames_dir``): the frames are selected by name (``target_fps`` through the port's
   ``ops/interp.py::linspace_resample_indices``, then ``max_frames``) before any is decoded,
-  and PNG, JPEG (baseline and progressive; grey, YCbCr, RGB, CMYK, YCCK), BMP, TIFF and
+  each file's format is told by its first bytes as PIL tells it (a PNG named ``.jpg`` reads
+  as a PNG; GIF and the other formats PIL opens raise, naming the format), and PNG, JPEG
+  (baseline and progressive; grey, YCbCr, RGB, CMYK, YCCK), BMP, TIFF and
   WebP (lossless, lossy with or without alpha, and an animation's first frame) frames are
   decoded without PIL (``io/png.py``, ``io/jpeg.py``, ``io/bmp.py``, ``io/tiff.py``,
   ``io/webp.py``, each equal to PIL's ``convert("RGB")``), on ``device`` (the card unless
@@ -44,10 +46,26 @@ from foley_tpu_torch.io.tiff import read_tiffs
 from foley_tpu_torch.io.webp import read_webps
 from foley_tpu_torch.ops.interp import linspace_resample_indices
 
-# the frame readers by extension: the JAX package's extensions, in its order
-_READERS = {".png": read_pngs, ".jpg": read_jpegs, ".jpeg": read_jpegs, ".bmp": read_bmps,
-            ".webp": read_webps, ".tif": read_tiffs, ".tiff": read_tiffs}
-_IMAGE_EXTS = tuple(_READERS)
+# the names a frames directory's frames are selected by: the JAX package's extensions, in its
+# order; each file's reader is then chosen from its first bytes (``frame_format``)
+_IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp", ".tif", ".tiff")
+_READERS = {"PNG": read_pngs, "JPEG": read_jpegs, "BMP": read_bmps, "TIFF": read_tiffs,
+            "WEBP": read_webps}
+# the first bytes by which Pillow 12.1's plugins accept a file (their ``_accept``), of the
+# formats the port decodes; TIFF's include the two byte orders' odd variants Pillow takes
+_TIFF_PREFIXES = (b"MM\x00*", b"II*\x00", b"MM*\x00", b"II\x00*", b"MM\x00+", b"II+\x00")
+# and of formats Pillow opens that the port does not decode, to name them when it refuses
+_OTHER_FORMATS = (
+    ((b"GIF87a", b"GIF89a"), "GIF"), ((b"\x00\x00\x01\x00",), "ICO"),
+    ((b"\x00\x00\x02\x00",), "CUR"), ((b"qoif",), "QOI"), ((b"8BPS",), "PSD"),
+    ((b"icns",), "ICNS"), ((b"DDS ",), "DDS"),
+    ((b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \r\n\x87\n"), "JPEG 2000"),
+    ((b"%!PS", b"\xc5\xd0\xd3\xc6"), "EPS"), ((b"BLP1", b"BLP2"), "BLP"),
+    ((b"\x01\xda",), "SGI"), ((b"\x59\xa6\x6a\x95",), "SUN"), ((b"/* XPM */",), "XPM"),
+    ((b"SIMPLE",), "FITS"), ((b"DanM", b"LinS"), "MSP"))
+_NAMED = {".png": "PNG", ".jpg": "JPEG", ".jpeg": "JPEG", ".bmp": "BMP", ".webp": "WebP",
+          ".tif": "TIFF", ".tiff": "TIFF"}  # the format a frame's extension names
+CHUNK_FRAMES = 128  # files read at a time: the host holds one chunk's bytes (PNG's and TIFF's)
 
 NO_DECODER = ("no video decoder: install ffmpeg or the 'av' (PyAV) package, or pass a "
               "directory of image frames")
@@ -89,27 +107,62 @@ def frame_names(path: str, fps: float = 16.0, target_fps: Optional[float] = None
     return names, float(fps)
 
 
+def frame_format(data: bytes, name: str) -> str:
+    """The format of a frame file's bytes, told as Pillow's ``Image.open`` tells it (its
+    plugins' ``_accept`` on the first bytes), whatever the file's name says: ``"PNG"``,
+    ``"JPEG"``, ``"BMP"``, ``"TIFF"`` or ``"WEBP"``. Any other format raises, naming it where
+    Pillow would open it (GIF, ICO, PPM, ...): the port does not decode it."""
+    if data.startswith(b"\x89PNG\r\n\x1a\n"):
+        return "PNG"
+    if data.startswith(b"\xff\xd8\xff"):
+        return "JPEG"
+    if data.startswith(b"BM"):
+        return "BMP"
+    if data[:4] in _TIFF_PREFIXES:
+        return "TIFF"
+    if data.startswith(b"RIFF") and data[8:12] == b"WEBP" and data[12:16] in (
+            b"VP8 ", b"VP8L", b"VP8X"):
+        return "WEBP"
+    found = next((fmt for prefixes, fmt in _OTHER_FORMATS if data.startswith(prefixes)), None)
+    if found is None and len(data) >= 2 and data[:1] == b"P" and data[1] in b"0123456fy":
+        found = "PPM"
+    if found is not None:
+        raise ValueError(f"{name}: a {found} file; the port decodes PNG, JPEG, BMP, TIFF and "
+                         f"WebP frames, not {found}")
+    named = _NAMED.get(os.path.splitext(name)[1].lower(), "PNG, JPEG, BMP, TIFF or WebP")
+    raise ValueError(f"{name}: cannot identify image file (not a {named} file, nor any other "
+                     f"format the port decodes: its first bytes are {data[:12]!r})")
+
+
 def read_frames_dir(path: str, fps: float = 16.0, target_fps: Optional[float] = None,
                     max_frames: Optional[int] = None,
                     device: DeviceLike = None) -> Tuple[np.ndarray, float]:
     """A directory of PNG, JPEG, BMP, TIFF or WebP frames -> ([T, H, W, 3] float32 in
-    [0, 1] on the host, effective fps), decoded on ``device`` (``cuda`` unless given). Every
-    frame must share one size; a frame of a kind its reader refuses (an arithmetic-coded
-    JPEG, a CCITT TIFF, ...) raises, naming it."""
+    [0, 1] on the host, effective fps), decoded on ``device`` (``cuda`` unless given). The
+    frames are selected by name (``frame_names``), and each file's reader is chosen by its
+    bytes (``frame_format``), as PIL chooses it: a PNG named ``.jpg`` reads as a PNG. Each
+    file is read once, ``CHUNK_FRAMES`` at a time. Every frame must share one size; a frame
+    of another format, or of a kind its reader refuses (an arithmetic-coded JPEG, a CCITT
+    TIFF, ...) raises, naming it."""
     names, fps = frame_names(path, fps, target_fps, max_frames)
-    groups = {}
-    for i, n in enumerate(names):
-        ext = os.path.splitext(n)[1].lower()
-        groups.setdefault(_READERS[ext], []).append(i)
     frames = None
-    for reader, idx in groups.items():
-        got = reader([os.path.join(path, names[i]) for i in idx], device)
-        if frames is None:
-            frames = np.empty((len(names), *got.shape[1:]), np.uint8)
-        elif frames.shape[1:] != got.shape[1:]:
-            sizes = sorted({frames.shape[1:3], got.shape[1:3]})
-            raise ValueError(f"frames differ in size: {sizes}")
-        frames[idx] = got
+    for start in range(0, len(names), CHUNK_FRAMES):
+        paths = [os.path.join(path, n) for n in names[start:start + CHUNK_FRAMES]]
+        datas = []
+        for p in paths:
+            with open(p, "rb") as fh:
+                datas.append(fh.read())
+        groups = {}
+        for i, (p, data) in enumerate(zip(paths, datas)):
+            groups.setdefault(frame_format(data, p), []).append(i)
+        for fmt, idx in groups.items():
+            got = _READERS[fmt]([paths[i] for i in idx], device, [datas[i] for i in idx])
+            if frames is None:
+                frames = np.empty((len(names), *got.shape[1:]), np.uint8)
+            elif frames.shape[1:] != got.shape[1:]:
+                sizes = sorted({frames.shape[1:3], got.shape[1:3]})
+                raise ValueError(f"frames differ in size: {sizes}")
+            frames[[start + i for i in idx]] = got
     # / 255 in float32 on torch's host threads: numpy's correctly rounded quotients, faster
     return torch.from_numpy(frames).float().div_(255.0).numpy(), fps
 

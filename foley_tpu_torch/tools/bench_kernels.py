@@ -34,6 +34,7 @@ import time
 from pathlib import Path
 
 SLEEP_CYCLES = 200_000_000  # ~0.1 s of GPU spin while the host enqueues a timed loop
+SLEEP_S = 0.1               # what SLEEP_CYCLES lasts, near the H100's 1.98 GHz
 ITERS = 200                 # timed launches of a K1 case (a quarter of it for K2's)
 
 # K1: (batch, length, heads, visual rows of a joint [v_cond; audio] sequence or 0)
@@ -49,11 +50,17 @@ K3_ITERS = 50  # timed sweeps a case
 
 
 def timed(torch, fn, iters: int):
-    """(device ms, host ms) a call of ``fn`` over ``iters`` calls, after one warm-up."""
+    """(device ms, host ms) a call of ``fn`` over ``iters`` calls, after one warm-up. The card
+    is held behind a spin while the host enqueues the timed calls: three times the warm-up
+    call's host time for each, at most ``SLEEP_CYCLES`` (``chip_smoke.py`` times a few hundred
+    cases, most of them enqueued in a few ms: a fixed 0.1 s spin each was most of their
+    time)."""
+    t0 = time.perf_counter()
     fn()
+    warm_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda._sleep(SLEEP_CYCLES)
+    torch.cuda._sleep(int(SLEEP_CYCLES * min(1.0, (3 * warm_s * iters + 1e-3) / SLEEP_S)))
     start.record()
     t0 = time.perf_counter()
     for _ in range(iters):

@@ -34,6 +34,14 @@ def test_library_path_changes_with_what_it_is_built_from(csrc, monkeypatch, edit
     assert after != before and after.name == before.name == "libk.so"
 
 
+def test_a_define_builds_a_part_of_its_own(csrc):
+    """A source built with a macro defined (one element type of a kernel, built beside the
+    others in parallel) is a library of its own, named for the macro."""
+    whole, part = build.library_path("k"), build.library_path("k", "K_BF16")
+    assert part != whole and part.name == "libk_k_bf16.so"
+    assert part != build.library_path("k", "K_F32") and part == build.library_path("k", "K_BF16")
+
+
 def test_missing_compiler_raises(csrc, tmp_path, monkeypatch):
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))

@@ -158,9 +158,12 @@ def test_cuda_tensor_never_reaches_plain(dev, monkeypatch):
         FA.fused_qk_attention(q.double(), k.double(), v.double(), *tabs)
     with pytest.raises(TypeError):  # nor do mixed types
         FA.fused_qk_attention(q, k.half(), v, *tabs)
-    with pytest.raises(ValueError):  # so does a head_dim no kernel is built for (32, 64, 128)
-        FA.fused_qk_attention(q[..., :48], k[..., :48], v[..., :48],
-                              *(t[:, :48] for t in tabs))
+    with pytest.raises(ValueError, match="256"):  # so does a head_dim no kernel takes: odd
+        FA.fused_qk_attention(q[..., :47], k[..., :47], v[..., :47],
+                              *(t[:, :47] for t in tabs))
+    wide = _operands(dev, 1, 16, 16, 2, d=258, seed=2)  # or past 256
+    with pytest.raises(ValueError, match="256"):
+        FA.fused_qk_attention(*wide)
     for bad in (_misaligned, _odd_rows):  # and what a TMA tensor map cannot describe
         with pytest.raises(ValueError):
             FA.fused_qk_attention(bad(q), k, v, *tabs)
@@ -189,14 +192,16 @@ def test_generate_audio_on_card_launches_the_kernel(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [18, 32, 48, 64, 80, 96, 160, 256])
 @pytest.mark.parametrize("b,lq,lk,h,split", [
     (2, 66, 66, 2, 16), (2, 50, 50, 2, None), (1, 1, 1, 2, None), (1, 33, 31, 3, None),
-    (1, 31, 65, 2, None), (1, 129, 129, 2, None), (1, 300, 300, 2, 40)])
+    (1, 65, 65, 2, None), (1, 31, 65, 2, None), (1, 129, 129, 2, None), (1, 300, 300, 2, 40)])
 def test_narrow_kernel_matches_plain(dev, dtype, d, b, lq, lk, h, split):
-    """K1's narrow kernel (``fused_qk_attention_narrow.cu``): lengths on both sides of its
-    32-key tiles and 128-row blocks, the joint blocks' two-stream weights; fp32 against the
-    plain version in true fp32."""
+    """K1 at every head width but 128 (``fused_qk_attention_mma.cu``, which replaced the
+    narrow kernel of heads of 32 and 64): widths that are not a multiple of 16 (padded in
+    shared memory) or of 8 (loaded in 4-byte chunks), lengths on both sides of its 64-key
+    tiles and 128-row blocks (ragged 1, 33, 65, 129), the joint blocks' two-stream weights;
+    fp32 against the plain version in true fp32."""
     args = _operands(dev, b, lq, lk, h, d=d, split=split, dtype=dtype)
     before = FA.fused_qk_attention.launches_by_dtype.get(dtype, 0)
     with true_fp32():
@@ -207,9 +212,24 @@ def test_narrow_kernel_matches_plain(dev, dtype, d, b, lq, lk, h, split):
     _assert_kernel_close(got, ref)
 
 
+@pytest.mark.parametrize("d", [18, 64, 96])
+def test_any_width_kernel_reads_strided_views(dev, d):
+    """q, k and v as views of one fused qkv projection at widths other than 128: an 18-wide
+    bf16 row is 36 bytes, loaded in 4-byte chunks."""
+    b, length, h = 2, 70, 3
+    q, k, v, *tabs = _operands(dev, b, length, length, h, d=d, seed=4)
+    qkv = torch.cat([q.flatten(2), k.flatten(2), v.flatten(2)], dim=-1)
+    views = [u.unflatten(-1, (h, d)) for u in qkv.chunk(3, dim=-1)]
+    assert FA.kernel_route(*views) == (True, (d, FA.chunk_bytes(*views)))
+    got = FA.fused_qk_attention(*views, *tabs)
+    torch.testing.assert_close(got.float(), FA.fused_qk_attention_plain(q, k, v, *tabs).float(),
+                               **KERNEL_TOL)
+
+
 def test_narrow_heads_launch_the_narrow_kernel_on_card(dev):
-    """TINY's 32-wide heads on the card: K1's narrow kernel in every block, one launch a
-    block, and the CPU's velocity in fp32."""
+    """TINY's 32-wide heads on the card: K1's kernel for widths other than 128
+    (``fused_qk_attention_mma.cu``) in every block, one launch a block, and the CPU's
+    velocity in fp32."""
     cfg = TINY.model
     model = mmdit.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     perturb_zero_leaves(model, torch.Generator().manual_seed(1))

@@ -127,3 +127,76 @@ def test_mixed_directory_through_read_video_frames(tmp_path):
     got, fps = tvideo.read_video_frames(d, target_fps=4.0, dir_fps=8.0, device="cpu")
     assert fps == ref_fps
     np.testing.assert_array_equal(got, ref)
+
+
+def _png_bytes() -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(fx.base_frame()).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+# a frame of each format under another format's name: (the name, where its bytes come from)
+MISNAMED = {"png_as.jpg": "png", "jpeg_as.png": "prog_420.jpg",
+            "webp_as.jpg": "lossy_q80.webp", "tiff_as.bmp": "lzw_predictor.tif"}
+
+
+def _misnamed_bytes(source: str) -> bytes:
+    return _png_bytes() if source == "png" else _data(source)
+
+
+@pytest.mark.parametrize("name", sorted(MISNAMED))
+def test_misnamed_frame_reads_as_its_bytes_say(tmp_path, name):
+    """The reader is chosen by the file's first bytes, as PIL chooses it, not by its name."""
+    (tmp_path / name).write_bytes(_misnamed_bytes(MISNAMED[name]))
+    ref, _ = jvideo.read_frames_dir(str(tmp_path))
+    got, _ = tvideo.read_frames_dir(str(tmp_path), device="cpu")
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_misnamed_frames_mixed_with_named_ones_match_jax(tmp_path):
+    """Every misnamed kind beside the mixed directory's frames, resampled: equal to JAX."""
+    d = _mixed_dir(tmp_path, n=10)
+    for i, (name, source) in enumerate(sorted(MISNAMED.items())):
+        with open(os.path.join(d, f"frame_{11 + i}_{name}"), "wb") as f:
+            f.write(_misnamed_bytes(source))
+    ref, ref_fps = jvideo.read_frames_dir(d, fps=8.0, target_fps=6.0)
+    got, fps = tvideo.read_frames_dir(d, fps=8.0, target_fps=6.0, device="cpu")
+    assert fps == ref_fps
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("fmt,ext", [("GIF", ".png"), ("PPM", ".jpg"), ("QOI", ".bmp")])
+def test_other_formats_raise_naming_them(tmp_path, fmt, ext):
+    """A format PIL opens and the port does not decode raises, naming it, before any frame
+    is decoded; the JAX package reads it through PIL."""
+    buf = io.BytesIO()
+    Image.fromarray(fx.base_frame()).save(buf, format=fmt)
+    (tmp_path / f"a{ext}").write_bytes(_png_bytes())
+    (tmp_path / f"b{ext}").write_bytes(buf.getvalue())
+    assert jvideo.read_frames_dir(str(tmp_path))[0].shape == (2, *fx.HW, 3)
+    with pytest.raises(ValueError, match=f"a {fmt} file; the port decodes PNG, JPEG, BMP, "
+                                         f"TIFF and WebP frames, not {fmt}"):
+        tvideo.read_frames_dir(str(tmp_path), device="cpu")
+
+
+def test_unidentified_bytes_raise(tmp_path):
+    (tmp_path / "a.png").write_bytes(b"not an image at all")
+    with pytest.raises(ValueError, match="cannot identify image file"):
+        tvideo.read_frames_dir(str(tmp_path), device="cpu")
+
+
+def test_each_file_is_read_once(tmp_path, monkeypatch):
+    """``read_frames_dir`` opens each selected frame once and hands its bytes to the reader."""
+    for i, (name, source) in enumerate(sorted(MISNAMED.items())):
+        (tmp_path / f"f{i}_{name}").write_bytes(_misnamed_bytes(source))
+    opened = []
+    real_open = open
+
+    def counting_open(path, *args, **kwargs):
+        opened.append(os.path.basename(str(path)))
+        return real_open(path, *args, **kwargs)
+
+    monkeypatch.setattr("builtins.open", counting_open)
+    tvideo.read_frames_dir(str(tmp_path), device="cpu")
+    frames = [n for n in opened if n.startswith("f")]
+    assert sorted(frames) == sorted(f"f{i}_{n}" for i, n in enumerate(sorted(MISNAMED)))

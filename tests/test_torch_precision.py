@@ -227,7 +227,9 @@ def test_entries_take_one_argument_list(monkeypatch):
 @pytest.mark.parametrize("case", ["fp64", "head_dim_96", "mixed_types", "no_keys"])
 def test_kernels_refuse_what_they_do_not_take(case):
     """What a CUDA tensor would be refused for, before any launch: fp64, a head size without
-    a kernel, operands of two types, no keys (the wrappers' checks run on CPU tensors here)."""
+    a kernel (K2's at 96; K1 takes 96 on ``fused_qk_attention_mma.cu`` and refuses widths
+    past 256), operands of two types, no keys (the wrappers' checks run on CPU tensors
+    here)."""
     d = 96 if case == "head_dim_96" else 128
     dtype = torch.float64 if case == "fp64" else torch.float32
     arrays = _k1_inputs(1, 9, 0 if case == "no_keys" else 9, 2, d=d)
@@ -236,8 +238,14 @@ def test_kernels_refuse_what_they_do_not_take(case):
         k = k.half()
     tabs = [torch.from_numpy(t) for t in arrays[3:]]
     error = ValueError if case in ("head_dim_96", "no_keys") else TypeError
-    with pytest.raises(error):
-        FA._launch(q, k, v, *tabs, 1e-6)
+    if case == "head_dim_96":
+        assert FA.kernel_route(q, k, v) == (True, (96, 16))
+        wide = [torch.from_numpy(x) for x in _k1_inputs(1, 9, 9, 2, d=258)]
+        with pytest.raises(error, match="256"):
+            FA._launch(*wide, 1e-6)
+    else:
+        with pytest.raises(error):
+            FA._launch(q, k, v, *tabs, 1e-6)
     with pytest.raises(error):
         FL._launch(q, k, v)
 

@@ -95,6 +95,17 @@ def test_frames_to_u8_is_bit_exact():
     assert timg.frames_to_u8(u8) is u8
 
 
+@pytest.mark.parametrize("dtype", [np.float16, np.float32, np.float64])
+def test_frames_to_u8_is_bit_exact_in_every_float_type(dtype):
+    """torch's clip, product and truncation on the host equal numpy's in the input's own
+    type, at the steps' edges too, and on a non-contiguous view."""
+    rng = np.random.default_rng(1)
+    edges = np.asarray([0.0, -0.0, 1.0, 0.99999994, 254.5 / 255, 1 / 255, 2.0, -1.0])
+    x = np.concatenate([rng.uniform(-0.2, 1.2, 4 * 5 * 6 * 3 - edges.size), edges])
+    x = x.astype(dtype).reshape(4, 5, 6, 3)[:, ::-1]
+    np.testing.assert_array_equal(timg.frames_to_u8(x), jimg.frames_to_u8(x))
+
+
 def _seeded(params, rng, scale_w=1.0):
     def fill(path, x):
         x = np.array(x)

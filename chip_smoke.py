@@ -128,19 +128,23 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
 - ``frame_formats``: the formats the JAX package reads through PIL, without it: the
   committed fixtures of ``tests/data/torch_frame_formats/`` (progressive JPEG in 4:2:0,
   4:4:4 and grey, optimised and with restarts, CMYK; TIFF in LZW with predictor 2, Deflate,
-  PackBits, a palette and 16-bit grey; lossless WebP with colour indexing and with the
-  other three transforms; lossy WebP at quality 80, at quality 5 and method 6, with alpha,
-  with the simple loop filter and 8 token partitions; two animations, one whose first frame
-  lies inside the canvas) decoded on the card and on the CPU, equal to each other and to
-  the SHA-256 of Pillow's RGB bytes recorded beside them; 125 frames of each format on the
-  card (the host's and the card's seconds apart, equal to the CPU's); 125 copies of one
-  720p frame of the clip as TIFF, uncompressed, PackBits and LZW after predictor 2 (written
-  here; the reader's two parts timed, their frames equal to the one written), and 125
-  copies of the same frame as a lossy WebP (``tests/data/torch_frame_formats_720p/``,
-  Pillow's quality 80; the two parts timed, every frame against Pillow's digest); one XXL
-  V2A request
-  through ``cli.main --single_video`` from a directory mixing every fixture (540 K1 and 12
-  K2 launches);
+  PackBits, a palette and 16-bit grey, at orientations 6 and 8, JPEG-in-TIFF in RGB and in
+  YCbCr 4:2:0, LZW YCbCr at 2 x 2, CMYK; GIF, interlaced with a transparent index, a local
+  table and a frame smaller than its screen, and Pillow's own, both named ``.png``; RLE8 and
+  RLE4 BMP; lossless WebP with colour indexing and with the other three transforms; lossy
+  WebP at quality 80, at quality 5 and method 6, with alpha, with bytes after its VP8L alpha
+  stream, with the simple loop filter and 8 token partitions; two animations, one whose
+  first frame lies inside the canvas) decoded on the card and on the CPU, equal to each
+  other and to the SHA-256 of Pillow's RGB bytes recorded beside them, and a WebP whose VP8L
+  alpha is corrupt raising on both, as Pillow raises; 125 frames of each format on the card
+  (GIF and JPEG-in-TIFF among them; the host's and the card's seconds apart, equal to the
+  CPU's); 125 copies of one 720p frame of the clip as TIFF, uncompressed, PackBits and LZW
+  after predictor 2 (written here; the reader's two parts timed, their frames equal to the
+  one written), and 125 copies of the same frame as a lossy WebP and as Pillow's GIF
+  (``tests/data/torch_frame_formats_720p/``; the two parts timed, every frame against
+  Pillow's digest); one XXL V2A request through ``cli.main --single_video`` from a directory
+  mixing every fixture (540 K1 and 12 K2 launches); a PPM named ``.jpg`` refused; each
+  part's seconds;
 - ``train_grad``: the train step at the XXL width cut to 1 + 1 blocks in fp32, the loss and
   every parameter's and a rank-16 adapter's factors' gradients on the card against the CPU
   (also under ``"high"`` precision), and a control with ``true_fp32`` bypassed;
@@ -253,7 +257,8 @@ KERNEL_LIBS = (("fused_qk_attention", ""), ("flash_attention", ""), ("gemm_sweep
                ("attention_f32", ""), ("fused_qk_attention_mma", "K1_MMA_BF16"),
                ("fused_qk_attention_mma", "K1_MMA_F16"),
                ("fused_qk_attention_mma", "K1_MMA_F32"))  # (source, macro): build.library's
-HOST_LIBS = ("jpeg_entropy", "tiff_lzw", "webp_lossless", "webp_vp8")  # frame codecs' C++
+HOST_LIBS = ("jpeg_entropy", "tiff_lzw", "webp_lossless", "webp_vp8", "gif_lzw",
+             "bmp_rle")  # the frame codecs' C++
 CLIP_FPS, CLIP_HW = 25, (720, 1280)  # the V2A source clip: 5 s of 25 fps 1280x720 RGB
 CLAP_REL_TOL = 1e-5        # CLAP fp32 on the card against the CPU, relative L2 (fp32 reads
                            # ~7e-7; the phase's control, TF32 let in, ~4e-4 and must break it)
@@ -3072,21 +3077,22 @@ def image_codecs_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> dic
 
 
 FRAME_FIXTURES = "tests/data/torch_frame_formats"  # small files Pillow wrote, and digests
-FRAME_720P = "tests/data/torch_frame_formats_720p"  # the clip's first frame as a lossy WebP
+FRAME_720P = "tests/data/torch_frame_formats_720p"  # the clip's first frame: lossy WebP, GIF
 # the fixture of each format timed 125 times
 FRAME_TIMED = {"jpeg": "prog_420.jpg", "tiff": "lzw_predictor.tif",
-               "webp": "all_transforms.webp", "webp_lossy": "lossy_q80.webp"}
+               "webp": "all_transforms.webp", "webp_lossy": "lossy_q80.webp",
+               "gif": "gif_interlaced.png", "tiff_jpeg": "jpeg_ycbcr_420.tif"}
 
 
 def _frame_parts(fmt: str, paths, dev):
     """The reader of ``fmt`` over ``paths`` in its two parts, each timed: the host's (the
-    files read, parsed and entropy-decoded, decompressed, or VP8-decoded into Y, U and V)
-    and the device's (the rest, the copies to and from the device included; none for
-    lossless WebP, read on the host alone) -> (RGB [T, H, W, 3] uint8, host s, device s)."""
+    files read, parsed and entropy-decoded, decompressed, LZW-decoded, or VP8-decoded into
+    Y, U and V) and the device's (the rest, the copies to and from the device included; none
+    for lossless WebP, read on the host alone) -> (RGB [T, H, W, 3] uint8, host s, device s)."""
     import numpy as np
     import torch
 
-    from foley_tpu_torch.io import jpeg, tiff, webp
+    from foley_tpu_torch.io import gif, jpeg, tiff, webp
 
     t0 = time.perf_counter()
     datas = []
@@ -3095,8 +3101,10 @@ def _frame_parts(fmt: str, paths, dev):
             datas.append(f.read())
     if fmt == "jpeg":
         parsed = [jpeg.parse_jpeg(d) for d in datas]
-    elif fmt == "tiff":
+    elif fmt.startswith("tiff"):
         parsed = [tiff.parse_tiff(d) for d in datas]
+    elif fmt == "gif":
+        parsed = [gif.parse_gif(d) for d in datas]
     elif fmt == "webp_lossy":  # stills: the picture is the canvas
         infos = [webp.parse_webp(d) for d in datas]
         parsed = [webp.decode_yuv(info) for info in infos]
@@ -3116,6 +3124,8 @@ def _frame_parts(fmt: str, paths, dev):
                                first["sampling"], first["color"]).cpu().numpy()
     elif fmt == "webp_lossy":
         rgb = webp.decode_lossy(parsed, infos[0]["width"], infos[0]["height"], dev)
+    elif fmt == "gif":
+        rgb = gif.decode(parsed, dev).cpu().numpy()
     else:
         rgb = tiff.decode(parsed, dev).cpu().numpy()
     return rgb, host_s, time.perf_counter() - t0
@@ -3233,19 +3243,21 @@ def _tiff_bytes(np, rgb, codec: str, rows: int = 16) -> bytes:
 
 def frame_formats_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> dict:
     """The frame formats the JAX package reads through PIL, read without it on the card
-    (``io/jpeg.py``'s progressive and CMYK, ``io/tiff.py``, ``io/webp.py``): each committed
-    fixture of ``FRAME_FIXTURES`` (Pillow wrote them; this machine has no PIL) decoded on
-    the card and on the CPU, equal in every byte and to the SHA-256 of Pillow's RGB bytes
-    recorded beside them; 125 frames of each format decoded on the card, the host's and the
-    card's seconds apart, equal to the CPU's decode; 125 copies of one 720p frame of the clip
-    (``CLIP_HW``, the size the main path ingests) as TIFF in each of ``TIFF_720P``, the
-    reader's two parts timed, equal to the frame written, and as the lossy WebP of
-    ``FRAME_720P``, the two parts timed, each frame equal to Pillow's recorded digest; one
-    ``SURFACE_STEPS`` XXL V2A request
-    through ``cli.main --single_video`` from a directory mixing every fixture, every fifth
-    under another format's name and PNGs named ``.jpg`` (read by their bytes: 540 K1 and
-    12 K2 launches); a GIF named ``.png`` refused, naming GIF. Returns the request's (K1,
-    K2) launches."""
+    (``io/jpeg.py``'s progressive and CMYK, ``io/tiff.py`` with its turned, JPEG, YCbCr and
+    CMYK kinds, ``io/gif.py``, ``io/bmp.py``'s RLE, ``io/webp.py`` with its VP8L alpha):
+    each committed fixture of ``FRAME_FIXTURES`` (Pillow wrote them, or Pillow read them;
+    this machine has no PIL) decoded on the card and on the CPU, equal in every byte and to
+    the SHA-256 of Pillow's RGB bytes recorded beside them; each fixture Pillow raises on (a
+    corrupt VP8L alpha plane) raising on both; 125 frames of each format of ``FRAME_TIMED``
+    decoded on the card, the host's and the card's seconds apart, equal to the CPU's decode;
+    125 copies of one 720p frame of the clip (``CLIP_HW``, the size the main path ingests)
+    as TIFF in each of ``TIFF_720P``, the reader's two parts timed, equal to the frame
+    written, and as the lossy WebP and the GIF of ``FRAME_720P``, the two parts timed, each
+    frame equal to Pillow's recorded digest; one ``SURFACE_STEPS`` XXL V2A request through
+    ``cli.main --single_video`` from a directory mixing every fixture (a GIF named ``.png``
+    among them), every fifth under another format's name and PNGs named ``.jpg`` (read by
+    their bytes: 540 K1 and 12 K2 launches); a PPM named ``.jpg`` refused, naming PPM. Each
+    part's seconds (``section_s``). Returns the request's (K1, K2) launches."""
     import hashlib
     import os
     import shutil
@@ -3263,6 +3275,13 @@ def frame_formats_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> di
     work = "build/chip_smoke/frame_formats"
     shutil.rmtree(work, ignore_errors=True)
     out = {"phase": "frame_formats", "fixtures": len(digests), "hw": list(hw), "card": card}
+    sections, t_mark = {}, time.perf_counter()  # each part's seconds, on the phase's clock
+
+    def section(name: str) -> None:
+        nonlocal t_mark
+        now = time.perf_counter()
+        sections[name] = now - t_mark
+        t_mark = now
 
     # every fixture: card == CPU == Pillow's digest
     video.read_frames_dir(FRAME_FIXTURES, device=dev, max_frames=1)  # first launches
@@ -3282,6 +3301,23 @@ def frame_formats_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> di
         check(hashlib.sha256(rgb.tobytes()).hexdigest() == digest,
               f"{name}: the decode differs from Pillow's (its recorded digest)")
     out["fixture_decode_s"] = fixture_s
+    section("fixtures")
+    # the fixtures Pillow raises on (a corrupt VP8L alpha plane): each device raises too
+    refused = {}
+    for name in record.get("pil_raises", []):
+        one = os.path.join(work, "one", name)
+        os.makedirs(one)
+        shutil.copy(os.path.join(FRAME_FIXTURES, name), one)
+        for where in (dev, "cpu"):
+            try:
+                video.read_frames_dir(one, device=where)
+                refused[f"{name}@{where}"] = None
+            except ValueError as e:
+                refused[f"{name}@{where}"] = str(e)
+            check(refused[f"{name}@{where}"] is not None,
+                  f"{name}: read on {where}, where Pillow raises")
+    out["pil_raises_refused"] = refused
+    section("refused")
 
     # 125 frames of each format on the card, the host's and the card's parts apart
     n = int(DURATION_S * CLIP_FPS)
@@ -3307,6 +3343,7 @@ def frame_formats_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> di
                       "host_s": host_s, "device_s": dev_s, "cpu_read_frames_dir_s": cpu_s,
                       "host_ms_per_frame": host_s / n * 1e3}
     out["decode_125"] = timed
+    section("decode_125")
 
     # 125 frames of 720p TIFF, the size the main path ingests: one frame of the clip written
     # uncompressed, in PackBits and in LZW after predictor 2, 125 copies of each
@@ -3332,27 +3369,32 @@ def frame_formats_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> di
                              "encode_s": encode_s, "host_s": host_s, "device_s": dev_s,
                              "host_ms_per_frame": host_s / n * 1e3}
     out["decode_125_tiff_720p"] = timed_720p
+    section("tiff_720p")
 
     # 125 copies of the same frame as a lossy WebP (Pillow wrote it at quality 80, this
-    # machine has no PIL): the reader's two parts timed, every frame Pillow's (its digest)
+    # machine has no PIL) and as Pillow's GIF (a screen capture's format): the reader's two
+    # parts timed, every frame Pillow's (its digest)
     with open(os.path.join(FRAME_720P, "digests.json")) as f:
-        (name_720p, digest_720p), = json.load(f)["sha256_of_pil_rgb"].items()
-    d = os.path.join(work, "webp_lossy_720p")
-    os.makedirs(d)
-    paths = [os.path.join(d, f"frame_{i + 1}.webp") for i in range(n)]
-    for path in paths:
-        shutil.copy(os.path.join(FRAME_720P, name_720p), path)
-    torch.cuda.synchronize()
-    rgb, host_s, dev_s = _frame_parts("webp_lossy", paths, dev)
-    check(rgb.shape == (n, *CLIP_HW, 3) and bool((rgb == rgb[0]).all())
-          and hashlib.sha256(rgb[0].tobytes()).hexdigest() == digest_720p,
-          "720p lossy WebP: a frame differs from Pillow's (its recorded digest)")
-    del rgb
-    shutil.rmtree(d)
-    out["decode_125_webp_lossy_720p"] = {
-        "frames": n, "hw": list(CLIP_HW), "file_bytes": os.path.getsize(
-            os.path.join(FRAME_720P, name_720p)), "host_s": host_s, "device_s": dev_s,
-        "host_ms_per_frame": host_s / n * 1e3, "device_ms_per_frame": dev_s / n * 1e3}
+        digests_720p = json.load(f)["sha256_of_pil_rgb"]
+    for fmt, name_720p, ext in (("webp_lossy", "clip_q80.webp", ".webp"),
+                                ("gif", "clip.gif", ".png")):
+        d = os.path.join(work, f"{fmt}_720p")
+        os.makedirs(d)
+        paths = [os.path.join(d, f"frame_{i + 1}{ext}") for i in range(n)]
+        for path in paths:
+            shutil.copy(os.path.join(FRAME_720P, name_720p), path)
+        torch.cuda.synchronize()
+        rgb, host_s, dev_s = _frame_parts(fmt, paths, dev)
+        check(rgb.shape == (n, *CLIP_HW, 3) and bool((rgb == rgb[0]).all())
+              and hashlib.sha256(rgb[0].tobytes()).hexdigest() == digests_720p[name_720p],
+              f"720p {name_720p}: a frame differs from Pillow's (its recorded digest)")
+        del rgb
+        shutil.rmtree(d)
+        out[f"decode_125_{fmt}_720p"] = {
+            "frames": n, "hw": list(CLIP_HW), "file_bytes": os.path.getsize(
+                os.path.join(FRAME_720P, name_720p)), "host_s": host_s, "device_s": dev_s,
+            "host_ms_per_frame": host_s / n * 1e3, "device_ms_per_frame": dev_s / n * 1e3}
+        section(f"{fmt}_720p")
 
     # V2A through the command line from a directory mixing every fixture, every fifth under
     # another format's name (read by its bytes, as PIL reads it), and PNGs named .jpg
@@ -3360,7 +3402,8 @@ def frame_formats_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> di
     os.makedirs(mixed)
     names = sorted(digests)
     png_rgb = webp.read_webps([os.path.join(FRAME_FIXTURES, "lossy_q80.webp")], "cpu")[0]
-    misnamed = {".jpg": ".png", ".webp": ".jpg", ".tif": ".bmp"}
+    misnamed = {".jpg": ".png", ".webp": ".jpg", ".tif": ".bmp", ".png": ".tif",
+                ".bmp": ".webp"}  # a GIF named .tif, an RLE BMP named .webp, ...
     for i in range(n):
         name = names[i % len(names)]
         ext = os.path.splitext(name)[1]
@@ -3375,17 +3418,18 @@ def frame_formats_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> di
           "the mixed directory on the card differs from the CPU's")
     check(np.array_equal(np.round(mixed_frames[24] * 255.0).astype(np.uint8), png_rgb),
           "a PNG named .jpg in the mixed directory")
-    gif = os.path.join(work, "gif")
-    os.makedirs(gif)
-    with open(os.path.join(gif, "frame_1.png"), "wb") as f:  # a GIF's header, named .png
-        f.write(b"GIF89a" + bytes(7))
+    ppm = os.path.join(work, "ppm")
+    os.makedirs(ppm)
+    with open(os.path.join(ppm, "frame_1.jpg"), "wb") as f:  # a PPM named .jpg
+        f.write(b"P6\n2 1\n255\n" + bytes(6))
     try:
-        video.read_frames_dir(gif, device=dev)
+        video.read_frames_dir(ppm, device=dev)
         refused = None
     except ValueError as e:
         refused = str(e)
-    check(refused is not None and "a GIF file" in refused, f"a GIF named .png: {refused}")
-    out["gif_refused"] = refused
+    check(refused is not None and "a PPM file" in refused, f"a PPM named .jpg: {refused}")
+    out["ppm_refused"] = refused
+    section("mixed_directory")
     per_k1 = STEPS * (pipeline_cfg.model.depth_triple_blocks
                       + pipeline_cfg.model.depth_single_blocks)
     wav_path = os.path.join(work, "v2a.wav")
@@ -3404,8 +3448,9 @@ def frame_formats_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> di
     check(launches == (per_k1, 12), f"frame_formats cli: K1 {launches[0]}, K2 {launches[1]}")
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
+    section("cli")
     out.update(mixed_frames=n, mixed_kinds=names, cli_wall_s=cli_s, launches_k1_k2=launches,
-               phase_seconds=time.perf_counter() - t_phase)
+               section_s=sections, phase_seconds=time.perf_counter() - t_phase)
     emit(out)
     return launches
 

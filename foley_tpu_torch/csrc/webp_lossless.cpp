@@ -1,7 +1,9 @@
 // Lossless WebP (VP8L) decoding on the host, behind a plain C interface (loaded through
 // ctypes by foley_tpu_torch/io/webp.py; built by ops/kernels/build.py's host route). The
 // RIFF container is parsed in Python; this file takes a VP8L chunk's payload and writes the
-// image as ARGB words. The RGB bytes are taken out of them on the caller's device.
+// image as ARGB words, whose RGB bytes the caller takes out. It also decodes a lossy
+// picture's VP8L-compressed ALPH plane (the same image stream without the VP8L header), so
+// that a corrupt one fails where libwebp fails.
 //
 // The bitstream follows the WebP lossless format (RFC 9649) as libwebp's vp8l_dec.c reads
 // it: bits least significant first; the transforms (predictor with its 14 modes,
@@ -392,6 +394,51 @@ struct Transform {
   std::vector<uint32_t> data;
 };
 
+// The image stream after the VP8L header: the transforms, then the entropy-coded image,
+// then the transforms inverted in reverse order, into out (w * h ARGB words); seen receives a
+// bit for each transform the stream holds (1 << type).
+void decode_stream(Decoder& d, int w, int h, uint32_t* out, int32_t* seen_out) {
+  std::vector<Transform> transforms;
+  int seen = 0, xsize = w;
+  while (d.br.read(1)) {
+    Transform t;
+    t.type = (int)d.br.read(2);
+    if (seen & (1 << t.type)) d.fail("transform %lld read twice", t.type);
+    seen |= 1 << t.type;
+    t.xsize = xsize;
+    t.bits = 0;
+    if (t.type == kPredictor || t.type == kCrossColor) {
+      t.bits = (int)d.br.read(3) + 2;
+      t.data = d.decode_image(sub_sample(xsize, t.bits), sub_sample(h, t.bits), false);
+    } else if (t.type == kColorIndexing) {
+      int n = (int)d.br.read(8) + 1;
+      t.bits = n > 16 ? 0 : n > 4 ? 1 : n > 2 ? 2 : 3;
+      std::vector<uint32_t> colors = d.decode_image(n, 1, false);
+      t.data.assign((size_t)1 << (8 >> t.bits), 0);  // transparent black past the colours
+      t.data[0] = colors[0];
+      for (int i = 1; i < n; ++i) t.data[i] = add_pixels(colors[i], t.data[i - 1]);
+      xsize = sub_sample(xsize, t.bits);
+    }
+    transforms.push_back(std::move(t));
+  }
+  *seen_out = seen;
+  std::vector<uint32_t> px = d.decode_image(xsize, h, true);
+  for (auto it = transforms.rbegin(); it != transforms.rend(); ++it) {
+    switch (it->type) {
+      case kPredictor: inverse_predictor(px, it->xsize, h, it->bits, it->data); break;
+      case kCrossColor: inverse_cross_color(px, it->xsize, h, it->bits, it->data); break;
+      case kSubtractGreen: inverse_subtract_green(px); break;
+      default: px = inverse_color_indexing(px, it->xsize, h, it->bits, it->data); break;
+    }
+  }
+  std::memcpy(out, px.data(), (size_t)w * h * sizeof(uint32_t));
+}
+
+int finish(char* err, int32_t err_len) {
+  if (err && err_len > 0 && err[0] == 0) std::snprintf(err, (size_t)err_len, "truncated or corrupt VP8L data");
+  return 1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -409,43 +456,25 @@ int webp_lossless_decode(const uint8_t* data, int64_t size, int32_t width, int32
     d.br.read(1);  // alpha_is_used: a hint only
     if (d.br.read(3) != 0) d.fail("VP8L version is not 0");
     if (w != width || h != height) d.fail("a VP8L header of another size (width %lld)", w);
-    std::vector<Transform> transforms;
-    int seen = 0, xsize = w;
-    while (d.br.read(1)) {
-      Transform t;
-      t.type = (int)d.br.read(2);
-      if (seen & (1 << t.type)) d.fail("transform %lld read twice", t.type);
-      seen |= 1 << t.type;
-      t.xsize = xsize;
-      t.bits = 0;
-      if (t.type == kPredictor || t.type == kCrossColor) {
-        t.bits = (int)d.br.read(3) + 2;
-        t.data = d.decode_image(sub_sample(xsize, t.bits), sub_sample(h, t.bits), false);
-      } else if (t.type == kColorIndexing) {
-        int n = (int)d.br.read(8) + 1;
-        t.bits = n > 16 ? 0 : n > 4 ? 1 : n > 2 ? 2 : 3;
-        std::vector<uint32_t> colors = d.decode_image(n, 1, false);
-        t.data.assign((size_t)1 << (8 >> t.bits), 0);  // transparent black past the colours
-        t.data[0] = colors[0];
-        for (int i = 1; i < n; ++i) t.data[i] = add_pixels(colors[i], t.data[i - 1]);
-        xsize = sub_sample(xsize, t.bits);
-      }
-      transforms.push_back(std::move(t));
-    }
-    *transforms_read = seen;
-    std::vector<uint32_t> px = d.decode_image(xsize, h, true);
-    for (auto it = transforms.rbegin(); it != transforms.rend(); ++it) {
-      switch (it->type) {
-        case kPredictor: inverse_predictor(px, it->xsize, h, it->bits, it->data); break;
-        case kCrossColor: inverse_cross_color(px, it->xsize, h, it->bits, it->data); break;
-        case kSubtractGreen: inverse_subtract_green(px); break;
-        default: px = inverse_color_indexing(px, it->xsize, h, it->bits, it->data); break;
-      }
-    }
-    std::memcpy(out, px.data(), (size_t)w * h * sizeof(uint32_t));
+    decode_stream(d, w, h, out, transforms_read);
   } catch (const Error&) {
-    if (err && err_len > 0 && err[0] == 0) std::snprintf(err, (size_t)err_len, "truncated or corrupt VP8L data");
-    return 1;
+    return finish(err, err_len);
+  }
+  return 0;
+}
+
+// Decode a WebP ALPH chunk's VP8L-compressed plane: data[0:size] is the image stream after
+// the chunk's header byte, a VP8L stream without its 5-byte header (libwebp's
+// VP8LDecodeAlphaHeader), width x height from the VP8 frame. The plane lands in the green
+// bytes of out (width * height ARGB words); bytes after a sound stream are not read. Returns
+// 0, or non-zero with a message in err.
+int webp_alpha_decode(const uint8_t* data, int64_t size, int32_t width, int32_t height,
+                      uint32_t* out, int32_t* transforms_read, char* err, int32_t err_len) {
+  Decoder d{BitReader{data, size}, err, err_len};
+  try {
+    decode_stream(d, width, height, out, transforms_read);
+  } catch (const Error&) {
+    return finish(err, err_len);
   }
   return 0;
 }

@@ -10,13 +10,23 @@ palettes (short ones too: an index past the palette's end reads black), 16-bit 5
 and 5-5-5, 24-bit BGR, 32-bit bytes in any order, alpha dropped). A 5-bit field widens to 8
 bits as ``v * 255 // 31``, a 6-bit one as ``v * 255 // 63``, as Pillow's unpackers do.
 
-Refused with ``BMPUnsupported``, naming what it is: RLE4 and RLE8 (no surface writes them),
-JPEG or PNG inside a BMP, other bit depths and bitfield layouts.
+RLE8 and RLE4 (compression 1 and 2) at 1, 4 and 8 bits: the runs are read on the host by
+``csrc/bmp_rle.cpp`` (built at first use by ``ops/kernels/build.py::host_library``) as
+Pillow's ``BmpRleDecoder`` reads them (encoded and absolute runs, the absolute runs' word
+padding, end of line, end of bitmap, the delta escape; indices never written read 0), and
+the palette lookup and the row order run on the device, as for an uncompressed palette. Runs
+that end before the bitmap is full raise, as Pillow's "not enough image data". A palette of
+greys ``0, 1, 2, ...`` (Pillow's mode ``L``) reads every index as its grey, past the
+palette's end too.
+
+Refused with ``BMPUnsupported``, naming what it is: JPEG or PNG inside a BMP, RLE at other
+bit depths, other bit depths and bitfield layouts.
 """
 
 from __future__ import annotations
 
 import struct
+import ctypes
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -35,11 +45,39 @@ _BITFIELDS = {
     24: [(0xFF0000, 0xFF00, 0xFF)],
     16: [(0xF800, 0x7E0, 0x1F), (0x7C00, 0x3E0, 0x1F)],
 }
-_COMPRESSION = {1: "RLE8", 2: "RLE4", 4: "JPEG", 5: "PNG"}
+_COMPRESSION = {4: "JPEG", 5: "PNG"}
+_RLE = {1: "RLE8", 2: "RLE4"}
 
 
 class BMPUnsupported(ValueError):
     """A BMP this reader does not take."""
+
+
+def rle_library() -> ctypes.CDLL:
+    """``csrc/bmp_rle.cpp``, built at first use (a missing compiler or a failed build raises;
+    ``host_library`` keeps the loaded library)."""
+    from foley_tpu_torch.ops.kernels.build import host_library
+
+    lib = host_library("bmp_rle")
+    i64, i32 = ctypes.c_int64, ctypes.c_int32
+    lib.bmp_rle_decode.argtypes = [ctypes.c_void_p, i64, i64, i32, i32, i32, ctypes.c_void_p]
+    lib.bmp_rle_decode.restype = i64
+    return lib
+
+
+def _rle_indices(data: bytes, offset: int, w: int, h: int, rle4: bool, name: str) -> np.ndarray:
+    """The palette indices ``[H, W]`` (file row order) of RLE pixel data from ``offset``."""
+    if w <= 0 or h <= 0:
+        raise ValueError(f"{name}: an RLE BMP of {w} x {h} pixels")
+    out = np.zeros((h, w), np.uint8)
+    src = np.frombuffer(data, np.uint8)
+    n = rle_library().bmp_rle_decode(src.ctypes.data, src.size, offset, w, h, int(rle4),
+                                     out.ctypes.data)
+    if n < 0:
+        raise ValueError(f"{name}: truncated RLE data (a delta escape without its values)")
+    if n < w * h:
+        raise ValueError(f"{name}: not enough image data ({n} of {w * h} RLE pixels)")
+    return out
 
 
 def parse_bmp(data: bytes, name: str = "BMP") -> Dict:
@@ -68,8 +106,11 @@ def parse_bmp(data: bytes, name: str = "BMP") -> Dict:
     check_image_size(w, h, name)
     if compression in _COMPRESSION:
         raise BMPUnsupported(f"{name}: {_COMPRESSION[compression]}-compressed BMP is not read "
-                             "(uncompressed and bitfield BMPs are)")
-    if compression not in (0, 3):
+                             "(uncompressed, bitfield and RLE BMPs are)")
+    if compression in _RLE and bits not in (1, 4, 8):
+        raise BMPUnsupported(f"{name}: {_RLE[compression]} at {bits} bits a pixel is not read "
+                             "(1, 4 and 8 are)")
+    if compression not in (0, 1, 2, 3):
         raise BMPUnsupported(f"{name}: BMP compression {compression} is not read")
     if bits not in (1, 4, 8, 16, 24, 32):
         raise BMPUnsupported(f"{name}: a {bits}-bit BMP is not read")
@@ -97,6 +138,14 @@ def parse_bmp(data: bytes, name: str = "BMP") -> Dict:
         if offset == 14 + hsize:  # an offset that points at the palette: Pillow skips it
             offset += 4 * colors
         masks = None
+        # Pillow's mode L: every colour the grey of its index, each index read as its grey
+        if colors != 2 and len(palette) == colors and (
+                palette == np.arange(colors)[:, None]).all():
+            palette = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
+    if compression in _RLE:
+        indices = _rle_indices(data, offset, w, h, compression == 2, name)
+        return {"width": w, "height": h, "bits": 8, "masks": None, "palette": palette,
+                "rows": indices, "top_down": top_down}
     stride = ((w * bits + 31) >> 3) & ~3
     rows = np.frombuffer(data[offset:offset + stride * h], np.uint8)
     if rows.size != stride * h:

@@ -160,14 +160,24 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def parse_jpeg(data: bytes, name: str = "JPEG") -> Dict:
+def parse_jpeg(data: bytes, name: str = "JPEG", tables: bytes = b"",
+               color: Optional[str] = None) -> Dict:
     """One JPEG's bytes -> its geometry (``width``, ``height``, ``sampling``: the (h, v) of
     each component), its colour space (``color``: ``grey``, ``ycc``, ``rgb``, ``cmyk`` or
     ``ycck``), ``quant`` (int32 ``[C, 64]``, natural order, each component's table) and
     ``coefs`` (each component's int16 blocks ``[rows, cols, 64]``, natural order, on the MCU
-    grid), sequential or progressive."""
+    grid), sequential or progressive. ``tables``, where given, is a tables-only stream (SOI,
+    DQT and DHT segments, EOI: a JPEG-in-TIFF's ``JPEGTables``) read before ``data``, an
+    abbreviated stream that may lack them; ``color``, where given, is the colour space the
+    caller sets, as libtiff sets libjpeg's, whatever the markers say (``rgb``: each
+    component as it is, no transform)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{name}: not a JPEG file (no SOI marker)")
+    if tables:
+        if tables[:2] != b"\xff\xd8":
+            raise ValueError(f"{name}: JPEG tables without an SOI marker")
+        head = tables[:-2] if tables.endswith(b"\xff\xd9") else tables
+        data = head + data[2:]  # the tables' segments, then the stream's
     buf = np.frombuffer(data, np.uint8)
     qt: Dict[int, np.ndarray] = {}
     huff: Dict[Tuple[int, int], Tuple[bytes, bytes]] = {}
@@ -249,6 +259,7 @@ def parse_jpeg(data: bytes, name: str = "JPEG") -> Dict:
                 raise ValueError(f"{name}: a scan before the frame header")
             if not frame.get("checked"):
                 _check_frame(frame, jfif, adobe, name)
+                frame["color"] = color or frame["color"]
             pos = _decode_scan(buf, pos + 2 + length, seg, frame, huff, restart, name)
             continue
         pos += 2 + length

@@ -29,11 +29,12 @@ runs with it off. Both host libraries are built at first use by
 
 Alpha is dropped, as ``convert("RGB")`` drops it: libwebp decodes RGB apart from alpha in the
 non-premultiplied RGBA mode Pillow asks for, so the RGB does not depend on the ``ALPH``
-chunk. Where libwebp would decode it (a still whose ``VP8X`` sets the alpha flag, an
-animation's first frame), its header is checked (compression 0 or 1, pre-processing 0 or 1,
-reserved bits 0, an uncompressed plane of the frame's size) and invalid fields raise; its
-plane is not decoded. So one case differs from Pillow: a sound ``VP8 `` bitstream beside a
-corrupt VP8L-compressed alpha stream, which Pillow refuses and this reader reads. The
+chunk. Where libwebp decodes it (a still whose ``VP8X`` sets the alpha flag, an animation's
+first frame), it is decoded on the host too, so that it fails where libwebp fails
+(``_check_alpha``): its header is checked (compression 0 or 1, pre-processing 0 or 1,
+reserved bits 0), an uncompressed plane must hold the frame's size, and a VP8L-compressed
+plane is decoded by ``csrc/webp_lossless.cpp`` (the VP8L image stream without its header,
+the frame's size); a corrupt one raises ``ValueError``, and the plane is then dropped. The
 loop-filter deltas of the VP8 frame header (``mode_lf_delta`` / ``ref_lf_delta``) are decoded
 as libwebp decodes them, but no encoder here writes them, so they are not held against
 Pillow.
@@ -74,6 +75,8 @@ def lossless_library() -> ctypes.CDLL:
     lib.webp_lossless_decode.argtypes = [p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
                                          p, p, p, ctypes.c_int32]
     lib.webp_lossless_decode.restype = ctypes.c_int
+    lib.webp_alpha_decode.argtypes = lib.webp_lossless_decode.argtypes
+    lib.webp_alpha_decode.restype = ctypes.c_int
     return lib
 
 
@@ -145,16 +148,32 @@ def _vp8l_size(payload: bytes, name: str) -> Tuple[int, int]:
 
 
 def _check_alpha(alph: bytes, width: int, height: int, name: str) -> None:
-    """An ``ALPH`` chunk's header, as libwebp's ``ALPHInit`` checks it (the plane is not
-    decoded: ``convert("RGB")`` drops it)."""
+    """An ``ALPH`` chunk as libwebp's ``ALPHInit`` and ``ALPHDecode`` take it: its header
+    checked (compression 0 or 1, pre-processing 0 or 1, reserved bits 0; the filter bits
+    cannot fail), an uncompressed plane length-checked, a VP8L-compressed one decoded on the
+    host (``csrc/webp_lossless.cpp::webp_alpha_decode``: the image stream after the header
+    byte, of the frame's size; bytes after a sound stream are ignored) and its plane dropped,
+    as ``convert("RGB")`` drops it. A corrupt plane raises, as libwebp fails the frame."""
     if len(alph) <= 1:
         raise ValueError(f"{name}: an empty ALPH chunk")
     method, pre, reserved = alph[0] & 3, (alph[0] >> 4) & 3, alph[0] >> 6
     if method > 1 or pre > 1 or reserved:
         raise ValueError(f"{name}: invalid ALPH header (compression {method}, "
                          f"pre-processing {pre}, reserved bits {reserved})")
-    if method == 0 and len(alph) - 1 < width * height:
-        raise ValueError(f"{name}: truncated uncompressed alpha plane")
+    if method == 0:
+        if len(alph) - 1 < width * height:
+            raise ValueError(f"{name}: truncated uncompressed alpha plane")
+        return
+    plane = np.empty((height, width), np.uint32)
+    src = np.frombuffer(alph, np.uint8)[1:]
+    seen = ctypes.c_int32(0)
+    err = ctypes.create_string_buffer(256)
+    rc = lossless_library().webp_alpha_decode(src.ctypes.data, src.size, width, height,
+                                              plane.ctypes.data, ctypes.byref(seen), err,
+                                              len(err))
+    if rc != 0:
+        raise ValueError(f"{name}: corrupt VP8L alpha plane "
+                         f"({err.value.decode(errors='replace')})")
 
 
 _PICTURE_CHUNKS = (b"ALPH", b"VP8 ", b"VP8L")

@@ -6,10 +6,12 @@ Two routes, as in the JAX package:
   (``read_frames_dir``): the frames are selected by name (``target_fps`` through the port's
   ``ops/interp.py::linspace_resample_indices``, then ``max_frames``) before any is decoded,
   each file's format is told by its first bytes as PIL tells it (a PNG named ``.jpg`` reads
-  as a PNG; GIF and the other formats PIL opens raise, naming the format), and PNG, JPEG
-  (baseline and progressive; grey, YCbCr, RGB, CMYK, YCCK), BMP, TIFF and
-  WebP (lossless, lossy with or without alpha, and an animation's first frame) frames are
-  decoded without PIL (``io/png.py``, ``io/jpeg.py``, ``io/bmp.py``, ``io/tiff.py``,
+  as a PNG, a GIF named ``.png`` as a GIF; the other formats PIL opens raise, naming the
+  format), and PNG, JPEG (baseline and progressive; grey, YCbCr, RGB, CMYK, YCCK), BMP
+  (uncompressed, bitfields, RLE8 and RLE4), GIF (the first frame), TIFF (every
+  orientation; LZW, Deflate, PackBits, JPEG; grey, RGB, palette, CMYK, YCbCr) and WebP
+  (lossless, lossy with or without alpha, and an animation's first frame) frames are decoded
+  without PIL (``io/png.py``, ``io/jpeg.py``, ``io/bmp.py``, ``io/gif.py``, ``io/tiff.py``,
   ``io/webp.py``, each equal to PIL's ``convert("RGB")``), on ``device`` (the card unless
   the caller asks for the CPU); each kind a reader refuses raises, naming it (its module
   says which);
@@ -40,6 +42,7 @@ import torch
 from foley_tpu_torch.core.device import DeviceLike
 from foley_tpu_torch.io.avi import is_mjpeg_avi, read_avi
 from foley_tpu_torch.io.bmp import read_bmps
+from foley_tpu_torch.io.gif import read_gifs
 from foley_tpu_torch.io.jpeg import read_jpegs
 from foley_tpu_torch.io.png import read_pngs
 from foley_tpu_torch.io.tiff import read_tiffs
@@ -49,14 +52,14 @@ from foley_tpu_torch.ops.interp import linspace_resample_indices
 # the names a frames directory's frames are selected by: the JAX package's extensions, in its
 # order; each file's reader is then chosen from its first bytes (``frame_format``)
 _IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp", ".tif", ".tiff")
-_READERS = {"PNG": read_pngs, "JPEG": read_jpegs, "BMP": read_bmps, "TIFF": read_tiffs,
-            "WEBP": read_webps}
+_READERS = {"PNG": read_pngs, "JPEG": read_jpegs, "BMP": read_bmps, "GIF": read_gifs,
+            "TIFF": read_tiffs, "WEBP": read_webps}
 # the first bytes by which Pillow 12.1's plugins accept a file (their ``_accept``), of the
 # formats the port decodes; TIFF's include the two byte orders' odd variants Pillow takes
 _TIFF_PREFIXES = (b"MM\x00*", b"II*\x00", b"MM*\x00", b"II\x00*", b"MM\x00+", b"II+\x00")
 # and of formats Pillow opens that the port does not decode, to name them when it refuses
 _OTHER_FORMATS = (
-    ((b"GIF87a", b"GIF89a"), "GIF"), ((b"\x00\x00\x01\x00",), "ICO"),
+    ((b"\x00\x00\x01\x00",), "ICO"),
     ((b"\x00\x00\x02\x00",), "CUR"), ((b"qoif",), "QOI"), ((b"8BPS",), "PSD"),
     ((b"icns",), "ICNS"), ((b"DDS ",), "DDS"),
     ((b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \r\n\x87\n"), "JPEG 2000"),
@@ -110,14 +113,16 @@ def frame_names(path: str, fps: float = 16.0, target_fps: Optional[float] = None
 def frame_format(data: bytes, name: str) -> str:
     """The format of a frame file's bytes, told as Pillow's ``Image.open`` tells it (its
     plugins' ``_accept`` on the first bytes), whatever the file's name says: ``"PNG"``,
-    ``"JPEG"``, ``"BMP"``, ``"TIFF"`` or ``"WEBP"``. Any other format raises, naming it where
-    Pillow would open it (GIF, ICO, PPM, ...): the port does not decode it."""
+    ``"JPEG"``, ``"BMP"``, ``"GIF"``, ``"TIFF"`` or ``"WEBP"``. Any other format raises,
+    naming it where Pillow would open it (ICO, PPM, QOI, ...): the port does not decode it."""
     if data.startswith(b"\x89PNG\r\n\x1a\n"):
         return "PNG"
     if data.startswith(b"\xff\xd8\xff"):
         return "JPEG"
     if data.startswith(b"BM"):
         return "BMP"
+    if data.startswith((b"GIF87a", b"GIF89a")):
+        return "GIF"
     if data[:4] in _TIFF_PREFIXES:
         return "TIFF"
     if data.startswith(b"RIFF") and data[8:12] == b"WEBP" and data[12:16] in (
@@ -127,9 +132,9 @@ def frame_format(data: bytes, name: str) -> str:
     if found is None and len(data) >= 2 and data[:1] == b"P" and data[1] in b"0123456fy":
         found = "PPM"
     if found is not None:
-        raise ValueError(f"{name}: a {found} file; the port decodes PNG, JPEG, BMP, TIFF and "
-                         f"WebP frames, not {found}")
-    named = _NAMED.get(os.path.splitext(name)[1].lower(), "PNG, JPEG, BMP, TIFF or WebP")
+        raise ValueError(f"{name}: a {found} file; the port decodes PNG, JPEG, BMP, GIF, TIFF "
+                         f"and WebP frames, not {found}")
+    named = _NAMED.get(os.path.splitext(name)[1].lower(), "PNG, JPEG, BMP, GIF, TIFF or WebP")
     raise ValueError(f"{name}: cannot identify image file (not a {named} file, nor any other "
                      f"format the port decodes: its first bytes are {data[:12]!r})")
 
@@ -137,10 +142,12 @@ def frame_format(data: bytes, name: str) -> str:
 def read_frames_dir(path: str, fps: float = 16.0, target_fps: Optional[float] = None,
                     max_frames: Optional[int] = None,
                     device: DeviceLike = None) -> Tuple[np.ndarray, float]:
-    """A directory of PNG, JPEG, BMP, TIFF or WebP frames -> ([T, H, W, 3] float32 in
+    """A directory of PNG, JPEG, BMP, GIF, TIFF or WebP frames -> ([T, H, W, 3] float32 in
     [0, 1] on the host, effective fps), decoded on ``device`` (``cuda`` unless given). The
     frames are selected by name (``frame_names``), and each file's reader is chosen by its
-    bytes (``frame_format``), as PIL chooses it: a PNG named ``.jpg`` reads as a PNG. Each
+    bytes (``frame_format``), as PIL chooses it: a PNG named ``.jpg`` reads as a PNG, a GIF
+    named ``.png`` as a GIF (the JAX package lists no ``.gif`` name, so neither does the
+    port). Each
     file is read once, ``CHUNK_FRAMES`` at a time. Every frame must share one size; a frame
     of another format, or of a kind its reader refuses (an arithmetic-coded JPEG, a CCITT
     TIFF, ...) raises, naming it."""

@@ -2,10 +2,11 @@
 against the JAX package's ``pipeline/video.py`` (PIL), on the CPU: the committed fixtures of
 ``tests/data/torch_frame_formats/`` (``tests/torch_frame_fixtures.py``) against the digests
 recorded beside them, which ``chip_smoke.py``'s ``frame_formats`` phase holds the card to,
-and directories mixing progressive JPEG, TIFF, lossless, lossy and animated WebP, PNG and BMP
-frames of one size read through ``read_frames_dir`` and ``read_video_frames``; the 720p lossy
-WebP of ``tests/data/torch_frame_formats_720p/`` against its digest. No tolerance: every
-comparison is exact.
+and directories mixing progressive JPEG, TIFF (turned, JPEG, YCbCr, CMYK), lossless, lossy
+and animated WebP, GIF named ``.png``, PNG and BMP (RLE too) frames of one size read through
+``read_frames_dir`` and ``read_video_frames``; the fixture Pillow raises on raising; the 720p
+lossy WebP and GIF of ``tests/data/torch_frame_formats_720p/`` against their digests. No
+tolerance: every comparison is exact.
 """
 
 import hashlib
@@ -13,6 +14,7 @@ import io
 import json
 import os
 import shutil
+import struct
 
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from PIL import Image
 
 import torch_frame_fixtures as fx
 from foley_tpu.pipeline import video as jvideo
+from foley_tpu_torch.io import gif as tgif
 from foley_tpu_torch.io import jpeg as tjpeg
 from foley_tpu_torch.io import tiff as ttiff
 from foley_tpu_torch.io import webp as twebp
@@ -38,22 +41,55 @@ def _data(name: str) -> bytes:
 
 def test_fixtures_are_small_and_listed():
     names = sorted(n for n in os.listdir(fx.DIR) if n != "digests.json")
-    assert names == sorted(DIGESTS) and len(names) == 18
+    assert names == sorted([*DIGESTS, *RECORD["pil_raises"]]) and len(names) == 30
     assert sum(os.path.getsize(os.path.join(fx.DIR, n)) for n in names) < 1 << 20
-    assert tuple(RECORD["hw"]) == fx.HW
+    assert tuple(RECORD["hw"]) == fx.HW and tuple(RECORD["pil_raises"]) == fx.REFUSED
 
 
-def test_720p_lossy_webp_is_pillows_and_the_ports(tmp_path):
+@pytest.mark.parametrize("name", ["clip_q80.webp", "clip.gif"])
+def test_720p_frames_are_pillows_and_the_ports(tmp_path, name):
+    """The 720p frame as a lossy WebP and as Pillow's GIF: each file Pillow's digest, and
+    the port's decode the same."""
     with open(os.path.join(fx.DIR_720P, "digests.json")) as f:
         record = json.load(f)
-    (name, digest), = record["sha256_of_pil_rgb"].items()
-    with open(os.path.join(fx.DIR_720P, name), "rb") as f:
+    digest = record["sha256_of_pil_rgb"][name]
+    path = os.path.join(fx.DIR_720P, name)
+    with open(path, "rb") as f:
         data = f.read()
-    assert data[12:16] == b"VP8 " and tuple(record["hw"]) == (720, 1280)
-    assert os.path.getsize(os.path.join(fx.DIR_720P, name)) < 1 << 17
+    assert tuple(record["hw"]) == (720, 1280) and sorted(record["sha256_of_pil_rgb"]) == [
+        "clip.gif", "clip_q80.webp"]
+    head = data[12:16] if name.endswith(".webp") else data[:4]
+    assert head == (b"VP8 " if name.endswith(".webp") else b"GIF8")
+    assert os.path.getsize(path) < (1 << 17 if name.endswith(".webp") else 1 << 18)
     assert fx.pil_digest(data) == digest
-    rgb = twebp.read_webps([os.path.join(fx.DIR_720P, name)], "cpu")[0]
+    rgb = (twebp.read_webps if name.endswith(".webp") else tgif.read_gifs)([path], "cpu")[0]
     assert hashlib.sha256(rgb.tobytes()).hexdigest() == digest
+
+
+@pytest.mark.parametrize("name", fx.REFUSED)
+def test_refused_fixtures_raise_in_pillow_and_the_port(tmp_path, name):
+    """A fixture Pillow raises on (a sound VP8 frame beside a corrupt VP8L alpha plane)
+    raises in the port."""
+    data = _data(name)
+    with pytest.raises(OSError):
+        Image.open(io.BytesIO(data)).convert("RGB")
+    shutil.copy(os.path.join(fx.DIR, name), tmp_path / name)
+    with pytest.raises(ValueError, match="corrupt VP8L alpha plane"):
+        tvideo.read_frames_dir(str(tmp_path), device="cpu")
+
+
+def test_new_kinds_in_one_directory_match_jax(tmp_path):
+    """A GIF named ``.png``, turned TIFFs, JPEG-in-TIFF, YCbCr and CMYK TIFFs and RLE BMPs in
+    one directory, through the JAX package's ``read_frames_dir`` and the port's."""
+    kinds = ["gif_interlaced.png", "gif_pillow.png", "orient6.tif", "orient8.tif",
+             "jpeg_rgb.tif", "jpeg_ycbcr_420.tif", "lzw_ycbcr22.tif", "cmyk8.tif", "rle8.bmp",
+             "rle4.bmp", "alpha_vp8l_trailing.webp"]
+    for i, name in enumerate(kinds):
+        shutil.copy(os.path.join(fx.DIR, name), tmp_path / f"f{i:02d}_{name}")
+    ref, _ = jvideo.read_frames_dir(str(tmp_path))
+    got, _ = tvideo.read_frames_dir(str(tmp_path), device="cpu")
+    assert got.shape == (len(kinds), *fx.HW, 3)
+    np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.parametrize("name", sorted(DIGESTS))
@@ -80,6 +116,24 @@ def test_fixtures_hold_the_kinds_they_are_named_for():
     assert tiffs["lzw_predictor.tif"]["predictor"] == 2
     assert tiffs["palette.tif"]["kind"] == "palette"
     assert (tiffs["grey16.tif"]["kind"], tiffs["grey16.tif"]["bits"]) == ("grey", 16)
+    assert [tiffs[f"orient{k}.tif"]["orientation"] for k in (6, 8)] == [6, 8]
+    assert tiffs["orient6.tif"]["height"] == fx.HW[1]  # stored turned
+    assert (tiffs["jpeg_rgb.tif"]["codec"], tiffs["jpeg_rgb.tif"]["jpeg_color"]) == (
+        "jpeg", "rgb")
+    ycc = tiffs["jpeg_ycbcr_420.tif"]
+    assert ycc["jpeg_color"] == "ycc" and {j["sampling"] for j in ycc["jpeg"]} == {
+        ((2, 2), (1, 1), (1, 1))} and len(ycc["jpeg"]) == 9
+    assert (tiffs["lzw_ycbcr22.tif"]["kind"], tiffs["lzw_ycbcr22.tif"]["subsampling"]) == (
+        "ycbcr", (2, 2))
+    assert tiffs["cmyk8.tif"]["kind"] == "cmyk"
+    for name, compression in (("rle8.bmp", 1), ("rle4.bmp", 2)):
+        assert struct.unpack("<I", _data(name)[30:34])[0] == compression
+    gifs = {n: tgif.parse_gif(_data(n)) for n in DIGESTS if n.startswith("gif")}
+    assert gifs["gif_interlaced.png"]["interlace"] and gifs["gif_interlaced.png"]["fill"] == 5
+    assert gifs["gif_interlaced.png"]["frame"] == (16, 16, 224, 112)
+    assert _data("gif_interlaced.png")[10] & 0x80  # a global table beside the local one
+    trailing = _data("alpha_vp8l_trailing.webp")
+    assert trailing.index(b"ALPH") and twebp.parse_webp(trailing)["alpha"]
     for name, want in (("color_indexing.webp", ["color_indexing"]),
                        ("all_transforms.webp", ["predictor", "cross_color", "subtract_green"])):
         info = twebp.parse_webp(_data(name))
@@ -165,7 +219,19 @@ def test_misnamed_frames_mixed_with_named_ones_match_jax(tmp_path):
     np.testing.assert_array_equal(got, ref)
 
 
-@pytest.mark.parametrize("fmt,ext", [("GIF", ".png"), ("PPM", ".jpg"), ("QOI", ".bmp")])
+def test_gif_named_png_reads_as_jax(tmp_path):
+    """A GIF named ``.png`` (refused before the port read GIF) reads by its bytes, as PIL
+    reads it, beside a PNG."""
+    buf = io.BytesIO()
+    Image.fromarray(fx.base_frame()).save(buf, format="GIF")
+    (tmp_path / "a.png").write_bytes(_png_bytes())
+    (tmp_path / "b.png").write_bytes(buf.getvalue())
+    ref, _ = jvideo.read_frames_dir(str(tmp_path))
+    got, _ = tvideo.read_frames_dir(str(tmp_path), device="cpu")
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("fmt,ext", [("SGI", ".png"), ("PPM", ".jpg"), ("QOI", ".bmp")])
 def test_other_formats_raise_naming_them(tmp_path, fmt, ext):
     """A format PIL opens and the port does not decode raises, naming it, before any frame
     is decoded; the JAX package reads it through PIL."""
@@ -175,7 +241,7 @@ def test_other_formats_raise_naming_them(tmp_path, fmt, ext):
     (tmp_path / f"b{ext}").write_bytes(buf.getvalue())
     assert jvideo.read_frames_dir(str(tmp_path))[0].shape == (2, *fx.HW, 3)
     with pytest.raises(ValueError, match=f"a {fmt} file; the port decodes PNG, JPEG, BMP, "
-                                         f"TIFF and WebP frames, not {fmt}"):
+                                         f"GIF, TIFF and WebP frames, not {fmt}"):
         tvideo.read_frames_dir(str(tmp_path), device="cpu")
 
 

@@ -22,6 +22,7 @@ from foley_tpu.pipeline import video as jvideo
 from foley_tpu_torch.io import bmp as tbmp
 from foley_tpu_torch.io import png as tpng
 from foley_tpu_torch.pipeline import video as tvideo
+from torch_bmp_writer import bmp_bytes, rle_bmp, rle_encode
 from torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -138,27 +139,6 @@ def test_adam7_at_720p_matches_pil(tmp_path):
     _against_jax(tmp_path, {"f.png": encode_png_any(img, 2, 16, interlace=1)})
 
 
-def bmp_bytes(w, h, bits, rows, palette=b"", colors=0, compression=0, masks=b"", hsize=40,
-              top_down=False):
-    """A BMP file assembled field by field: ``rows`` top row first, each padded to 4
-    bytes, stored bottom-up unless ``top_down``; a 40-byte header's masks follow it, a
-    larger one's sit inside it."""
-    stride = ((w * bits + 31) >> 3) & ~3
-    order = rows if top_down else rows[::-1]
-    data = b"".join(r.ljust(stride, b"\0") for r in order)
-    if hsize == 12:
-        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
-    else:
-        info = struct.pack("<IiiHHIIiiII", hsize, w, -h if top_down else h, 1, bits,
-                           compression, len(data), 2835, 2835, colors, 0).ljust(hsize, b"\0")
-        if hsize >= 52 and masks:
-            info = info[:40] + masks + info[40 + len(masks):]
-    extra = masks if hsize == 40 else b""
-    off = 14 + hsize + len(extra) + len(palette)
-    return (b"BM" + struct.pack("<IHHI", off + len(data), 0, 0, off) + info + extra + palette
-            + data)
-
-
 def _packbits(idx: np.ndarray, bits: int) -> bytes:
     if bits == 8:
         return idx.astype(np.uint8).tobytes()
@@ -222,12 +202,15 @@ def test_pillow_written_bmps_and_the_core_header(tmp_path, mode):
 
 
 def test_rle_bmp_and_other_formats_raise(tmp_path):
-    rle = bmp_bytes(4, 2, 8, [b"\0" * 4] * 2, bytes(1024), colors=256, compression=1)
-    with pytest.raises(tbmp.BMPUnsupported, match="RLE8"):
-        tbmp.parse_bmp(rle)
-    rle4 = bmp_bytes(4, 2, 4, [b"\0" * 2] * 2, bytes(64), colors=16, compression=2)
-    with pytest.raises(tbmp.BMPUnsupported, match="RLE4"):
-        tbmp.parse_bmp(rle4)
+    """RLE8 and RLE4 read back as Pillow reads them (they were refused before the port
+    decoded them); a bitfield layout Pillow does not take and a file of another format under
+    a frame's name raise."""
+    pal = np.arange(256 * 4, dtype=np.uint32).astype(np.uint8).reshape(256, 4)
+    idx = np.array([[1, 1, 1, 7], [200, 3, 4, 5]])
+    rle = rle_bmp(4, 2, rle_encode(idx[::-1], False), False, pal)
+    _against_jax(tmp_path / "rle8", {"a.bmp": rle})
+    rle4 = rle_bmp(4, 2, rle_encode(idx[::-1] % 16, True), True, pal[:16])
+    _against_jax(tmp_path / "rle4", {"a.bmp": rle4})
     odd = bmp_bytes(2, 1, 32, [bytes(8)], compression=3, hsize=108,
                     masks=struct.pack("<4I", 0xF00, 0xF0, 0xF, 0))
     with pytest.raises(tbmp.BMPUnsupported, match="bitfield"):
@@ -238,6 +221,113 @@ def test_rle_bmp_and_other_formats_raise(tmp_path):
         (d / f"0{ext}").write_bytes(b"\0" * 16)
         with pytest.raises(ValueError, match=f"not a {fmt} file"):
             tvideo.read_frames_dir(str(d), device="cpu")
+
+def _rle_random(rng, w, h, rle4) -> bytes:
+    """A stream of random escapes: encoded runs (some past the row's end), absolute runs
+    (odd RLE4 ones among them), end of line, deltas, and an end of bitmap after enough."""
+    out = bytearray()
+    for _ in range(4 * h + 8):
+        kind = rng.choice(["run", "run", "abs", "eol", "delta"], p=[0.35, 0.2, 0.3, 0.1, 0.05])
+        if kind == "run":
+            out += bytes([int(rng.integers(1, w + 3)), int(rng.integers(0, 256))])
+        elif kind == "abs":
+            n = int(rng.integers(3, w + 2))
+            payload = rng.integers(0, 256, (n + 1) // 2 if rle4 else n, dtype=np.uint8).tobytes()
+            out += bytes([0, n]) + payload + b"\0" * (len(payload) & 1)
+        elif kind == "eol":
+            out += b"\0\0"
+        else:
+            out += bytes([0, 2, 0, 0, int(rng.integers(0, 3)), int(rng.integers(0, 2))])
+    return bytes(out) + b"\0\0" * h
+
+
+def _pil_or_error(data: bytes):
+    try:
+        return np.asarray(Image.open(io.BytesIO(data)).convert("RGB")), None
+    except Exception as e:  # noqa: BLE001 (Pillow raises several types)
+        return None, e
+
+
+def _same_as_pil(data: bytes):
+    ref, err = _pil_or_error(data)
+    if err is not None:
+        with pytest.raises(ValueError):
+            tbmp.read_bmps(["f.bmp"], "cpu", [data])
+        return None
+    got = tbmp.read_bmps(["f.bmp"], "cpu", [data])[0]
+    np.testing.assert_array_equal(got, ref)
+    return got
+
+
+@pytest.mark.parametrize("rle4", [False, True], ids=["rle8", "rle4"])
+@pytest.mark.parametrize("top_down", [False, True])
+def test_rle_bmp_against_jax(tmp_path, rle4, top_down):
+    """An image with runs and noise, RLE-encoded as an encoder writes it, read by the JAX
+    package (Pillow) and the port alike, in either row order."""
+    rng = np.random.default_rng(20 + rle4)
+    h, w = 23, 37
+    idx = np.repeat(rng.integers(0, 16 if rle4 else 256, (h, w // 3 + 1)), 3, axis=1)[:, :w]
+    noisy = rng.random((h, w)) < 0.25
+    idx[noisy] = rng.integers(0, 16 if rle4 else 256, noisy.sum())
+    palette = rng.integers(0, 256, (16 if rle4 else 256, 4)).astype(np.uint8)
+    stream = rle_encode(idx if top_down else idx[::-1], rle4)
+    got = _against_jax(tmp_path, {"a.bmp": rle_bmp(w, h, stream, rle4, palette, top_down)})
+    np.testing.assert_array_equal(np.round(got[0] * 255).astype(np.uint8),
+                                  palette[idx][..., 2::-1])
+
+
+@pytest.mark.parametrize("rle4", [False, True], ids=["rle8", "rle4"])
+@pytest.mark.parametrize("seed", range(8))
+def test_rle_escapes_read_as_pillow_reads_them(rle4, seed):
+    """Random streams of every escape: runs cut at the row's end, absolute runs across it
+    and (RLE4) of odd length, deltas (Pillow reads two bytes, then right and up), lines ended
+    early (their rest index 0), a data offset of either parity; where the runs stop short of
+    the bitmap Pillow raises, and so does the port."""
+    rng = np.random.default_rng(100 * rle4 + seed)
+    w, h = int(rng.integers(3, 30)), int(rng.integers(1, 12))
+    palette = rng.integers(0, 256, (int(rng.integers(2, 17 if rle4 else 257)), 4)).astype(np.uint8)
+    for gap in (b"", b"\x00"):
+        _same_as_pil(rle_bmp(w, h, _rle_random(rng, w, h, rle4), rle4, palette, gap=gap))
+
+
+@pytest.mark.parametrize("case", ["end_of_bitmap_early", "cut_in_a_run", "cut_in_absolute",
+                                  "cut_in_delta", "delta_without_values", "no_end_of_line",
+                                  "grey_palette", "rle8_at_4_bits", "rle4_at_8_bits"])
+def test_rle_ends_and_odd_files(case):
+    """How a stream that ends early reads (Pillow raises "not enough image data"), a delta
+    cut short, rows without an end of line (Pillow's column never returns to 0, so every run
+    after the first row's writes nothing: too little data), a palette of greys (Pillow's
+    mode L: each index its own grey, past the palette too), RLE8 at 4 bits and RLE4 at 8."""
+    rng = np.random.default_rng(7)
+    h, w = 6, 10
+    idx = rng.integers(0, 16, (h, w))
+    palette = rng.integers(0, 256, (16, 4)).astype(np.uint8)
+    rle4 = case == "rle4_at_8_bits"
+    stream = rle_encode(idx, rle4)
+    if case == "end_of_bitmap_early":
+        stream = rle_encode(idx[:3], rle4)
+    elif case == "cut_in_a_run":
+        stream = stream[:len(stream) // 2 | 1]
+    elif case == "cut_in_absolute":
+        stream = bytes([0, 8, 1, 2, 3])
+    elif case == "cut_in_delta":
+        stream = stream[:-2 * h - 2] + bytes([0, 2, 1])
+    elif case == "delta_without_values":
+        stream = bytes([0, 2, 5, 5, 1])
+    elif case == "no_end_of_line":
+        stream = b"".join(bytes([w, v]) for v in range(h))
+    elif case == "grey_palette":
+        palette = np.repeat(np.arange(16, dtype=np.uint8)[:, None], 4, axis=1)
+        stream = rle_encode(rng.integers(0, 256, (h, w)), False)
+    data = rle_bmp(w, h, stream, rle4, palette)
+    if case in ("rle8_at_4_bits", "rle4_at_8_bits"):  # the header's bits a pixel swapped
+        data = data[:28] + struct.pack("<H", 4 if case == "rle8_at_4_bits" else 8) + data[30:]
+    got = _same_as_pil(data)
+    if case in ("end_of_bitmap_early", "cut_in_a_run", "cut_in_absolute", "cut_in_delta",
+                "delta_without_values", "no_end_of_line"):
+        assert got is None  # Pillow raised, and so did the port
+    else:
+        assert got is not None
 
 
 def _past_pils_limit(kind: str) -> bytes:
@@ -278,3 +368,15 @@ def test_mixed_frame_types_in_one_directory(tmp_path):
         files[f"frame_{i + 1}.{ext}"] = buf.getvalue()
     got = _against_jax(tmp_path, files)
     assert got.shape == (5, 12, 20, 3)
+
+
+def test_grey_palette_reads_each_index_as_its_grey(tmp_path):
+    """An uncompressed 8-bit BMP whose 16 colours are the greys 0-15 opens in Pillow's mode L:
+    every index reads as its own grey, past the palette's end too (it read black before)."""
+    pal = np.repeat(np.arange(16, dtype=np.uint8)[:, None], 4, axis=1)
+    idx = np.random.default_rng(9).integers(0, 256, (5, 9))
+    data = bmp_bytes(9, 5, 8, [r.astype(np.uint8).tobytes() for r in idx], pal.tobytes(),
+                     colors=16)
+    assert Image.open(io.BytesIO(data)).mode == "L"
+    got = _against_jax(tmp_path, {"a.bmp": data})
+    np.testing.assert_array_equal(np.round(got[0, ..., 0] * 255), idx)

@@ -4,17 +4,18 @@ PackBits decoders, ``csrc/tiff_lzw.cpp``) against the JAX package's
 on the CPU.
 
 Pillow's own files where it writes the layout (LZW with and without predictor 2, Deflate,
-PackBits, none; RGB, grey, 1-bit, palette, RGBA, LA, ``I;16``), and files this test
-assembles for what Pillow does not write: either byte order, BigTIFF, strips of several
-heights, tiles, planar configuration 2, 1- to 16-bit grey and WhiteIsZero, 16-bit RGB and
-its extra samples, associated alpha, 1- to 8-bit palettes, predictor 2 at 8 and 16 bits,
-each compression. Every refused kind raises, naming itself. No tolerance: every comparison
-is exact.
+PackBits, none, JPEG; RGB, grey, 1-bit, palette, RGBA, LA, ``I;16``, CMYK, YCbCr), and files
+assembled here (``torch_tiff_writer.py``) for what Pillow does not write: either byte order,
+BigTIFF, strips of several heights, tiles, planar configuration 2, 1- to 16-bit grey and
+WhiteIsZero, 16-bit RGB and its extra samples, associated alpha, 1- to 8-bit palettes,
+predictor 2 at 8 and 16 bits, each compression, every orientation, CMYK's layouts, YCbCr at
+every subsampling libtiff converts with its coefficient and reference tags, JPEG-in-TIFF in
+strips and tiles at 4:4:4, 4:2:2 and 4:2:0. Every refused kind raises, naming itself. No
+tolerance: every comparison is exact.
 """
 
 import io
 import struct
-import zlib
 
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ from foley_tpu.pipeline import video as jvideo
 from foley_tpu_torch.io import tiff as ttiff
 from foley_tpu_torch.pipeline import video as tvideo
 from torch_helpers import one_torch_thread  # noqa: F401 (autouse)
+from torch_tiff_writer import jpeg_tiff, tiff_bytes, ycbcr_chunks, ycbcr_tiff
 
 
 def samples(h, w, spp, bits, seed):
@@ -34,153 +36,6 @@ def samples(h, w, spp, bits, seed):
     ramp = (x * 37 + y * 11)[..., None] * (np.arange(spp) + 1)
     noise = rng.integers(0, top + 1, (h, w, spp))
     return np.where(rng.random((h, w, spp)) < 0.3, noise, ramp % (top + 1)).astype(np.int64)
-
-
-def lzw_encode(data: bytes) -> bytes:
-    """TIFF 6.0 LZW: 9- to 12-bit codes, MSB first, a clear first and when the table fills,
-    the code width growing one code early, as libtiff's encoder writes it."""
-    out, acc, nacc = bytearray(), 0, 0
-
-    def put(code, n):
-        nonlocal acc, nacc
-        acc, nacc = (acc << n) | code, nacc + n
-        while nacc >= 8:
-            nacc -= 8
-            out.append((acc >> nacc) & 255)
-        acc &= (1 << nacc) - 1
-
-    def fresh():
-        return {bytes([i]): i for i in range(256)}, 258, 9
-
-    table, nxt, nbits = fresh()
-    put(256, 9)
-    w = b""
-    for c in data:
-        wc = w + bytes([c])
-        if wc in table:
-            w = wc
-            continue
-        put(table[w], nbits)
-        table[wc], nxt = nxt, nxt + 1
-        if nxt == 4094:
-            put(256, nbits)
-            table, nxt, nbits = fresh()
-        elif nxt == 1 << nbits:
-            nbits += 1
-        w = bytes([c])
-    if w:
-        put(table[w], nbits)
-        nxt += 1
-        if nxt == 1 << nbits:
-            nbits += 1
-    put(257, nbits)
-    if nacc:
-        out.append((acc << (8 - nacc)) & 255)
-    return bytes(out)
-
-
-def packbits_encode(data: bytes) -> bytes:
-    out, i = bytearray(), 0
-    while i < len(data):
-        run = 1
-        while i + run < len(data) and run < 128 and data[i + run] == data[i]:
-            run += 1
-        if run > 1:
-            out += bytes([257 - run, data[i]])
-            i += run
-            continue
-        j = i + 1
-        while j < len(data) and j - i < 128 and not (j + 1 < len(data) and data[j] == data[j + 1]):
-            j += 1
-        out += bytes([j - i - 1]) + data[i:j]
-        i = j
-    return bytes(out)
-
-
-def _pack_row(row: np.ndarray, bits: int, order: str) -> bytes:
-    if bits == 16:
-        return row.astype(order + "u2").tobytes()
-    if bits == 8:
-        return row.astype(np.uint8).tobytes()
-    b = np.unpackbits(row.astype(np.uint8)[:, None], axis=1)[:, 8 - bits:].reshape(-1)
-    return np.packbits(b).tobytes()
-
-
-def tiff_bytes(px, photometric, bits, order="<", big=False, compression=1, predictor=1,
-               planar=1, tile=None, rows=None, extra=None, colormap=None, tags=None):
-    """``px`` [H, W, spp] samples -> a TIFF: strips of ``rows`` rows (all in one when None)
-    or ``tile`` = (height, width) tiles, planar configuration ``planar``, the samples
-    differenced along each row for predictor 2, compressed, with the given tags and any
-    ``tags`` = {tag: (type, values)} added or replacing them."""
-    h, w, spp = px.shape
-    planes = spp if planar == 2 else 1
-    ch, cw = tile if tile else ((rows or h), w)
-    across, down = -(-w // cw), -(-h // ch)
-    chunks = []
-    for p in range(planes):
-        for cy in range(down):
-            for cx in range(across):
-                part = np.zeros((ch, cw, spp // planes), np.int64)
-                src = px[cy * ch:(cy + 1) * ch, cx * cw:(cx + 1) * cw,
-                         p if planar == 2 else slice(None)]
-                src = src.reshape(src.shape[0], src.shape[1], -1)
-                part[:src.shape[0], :src.shape[1]] = src
-                if not tile:
-                    part = part[:min(ch, h - cy * ch)]
-                if predictor == 2:
-                    part = np.concatenate([part[:, :1], np.diff(part, axis=1)], 1) % (1 << bits)
-                raw = b"".join(_pack_row(r.reshape(-1), bits, order) for r in part)
-                raw = {1: lambda d: d, 5: lzw_encode, 8: zlib.compress, 32946: zlib.compress,
-                       32773: packbits_encode}[compression](raw)
-                chunks.append(raw)
-    entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [compression]),
-               262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar])}
-    if predictor != 1:
-        entries[317] = (3, [predictor])
-    if extra is not None:
-        entries[338] = (3, list(extra))
-    if colormap is not None:
-        entries[320] = (3, list(colormap))
-    if tile:
-        entries.update({322: (3, [cw]), 323: (3, [ch]), 324: (4, [0] * len(chunks)),
-                        325: (4, [len(c) for c in chunks])})
-    else:
-        entries.update({278: (4, [ch]), 273: (4, [0] * len(chunks)),
-                        279: (4, [len(c) for c in chunks])})
-    entries.update(tags or {})
-    head = 16 if big else 8
-    data_at = head
-    offsets = []
-    for c in chunks:
-        offsets.append(data_at)
-        data_at += len(c) + (len(c) & 1)
-    entries[324 if tile else 273] = (16 if big else 4, offsets)
-    fmt = {1: "B", 3: "H", 4: "I", 16: "Q"}
-    n_entry, field = (20, 8) if big else (12, 4)
-    ifd_at = data_at
-    blob_at = ifd_at + (8 if big else 2) + n_entry * len(entries) + (8 if big else 4)
-    ifd, blobs = bytearray(), bytearray()
-    ifd += struct.pack(order + ("Q" if big else "H"), len(entries))
-    for tag in sorted(entries):
-        typ, vals = entries[tag]
-        if typ == 16 and not big:
-            typ = 4
-        raw = struct.pack(order + fmt[typ] * len(vals), *vals)
-        count = struct.pack(order + ("Q" if big else "I"), len(vals))
-        if len(raw) <= field:
-            value = raw.ljust(field, b"\0")
-        else:
-            value = struct.pack(order + ("Q" if big else "I"), blob_at + len(blobs))
-            blobs += raw + b"\0" * (len(raw) & 1)
-        ifd += struct.pack(order + "HH", tag, typ) + count + value
-    ifd += b"\0" * (8 if big else 4)
-    magic = 43 if big else 42
-    header = (order.replace("<", "II").replace(">", "MM").encode()
-              + struct.pack(order + "H", magic)
-              + (struct.pack(order + "HHQ", 8, 0, ifd_at) if big
-                 else struct.pack(order + "I", ifd_at)))
-    body = b"".join(c + b"\0" * (len(c) & 1) for c in chunks)
-    return header + body + bytes(ifd) + bytes(blobs)
 
 
 def _against_jax(tmp_path, data: bytes, name="f.tif"):
@@ -362,9 +217,7 @@ REFUSED = {
     "ccitt_g4": ({"tags": _tags(t259=(3, [4]))}, "CCITT Group 4"),
     "ccitt_rle": ({"tags": _tags(t259=(3, [2]))}, "CCITT modified Huffman"),
     "jpeg_old": ({"tags": _tags(t259=(3, [6]))}, "old-style JPEG-in-TIFF"),
-    "jpeg": ({"tags": _tags(t259=(3, [7]))}, "JPEG-in-TIFF"),
-    "cmyk": ({"photometric": 5, "spp": 4}, "CMYK"),
-    "ycbcr": ({"photometric": 6}, "YCbCr"),
+    "ycbcr": ({"photometric": 6}, "uncompressed YCbCr"),  # Pillow: "image file is truncated"
     "cielab": ({"photometric": 8}, "CIELab"),
     "float": ({"tags": _tags(t339=(3, [3, 3, 3]))}, "floating-point samples"),
     "signed": ({"tags": _tags(t339=(3, [2, 2, 2]))}, "signed integer samples"),
@@ -373,7 +226,6 @@ REFUSED = {
     "fill_order": ({"tags": _tags(t266=(3, [2]))}, "FillOrder 2"),
     "float_predictor": ({"compression": 8, "tags": _tags(t317=(3, [3]))},
                         "floating-point predictor"),
-    "rotated": ({"tags": _tags(t274=(3, [6]))}, "rotated orientation"),
     "layout": ({"extra": (1,), "spp": 2, "photometric": 1}, "not a layout Pillow reads"),
 }
 
@@ -424,3 +276,251 @@ def test_oversized_tiles_are_refused_before_they_are_allocated(tile):
                       tags={322: (4, [tile[1]]), 323: (4, [tile[0]])})
     with pytest.raises(ValueError, match="chunks of .* past the limit"):
         ttiff.parse_tiff(data)
+
+
+# ---------------------------------------------------------------------------------------
+# orientations, CMYK, YCbCr and JPEG-in-TIFF
+# ---------------------------------------------------------------------------------------
+
+def _same_verdict(tmp_path, data: bytes):
+    """Pillow and the port both raise, or both read the same bytes (through each
+    package's ``read_frames_dir``)."""
+    try:
+        Image.open(io.BytesIO(data)).convert("RGB")
+    except Exception:  # noqa: BLE001 (Pillow raises several types)
+        with pytest.raises(ValueError):
+            ttiff.read_tiffs(["f.tif"], "cpu", [data])
+        return False
+    _against_jax(tmp_path, data)
+    return True
+
+
+def _orientation_case(case: str):
+    rgb = samples(13, 22, 3, 8, seed=30)
+    if case == "rgb_lzw":
+        return dict(px=rgb, photometric=2, bits=8, compression=5, rows=4)
+    if case == "palette_none":
+        return dict(px=samples(13, 22, 1, 4, seed=31), photometric=3, bits=4,
+                    colormap=np.arange(48) * 1300)
+    if case == "grey16_tiles":
+        return dict(px=samples(13, 22, 1, 16, seed=32), photometric=1, bits=16,
+                    compression=8, tile=(16, 16))
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+@pytest.mark.parametrize("case", ["rgb_lzw", "palette_none", "grey16_tiles", "ycbcr22",
+                                  "jpeg_ycbcr", "cmyk"])
+def test_orientations(tmp_path, orientation, case):
+    """Every orientation (Pillow's ``exif_transpose`` after the decode: 2-4 flipped, 5-8
+    turned, their width and height swapped), over every route of the reader."""
+    tag = {274: (3, [orientation])}
+    if case == "ycbcr22":
+        data = ycbcr_tiff(samples(13, 22, 3, 8, seed=33), (2, 2), rows=4, tags=tag)
+    elif case == "jpeg_ycbcr":
+        data = jpeg_tiff(samples(24, 40, 3, 8, seed=34), rows=16, tags=tag)
+    elif case == "cmyk":
+        data = tiff_bytes(samples(13, 22, 4, 8, seed=35), 5, 8, compression=8, tags=tag)
+    else:
+        kw = _orientation_case(case)
+        data = tiff_bytes(kw.pop("px"), kw.pop("photometric"), kw.pop("bits"), tags=tag, **kw)
+    got = _against_jax(tmp_path, data)
+    assert got.shape[1:3] == ((22, 13) if orientation >= 5 and case != "jpeg_ycbcr"
+                              else (40, 24) if orientation >= 5 else got.shape[1:3])
+
+
+@pytest.mark.parametrize("second", ["upright_same", "turned_same", "turned_other"])
+def test_rotated_frames_agree_in_size_after_turning(tmp_path, second):
+    """A 256 x 144 frame at orientation 6 opens at 144 x 256: beside a 144 x 256 frame at
+    orientation 1, or a 256 x 144 one at orientation 8, it reads; beside a 144 x 256 one at
+    orientation 6 (opening at 256 x 144) the sizes differ, and both packages raise."""
+    d = tmp_path / "frames"
+    d.mkdir()
+    (d / "0.tif").write_bytes(tiff_bytes(samples(144, 256, 3, 8, seed=36), 2, 8,
+                                         compression=5, tags={274: (3, [6])}))
+    size, orientation = {"upright_same": ((256, 144), 1), "turned_same": ((144, 256), 8),
+                         "turned_other": ((256, 144), 6)}[second]
+    (d / "1.tif").write_bytes(tiff_bytes(samples(*size, 3, 8, seed=37), 2, 8, compression=8,
+                                         tags={274: (3, [orientation])}))
+    if second != "turned_other":
+        ref, _ = jvideo.read_frames_dir(str(d))
+        got, _ = tvideo.read_frames_dir(str(d), device="cpu")
+        assert got.shape == (2, 256, 144, 3)
+        np.testing.assert_array_equal(got, ref)
+    else:
+        with pytest.raises(ValueError):
+            jvideo.read_frames_dir(str(d))
+        with pytest.raises(ValueError, match="frames differ in size"):
+            tvideo.read_frames_dir(str(d), device="cpu")
+
+
+@pytest.mark.parametrize("compression", ["none", "lzw", "deflate", "packbits", "jpeg"])
+def test_pillows_own_cmyk(tmp_path, compression):
+    img = Image.fromarray(samples(19, 27, 3, 8, seed=38).astype(np.uint8)).convert("CMYK")
+    kw = {"none": {"compression": "raw"}, "jpeg": {"compression": "jpeg", "quality": 90}}.get(
+        compression, PIL_COMPRESSIONS.get(compression))
+    _against_jax(tmp_path, _pil(img, **kw))
+
+
+@pytest.mark.parametrize("layout", ["8", "8_x", "8_xx", "16_le", "16_be", "8_planar",
+                                    "8_predictor", "16_predictor_be"])
+def test_cmyk_layouts(tmp_path, layout):
+    """Every CMYK row of Pillow's ``OPEN_INFO`` (8 bits with 0-2 extra samples, 16 bits in
+    either byte order: the high bytes), in planes and under predictor 2: raw mode ``CMYK``
+    (not inverted), then ``cmyk2rgb``."""
+    bits = 16 if layout.startswith("16") else 8
+    extra = {"8_x": (0,), "8_xx": (0, 0)}.get(layout)
+    px = samples(15, 21, 4 + len(extra or ()), bits, seed=39)
+    kw = dict(order=">" if layout.endswith("be") else "<", extra=extra,
+              planar=2 if layout == "8_planar" else 1,
+              predictor=2 if "predictor" in layout else 1, compression=5, rows=6)
+    _against_jax(tmp_path, tiff_bytes(px, 5, bits, **kw))
+
+
+def test_cmyk_every_ink_against_black():
+    """All 256 x 256 pairs of an ink and black through the port's conversion against
+    Pillow's, on one CMYK TIFF."""
+    ink, black = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    px = np.stack([ink, 255 - ink, ink // 2, black], -1)
+    data = tiff_bytes(px, 5, 8, compression=8, rows=64)
+    np.testing.assert_array_equal(ttiff.read_tiffs(["f"], "cpu", [data])[0],
+                                  np.asarray(Image.open(io.BytesIO(data)).convert("RGB")))
+
+
+@pytest.mark.parametrize("compression", ["lzw", "deflate", "packbits", "none"])
+def test_pillows_own_ycbcr(tmp_path, compression):
+    """Pillow writes YCbCr at 1 x 1; it reads it through libtiff's RGBA interface
+    (``TIFFYCbCrToRGB``) when compressed, and raises uncompressed (raw mode RGBX wants 4
+    bytes a pixel): so does the port."""
+    rgb = samples(21, 34, 3, 8, seed=40).astype(np.uint8)
+    data = _pil(Image.fromarray(rgb).convert("YCbCr"), **PIL_COMPRESSIONS[compression])
+    if compression == "none":
+        with pytest.raises(OSError, match="truncated"):
+            Image.open(io.BytesIO(data)).convert("RGB")
+        with pytest.raises(ttiff.TIFFUnsupported, match="uncompressed YCbCr"):
+            ttiff.parse_tiff(data)
+        return
+    got = _against_jax(tmp_path, data)
+    assert np.abs(np.round(got[0] * 255) - rgb).max() <= 3
+
+
+@pytest.mark.parametrize("sub", [(1, 1), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4), (1, 2)])
+@pytest.mark.parametrize("layout", ["strips4", "strips_odd", "one_strip", "tiles16"])
+@pytest.mark.parametrize("compression", [5, 8, 32773])
+def test_ycbcr_subsampling(tmp_path, sub, layout, compression):
+    """Every subsampling libtiff's RGBA interface converts, in strips (of a height that is
+    not a multiple of the block's, and the last one short), one strip, and tiles; each
+    block's chroma replicated over it, never interpolated."""
+    rows = {"strips4": 4, "strips_odd": 5 if sub[1] == 1 else 6, "one_strip": None}.get(layout)
+    tile = (16, 16) if layout == "tiles16" else None
+    data = ycbcr_tiff(samples(19, 29, 3, 8, seed=41), sub, compression, rows=rows, tile=tile)
+    _against_jax(tmp_path, data)
+
+
+@pytest.mark.parametrize("case", ["bt709_studio", "odd_reference", "no_subsampling_tag",
+                                  "predictor_11", "planar_11", "big_endian"])
+def test_ycbcr_tables_and_layouts(tmp_path, case):
+    """libtiff's tables from ``YCbCrCoefficients`` and ``ReferenceBlackWhite`` (its float
+    steps), the default subsampling 2 x 2 where the tag is missing, predictor 2 and planes at
+    1 x 1, big-endian."""
+    ycc = samples(17, 26, 3, 8, seed=42)
+    tags = {}
+    if case == "bt709_studio":
+        tags = {529: (5, [(2126, 10000), (7152, 10000), (722, 10000)]),
+                532: (5, [(16, 1), (235, 1), (128, 1), (240, 1), (128, 1), (240, 1)])}
+    elif case == "odd_reference":
+        tags = {532: (5, [(31, 2), (473, 2), (121, 1), (250, 1), (503, 4), (245, 1)])}
+    if case == "no_subsampling_tag":
+        data = ycbcr_tiff(ycc, (2, 2), rows=6, subsampling_tag=False)
+    elif case == "predictor_11":
+        data = tiff_bytes(ycc, 6, 8, compression=5, predictor=2, rows=5,
+                          tags={530: (3, [1, 1])})
+    elif case == "planar_11":
+        data = tiff_bytes(ycc, 6, 8, compression=8, planar=2, tags={530: (3, [1, 1])})
+    else:
+        data = ycbcr_tiff(ycc, (2, 1), rows=6, tags=tags, order=">" if case == "big_endian"
+                          else "<")
+    _against_jax(tmp_path, data)
+
+
+@pytest.mark.parametrize("case", ["sub_1_4", "sub_2_4", "subsampled_predictor",
+                                  "one_sample_lzw", "one_sample_none", "truncated_block"])
+def test_ycbcr_that_pillow_refuses_or_reads_oddly(tmp_path, case):
+    """Subsamplings libtiff does not convert raise; a one-sample YCbCr file reads as grey
+    uncompressed (Pillow's mode L) and raises compressed (libtiff refuses it); a subsampled
+    file with a predictor, which the port does not decode, is refused by name; a strip short
+    of its blocks raises (libtiff's RGBA interface reads on past it, and Pillow returns what
+    it left: not read as Pillow reads it)."""
+    ycc = samples(12, 16, 3, 8, seed=43)
+    if case in ("sub_1_4", "sub_2_4"):
+        data = ycbcr_tiff(ycc, (1, 4) if case == "sub_1_4" else (2, 4), rows=4)
+    elif case == "subsampled_predictor":
+        data = ycbcr_tiff(ycc, (2, 2), rows=4, predictor=1, tags={317: (3, [2])})
+        with pytest.raises(ttiff.TIFFUnsupported, match="predictor"):
+            ttiff.parse_tiff(data)
+        return
+    elif case.startswith("one_sample"):
+        data = tiff_bytes(ycc[..., :1], 6, 8, compression=5 if case.endswith("lzw") else 1)
+    else:  # libtiff's RGBA interface reads on past the strip's error; the port refuses it
+        chunks = ycbcr_chunks(ycc, (2, 2), rows=4)
+        chunks[1] = chunks[1][:-7]
+        data = tiff_bytes(ycc, 6, 8, compression=5, rows=4, tags={530: (3, [2, 2])},
+                          raw_chunks=chunks)
+        with pytest.raises(ValueError, match="truncated TIFF data"):
+            ttiff.parse_tiff(data)
+        return
+    assert _same_verdict(tmp_path, data) == (case == "one_sample_none")
+
+
+@pytest.mark.parametrize("mode", ["RGB", "L", "YCbCr"])
+@pytest.mark.parametrize("quality", [50, 95])
+def test_pillows_own_jpeg_in_tiff(tmp_path, mode, quality):
+    """Pillow's JPEG-in-TIFF (libtiff's encoder, tables in ``JPEGTables``): RGB as
+    photometric 2 (no colour transform), grey, and YCbCr (photometric 6, decoded to RGB by
+    libjpeg as libtiff's ``JPEGCOLORMODE_RGB`` asks)."""
+    img = Image.fromarray(samples(40, 52, 3, 8, seed=44).astype(np.uint8)).convert(mode)
+    _against_jax(tmp_path, _pil(img, compression="jpeg", quality=quality))
+
+
+@pytest.mark.parametrize("subsampling", [0, 1, 2], ids=["444", "422", "420"])
+@pytest.mark.parametrize("layout", ["strips16", "one_strip", "tiles32", "own_tables",
+                                    "no_subsampling_tag"])
+def test_jpeg_in_tiff_ycbcr(tmp_path, subsampling, layout):
+    """YCbCr JPEG-in-TIFF at 4:4:4, 4:2:2 and 4:2:0 in strips (the last one short), one
+    strip and tiles past the image's edges, its tables shared or in each stream, the
+    subsampling tag missing (libtiff takes the stream's); the chroma upsampled as libjpeg's
+    fancy upsampler does it, each strip on its own."""
+    rgb = samples(40, 52, 3, 8, seed=45)
+    kw = {"strips16": dict(rows=16), "one_strip": {}, "tiles32": dict(tile=(32, 32)),
+          "own_tables": dict(rows=16, shared_tables=False),
+          "no_subsampling_tag": dict(rows=24, subsampling_tag=False)}[layout]
+    _against_jax(tmp_path, jpeg_tiff(rgb, subsampling=subsampling, **kw))
+
+
+@pytest.mark.parametrize("case", ["rgb_components", "improper_sampling", "rgb_subsampled",
+                                  "strip_too_big", "truncated_stream", "missing_tables"])
+def test_jpeg_in_tiff_odd_files(tmp_path, case):
+    """Photometric 2 whose streams hold R, G, B: read without a transform; a subsampling
+    tag that disagrees with the stream, subsampled RGB, a stream larger than its strip and
+    missing tables raise, as libtiff fails them; a corrupt stream, which libjpeg decodes
+    with a warning, raises in the port (not read as Pillow reads it)."""
+    rgb = samples(32, 40, 3, 8, seed=46)
+    if case == "rgb_components":
+        data = jpeg_tiff(rgb, photometric=2, subsampling=0, rows=16)
+    elif case == "improper_sampling":
+        data = jpeg_tiff(rgb, subsampling=2, rows=16, tags={530: (3, [1, 1])})
+    elif case == "rgb_subsampled":
+        data = jpeg_tiff(rgb, photometric=2, subsampling=2, rows=16)
+    elif case == "strip_too_big":
+        data = jpeg_tiff(rgb, subsampling=2, rows=16, tags={278: (4, [8])})
+    elif case == "truncated_stream":  # libjpeg reads on with a warning; the port refuses it
+        data = bytearray(jpeg_tiff(rgb, subsampling=2, rows=32))
+        data[200:400] = bytes(200)
+        with pytest.raises(ValueError, match="corrupt or truncated"):
+            ttiff.parse_tiff(bytes(data))
+        return
+    else:
+        data = jpeg_tiff(rgb, subsampling=2, rows=16)
+        i = data.rindex(struct.pack("<HH", 347, 7))
+        data = data[:i] + struct.pack("<HH", 65000, 7) + data[i + 4:]
+    assert _same_verdict(tmp_path, data) == (case == "rgb_components")

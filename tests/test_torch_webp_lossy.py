@@ -16,9 +16,13 @@ probability update. Truncated and corrupt files raise where Pillow raises, and r
 Pillow reads them where it does not; a frame past Pillow's pixel limit raises; the decoder's
 constant tables are held against a digest and found, each, in Pillow's libwebp binary.
 
+A VP8L-compressed ``ALPH`` plane is decoded where libwebp decodes it (a still with the
+alpha flag, an animation's first frame): a corrupt or cut one beside a sound VP8 frame
+raises, as Pillow raises; bytes after a sound one, and any filter or pre-processing bits
+libwebp takes, read as Pillow reads them.
+
 Not held against Pillow: the VP8 loop-filter deltas (no encoder here writes them; they are
-decoded as libwebp decodes them), and a corrupt VP8L alpha stream beside a sound VP8 frame
-(Pillow refuses it; the port, which does not decode alpha, reads it).
+decoded as libwebp decodes them).
 """
 
 import glob
@@ -482,3 +486,80 @@ def test_every_feature_was_met():
     and a segment map, 2, 4 and 8 partitions, a skipped macroblock, every 16x16 and 4x4
     mode and a coefficient probability update."""
     assert set(twebp.VP8_FEATURES) <= SEEN, sorted(set(twebp.VP8_FEATURES) - SEEN)
+
+
+def _alpha_parts(seed: int, size=(48, 61)):
+    """A lossy still with a VP8L-compressed alpha plane (Pillow's default): its ``VP8X``
+    payload chunk, the ``ALPH`` payload and the ``VP8 `` chunk."""
+    rgba = frame(*size, "noisy", seed=seed, alpha=True)
+    rgba[..., 3] = (rgba[..., 3].astype(int) * 7 + np.arange(size[1])[None] * 3) % 256
+    still = pil_webp(rgba, quality=60, method=4, exact=True)
+    ai, vi = still.index(b"ALPH"), still.index(b"VP8 ")
+    alph = still[ai + 8:ai + 8 + struct.unpack("<I", still[ai + 4:ai + 8])[0]]
+    assert alph[0] & 3 == 1  # VP8L-compressed
+    return still[12:ai], alph, still[vi:]
+
+
+@pytest.mark.parametrize("case", ["sound", "trailing_bytes", "filter_0", "filter_2",
+                                  "filter_3", "preprocessing_1", "preprocessing_2",
+                                  "cut_header", "cut_half", "cut_last_byte", "flipped",
+                                  "uncompressed", "uncompressed_short", "no_alpha_flag",
+                                  "animation_first", "animation_second"])
+def test_vp8l_alpha_is_decoded_where_libwebp_decodes_it(case):
+    """A sound VP8 frame beside its ``ALPH`` chunk: the VP8L-compressed plane decoded on the
+    host (``webp_alpha_decode``) where libwebp decodes it, so a corrupt or cut one raises as
+    Pillow raises, and bytes after a sound one are ignored; the filter bits (2-3) never
+    fail, pre-processing past 1 does; a still without the alpha flag, and an animation's
+    second frame, leave theirs unread."""
+    vp8x, alph, vp8 = _alpha_parts(11)
+    head = alph[0]
+    if case == "trailing_bytes":
+        alph += b"\x5a\xa5\x00\xff"
+    elif case.startswith("filter"):
+        alph = bytes([head & ~0x0C | int(case[-1]) << 2]) + alph[1:]
+    elif case.startswith("preprocessing"):
+        alph = bytes([head & ~0x30 | int(case[-1]) << 4]) + alph[1:]
+    elif case == "cut_header":
+        alph = alph[:3]
+    elif case == "cut_half":
+        alph = alph[:len(alph) // 2]
+    elif case == "cut_last_byte":
+        alph = alph[:-1]
+    elif case == "flipped":
+        alph = alph[:20] + bytes([alph[20] ^ 0xFF]) + alph[21:]
+    elif case.startswith("uncompressed"):
+        plane = np.arange(48 * 61, dtype=np.uint8).tobytes()
+        alph = bytes([head & ~0x03]) + plane[:None if case == "uncompressed" else -1]
+    if case == "no_alpha_flag":
+        vp8x = vp8x[:8] + bytes([vp8x[8] & ~0x10 & 0xFF]) + vp8x[9:]
+        alph = alph[:len(alph) // 2]  # corrupt, and not read
+    body = vp8x + _chunk(b"ALPH", alph) + vp8
+    if case.startswith("animation"):
+        bad = _riff(vp8x + _chunk(b"ALPH", alph[:len(alph) // 2]) + vp8)
+        good = _riff(body)
+        frames = (bad, good) if case == "animation_first" else (good, bad)
+        data = enc.animation((61, 48), [(0, 0, 61, 48, f) for f in frames], alpha=True)
+    else:
+        data = _riff(body)
+    raises = case in ("preprocessing_2", "cut_header", "cut_half", "cut_last_byte",
+                      "uncompressed_short", "animation_first") or (
+        case == "flipped" and _pil_raises(data))
+    assert _pil_raises(data) == raises
+    _same_verdict(data)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_random_alpha_corruptions_read_as_pillow_reads(seed):
+    """Sixty VP8L alpha planes a seed with one to four bytes set or flipped, or cut short,
+    at random (seeded): each raises where Pillow raises and reads Pillow's bytes where it
+    reads."""
+    rng = random.Random(seed)
+    vp8x, alph, vp8 = _alpha_parts(seed, size=[(33, 47), (64, 80), (17, 90)][seed])
+    for _ in range(60):
+        a = bytearray(alph)
+        for _ in range(rng.choice([1, 2, 4])):
+            k = rng.randrange(1, len(a))
+            a[k] = rng.randrange(256) if rng.random() < 0.5 else a[k] ^ (1 << rng.randrange(8))
+        if rng.random() < 0.2:
+            a = a[:rng.randrange(1, len(a))]
+        _same_verdict(_riff(vp8x + _chunk(b"ALPH", bytes(a)) + vp8))

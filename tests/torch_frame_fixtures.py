@@ -1,9 +1,14 @@
 """The frame-format fixtures of ``tests/data/torch_frame_formats/``: small files written by
-Pillow 12.1 (libjpeg-turbo 3.1, libtiff 4.7, libwebp 1.6) in the formats the port reads
-without PIL, all of one size, with the SHA-256 of Pillow's ``convert("RGB")`` bytes of each
-in ``digests.json``; and in ``tests/data/torch_frame_formats_720p/`` one lossy WebP of the
-720p frame the main path ingests (``chip_smoke.make_clip``'s first frame, Pillow's default
-quality 80) with its digest. ``chip_smoke.py``'s ``frame_formats`` phase decodes them on the
+Pillow 12.1 (libjpeg-turbo 3.1, libtiff 4.7, libwebp 1.6), or assembled by the test writers
+(``torch_gif_writer``, ``torch_tiff_writer``, ``torch_bmp_writer``) where Pillow does not
+write the kind, in the formats the port reads without PIL, all of one size after decoding
+(the turned TIFFs are stored turned), with the SHA-256 of Pillow's ``convert("RGB")`` bytes
+of each in ``digests.json``; the files Pillow raises on (``REFUSED``: a corrupt VP8L alpha
+plane) are listed there under ``pil_raises``. GIFs are named ``.png``: the JAX package lists
+frames by its seven extensions, and reads a GIF by its bytes. In
+``tests/data/torch_frame_formats_720p/``, the 720p frame the main path ingests
+(``chip_smoke.make_clip``'s first frame) as a lossy WebP at Pillow's default quality 80 and
+as Pillow's GIF, with their digests. ``chip_smoke.py``'s ``frame_formats`` phase decodes them on the
 card (which has no PIL to make them) and holds each against its digest;
 ``tests/test_torch_frame_formats.py`` holds the digests against Pillow and the port.
 
@@ -15,12 +20,16 @@ import hashlib
 import io
 import json
 import os
+import struct
 import sys
 
 import numpy as np
 from PIL import Image
 
 import torch_webp_encoder
+from torch_bmp_writer import rle_bmp, rle_encode
+from torch_gif_writer import gif_bytes
+from torch_tiff_writer import jpeg_tiff, ycbcr_tiff
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 DIR = os.path.join(TESTS, "data", "torch_frame_formats")
@@ -69,10 +78,48 @@ def _animated_offset() -> bytes:
                                         alpha=True)
 
 
+def _gif_interlaced() -> bytes:
+    """An interlaced GIF frame of 224 x 112 at (16, 16) on a 256 x 144 screen, with a
+    global and a local colour table (the local one read) and a transparent index (the
+    screen outside the frame filled with it; its colour kept)."""
+    q = Image.fromarray(base_frame()[16:128, 16:240]).quantize(64)
+    local = np.asarray(q.getpalette()[:3 * 64], np.uint8).reshape(64, 3)
+    return gif_bytes(np.asarray(q), screen=(HW[1], HW[0]), at=(16, 16), interlace=True,
+                     global_table=local[::-1].copy(), local_table=local, transparency=5)
+
+
+def _rle_bmp(colors: int) -> bytes:
+    """The base frame quantised to 256 (RLE8) or 16 (RLE4) colours, RLE-encoded."""
+    q = Image.fromarray(base_frame()).quantize(colors)
+    pal = np.asarray(q.getpalette()[:3 * colors], np.uint8).reshape(colors, 3)
+    bgrx = np.concatenate([pal[:, ::-1], np.zeros((colors, 1), np.uint8)], 1)
+    idx = np.asarray(q)
+    return rle_bmp(HW[1], HW[0], rle_encode(idx[::-1], colors == 16), colors == 16, bgrx)
+
+
+def _alpha_pair() -> tuple:
+    """``lossy_alpha.webp``'s picture with bytes after its sound VP8L alpha stream (libwebp
+    ignores them), and with that stream cut in half (libwebp, and Pillow, refuse it)."""
+    still = _save(Image.fromarray(_rgba(), "RGBA"), "WEBP", quality=80, exact=True)
+    ai = still.index(b"ALPH")
+    size = struct.unpack("<I", still[ai + 4:ai + 8])[0]
+    alph = still[ai + 8:ai + 8 + size]
+
+    def with_alpha(a: bytes) -> bytes:
+        chunk = b"ALPH" + struct.pack("<I", len(a)) + a + b"\0" * (len(a) & 1)
+        body = still[12:ai] + chunk + still[ai + 8 + size + (size & 1):]
+        return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+    return with_alpha(alph + b"\x5a\xa5\x00\xff"), with_alpha(alph[:len(alph) // 2])
+
+
 def fixtures() -> dict:
-    """name -> file bytes."""
+    """name -> file bytes (the files Pillow reads; ``REFUSED`` lists those it raises on)."""
     rgb = Image.fromarray(base_frame())
     grey = rgb.convert("L")
+    turned = {k: Image.fromarray(np.ascontiguousarray(np.rot90(base_frame(), k)))
+              for k in (1, -1)}
+    sound_alpha, corrupt_alpha = _alpha_pair()
     return {
         "prog_420.jpg": _save(rgb, "JPEG", quality=90, progressive=True, subsampling=2),
         "prog_444_optimize.jpg": _save(rgb, "JPEG", quality=75, progressive=True,
@@ -87,6 +134,19 @@ def fixtures() -> dict:
         "palette.tif": _save(rgb.quantize(64), "TIFF", compression="tiff_lzw"),
         "grey16.tif": _save(Image.fromarray((np.asarray(grey, np.uint16) * 3)), "TIFF",
                             compression="tiff_adobe_deflate"),
+        "orient6.tif": _save(turned[1], "TIFF", compression="tiff_lzw",
+                             tiffinfo={274: 6, 317: 2}),
+        "orient8.tif": _save(turned[-1], "TIFF", compression="tiff_adobe_deflate",
+                             tiffinfo={274: 8, 317: 2}),
+        "jpeg_rgb.tif": _save(rgb, "TIFF", compression="jpeg", quality=90),
+        "jpeg_ycbcr_420.tif": jpeg_tiff(base_frame(), subsampling=2, rows=16, quality=85),
+        "lzw_ycbcr22.tif": ycbcr_tiff(np.asarray(rgb.convert("YCbCr")), (2, 2), rows=16),
+        "cmyk8.tif": _save(rgb.convert("CMYK"), "TIFF", compression="tiff_lzw",
+                           tiffinfo={317: 2}),
+        "gif_interlaced.png": _gif_interlaced(),
+        "gif_pillow.png": _save(rgb, "GIF"),
+        "rle8.bmp": _rle_bmp(256),
+        "rle4.bmp": _rle_bmp(16),
         "color_indexing.webp": _save(rgb.quantize(16).convert("RGB"), "WEBP", lossless=True,
                                      method=4),
         "all_transforms.webp": _save(rgb, "WEBP", lossless=True, method=1, quality=0),
@@ -94,11 +154,17 @@ def fixtures() -> dict:
         "lossy_q5_m6.webp": _save(rgb, "WEBP", quality=5, method=6),
         "lossy_alpha.webp": _save(Image.fromarray(_rgba(), "RGBA"), "WEBP", quality=80,
                                   exact=True),
+        "alpha_vp8l_trailing.webp": sound_alpha,
+        "alpha_vp8l_corrupt.webp": corrupt_alpha,
         "lossy_simple_8parts.webp": torch_webp_encoder.encode(base_frame(), 80, filter_type=0,
                                                               partitions=3, method=0),
         "animated.webp": _animated(),
         "animated_offset.webp": _animated_offset(),
     }
+
+
+# the fixtures Pillow raises on: decoding them must raise on every device
+REFUSED = ("alpha_vp8l_corrupt.webp",)
 
 
 def clip_frame_720p() -> np.ndarray:
@@ -111,8 +177,10 @@ def clip_frame_720p() -> np.ndarray:
 
 
 def fixtures_720p() -> dict:
-    """name -> file bytes: the 720p frame as a lossy WebP at Pillow's default quality."""
-    return {"clip_q80.webp": _save(Image.fromarray(clip_frame_720p()), "WEBP", quality=80)}
+    """name -> file bytes: the 720p frame as a lossy WebP at Pillow's default quality, and as
+    Pillow's GIF (its own 256-colour quantisation: a screen capture's format)."""
+    frame = Image.fromarray(clip_frame_720p())
+    return {"clip_q80.webp": _save(frame, "WEBP", quality=80), "clip.gif": _save(frame, "GIF")}
 
 
 def pil_digest(data: bytes) -> str:
@@ -128,10 +196,13 @@ def write() -> None:
         for name, data in files.items():
             with open(os.path.join(directory, name), "wb") as f:
                 f.write(data)
-            digests[name] = pil_digest(data)
+            if name not in REFUSED:
+                digests[name] = pil_digest(data)
+        record = {"hw": list(hw), "sha256_of_pil_rgb": digests}
+        if directory == DIR:
+            record["pil_raises"] = list(REFUSED)
         with open(os.path.join(directory, "digests.json"), "w") as f:
-            json.dump({"hw": list(hw), "sha256_of_pil_rgb": digests}, f, indent=1,
-                      sort_keys=True)
+            json.dump(record, f, indent=1, sort_keys=True)
             f.write("\n")
 
 

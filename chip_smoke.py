@@ -127,20 +127,24 @@ It builds the port's CUDA kernels from ``foley_tpu_torch/csrc`` (into
   Adam7 PNG and a 5-6-5 BMP, card against CPU;
 - ``frame_formats``: the formats the JAX package reads through PIL, without it: the
   committed fixtures of ``tests/data/torch_frame_formats/`` (progressive JPEG in 4:2:0,
-  4:4:4 and grey, optimised and with restarts, CMYK; TIFF in LZW with predictor 2, Deflate,
+  4:4:4 and grey, optimised and with restarts, CMYK; 4:1:1, luma sampled below its chroma,
+  a progressive file cut after its third scan (block smoothing), arithmetic-coded SOF9 with
+  restarts, SOF10 whole and cut short; TIFF in LZW with predictor 2, Deflate,
   PackBits, a palette and 16-bit grey, at orientations 6 and 8, JPEG-in-TIFF in RGB and in
-  YCbCr 4:2:0, LZW YCbCr at 2 x 2, CMYK; GIF, interlaced with a transparent index, a local
+  YCbCr 4:2:0 and 4 x 4, LZW YCbCr at 2 x 2, CMYK; GIF, interlaced with a transparent index, a local
   table and a frame smaller than its screen, and Pillow's own, both named ``.png``; RLE8 and
   RLE4 BMP; lossless WebP with colour indexing and with the other three transforms; lossy
   WebP at quality 80, at quality 5 and method 6, with alpha, with bytes after its VP8L alpha
   stream, with the simple loop filter and 8 token partitions; two animations, one whose
   first frame lies inside the canvas) decoded on the card and on the CPU, equal to each
   other and to the SHA-256 of Pillow's RGB bytes recorded beside them, and a WebP whose VP8L
-  alpha is corrupt raising on both, as Pillow raises; 125 frames of each format on the card
-  (GIF and JPEG-in-TIFF among them; the host's and the card's seconds apart, equal to the
+  alpha is corrupt and a JPEG of a 3 / 2 sampling ratio raising on both, as Pillow raises;
+  125 frames of each format on the card (GIF, JPEG-in-TIFF, an arithmetic-coded, a cut
+  progressive and a 4:1:1 JPEG among them; the host's and the card's seconds apart, equal to the
   CPU's); 125 copies of one 720p frame of the clip as TIFF, uncompressed, PackBits and LZW
   after predictor 2 (written here; the reader's two parts timed, their frames equal to the
-  one written), and 125 copies of the same frame as a lossy WebP and as Pillow's GIF
+  one written), and 125 copies of the same frame as a lossy WebP, as Pillow's GIF and as
+  an arithmetic-coded progressive JPEG
   (``tests/data/torch_frame_formats_720p/``; the two parts timed, every frame against
   Pillow's digest); one XXL V2A request through ``cli.main --single_video`` from a directory
   mixing every fixture (540 K1 and 12 K2 launches); a PPM named ``.jpg`` refused; each
@@ -3081,12 +3085,15 @@ FRAME_720P = "tests/data/torch_frame_formats_720p"  # the clip's first frame: lo
 # the fixture of each format timed 125 times
 FRAME_TIMED = {"jpeg": "prog_420.jpg", "tiff": "lzw_predictor.tif",
                "webp": "all_transforms.webp", "webp_lossy": "lossy_q80.webp",
-               "gif": "gif_interlaced.png", "tiff_jpeg": "jpeg_ycbcr_420.tif"}
+               "gif": "gif_interlaced.png", "tiff_jpeg": "jpeg_ycbcr_420.tif",
+               "jpeg_arith": "arith_prog.jpg", "jpeg_smooth": "prog_cut.jpg",
+               "jpeg_411": "sampling_411.jpg"}
 
 
 def _frame_parts(fmt: str, paths, dev):
     """The reader of ``fmt`` over ``paths`` in its two parts, each timed: the host's (the
-    files read, parsed and entropy-decoded, decompressed, LZW-decoded, or VP8-decoded into
+    files read, parsed and entropy-decoded (Huffman or arithmetic), decompressed,
+    LZW-decoded, or VP8-decoded into
     Y, U and V) and the device's (the rest, the copies to and from the device included; none
     for lossless WebP, read on the host alone) -> (RGB [T, H, W, 3] uint8, host s, device s)."""
     import numpy as np
@@ -3099,7 +3106,7 @@ def _frame_parts(fmt: str, paths, dev):
     for path in paths:
         with open(path, "rb") as f:
             datas.append(f.read())
-    if fmt == "jpeg":
+    if fmt.startswith("jpeg"):
         parsed = [jpeg.parse_jpeg(d) for d in datas]
     elif fmt.startswith("tiff"):
         parsed = [tiff.parse_tiff(d) for d in datas]
@@ -3115,13 +3122,8 @@ def _frame_parts(fmt: str, paths, dev):
         return rgb, time.perf_counter() - t0, 0.0
     host_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    if fmt == "jpeg":
-        first = parsed[0]
-        coefs = [torch.from_numpy(np.stack([p["coefs"][c] for p in parsed])).to(dev)
-                 for c in range(len(first["sampling"]))]
-        quant = torch.from_numpy(np.stack([p["quant"] for p in parsed])).to(dev)
-        rgb = jpeg.reconstruct(coefs, quant, first["width"], first["height"],
-                               first["sampling"], first["color"]).cpu().numpy()
+    if fmt.startswith("jpeg"):  # the block smoothing (a cut progressive file) included
+        rgb = jpeg.reconstruct_parsed(parsed, dev).cpu().numpy()
     elif fmt == "webp_lossy":
         rgb = webp.decode_lossy(parsed, infos[0]["width"], infos[0]["height"], dev)
     elif fmt == "gif":
@@ -3243,7 +3245,8 @@ def _tiff_bytes(np, rgb, codec: str, rows: int = 16) -> bytes:
 
 def frame_formats_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> dict:
     """The frame formats the JAX package reads through PIL, read without it on the card
-    (``io/jpeg.py``'s progressive and CMYK, ``io/tiff.py`` with its turned, JPEG, YCbCr and
+    (``io/jpeg.py``'s progressive, CMYK, arithmetic-coded, cut short (smoothed) and every
+    sampling, ``io/tiff.py`` with its turned, JPEG, YCbCr and
     CMYK kinds, ``io/gif.py``, ``io/bmp.py``'s RLE, ``io/webp.py`` with its VP8L alpha):
     each committed fixture of ``FRAME_FIXTURES`` (Pillow wrote them, or Pillow read them;
     this machine has no PIL) decoded on the card and on the CPU, equal in every byte and to
@@ -3252,8 +3255,9 @@ def frame_formats_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> di
     decoded on the card, the host's and the card's seconds apart, equal to the CPU's decode;
     125 copies of one 720p frame of the clip (``CLIP_HW``, the size the main path ingests)
     as TIFF in each of ``TIFF_720P``, the reader's two parts timed, equal to the frame
-    written, and as the lossy WebP and the GIF of ``FRAME_720P``, the two parts timed, each
-    frame equal to Pillow's recorded digest; one ``SURFACE_STEPS`` XXL V2A request through
+    written, and as the lossy WebP, the GIF and the arithmetic-coded progressive JPEG of
+    ``FRAME_720P``, the two parts timed, each frame equal to Pillow's recorded digest; one
+    ``SURFACE_STEPS`` XXL V2A request through
     ``cli.main --single_video`` from a directory mixing every fixture (a GIF named ``.png``
     among them), every fifth under another format's name and PNGs named ``.jpg`` (read by
     their bytes: 540 K1 and 12 K2 launches); a PPM named ``.jpg`` refused, naming PPM. Each
@@ -3341,9 +3345,10 @@ def frame_formats_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> di
         check(np.array_equal(frames, cpu), f"{fmt}: 125 frames on the card differ from the CPU's")
         timed[fmt] = {"fixture": name, "frames": n, "read_frames_dir_s": wall,
                       "host_s": host_s, "device_s": dev_s, "cpu_read_frames_dir_s": cpu_s,
-                      "host_ms_per_frame": host_s / n * 1e3}
+                      "host_ms_per_frame": host_s / n * 1e3,
+                      "device_ms_per_frame": dev_s / n * 1e3}
+        section(f"decode_125_{fmt}")
     out["decode_125"] = timed
-    section("decode_125")
 
     # 125 frames of 720p TIFF, the size the main path ingests: one frame of the clip written
     # uncompressed, in PackBits and in LZW after predictor 2, 125 copies of each
@@ -3372,12 +3377,14 @@ def frame_formats_phase(torch, dev, pipeline_cfg, card: str, config="xxl") -> di
     section("tiff_720p")
 
     # 125 copies of the same frame as a lossy WebP (Pillow wrote it at quality 80, this
-    # machine has no PIL) and as Pillow's GIF (a screen capture's format): the reader's two
-    # parts timed, every frame Pillow's (its digest)
+    # machine has no PIL), as Pillow's GIF (a screen capture's format) and as an
+    # arithmetic-coded progressive JPEG (libjpeg's encoder): the reader's two parts timed,
+    # every frame Pillow's (its digest)
     with open(os.path.join(FRAME_720P, "digests.json")) as f:
         digests_720p = json.load(f)["sha256_of_pil_rgb"]
     for fmt, name_720p, ext in (("webp_lossy", "clip_q80.webp", ".webp"),
-                                ("gif", "clip.gif", ".png")):
+                                ("gif", "clip.gif", ".png"),
+                                ("jpeg", "clip_arith_prog.jpg", ".jpg")):
         d = os.path.join(work, f"{fmt}_720p")
         os.makedirs(d)
         paths = [os.path.join(d, f"frame_{i + 1}{ext}") for i in range(n)]

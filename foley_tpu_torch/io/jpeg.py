@@ -4,26 +4,33 @@ libjpeg-turbo (what the JAX package's ``pipeline/video.py::read_frames_dir`` and
 ``io/avi.py`` call).
 
 Decoding: the markers are parsed on the host (SOI, APPn, COM, DQT in 8 or 16 bits, SOF0,
-SOF1 and SOF2 at 8 bits, DHT, DRI, SOS, RSTn, EOI), and the Huffman data is decoded into
-coefficient blocks by ``csrc/jpeg_entropy.cpp`` (host C++, built at first use by
-``ops/kernels/build.py::host_library``): sequential scans, and the four progressive scan
-kinds of ``jdphuff.c`` (DC first and refinement, AC first with EOB runs, AC refinement),
-the coefficients kept across scans shifted by their Al, restart markers resetting the DC
-predictors and the EOB run, an AC scan covering its component's own block grid. The rest
-runs in integer torch ops on the device the caller names (the card, unless the caller asks
-for the CPU), over every frame of one geometry at once, ``CHUNK_BLOCKS`` blocks at a time:
-dequantisation, libjpeg's islow inverse DCT (``jidctint.c``: 13-bit constants, 2 bits kept
-between the passes, 64-bit products, the range limit a clamp as in its SIMD build),
-libjpeg-turbo's fancy upsampling (``jdsample.c``: h2v1, h2v2 while the chroma is wider than
-2 samples, else a box; h1v2; edges replicated) and the colour conversion. The markers decide
-the colour space as ``jdapimin.c`` does: one component is grey, replicated to RGB as PIL's
-``L -> RGB``; three are YCbCr (``jdcolor.c``'s fixed-point tables) unless an Adobe marker's
-transform 0, or the ids R, G, B without a JFIF marker, make them RGB (no transform); four
-are CMYK, or YCCK under an Adobe transform other than 0 (``ycck_cmyk_convert``: the YCbCr
-tables, C, M, Y the complements, K kept), then inverted as Pillow's ``CMYK;I`` raw mode
-reads every CMYK JPEG and converted as its ``convert("RGB")`` (``cmyk_to_rgb``). The first
-component (and a fourth alike) is sampled 1 or 2 each way, the second and third 1 x 1
-(4:4:4, 4:2:2, 4:2:0, 4:4:0).
+SOF1, SOF2, SOF9 and SOF10 at 8 bits, DHT, DAC, DRI, SOS, RSTn, EOI), and the entropy-coded
+data is decoded into coefficient blocks by ``csrc/jpeg_entropy.cpp`` (host C++, built at
+first use by ``ops/kernels/build.py::host_library``): Huffman (``jdhuff.c``, ``jdphuff.c``)
+or arithmetic (``jdarith.c``: T.81's Qe state machine, the DAC conditioning), sequential
+scans and the four progressive scan kinds (DC first and refinement, AC first, AC
+refinement), the coefficients kept across scans shifted by their Al, restart markers
+resetting the predictors (and an arithmetic scan's statistics), an AC scan covering its
+component's own block grid. The rest runs in integer torch ops on the device the caller
+names (the card, unless the caller asks for the CPU), over every frame of one geometry at
+once, ``CHUNK_BLOCKS`` blocks at a time: libjpeg-turbo's block smoothing of a progressive
+file whose scans leave a first coefficient unfinished (``jdcoefct.c``:
+``smooth_blocks``), dequantisation, libjpeg's islow inverse DCT (``jidctint.c``: 13-bit
+constants, 2 bits kept between the passes, 64-bit products, the range limit a clamp as in
+its SIMD build), the upsampling ``jdsample.c`` picks per component from the ratio of the
+largest sampling factors to its own (fancy 2 x 1 and 2 x 2 while the component is wider
+than 2 samples, else a box; fancy 1 x 2; any other whole ratio replicated; edges
+replicated) and the colour conversion. Every sampling factor 1-4 is taken whose ratios are
+whole and whose interleaved MCUs hold at most 10 blocks; libjpeg refuses the others, and so
+does the port (``ValueError``). The markers decide the colour space as ``jdapimin.c`` does:
+one component is grey, replicated to RGB as PIL's ``L -> RGB``; three are YCbCr
+(``jdcolor.c``'s fixed-point tables) unless an Adobe marker's transform 0, or the ids R, G,
+B without a JFIF marker, make them RGB (no transform); four are CMYK, or YCCK under an Adobe
+transform other than 0 (``ycck_cmyk_convert``: the YCbCr tables, C, M, Y the complements, K
+kept), then inverted as Pillow's ``CMYK;I`` raw mode reads every CMYK JPEG and converted as
+its ``convert("RGB")`` (``cmyk_to_rgb``). Pillow hands libjpeg a file 64 KiB at a time and
+its arithmetic decoder cannot wait for more inside a scan, so an arithmetic-coded scan that
+needs bytes past the block it began in raises, as Pillow does (``PIL_READ_BLOCK``).
 
 Encoding (RGB, 4:2:0, the standard tables scaled by ``jpeg_quality_scaling`` and clamped to
 1-255, standard Huffman tables, no restart markers: Pillow's defaults) runs the other way on
@@ -32,10 +39,10 @@ the device: ``jccolor.c``'s RGB -> YCbCr, edge replication to the MCU grid, ``jc
 ``jcdctmgr.c``'s reciprocal quantiser, and ``jccoefct.c``'s dummy blocks at the right and
 bottom MCU edges (AC zero, DC that of the block before); the Huffman pass runs on the host.
 
-Refused, each with ``JPEGUnsupported`` naming what it is: lossless, hierarchical and
-arithmetic-coded files, 12-bit samples, two components, other sampling factors, and a
-progressive file whose scans leave a first coefficient incomplete (libjpeg smooths its
-blocks). Corrupt or truncated data raises ``ValueError``.
+Refused, each with ``JPEGUnsupported`` naming what it is: lossless and hierarchical files
+(their arithmetic-coded kinds, SOF11 and SOF13-15, too), 12-bit samples, two components,
+and a height given in a DNL marker. Corrupt or truncated data raises ``ValueError``, also
+where libjpeg warns and reads on (a bad Huffman code, an arithmetic coefficient overflow).
 """
 
 from __future__ import annotations
@@ -99,13 +106,20 @@ F1_961, F2_053, F2_562, F3_072 = 16069, 16819, 20995, 25172
 _SOF_REFUSED = {
     0xC3: "a lossless JPEG",
     0xC5: "a hierarchical (differential) JPEG", 0xC6: "a hierarchical (differential) JPEG",
-    0xC7: "a hierarchical (differential) JPEG", 0xC9: "an arithmetic-coded JPEG",
-    0xCA: "a progressive arithmetic-coded JPEG", 0xCB: "a lossless arithmetic-coded JPEG",
+    0xC7: "a hierarchical (differential) JPEG", 0xCB: "a lossless arithmetic-coded JPEG",
     0xCD: "a hierarchical arithmetic-coded JPEG", 0xCE: "a hierarchical arithmetic-coded JPEG",
-    0xCF: "a hierarchical arithmetic-coded JPEG", 0xCC: "an arithmetic-coded JPEG (DAC)",
-    0xDE: "a hierarchical JPEG (DHP)", 0xDC: "a JPEG with a DNL marker"}
+    0xCF: "a hierarchical arithmetic-coded JPEG", 0xDE: "a hierarchical JPEG (DHP)",
+    0xDC: "a JPEG with a DNL marker"}
+# the frames decoded: SOF0-2 (Huffman), SOF9 and SOF10 (arithmetic), as (progressive, arithmetic)
+_SOF_DECODED = {0xC0: (False, False), 0xC1: (False, False), 0xC2: (True, False),
+                0xC9: (False, True), 0xCA: (True, True)}
 # the zig-zag positions libjpeg-turbo's block smoothing reads (jdcoefct.c, SAVED_COEFS)
 SMOOTHING_COEFS = 10
+# libjpeg's limits (jpeglib.h, jdinput.c): sampling factors 1-4, 10 blocks an interleaved MCU
+MAX_SAMP_FACTOR, MAX_BLOCKS_IN_MCU = 4, 10
+# Pillow's ``ImageFile.load`` feeds its JPEG decoder the file 64 KiB at a time (``MAXBLOCK``),
+# and libjpeg's arithmetic decoder cannot wait for more inside a scan
+PIL_READ_BLOCK = 1 << 16
 
 
 class JPEGUnsupported(ValueError):
@@ -131,6 +145,10 @@ def entropy_library() -> ctypes.CDLL:
         lib.fj_decode_scan.argtypes = [p, i64, i32, p, p, p, p, p, p, i32, i32, p, p, i32, i32,
                                        i32, i32, i32, i32, p, p, i32]
         lib.fj_decode_scan.restype = ctypes.c_int
+        lib.fj_decode_scan_arith.argtypes = [p, i64, i32, p, p, p, p, p, p, p, i32, i32, p, p,
+                                             i32, i32, i32, i32, i32, i32, p, p, p, i32]
+        lib.fj_decode_scan_arith.restype = ctypes.c_int
+        lib.fj_arith_qe_table.argtypes = [p]
         lib.fj_encode_scan.argtypes = [p, i64, i32, p, p, p, p, p, p, i64]
         lib.fj_encode_scan.restype = i64
         _LIB = lib
@@ -161,16 +179,21 @@ def _ceil(a: int, b: int) -> int:
 
 
 def parse_jpeg(data: bytes, name: str = "JPEG", tables: bytes = b"",
-               color: Optional[str] = None) -> Dict:
+               color: Optional[str] = None, read_block: Optional[int] = PIL_READ_BLOCK) -> Dict:
     """One JPEG's bytes -> its geometry (``width``, ``height``, ``sampling``: the (h, v) of
     each component), its colour space (``color``: ``grey``, ``ycc``, ``rgb``, ``cmyk`` or
-    ``ycck``), ``quant`` (int32 ``[C, 64]``, natural order, each component's table) and
-    ``coefs`` (each component's int16 blocks ``[rows, cols, 64]``, natural order, on the MCU
-    grid), sequential or progressive. ``tables``, where given, is a tables-only stream (SOI,
-    DQT and DHT segments, EOI: a JPEG-in-TIFF's ``JPEGTables``) read before ``data``, an
-    abbreviated stream that may lack them; ``color``, where given, is the colour space the
-    caller sets, as libtiff sets libjpeg's, whatever the markers say (``rgb``: each
-    component as it is, no transform)."""
+    ``ycck``), ``quant`` (int32 ``[C, 64]``, natural order, each component's table as its
+    first scan latched it), ``coefs`` (each component's int16 blocks ``[rows, cols, 64]``,
+    natural order, on the MCU grid) and ``smooth`` (int32 ``[C, SMOOTHING_COEFS]``: the
+    ``coef_bits`` libjpeg's block smoothing reads, zeros where it does not smooth),
+    Huffman- or arithmetic-coded, sequential or progressive. ``tables``, where given, is a
+    tables-only stream (SOI, DQT and DHT segments, EOI: a JPEG-in-TIFF's ``JPEGTables``)
+    read before ``data``, an abbreviated stream that may lack them; ``color``, where given,
+    is the colour space the caller sets, as libtiff sets libjpeg's, whatever the markers say
+    (``rgb``: each component as it is, no transform). ``read_block``: the bytes Pillow's
+    reader hands libjpeg at a time (None: the whole stream at once, as libtiff does); an
+    arithmetic-coded scan that needs bytes past the block it starts in raises, as Pillow
+    does."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{name}: not a JPEG file (no SOI marker)")
     if tables:
@@ -181,6 +204,8 @@ def parse_jpeg(data: bytes, name: str = "JPEG", tables: bytes = b"",
     buf = np.frombuffer(data, np.uint8)
     qt: Dict[int, np.ndarray] = {}
     huff: Dict[Tuple[int, int], Tuple[bytes, bytes]] = {}
+    # DAC conditioning per table (jdmarker.c::get_dac), the defaults libjpeg sets at SOI
+    dac = np.array([[0] * 16, [1] * 16, [5] * 16], np.int32)  # DC L, DC U, AC Kx
     frame: Optional[Dict] = None
     restart = 0
     jfif, adobe = False, None
@@ -207,7 +232,8 @@ def parse_jpeg(data: bytes, name: str = "JPEG", tables: bytes = b"",
             raise ValueError(f"{name}: truncated JPEG (marker 0x{marker:02X})")
         if marker in _SOF_REFUSED:
             raise JPEGUnsupported(f"{name}: {_SOF_REFUSED[marker]} is not decoded (baseline, "
-                                  "extended sequential and progressive Huffman JPEG are)")
+                                  "extended sequential and progressive JPEG, Huffman- or "
+                                  "arithmetic-coded, are)")
         if marker == 0xE0 and seg[:5] == b"JFIF\x00":
             jfif = True
         elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
@@ -224,9 +250,9 @@ def parse_jpeg(data: bytes, name: str = "JPEG", tables: bytes = b"",
                 table[ZIGZAG] = raw
                 qt[tq] = table
                 p += 1 + n
-        elif marker in (0xC0, 0xC1, 0xC2):
+        elif marker in _SOF_DECODED:
             if frame is not None:
-                raise JPEGUnsupported(f"{name}: a JPEG with more than one frame")
+                raise ValueError(f"{name}: corrupt JPEG (a second frame header)")
             precision, h, w, nc = struct.unpack(">BHHB", seg[:6])
             if precision != 8:
                 raise JPEGUnsupported(f"{name}: {precision}-bit samples are not decoded "
@@ -238,7 +264,9 @@ def parse_jpeg(data: bytes, name: str = "JPEG", tables: bytes = b"",
             for i in range(nc):
                 cid, hv, tq = seg[6 + 3 * i:9 + 3 * i]
                 comps.append({"id": cid, "h": hv >> 4, "v": hv & 15, "tq": tq})
-            frame = {"width": w, "height": h, "comps": comps, "progressive": marker == 0xC2,
+            progressive, arith = _SOF_DECODED[marker]
+            frame = {"width": w, "height": h, "comps": comps, "progressive": progressive,
+                     "arith": arith, "quant": [None] * nc,
                      # per component and zig-zag position, the Al of the last scan that
                      # reached it (-1: none yet), as libjpeg's coef_bits
                      "coef_bits": np.full((nc, 64), -1, np.int32)}
@@ -252,6 +280,8 @@ def parse_jpeg(data: bytes, name: str = "JPEG", tables: bytes = b"",
                     raise ValueError(f"{name}: corrupt DHT segment")
                 huff[(tc, th)] = (bits, seg[p + 17:p + 17 + n])
                 p += 17 + n
+        elif marker == 0xCC:
+            _read_dac(seg, dac, name)
         elif marker == 0xDD:
             restart = struct.unpack(">H", seg[:2])[0]
         elif marker == 0xDA:
@@ -260,39 +290,64 @@ def parse_jpeg(data: bytes, name: str = "JPEG", tables: bytes = b"",
             if not frame.get("checked"):
                 _check_frame(frame, jfif, adobe, name)
                 frame["color"] = color or frame["color"]
-            pos = _decode_scan(buf, pos + 2 + length, seg, frame, huff, restart, name)
+            start = pos + 2 + length
+            pos = _decode_scan(buf, start, seg, frame, huff, dac, qt, restart, name)
+            if frame["arith"] and read_block:
+                _check_read_block(start, frame.pop("reach"), read_block, name)
             continue
         pos += 2 + length
     if frame is None or not frame.get("checked") or (frame["coef_bits"][:, 0] < 0).any():
         raise ValueError(f"{name}: truncated JPEG (a component without image data)")
-    comps = frame["comps"]
-    missing = [c["tq"] for c in comps if c["tq"] not in qt]
-    if missing:
-        raise ValueError(f"{name}: quantisation table {missing[0]} is not defined")
-    quant = np.stack([qt[c["tq"]] for c in comps])
-    if frame["progressive"]:
-        _refuse_block_smoothing(frame["coef_bits"], quant, name)
+    quant = np.stack(frame["quant"])
     return {"width": frame["width"], "height": frame["height"], "color": frame["color"],
-            "sampling": tuple((c["h"], c["v"]) for c in comps), "quant": quant,
-            "coefs": frame["coefs"]}
+            "sampling": tuple((c["h"], c["v"]) for c in frame["comps"]), "quant": quant,
+            "coefs": frame["coefs"], "smooth": _smoothing_latch(frame, quant)}
 
 
-def _refuse_block_smoothing(coef_bits: np.ndarray, quant: np.ndarray, name: str) -> None:
-    """libjpeg-turbo smooths the blocks of a progressive file (``jdcoefct.c``'s
-    ``smoothing_ok``) when, after its last scan, one of a component's first
-    ``SMOOTHING_COEFS`` coefficients is still incomplete (never sent, or not refined down to
-    Al 0) and every component's DC and the tables at those positions are nonzero. The port
-    does not smooth, so it refuses such a file; a complete one decodes."""
-    first = ZIGZAG[:SMOOTHING_COEFS]
-    if (quant[:, first] == 0).any():
-        return
-    incomplete = (coef_bits[:, 1:SMOOTHING_COEFS] != 0).any(axis=1)
-    if incomplete.any():
-        c = int(np.argmax(incomplete))
-        raise JPEGUnsupported(
-            f"{name}: a progressive JPEG whose scans leave component {c}'s first coefficients "
-            "incomplete is decoded by libjpeg with block smoothing, which the port does not "
-            "do (a complete progressive file decodes)")
+def _read_dac(seg: bytes, dac: np.ndarray, name: str) -> None:
+    """A DAC segment (``jdmarker.c::get_dac``): per table class and id, the DC conditioning
+    bounds L and U (L <= U) or the AC Kx."""
+    if len(seg) % 2:
+        raise ValueError(f"{name}: corrupt DAC segment (odd length)")
+    for index, value in zip(seg[0::2], seg[1::2]):
+        if index >= 32:
+            raise ValueError(f"{name}: corrupt DAC segment (table index {index})")
+        if index >= 16:
+            dac[2, index - 16] = value
+        elif value & 15 > value >> 4:
+            raise ValueError(f"{name}: corrupt DAC segment (L {value & 15} above U "
+                             f"{value >> 4})")
+        else:
+            dac[0, index], dac[1, index] = value & 15, value >> 4
+
+
+def _check_read_block(start: int, reach: int, block: int, name: str) -> None:
+    """Pillow hands libjpeg the file ``block`` bytes at a time, and reads more only when the
+    decoder suspends, which the arithmetic decoder cannot do inside a scan: a scan starting
+    at byte ``start`` whose decode reads ``reach`` bytes fails unless they all lie in the
+    blocks read when it started (``jdarith.c::get_byte``, JERR_CANT_SUSPEND)."""
+    have = block * max(1, _ceil(start, block))
+    if start + reach > have:
+        raise ValueError(f"{name}: an arithmetic-coded scan at byte {start} reads past byte "
+                         f"{have}, where Pillow's reader hands libjpeg the file {block} bytes "
+                         "at a time and the arithmetic decoder cannot wait for more "
+                         "(Pillow raises: broken data stream)")
+
+
+def _smoothing_latch(frame: Dict, quant: np.ndarray) -> np.ndarray:
+    """``jdcoefct.c::smoothing_ok`` after the last scan: a progressive file is smoothed when
+    every component's table is nonzero at the DC and the first nine AC positions and one of
+    those AC coefficients is still incomplete (never sent, or not refined to Al 0) in some
+    component; then each component's ``coef_bits`` at zig-zag 0-9 is latched. Zeros (no
+    smoothing) otherwise. libjpeg keeps the latch of the scan before too, and reads it only
+    while its output runs ahead of its input (buffered-image mode); Pillow reads the whole
+    file before its output pass, so the last latch is the one it smooths with (held against
+    Pillow over every cut of every script in the tests)."""
+    latch = frame["coef_bits"][:, :SMOOTHING_COEFS].astype(np.int32)
+    if not frame["progressive"] or (quant[:, ZIGZAG[:SMOOTHING_COEFS]] == 0).any() \
+            or not (latch[:, 1:] != 0).any():
+        return np.zeros_like(latch)
+    return latch
 
 
 # libjpeg's colour spaces (jdapimin.c::default_decompress_parms) and Pillow's raw modes
@@ -301,7 +356,9 @@ _COLORS = {1: "grey", 3: "ycc", 4: "cmyk"}
 
 def _check_frame(frame: Dict, jfif: bool, adobe: Optional[int], name: str) -> None:
     """The frame's colour space and sampling, as libjpeg reads its markers; allocates its
-    blocks."""
+    blocks. Any sampling factors 1-4 whose maximum each way is a whole multiple of every
+    component's (``jdsample.c::jinit_upsampler``) are decoded; libjpeg refuses the others,
+    and so does the port (``ValueError``)."""
     comps = frame["comps"]
     if len(comps) not in _COLORS:
         raise JPEGUnsupported(f"{name}: a {len(comps)}-component JPEG is not decoded (grey, "
@@ -314,41 +371,39 @@ def _check_frame(frame: Dict, jfif: bool, adobe: Optional[int], name: str) -> No
     elif len(comps) == 4 and adobe is not None and adobe != 0:
         color = "ycck"  # Adobe transform 2; libjpeg takes any other but 0 as YCCK too
     frame["color"] = color
-    if len(comps) == 1:
-        comps[0]["h"] = comps[0]["v"] = 1  # one component: one block an MCU
-    else:
-        # luma-like components (Y, and K of four) 1 or 2 each way, the two others 1 x 1
-        lead = [comps[0]] + ([comps[3]] if len(comps) == 4 else [])
-        if any((c["h"], c["v"]) != (1, 1) for c in comps[1:3]) \
-                or any(c["h"] not in (1, 2) or c["v"] not in (1, 2) for c in lead) \
-                or any((c["h"], c["v"]) != (lead[0]["h"], lead[0]["v"]) for c in lead):
-            raise JPEGUnsupported(
-                f"{name}: sampling {[(c['h'], c['v']) for c in comps]} is not decoded (the "
-                "first component, and the fourth of four alike, 1 or 2 each way, the second "
-                "and third 1 x 1: 4:4:4, 4:2:2, 4:2:0, 4:4:0)")
+    factors = [(c["h"], c["v"]) for c in comps]
+    if any(not 1 <= f <= MAX_SAMP_FACTOR for hv in factors for f in hv):
+        raise ValueError(f"{name}: bogus sampling factors {factors} (libjpeg takes 1-4: "
+                         "JERR_BAD_SAMPLING)")
     hmax = max(c["h"] for c in comps)
     vmax = max(c["v"] for c in comps)
+    if any(hmax % h or vmax % v for h, v in factors):
+        raise ValueError(f"{name}: sampling factors {factors} need fractional upsampling, "
+                         "which libjpeg does not implement (JERR_FRACT_SAMPLE_NOT_IMPL)")
     mx, my = _ceil(frame["width"], 8 * hmax), _ceil(frame["height"], 8 * vmax)
     frame.update(hmax=hmax, vmax=vmax, mcus_x=mx, mcus_y=my, checked=True,
                  coefs=[np.zeros((my * c["v"], mx * c["h"], 64), np.int16) for c in comps])
 
 
-def _decode_scan(buf: np.ndarray, start: int, seg: bytes, frame: Dict, huff, restart: int,
-                 name: str) -> int:
+def _decode_scan(buf: np.ndarray, start: int, seg: bytes, frame: Dict, huff, dac: np.ndarray,
+                 qt: Dict[int, np.ndarray], restart: int, name: str) -> int:
     """Entropy-decode one scan starting at ``start`` into ``frame["coefs"]`` (a progressive
-    scan adds to what the earlier ones left); returns the position of the marker after it."""
+    scan adds to what the earlier ones left), Huffman- or arithmetic-coded as the frame is;
+    returns the position of the marker after it (an arithmetic scan leaves the bytes it read
+    in ``frame["reach"]``)."""
     ns = seg[0] if seg else 0
     if not 1 <= ns <= 4 or len(seg) != 4 + 2 * ns:
         raise ValueError(f"{name}: corrupt JPEG (an SOS segment of {len(seg)} bytes for "
                          f"{ns} components)")
     comps = frame["comps"]
     index = {c["id"]: i for i, c in enumerate(comps)}
+    arith = frame["arith"]
     members, dc, ac = [], [], []
     for i in range(ns):
         cid, tables = seg[1 + 2 * i], seg[2 + 2 * i]
         if cid not in index:
             raise ValueError(f"{name}: a scan names component {cid}, not in the frame")
-        if tables >> 4 > 3 or tables & 15 > 3:
+        if not arith and (tables >> 4 > 3 or tables & 15 > 3):
             raise ValueError(f"{name}: corrupt JPEG (a scan names Huffman tables "
                              f"{tables >> 4} and {tables & 15}; baseline has 0-3)")
         members.append(index[cid])
@@ -357,10 +412,9 @@ def _decode_scan(buf: np.ndarray, start: int, seg: bytes, frame: Dict, huff, res
     ss, se, ahal = seg[1 + 2 * ns:4 + 2 * ns]
     ah, al = ahal >> 4, ahal & 15
     progressive = frame["progressive"]
-    if not progressive and (ss, se, ahal) != (0, 63, 0):
-        raise JPEGUnsupported(f"{name}: a sequential frame's scan of spectral selection "
-                              f"{ss}-{se}, approximation {ah}/{al} is not decoded")
-    # jdphuff.c::start_pass_phuff_decoder's checks (JERR_BAD_PROGRESSION)
+    if not progressive:  # libjpeg warns (JWRN_NOT_SEQUENTIAL) and decodes whole blocks
+        ss, se, ah, al = 0, 63, 0, 0
+    # jdphuff.c / jdarith.c start_pass: the progression's checks (JERR_BAD_PROGRESSION)
     if progressive and ((ss == 0 and se != 0) or (ss > 0 and (se < ss or se > 63 or ns != 1))
                         or (ah != 0 and al != ah - 1) or al > 13):
         raise ValueError(f"{name}: corrupt progressive JPEG (a scan of spectral selection "
@@ -374,23 +428,41 @@ def _decode_scan(buf: np.ndarray, start: int, seg: bytes, frame: Dict, huff, res
     else:
         mx, my = frame["mcus_x"], frame["mcus_y"]
         hs, vs = [comps[m]["h"] for m in members], [comps[m]["v"] for m in members]
-    bits, vals = _table_arrays(huff)
+        if sum(h * v for h, v in zip(hs, vs)) > MAX_BLOCKS_IN_MCU:
+            raise ValueError(f"{name}: sampling factors too large for an interleaved scan "
+                             f"({sum(h * v for h, v in zip(hs, vs))} blocks an MCU, libjpeg "
+                             f"takes {MAX_BLOCKS_IN_MCU}: JERR_BAD_MCU_SIZE)")
+    for m in members:  # jdinput.c::latch_quant_tables, at a component's first scan
+        if frame["quant"][m] is None:
+            tq = comps[m]["tq"]
+            if tq not in qt:
+                raise ValueError(f"{name}: quantisation table {tq} is not defined")
+            frame["quant"][m] = qt[tq].copy()
     outs = [frame["coefs"][m] for m in members]
     arr = lambda xs: np.asarray(xs, np.int32)  # noqa: E731
     hs, vs, dc, ac = arr(hs), arr(vs), arr(dc), arr(ac)
     bw = arr([o.shape[1] for o in outs])
     ptrs = (ctypes.c_void_p * len(outs))(*[o.ctypes.data for o in outs])
-    consumed = ctypes.c_int64(0)
+    consumed, reach = ctypes.c_int64(0), ctypes.c_int64(0)
     err = ctypes.create_string_buffer(256)
     rest = buf[start:]
-    rc = entropy_library().fj_decode_scan(
-        _ptr(rest), rest.size, ns, _ptr(hs), _ptr(vs), _ptr(dc), _ptr(ac), _ptr(bits),
-        _ptr(vals), mx, my, _ptr(bw), ptrs, restart, int(progressive), ss, se, ah, al,
-        ctypes.byref(consumed), err, len(err))
+    lib = entropy_library()
+    if arith:
+        rc = lib.fj_decode_scan_arith(
+            _ptr(rest), rest.size, ns, _ptr(hs), _ptr(vs), _ptr(dc), _ptr(ac), _ptr(dac[0]),
+            _ptr(dac[1]), _ptr(dac[2]), mx, my, _ptr(bw), ptrs, restart, int(progressive), ss,
+            se, ah, al, ctypes.byref(consumed), ctypes.byref(reach), err, len(err))
+    else:
+        bits, vals = _table_arrays(huff)
+        rc = lib.fj_decode_scan(
+            _ptr(rest), rest.size, ns, _ptr(hs), _ptr(vs), _ptr(dc), _ptr(ac), _ptr(bits),
+            _ptr(vals), mx, my, _ptr(bw), ptrs, restart, int(progressive), ss, se, ah, al,
+            ctypes.byref(consumed), err, len(err))
     if rc != 0:
         raise ValueError(f"{name}: {err.value.decode(errors='replace')}")
     for m in members:
         frame["coef_bits"][m, ss:se + 1] = al
+    frame["reach"] = reach.value
     return start + consumed.value
 
 
@@ -457,15 +529,16 @@ def _interleave(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def upsample(x: torch.Tensor, fh: int, fv: int) -> torch.Tensor:
-    """A chroma plane ``[F, h, w]`` (int32, its real size) upsampled by ``fh`` x ``fv`` (1
-    or 2 each) as libjpeg-turbo's ``jdsample.c``: h2v1 and h2v2 fancy while ``w > 2``,
-    else a box; h1v2 fancy."""
+    """A component's plane ``[F, h, w]`` (int32, its real size) upsampled by ``fh`` x ``fv``
+    (whole ratios of the largest sampling factors to its own) as libjpeg-turbo's
+    ``jdsample.c::jinit_upsampler`` chooses: 2 x 1 and 2 x 2 fancy while ``w > 2``, else a
+    box; 1 x 2 fancy; any other ratio ``int_upsample``, each sample replicated."""
     if fh == 1 and fv == 1:
         return x
     w = x.shape[-1]
-    if fh == 2 and w <= 2:  # h2v1_upsample / h2v2_upsample
-        x = x.repeat_interleave(2, dim=-1)
-        return x.repeat_interleave(2, dim=-2) if fv == 2 else x
+    if (fh, fv) not in ((2, 1), (1, 2), (2, 2)) or (fh == 2 and w <= 2):
+        # int_upsample, and h2v1_upsample / h2v2_upsample: replication
+        return x.repeat_interleave(fh, dim=-1).repeat_interleave(fv, dim=-2)
     if fv == 1:  # h2v1_fancy_upsample
         return _interleave((3 * x + _edge(x, -1, -1) + 1) >> 2,
                            (3 * x + _edge(x, -1, 1) + 2) >> 2, -1)
@@ -478,6 +551,114 @@ def upsample(x: torch.Tensor, fh: int, fv: int) -> torch.Tensor:
         rows.append(_interleave((3 * cs + _edge(cs, -1, -1) + 8) >> 4,
                                 (3 * cs + _edge(cs, -1, 1) + 7) >> 4, -1))
     return _interleave(rows[0], rows[1], -2)
+
+
+# jdcoefct.c::decompress_smooth_data (libjpeg-turbo 2.1 and later): for each zig-zag
+# position 0-9 it may estimate, the weights of the 5 x 5 DC values around a block (rows and
+# columns -2..2). "ac": a component that has AC data, the K.8 rule of ITU T.81 widened to
+# 5 x 5, zig-zag 1-5 only; "dc": no AC data yet (every one of zig-zag 1-9 never sent), a
+# Gaussian-like kernel that also replaces the DC, keeping the DC values' average.
+_SMOOTHING_WEIGHTS = {
+    "ac": {
+        1: [[0] * 5, [0] * 5, [-7, 50, 0, -50, 7], [0] * 5, [0] * 5],
+        2: [[0, 0, -7, 0, 0], [0, 0, 50, 0, 0], [0] * 5, [0, 0, -50, 0, 0], [0, 0, 7, 0, 0]],
+        3: [[0, 0, -1, 0, 0], [0, 0, 13, 0, 0], [0, 0, -24, 0, 0], [0, 0, 13, 0, 0],
+            [0, 0, -1, 0, 0]],
+        4: [[0, -1, 0, 1, 0], [-1, 10, 0, -10, 1], [0] * 5, [1, -10, 0, 10, -1],
+            [0, 1, 0, -1, 0]],
+        5: [[0] * 5, [0] * 5, [-1, 13, -24, 13, -1], [0] * 5, [0] * 5]},
+    "dc": {
+        0: [[-2, -6, -8, -6, -2], [-6, 6, 42, 6, -6], [-8, 42, 152, 42, -8],
+            [-6, 6, 42, 6, -6], [-2, -6, -8, -6, -2]],
+        1: [[-1, -1, 0, 1, 1], [-3, 13, 0, -13, 3], [-3, 38, 0, -38, 3], [-3, 13, 0, -13, 3],
+            [-1, -1, 0, 1, 1]],
+        2: [[-1, -3, -3, -3, -1], [-1, 13, 38, 13, -1], [0] * 5, [1, -13, -38, -13, 1],
+            [1, 3, 3, 3, 1]],
+        3: [[0, 0, 1, 0, 0], [0, 2, 7, 2, 0], [0, -5, -14, -5, 0], [0, 2, 7, 2, 0],
+            [0, 0, 1, 0, 0]],
+        4: [[-1, 0, 0, 0, 1], [0, 9, 0, -9, 0], [0] * 5, [0, -9, 0, 9, 0], [1, 0, 0, 0, -1]],
+        5: [[0] * 5, [0, 2, -5, 2, 0], [1, 7, -14, 7, 1], [0, 2, -5, 2, 0], [0] * 5],
+        6: [[0] * 5, [0, 1, 0, -1, 0], [0, 2, 0, -2, 0], [0, 1, 0, -1, 0], [0] * 5],
+        7: [[0] * 5, [0, 1, -3, 1, 0], [0] * 5, [0, -1, 3, -1, 0], [0] * 5],
+        8: [[0] * 5, [0, 1, 0, -1, 0], [0, -3, 0, 3, 0], [0, 1, 0, -1, 0], [0] * 5],
+        9: [[0] * 5, [0, 1, 2, 1, 0], [0] * 5, [0, -1, -2, -1, 0], [0] * 5]}}
+
+
+def _smoothing_rows(rows: int, v: int, imcu_rows: int, device) -> torch.Tensor:
+    """The block rows ``decompress_smooth_data`` reads two and one above, at, and one and
+    two below each of a component's ``rows`` real block rows (``[5, rows]``), as libjpeg-turbo
+    3.1 reads them (held against Pillow at every v 1-4 and every height class). Above, the
+    edge row replicated; below, whatever lies in the iMCU rows (``v`` block rows each,
+    ``imcu_rows`` in the image) the coefficient buffer holds with the row's own: the next
+    two, or in the last but one the last, its dummy rows past the image included; in the
+    last, its real rows only, the edge one replicated."""
+    r = torch.arange(rows, device=device)
+    i, b = r // v, r % v
+    last = imcu_rows - 1
+    in_row = torch.where(i == last, rows - last * v, v)  # real block rows of the iMCU row
+    end = torch.where(i + 1 < last, (i + 3) * v, torch.where(i < last, (i + 2) * v, rows))
+    up = (r - 1).clamp(min=0)
+    # two rows up: the row's own, except in a second iMCU row that is the last and holds one
+    # real block row (libjpeg-turbo reads the row above twice there)
+    up2 = torch.where((b > 1) | (i > 1) | ((i == 1) & (in_row > 1)), r - 2, up)
+    down = torch.where(r + 1 < end, r + 1, r)
+    down2 = torch.where(r + 2 < end, r + 2, down)
+    return torch.stack([up2, up, r, down, down2])
+
+
+def _smoothing_kernels() -> np.ndarray:
+    """``_SMOOTHING_WEIGHTS`` as one float64 array ``[2, SMOOTHING_COEFS, 5, 5]`` ("ac", then
+    "dc"; zeros where a mode estimates nothing)."""
+    out = np.zeros((2, SMOOTHING_COEFS, 5, 5))
+    for m, mode in enumerate(("ac", "dc")):
+        for zz, weights in _SMOOTHING_WEIGHTS[mode].items():
+            out[m, zz] = weights
+    return out
+
+
+_SMOOTHING_KERNELS = _smoothing_kernels()
+
+
+def smooth_blocks(blocks: torch.Tensor, quant: torch.Tensor, latch: torch.Tensor,
+                  rows: int, cols: int, v: int, imcu_rows: int) -> torch.Tensor:
+    """libjpeg-turbo's block smoothing of one component of F frames: ``blocks`` (int16
+    ``[F, R, C, 64]``, natural order, the first ``rows`` x ``cols`` real), their tables
+    (``[F, 64]``) and ``parse_jpeg``'s ``smooth`` latch (``[F, SMOOTHING_COEFS]``; zeros:
+    that frame is not smoothed) -> the blocks the inverse DCT reads. A coefficient of
+    zig-zag 1-9 that is still zero and not known to full precision (latched Al nonzero) is
+    estimated from the 5 x 5 DC values around the block (edge blocks replicated), clamped
+    below ``1 << Al`` when Al > 0; with no AC data at all the DC is re-estimated too. Every
+    position and frame at once: one gather of the windows, one contraction with the weights."""
+    if not bool((latch != 0).any()):
+        return blocks
+    dev = blocks.device
+    dc = blocks[:, :, :cols, 0].double()  # the dummy rows of the last iMCU row too
+    near_rows = _smoothing_rows(rows, v, imcu_rows, dev)
+    near_cols = (torch.arange(cols, device=dev)[None] +
+                 torch.arange(-2, 3, device=dev)[:, None]).clamp_(0, cols - 1)
+    window = dc[:, near_rows[:, None, :, None], near_cols[None, :, None, :]]  # [F, 5, 5, r, c]
+    # the weighted sums are integers under 2**24, exact in float64 (CUDA has no int64 matmul)
+    sums = torch.einsum("mkyx,fyxrc->fmrck", torch.from_numpy(_SMOOTHING_KERNELS).to(dev),
+                        window).long()
+    latch = latch.long()
+    change_dc = (latch[:, 1:] == -1).all(dim=1)  # no AC data: the "dc" weights
+    total = torch.where(change_dc[:, None, None, None], sums[:, 1], sums[:, 0])
+    nat = torch.from_numpy(ZIGZAG[:SMOOTHING_COEFS]).to(dev)
+    q = quant.long()
+    qk = q[:, nat].clamp(min=1)[:, None, None]  # a frame not smoothed may hold a zero
+    num = q[:, 0, None, None, None] * total
+    pred = (qk * 128 + num.abs()) // (qk * 256)
+    al = latch[:, None, None].clone()
+    al[..., 0] = 0  # the DC's estimate is not clamped
+    pred = torch.where(al > 0, torch.minimum(pred, (1 << al.clamp(min=0)) - 1), pred)
+    pred = torch.where(num < 0, -pred, pred).to(torch.int16)
+    current = blocks[:, :rows, :cols][..., nat]
+    zz = torch.arange(SMOOTHING_COEFS, device=dev)
+    in_mode = change_dc[:, None] | ((zz >= 1) & (zz <= 5))  # "ac" estimates zig-zag 1-5
+    use = in_mode[:, None, None] & ((zz == 0) | ((al != 0) & (current == 0)))
+    out = blocks.clone()
+    out[:, :rows, :cols, nat] = torch.where(use, pred, current)
+    return out
 
 
 def _fix16(v: float) -> int:
@@ -532,16 +713,22 @@ def ycck_to_cmyk(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
 
 
 def reconstruct(coefs: Sequence[torch.Tensor], quant: torch.Tensor, width: int, height: int,
-                sampling: Sequence[Tuple[int, int]], color: str) -> torch.Tensor:
+                sampling: Sequence[Tuple[int, int]], color: str,
+                smooth: Optional[torch.Tensor] = None) -> torch.Tensor:
     """F frames of one geometry and colour space (``parse_jpeg``'s ``color``): each
-    component's blocks ``[F, rows, cols, 64]`` (int16) and the tables ``[F, C, 64]``, on one
-    device -> RGB ``[F, height, width, 3]`` uint8 there."""
+    component's blocks ``[F, rows, cols, 64]`` (int16), the tables ``[F, C, 64]`` and, where
+    given, the smoothing latches ``[F, C, SMOOTHING_COEFS]``, on one device -> RGB
+    ``[F, height, width, 3]`` uint8 there."""
     hmax = max(h for h, _ in sampling)
     vmax = max(v for _, v in sampling)
+    imcu_rows = _ceil(height, 8 * vmax)
     planes = []
     for c, (blocks, (h, v)) in enumerate(zip(coefs, sampling)):
-        plane = _blocks_to_plane(idct_islow(blocks, quant[:, c, None, None, :]))
         cw, ch = _ceil(width * h, hmax), _ceil(height * v, vmax)
+        if smooth is not None:
+            blocks = smooth_blocks(blocks, quant[:, c], smooth[:, c], _ceil(ch, 8),
+                                   _ceil(cw, 8), v, imcu_rows)
+        plane = _blocks_to_plane(idct_islow(blocks, quant[:, c, None, None, :]))
         plane = upsample(plane[:, :ch, :cw].int(), hmax // h, vmax // v)
         planes.append(plane[:, :height, :width])
     if color == "grey":
@@ -553,6 +740,18 @@ def reconstruct(coefs: Sequence[torch.Tensor], quant: torch.Tensor, width: int, 
     if color == "ycck":
         return cmyk_to_rgb(ycck_to_cmyk(*planes))
     return ycc_to_rgb(*planes)
+
+
+def reconstruct_parsed(parts: Sequence[Dict], device) -> torch.Tensor:
+    """``parse_jpeg`` results of one geometry, sampling and colour space -> their RGB
+    ``[F, height, width, 3]`` uint8 on ``device`` (``reconstruct``, smoothing included)."""
+    first = parts[0]
+    coefs = [torch.from_numpy(np.stack([p["coefs"][c] for p in parts])).to(device)
+             for c in range(len(first["sampling"]))]
+    quant = torch.from_numpy(np.stack([p["quant"] for p in parts])).to(device)
+    smooth = torch.from_numpy(np.stack([p["smooth"] for p in parts])).to(device)
+    return reconstruct(coefs, quant, first["width"], first["height"], first["sampling"],
+                       first["color"], smooth)
 
 
 def decode_jpegs(datas: Sequence[bytes], device: DeviceLike = None,
@@ -582,12 +781,8 @@ def decode_jpegs(datas: Sequence[bytes], device: DeviceLike = None,
         groups: Dict[Tuple, List[Tuple[int, Dict]]] = {}
         for j, fr in frames:
             groups.setdefault((fr["sampling"], fr["color"]), []).append((j, fr))
-        for (sampling, color), members in groups.items():
-            coefs = [torch.from_numpy(np.stack([fr["coefs"][c] for _, fr in members])).to(dev)
-                     for c in range(len(sampling))]
-            quant = torch.from_numpy(np.stack([fr["quant"] for _, fr in members])).to(dev)
-            rgb = reconstruct(coefs, quant, out.shape[2], out.shape[1], sampling,
-                              color).cpu().numpy()
+        for members in groups.values():
+            rgb = reconstruct_parsed([fr for _, fr in members], dev).cpu().numpy()
             for n, (j, _) in enumerate(members):
                 out[j] = rgb[n]
     if out is None:

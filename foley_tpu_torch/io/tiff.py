@@ -431,7 +431,7 @@ def _jpeg_chunk(stream: bytes, tags, info: Dict, rows: int, name: str) -> Dict:
     missing, as libtiff's tag fix-up reads it), the others 1 x 1."""
     ch, cw = info["chunk"]
     got = jpeg.parse_jpeg(stream, name, bytes(tags.get(JPEG_TABLES, b"")),
-                          color=info["jpeg_color"])
+                          color=info["jpeg_color"], read_block=None)  # libtiff: whole strips
     sampling = got["sampling"]
     first = tuple(info["subsampling"] or sampling[0])
     if (got["width"], got["height"]) != (cw, rows):
@@ -473,10 +473,7 @@ def _jpeg_samples(infos: Sequence[Dict], device) -> torch.Tensor:
             groups.setdefault(key, []).append((f, c))
     for (sampling, h, w, color), members in groups.items():
         parts = [infos[f]["jpeg"][c] for f, c in members]
-        coefs = [torch.from_numpy(np.stack([p["coefs"][k] for p in parts])).to(device)
-                 for k in range(len(sampling))]
-        quant = torch.from_numpy(np.stack([p["quant"] for p in parts])).to(device)
-        samples = jpeg.reconstruct(coefs, quant, w, h, sampling, color).int()
+        samples = jpeg.reconstruct_parsed(parts, device).int()
         fi = torch.tensor([f for f, _ in members], device=device)
         ci = torch.tensor([c for _, c in members], device=device)
         out[fi, ci, :h, :w] = samples

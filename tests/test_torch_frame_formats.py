@@ -4,9 +4,10 @@ against the JAX package's ``pipeline/video.py`` (PIL), on the CPU: the committed
 recorded beside them, which ``chip_smoke.py``'s ``frame_formats`` phase holds the card to,
 and directories mixing progressive JPEG, TIFF (turned, JPEG, YCbCr, CMYK), lossless, lossy
 and animated WebP, GIF named ``.png``, PNG and BMP (RLE too) frames of one size read through
-``read_frames_dir`` and ``read_video_frames``; the fixture Pillow raises on raising; the 720p
-lossy WebP and GIF of ``tests/data/torch_frame_formats_720p/`` against their digests. No
-tolerance: every comparison is exact.
+``read_frames_dir`` and ``read_video_frames``; the fixtures Pillow raises on raising; the 720p
+lossy WebP, GIF and arithmetic-coded progressive JPEG of
+``tests/data/torch_frame_formats_720p/`` against their digests. No tolerance: every
+comparison is exact.
 """
 
 import hashlib
@@ -41,15 +42,15 @@ def _data(name: str) -> bytes:
 
 def test_fixtures_are_small_and_listed():
     names = sorted(n for n in os.listdir(fx.DIR) if n != "digests.json")
-    assert names == sorted([*DIGESTS, *RECORD["pil_raises"]]) and len(names) == 30
+    assert names == sorted([*DIGESTS, *RECORD["pil_raises"]]) and len(names) == 38
     assert sum(os.path.getsize(os.path.join(fx.DIR, n)) for n in names) < 1 << 20
     assert tuple(RECORD["hw"]) == fx.HW and tuple(RECORD["pil_raises"]) == fx.REFUSED
 
 
-@pytest.mark.parametrize("name", ["clip_q80.webp", "clip.gif"])
+@pytest.mark.parametrize("name", ["clip_q80.webp", "clip.gif", "clip_arith_prog.jpg"])
 def test_720p_frames_are_pillows_and_the_ports(tmp_path, name):
-    """The 720p frame as a lossy WebP and as Pillow's GIF: each file Pillow's digest, and
-    the port's decode the same."""
+    """The 720p frame as a lossy WebP, as Pillow's GIF and as an arithmetic-coded progressive
+    JPEG: each file Pillow's digest, and the port's decode the same."""
     with open(os.path.join(fx.DIR_720P, "digests.json")) as f:
         record = json.load(f)
     digest = record["sha256_of_pil_rgb"][name]
@@ -57,33 +58,43 @@ def test_720p_frames_are_pillows_and_the_ports(tmp_path, name):
     with open(path, "rb") as f:
         data = f.read()
     assert tuple(record["hw"]) == (720, 1280) and sorted(record["sha256_of_pil_rgb"]) == [
-        "clip.gif", "clip_q80.webp"]
-    head = data[12:16] if name.endswith(".webp") else data[:4]
-    assert head == (b"VP8 " if name.endswith(".webp") else b"GIF8")
-    assert os.path.getsize(path) < (1 << 17 if name.endswith(".webp") else 1 << 18)
+        "clip.gif", "clip_arith_prog.jpg", "clip_q80.webp"]
+    kind, head, limit = {".webp": ("webp", data[12:16], 1 << 17),
+                         ".gif": ("gif", data[:4], 1 << 18),
+                         ".jpg": ("jpeg", data[:2], tjpeg.PIL_READ_BLOCK)}[name[name.index("."):]]
+    assert head == {"webp": b"VP8 ", "gif": b"GIF8", "jpeg": b"\xff\xd8"}[kind]
+    assert os.path.getsize(path) < limit
     assert fx.pil_digest(data) == digest
-    rgb = (twebp.read_webps if name.endswith(".webp") else tgif.read_gifs)([path], "cpu")[0]
+    read = {"webp": twebp.read_webps, "gif": tgif.read_gifs, "jpeg": tjpeg.read_jpegs}[kind]
+    rgb = read([path], "cpu")[0]
     assert hashlib.sha256(rgb.tobytes()).hexdigest() == digest
+
+
+REFUSED_BECAUSE = {"alpha_vp8l_corrupt.webp": "corrupt VP8L alpha plane",
+                   "sampling_3x2.jpg": "fractional upsampling"}
 
 
 @pytest.mark.parametrize("name", fx.REFUSED)
 def test_refused_fixtures_raise_in_pillow_and_the_port(tmp_path, name):
-    """A fixture Pillow raises on (a sound VP8 frame beside a corrupt VP8L alpha plane)
-    raises in the port."""
+    """A fixture Pillow raises on (a sound VP8 frame beside a corrupt VP8L alpha plane, a
+    JPEG whose sampling asks a 3 / 2 ratio) raises in the port, naming the reason."""
     data = _data(name)
     with pytest.raises(OSError):
         Image.open(io.BytesIO(data)).convert("RGB")
     shutil.copy(os.path.join(fx.DIR, name), tmp_path / name)
-    with pytest.raises(ValueError, match="corrupt VP8L alpha plane"):
+    with pytest.raises(ValueError, match=REFUSED_BECAUSE[name]):
         tvideo.read_frames_dir(str(tmp_path), device="cpu")
 
 
 def test_new_kinds_in_one_directory_match_jax(tmp_path):
-    """A GIF named ``.png``, turned TIFFs, JPEG-in-TIFF, YCbCr and CMYK TIFFs and RLE BMPs in
-    one directory, through the JAX package's ``read_frames_dir`` and the port's."""
+    """A GIF named ``.png``, turned TIFFs, JPEG-in-TIFF, YCbCr and CMYK TIFFs, RLE BMPs and the
+    JPEG kinds of ROADMAP 13p-13r (other samplings, a cut progressive file, arithmetic
+    coding) in one directory, through the JAX package's ``read_frames_dir`` and the port's."""
     kinds = ["gif_interlaced.png", "gif_pillow.png", "orient6.tif", "orient8.tif",
              "jpeg_rgb.tif", "jpeg_ycbcr_420.tif", "lzw_ycbcr22.tif", "cmyk8.tif", "rle8.bmp",
-             "rle4.bmp", "alpha_vp8l_trailing.webp"]
+             "rle4.bmp", "alpha_vp8l_trailing.webp", "sampling_411.jpg",
+             "luma_below_chroma.jpg", "prog_cut.jpg", "arith_restart.jpg", "arith_prog.jpg",
+             "arith_prog_cut.jpg", "jpeg_ycbcr_44.tif"]
     for i, name in enumerate(kinds):
         shutil.copy(os.path.join(fx.DIR, name), tmp_path / f"f{i:02d}_{name}")
     ref, _ = jvideo.read_frames_dir(str(tmp_path))
@@ -112,6 +123,15 @@ def test_fixtures_hold_the_kinds_they_are_named_for():
             assert b"\xff\xdd" in data and b"\xff\xd0" in data
         if name == "cmyk.jpg":
             assert tjpeg.parse_jpeg(data)["color"] == "cmyk"
+        if name.startswith("arith"):
+            assert (b"\xff\xca" if "prog" in name else b"\xff\xc9") in data
+        if name in ("prog_cut.jpg", "arith_prog_cut.jpg"):
+            assert tjpeg.parse_jpeg(data)["smooth"].any()  # decoded with block smoothing
+    samplings = {n: tjpeg.parse_jpeg(_data(n))["sampling"] for n in
+                 ("sampling_411.jpg", "luma_below_chroma.jpg")}
+    assert samplings == {"sampling_411.jpg": ((4, 1), (1, 1), (1, 1)),
+                         "luma_below_chroma.jpg": ((1, 1), (2, 2), (2, 2))}
+    assert b"\xff\xdd" in _data("arith_restart.jpg")
     tiffs = {n: ttiff.parse_tiff(_data(n)) for n in DIGESTS if n.endswith(".tif")}
     assert tiffs["lzw_predictor.tif"]["predictor"] == 2
     assert tiffs["palette.tif"]["kind"] == "palette"
@@ -126,6 +146,8 @@ def test_fixtures_hold_the_kinds_they_are_named_for():
     assert (tiffs["lzw_ycbcr22.tif"]["kind"], tiffs["lzw_ycbcr22.tif"]["subsampling"]) == (
         "ycbcr", (2, 2))
     assert tiffs["cmyk8.tif"]["kind"] == "cmyk"
+    assert {j["sampling"] for j in tiffs["jpeg_ycbcr_44.tif"]["jpeg"]} == {
+        ((4, 4), (1, 1), (1, 1))}
     for name, compression in (("rle8.bmp", 1), ("rle4.bmp", 2)):
         assert struct.unpack("<I", _data(name)[30:34])[0] == compression
     gifs = {n: tgif.parse_gif(_data(n)) for n in DIGESTS if n.startswith("gif")}

@@ -158,14 +158,17 @@ def test_encode_a_batch_in_chunks(monkeypatch):
 
 
 def test_refusals_name_the_format(tmp_path):
-    """What stays refused, each by name: lossless, hierarchical and arithmetic-coded frames,
-    12-bit samples, two components, sampling outside the decoded layouts. (Progressive,
-    CMYK, YCCK and RGB files decode: ``tests/test_torch_jpeg_progressive.py``.)"""
+    """What stays refused, each by name: lossless and hierarchical frames (their arithmetic
+    kinds, SOF11 and SOF13-15, too), 12-bit samples, two components. (Progressive, CMYK,
+    YCCK, RGB, arithmetic-coded files and every sampling libjpeg takes decode:
+    ``tests/test_torch_jpeg_progressive.py``, ``test_torch_jpeg_arith.py``,
+    ``test_torch_jpeg_sampling.py``.)"""
     img = frame(16, 16, seed=1)
     base = pil_jpeg(img, quality=90)
     sof = base.index(b"\xff\xc0")
     for marker, name in ((b"\xff\xc3", "lossless"), (b"\xff\xc5", "hierarchical"),
-                         (b"\xff\xc9", "arithmetic"), (b"\xff\xca", "arithmetic")):
+                         (b"\xff\xcb", "lossless arithmetic"),
+                         (b"\xff\xcd", "hierarchical arithmetic")):
         with pytest.raises(tjpeg.JPEGUnsupported, match=name):
             tjpeg.decode_jpegs([base.replace(b"\xff\xc0", marker, 1)], "cpu")
     twelve = base[:sof + 4] + bytes([12]) + base[sof + 5:]
@@ -174,12 +177,9 @@ def test_refusals_name_the_format(tmp_path):
     two = base[:sof + 9] + bytes([2]) + base[sof + 10:]  # the component count
     with pytest.raises(tjpeg.JPEGUnsupported, match="2-component"):
         tjpeg.decode_jpegs([two], "cpu")
-    wide = base.replace(bytes([2, 0x11, 1]), bytes([2, 0x21, 1]), 1)  # Cb sampled 2 x 1
-    with pytest.raises(tjpeg.JPEGUnsupported, match="sampling"):
-        tjpeg.decode_jpegs([wide], "cpu")
     d = tmp_path / "frames"
     d.mkdir()
-    (d / "0.jpg").write_bytes(base.replace(b"\xff\xc0", b"\xff\xc9", 1))
+    (d / "0.jpg").write_bytes(base.replace(b"\xff\xc0", b"\xff\xcb", 1))
     with pytest.raises(tjpeg.JPEGUnsupported, match="arithmetic"):
         tvideo.read_frames_dir(str(d), device="cpu")
 

@@ -8,8 +8,8 @@ Progressive files from Pillow at sizes 1 x 1 to 37 x 29, qualities 1 to 100, 4:4
 without its Adobe marker, progressive too; RGB from Pillow's ``keep_rgb`` and with its
 Adobe marker taken out (the ids R, G, B); YCCK assembled here from seeded blocks in
 libjpeg's default sampling (Y and K 2 x 2). A progressive file whose scans stop before its
-first coefficients are complete is refused by name (libjpeg would smooth its blocks). No
-tolerance: every comparison is exact.
+first coefficients are complete decodes with libjpeg's block smoothing. No tolerance: every
+comparison is exact.
 """
 
 import io
@@ -218,15 +218,17 @@ def _first_scans(data: bytes, n: int) -> bytes:
     return data[:at] + b"\xff\xd9"
 
 
-def test_incomplete_progressive_file_is_refused_by_name():
+def test_incomplete_progressive_file_is_refused_by_name(tmp_path):
     """Cut after its DC scans and the first AC scans, a progressive file leaves its first
-    coefficients short: Pillow's libjpeg smooths the blocks, and the port refuses the file
-    naming block smoothing."""
+    coefficients short: Pillow's libjpeg smooths the blocks, and the port, which once refused
+    such a file by name, now decodes it as Pillow does (``io/jpeg.py::smooth_blocks``; every
+    cut of the default scripts in ``tests/test_torch_jpeg_smoothing.py``)."""
     data = pil_jpeg(frame(32, 40, seed=15), quality=85, progressive=True, subsampling=2)
     partial = _first_scans(data, 3)
-    Image.open(io.BytesIO(partial)).convert("RGB")  # Pillow decodes it (smoothed)
-    with pytest.raises(tjpeg.JPEGUnsupported, match="block smoothing"):
-        tjpeg.decode_jpegs([partial], "cpu")
+    assert tjpeg.parse_jpeg(partial)["smooth"].any()
+    got = _against_jax(tmp_path, partial)
+    np.testing.assert_array_equal(
+        got, np.asarray(Image.open(io.BytesIO(partial)).convert("RGB"))[None] / np.float32(255))
 
 
 def test_bad_progression_raises():

@@ -1,15 +1,16 @@
 """The frame-format fixtures of ``tests/data/torch_frame_formats/``: small files written by
 Pillow 12.1 (libjpeg-turbo 3.1, libtiff 4.7, libwebp 1.6), or assembled by the test writers
-(``torch_gif_writer``, ``torch_tiff_writer``, ``torch_bmp_writer``) where Pillow does not
-write the kind, in the formats the port reads without PIL, all of one size after decoding
-(the turned TIFFs are stored turned), with the SHA-256 of Pillow's ``convert("RGB")`` bytes
-of each in ``digests.json``; the files Pillow raises on (``REFUSED``: a corrupt VP8L alpha
-plane) are listed there under ``pil_raises``. GIFs are named ``.png``: the JAX package lists
-frames by its seven extensions, and reads a GIF by its bytes. In
-``tests/data/torch_frame_formats_720p/``, the 720p frame the main path ingests
-(``chip_smoke.make_clip``'s first frame) as a lossy WebP at Pillow's default quality 80 and
-as Pillow's GIF, with their digests. ``chip_smoke.py``'s ``frame_formats`` phase decodes them on the
-card (which has no PIL to make them) and holds each against its digest;
+(``torch_gif_writer``, ``torch_tiff_writer``, ``torch_bmp_writer``, ``torch_jpeg_writer``)
+where Pillow does not write the kind, in the formats the port reads without PIL, all of one
+size after decoding (the turned TIFFs are stored turned), with the SHA-256 of Pillow's
+``convert("RGB")`` bytes of each in ``digests.json``; the files Pillow raises on
+(``REFUSED``: a corrupt VP8L alpha plane, a JPEG of a fractional sampling ratio) are listed
+there under ``pil_raises``. GIFs are named ``.png``: the JAX package lists frames by its
+seven extensions, and reads a GIF by its bytes. In ``tests/data/torch_frame_formats_720p/``,
+the 720p frame the main path ingests (``chip_smoke.make_clip``'s first frame) as a lossy
+WebP at Pillow's default quality 80, as Pillow's GIF and as an arithmetic-coded progressive
+JPEG at quality 90, with their digests. ``chip_smoke.py``'s ``frame_formats`` phase decodes
+them on the card (which has no PIL to make them) and holds each against its digest;
 ``tests/test_torch_frame_formats.py`` holds the digests against Pillow and the port.
 
 Rewrite them with ``python tests/torch_frame_fixtures.py`` (the files change only when
@@ -26,6 +27,7 @@ import sys
 import numpy as np
 from PIL import Image
 
+import torch_jpeg_writer
 import torch_webp_encoder
 from torch_bmp_writer import rle_bmp, rle_encode
 from torch_gif_writer import gif_bytes
@@ -113,6 +115,36 @@ def _alpha_pair() -> tuple:
     return with_alpha(alph + b"\x5a\xa5\x00\xff"), with_alpha(alph[:len(alph) // 2])
 
 
+def _jpeg_fixtures(rgb: Image.Image) -> dict:
+    """The JPEG kinds Pillow reads and does not write (libjpeg's encoder through
+    ``torch_jpeg_writer``): 4:1:1, luma sampled below its chroma, a progressive file cut
+    after its third scan (smoothed), SOF9 with restart markers, SOF10 and SOF10 cut after its
+    second scan; a JPEG-in-TIFF at ``YCbCrSubsampling`` 4 x 4 (its luma alone in a scan);
+    and a 4:2:0 file whose frame header asks a 3 / 2 upsampling ratio (Pillow raises)."""
+    px = base_frame()
+    write = torch_jpeg_writer.compress
+    prog = _save(rgb, "JPEG", quality=90, progressive=True, subsampling=2)
+    apart = [((c,), 0, 63, 0, 0) for c in range(3)]
+    fractional = bytearray(write(px, [(2, 2), (1, 1), (1, 1)], quality=85))
+    sof = fractional.index(b"\xff\xc0")
+    fractional[sof + 11], fractional[sof + 14] = 0x32, 0x21  # Y 3 x 2, Cb 2 x 1
+    return {
+        "sampling_411.jpg": write(px, [(4, 1), (1, 1), (1, 1)], quality=85),
+        "luma_below_chroma.jpg": write(px, [(1, 1), (2, 2), (2, 2)], quality=85),
+        "prog_cut.jpg": torch_jpeg_writer.cut_after(prog, 3),
+        "arith_restart.jpg": write(px, [(2, 2), (1, 1), (1, 1)], quality=85, arith=True,
+                                   restart=7),
+        "arith_prog.jpg": write(px, [(2, 2), (1, 1), (1, 1)], quality=90, arith=True,
+                                progressive=True),
+        "arith_prog_cut.jpg": torch_jpeg_writer.cut_after(
+            write(px, [(2, 2), (1, 1), (1, 1)], quality=90, arith=True, progressive=True), 2),
+        "jpeg_ycbcr_44.tif": jpeg_tiff(px, subsampling=(4, 4), rows=32, encode=lambda part:
+                                       write(part, [(4, 4), (1, 1), (1, 1)], quality=85,
+                                             scans=apart)),
+        "sampling_3x2.jpg": bytes(fractional),
+    }
+
+
 def fixtures() -> dict:
     """name -> file bytes (the files Pillow reads; ``REFUSED`` lists those it raises on)."""
     rgb = Image.fromarray(base_frame())
@@ -160,11 +192,12 @@ def fixtures() -> dict:
                                                               partitions=3, method=0),
         "animated.webp": _animated(),
         "animated_offset.webp": _animated_offset(),
+        **_jpeg_fixtures(rgb),
     }
 
 
 # the fixtures Pillow raises on: decoding them must raise on every device
-REFUSED = ("alpha_vp8l_corrupt.webp",)
+REFUSED = ("alpha_vp8l_corrupt.webp", "sampling_3x2.jpg")
 
 
 def clip_frame_720p() -> np.ndarray:
@@ -177,10 +210,15 @@ def clip_frame_720p() -> np.ndarray:
 
 
 def fixtures_720p() -> dict:
-    """name -> file bytes: the 720p frame as a lossy WebP at Pillow's default quality, and as
-    Pillow's GIF (its own 256-colour quantisation: a screen capture's format)."""
-    frame = Image.fromarray(clip_frame_720p())
-    return {"clip_q80.webp": _save(frame, "WEBP", quality=80), "clip.gif": _save(frame, "GIF")}
+    """name -> file bytes: the 720p frame as a lossy WebP at Pillow's default quality, as
+    Pillow's GIF (its own 256-colour quantisation: a screen capture's format), and as an
+    arithmetic-coded progressive JPEG at quality 90 (under the 64 KiB that Pillow's reader
+    hands libjpeg at once, which an arithmetic scan cannot outrun)."""
+    px = clip_frame_720p()
+    frame = Image.fromarray(px)
+    return {"clip_q80.webp": _save(frame, "WEBP", quality=80), "clip.gif": _save(frame, "GIF"),
+            "clip_arith_prog.jpg": torch_jpeg_writer.compress(
+                px, [(2, 2), (1, 1), (1, 1)], quality=90, arith=True, progressive=True)}
 
 
 def pil_digest(data: bytes) -> str:

@@ -196,3 +196,27 @@ def jax_latents(seed: int):
                                                          dim)))
 
     return noise
+
+
+def read_frame_as_jax_does(tmp_path, data: bytes, name: str = "f.jpg"):
+    """One frame file in a directory of its own, read by the JAX package's
+    ``pipeline/video.py::read_frames_dir`` (PIL) and by the port's on the CPU: both equal to
+    each other and to Pillow's ``np.asarray(Image.open(f).convert("RGB"))``. Returns the
+    frame (uint8)."""
+    import io
+
+    from PIL import Image
+
+    from foley_tpu.pipeline import video as jvideo
+    from foley_tpu_torch.pipeline import video as tvideo
+
+    d = tmp_path / f"frames_{len(list(tmp_path.iterdir()))}"
+    d.mkdir()
+    (d / name).write_bytes(data)
+    ref, _ = jvideo.read_frames_dir(str(d))
+    got, _ = tvideo.read_frames_dir(str(d), device="cpu")
+    pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    assert got.shape == ref.shape == (1, *pil.shape)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got[0], pil.astype(np.float32) / 255.0)
+    return pil

@@ -209,11 +209,12 @@ def split_jpeg(data: bytes):
 
 
 def jpeg_tiff(rgb, photometric=6, subsampling=2, rows=None, tile=None, quality=80,
-              shared_tables=True, subsampling_tag=True, tags=None, **kw):
+              shared_tables=True, subsampling_tag=True, tags=None, encode=None, **kw):
     """RGB ``[H, W, 3]`` -> a JPEG-in-TIFF whose strips or tiles are Pillow's JPEG streams
     (4:4:4, 4:2:2 or 4:2:0 by ``subsampling`` 0, 1, 2; photometric 2 at 4:4:4 in RGB
     components, Pillow's ``keep_rgb``), their tables in ``JPEGTables`` (``shared_tables``) or each
-    stream's own."""
+    stream's own. ``encode``, where given, writes each strip's or tile's JPEG in place of
+    Pillow (then ``subsampling`` is the luma's (h, v), the ``YCbCrSubsampling`` tag)."""
     h, w, _ = rgb.shape
     ch, cw = tile if tile else ((rows or h), w)
     streams, tables = [], None
@@ -223,16 +224,21 @@ def jpeg_tiff(rgb, photometric=6, subsampling=2, rows=None, tile=None, quality=8
             if tile:
                 part = np.pad(part, ((0, ch - part.shape[0]), (0, cw - part.shape[1]), (0, 0)),
                               mode="edge")
-            buf = io.BytesIO()
-            Image.fromarray(part.astype(np.uint8)).save(
-                buf, format="JPEG", quality=quality, subsampling=subsampling,
-                keep_rgb=photometric == 2 and subsampling == 0)
-            tables, stream = split_jpeg(buf.getvalue())
-            streams.append(stream if shared_tables else buf.getvalue())
+            if encode is None:
+                buf = io.BytesIO()
+                Image.fromarray(part.astype(np.uint8)).save(
+                    buf, format="JPEG", quality=quality, subsampling=subsampling,
+                    keep_rgb=photometric == 2 and subsampling == 0)
+                whole = buf.getvalue()
+            else:
+                whole = encode(part.astype(np.uint8))
+            tables, stream = split_jpeg(whole)
+            streams.append(stream if shared_tables else whole)
     t = dict(tags or {})
     if shared_tables:
         t[347] = (7, list(tables))
     if photometric == 6 and subsampling_tag and 530 not in t:
-        t[530] = (3, [{0: 1, 1: 2, 2: 2}[subsampling], {0: 1, 1: 1, 2: 2}[subsampling]])
+        t[530] = (3, list(subsampling) if encode else
+                  [{0: 1, 1: 2, 2: 2}[subsampling], {0: 1, 1: 1, 2: 2}[subsampling]])
     return tiff_bytes(rgb, photometric, 8, compression=7, rows=rows, tile=tile, tags=t,
                       raw_chunks=streams, **kw)
